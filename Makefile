@@ -4,7 +4,7 @@ PYTHON ?= python3
 PYTEST_FLAGS ?= -q
 COV_THRESHOLD ?= 85
 
-.PHONY: all check test test-fast test-fault test-chaos test-soak test-scale test-rollout test-latency test-reconfig test-shard test-planner test-budget test-handover test-obs test-federation test-policy test-dag test-precursor test-preflight test-fsck lint cov bench bench-reconcile bench-latency bench-shard bench-shard-100k bench-shard-1m bench-planner bench-budget bench-budget-1m bench-obs bench-federation bench-federation-50 bench-precursor bench-preflight profile-pass graft-check package clean diagram
+.PHONY: all check test test-fast test-fault test-chaos test-soak test-scale test-rollout test-latency test-reconfig test-shard test-planner test-budget test-handover test-obs test-federation test-policy test-dag test-precursor test-preflight test-fsck test-torch-gpu lint cov bench bench-reconcile bench-latency bench-shard bench-shard-100k bench-shard-1m bench-planner bench-budget bench-budget-1m bench-obs bench-federation bench-federation-50 bench-precursor bench-preflight profile-pass graft-check package clean diagram
 
 all: lint test
 
@@ -335,6 +335,11 @@ bench-preflight:
 # standing convention).
 test-fsck:
 	$(PYTHON) -m pytest tests/ $(PYTEST_FLAGS) -m "fsck and not slow"
+
+# The PyTorch port's CUDA kernels against their plain versions, on a
+# machine with a card (every test skips without CUDA).
+test-torch-gpu:
+	$(PYTHON) -m pytest tests/test_torch_gpu.py $(PYTEST_FLAGS) -m gpu
 
 graft-check:
 	$(PYTHON) __graft_entry__.py

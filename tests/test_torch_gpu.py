@@ -1,0 +1,55 @@
+"""The CUDA flash-attention kernel against its plain version, on the card.
+
+Run on a machine with an NVIDIA H100:
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+
+Without CUDA every test here skips (decided in a fixture, not at import,
+so that every pytest-xdist worker collects the same tests).
+"""
+
+import pytest
+import torch
+
+from tpu_operator_libs_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+    flash_forward,
+)
+
+pytestmark = pytest.mark.gpu
+
+#: (rtol, atol): bf16 outputs may differ by one bf16 ulp (<= 2^-7 |out|)
+#: since both sides accumulate in f32 and round once; f32 sums differ
+#: only in order.
+TOL = {torch.bfloat16: (2.0 ** -7, 1e-3), torch.float32: (1e-5, 2e-5)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("batch,heads,kv_heads,seq,dim,dtype", [
+    (8, 16, 16, 1024, 128, torch.bfloat16),   # llama-277M forward
+    (2, 8, 2, 1000, 64, torch.float32),       # GQA and a ragged tile
+], ids=["a_full_width_bf16", "c_gqa_ragged_f32"])
+def test_kernel_matches_plain_version(cuda, batch, heads, kv_heads, seq,
+                                      dim, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((batch, h, seq, dim), generator=gen,
+                           device=cuda).to(dtype)
+               for h in (heads, kv_heads, kv_heads))
+    before = flash_attention.launches
+    out, lse = flash_forward(q, k, v, causal=True, sm_scale=dim ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref, ref_lse = flash_attention_reference(q, k, v, causal=True,
+                                             sm_scale=dim ** -0.5)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)

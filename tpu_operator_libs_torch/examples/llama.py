@@ -1,0 +1,224 @@
+"""Llama-style decoder-only transformer, forward only, on one device.
+
+Mirrors ``tpu_operator_libs/examples/llama.py``: ``ATTENTION_IMPLS`` and
+``LlamaConfig`` (copied), ``_rms_norm``, ``_rope``,
+``init_llama_params``, ``forward`` and ``next_token_loss``. RMSNorm ->
+causal self-attention with rotary embeddings and grouped-query KV heads
+-> SwiGLU MLP, the Llama-3 block structure.
+
+Parameters are a nested dict of tensors in the JAX package's layout:
+weights are ``(in, out)`` and applied as ``x @ W``, so
+:func:`tpu_operator_libs_torch.convert.params_from_jax` is a plain copy.
+Tensor parallelism and meshes wait for a multi-GPU slice: the functions
+here take no ``mesh``, and the training step comes with the training
+slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from tpu_operator_libs_torch import resolve_device
+
+#: Attention implementations forward() accepts; validate_for and
+#: forward both check against this single list so they cannot drift.
+ATTENTION_IMPLS = ("xla", "flash", "ring")
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    """Model shape. tp must divide n_heads, n_kv_heads and d_ff."""
+
+    vocab: int = 64
+    d_model: int = 64
+    n_layers: int = 2
+    n_heads: int = 8
+    n_kv_heads: int = 4      # grouped-query attention (Llama-3 style)
+    d_ff: int = 128          # SwiGLU hidden width (total, pre-shard)
+    seq_len: int = 32
+    rope_theta: float = 10000.0
+    learning_rate: float = 3e-3
+    # Optional LR schedule: with total_steps > 0 the step uses linear
+    # warmup over warmup_steps then cosine decay to 0 at total_steps;
+    # 0 keeps the constant LR.
+    warmup_steps: int = 0
+    total_steps: int = 0
+    # Optional global-norm gradient clipping (0 = off).
+    grad_clip_norm: float = 0.0
+    # "xla" (einsum softmax over materialized scores) or "flash" (the
+    # hand-written CUDA kernel of kernels/flash_attention.py; never
+    # materializes the S x S scores). tp=1 only.
+    attention_impl: str = "xla"
+    # Rematerialize each decoder layer on the backward pass (a training
+    # option; forward-only callers are unaffected).
+    remat: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    def validate_for(self, tp: int) -> None:
+        if self.d_model % self.n_heads:
+            raise ValueError("n_heads must divide d_model")
+        if self.head_dim % 2:
+            raise ValueError(
+                f"head_dim={self.head_dim} must be even (RoPE rotates "
+                "half-dimension pairs)")
+        if self.n_heads % self.n_kv_heads:
+            raise ValueError("n_kv_heads must divide n_heads (GQA)")
+        if self.n_kv_heads % tp or self.d_ff % tp or self.vocab % tp:
+            raise ValueError(
+                f"tp={tp} must divide n_kv_heads={self.n_kv_heads}, "
+                f"d_ff={self.d_ff} and vocab={self.vocab} "
+                "(lm_head is column-parallel)")
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(
+                f"unknown attention_impl {self.attention_impl!r} "
+                f"(expected one of {ATTENTION_IMPLS})")
+        if self.attention_impl == "flash" and tp > 1:
+            raise ValueError(
+                "attention_impl='flash' requires tp=1 (the kernel is not "
+                "tensor-parallel partitioned)")
+        if self.attention_impl == "ring" and tp > 1:
+            raise ValueError(
+                "attention_impl='ring' shards the sequence (sp), not "
+                "heads; use tp=1 with a dp x sp mesh")
+
+
+def _rms_norm(x, weight, eps: float = 1e-5):
+    # variance in f32; x * rsqrt is cast back to x's dtype BEFORE the
+    # weight multiply, in the JAX package's order
+    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    return (x * torch.reciprocal(torch.sqrt(var + eps))).to(x.dtype) \
+        * weight
+
+
+def _rope(x, theta: float, positions=None):
+    """Rotary position embedding over the last axis of (B, S, H, D):
+    a half-split rotation (not interleaved) with f32 frequencies.
+
+    ``positions`` (S,) overrides the default 0..S-1 — decode steps pass
+    the absolute position so a cached token rotates identically whether
+    it arrived via prefill or one step at a time."""
+    _, seq, _, head_dim = x.shape
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    if positions is None:
+        positions = torch.arange(seq, dtype=torch.float32, device=x.device)
+    angles = positions.to(torch.float32)[:, None] * freqs[None, :]
+    cos = torch.cos(angles)[None, :, None, :]
+    sin = torch.sin(angles)[None, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def init_llama_params(config: "LlamaConfig | None" = None,
+                      param_dtype=None, seed: int = 0, *, device=None):
+    """Random parameters from a ``torch.Generator`` seeded with ``seed``
+    on ``device``. The layout is the JAX package's; the numbers differ
+    from its ``jax.random`` draws (tests convert JAX's params instead)."""
+    config = config or LlamaConfig()
+    config.validate_for(1)
+    device = resolve_device(device)
+    dtype = param_dtype or torch.float32
+    d, hd = config.d_model, config.head_dim
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def tensor(shape, scale=None):
+        scale = scale if scale is not None else shape[0] ** -0.5
+        value = torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=device) * scale
+        return value.to(dtype)
+
+    def ones():
+        return torch.ones((d,), dtype=dtype, device=device)
+
+    params = {
+        "embed": tensor((config.vocab, d), scale=0.02),
+        "final_norm": ones(),
+        "lm_head": tensor((d, config.vocab)),
+        "layers": [],
+    }
+    for _ in range(config.n_layers):
+        params["layers"].append({
+            "attn_norm": ones(),
+            "wq": tensor((d, config.n_heads * hd)),
+            "wk": tensor((d, config.n_kv_heads * hd)),
+            "wv": tensor((d, config.n_kv_heads * hd)),
+            "wo": tensor((config.n_heads * hd, d)),
+            "mlp_norm": ones(),
+            "w_gate": tensor((d, config.d_ff)),
+            "w_up": tensor((d, config.d_ff)),
+            "w_down": tensor((config.d_ff, d)),
+        })
+    return params
+
+
+def forward(params, tokens, config: LlamaConfig):
+    """Logits (B, S, vocab) for integer ``tokens`` (B, S), causal, on
+    the device the parameters live on."""
+    batch, seq = tokens.shape
+    hd, nh, nkv = config.head_dim, config.n_heads, config.n_kv_heads
+    if config.attention_impl not in ATTENTION_IMPLS:
+        raise ValueError(
+            f"unknown attention_impl {config.attention_impl!r} "
+            f"(expected one of {ATTENTION_IMPLS})")
+    if config.attention_impl == "ring":
+        raise NotImplementedError(
+            "attention_impl='ring' (sequence parallelism) is not ported "
+            "yet: see ROADMAP.md Queue 1, ring attention")
+    use_flash = config.attention_impl == "flash"
+    if use_flash:
+        from tpu_operator_libs_torch.kernels.flash_attention import (
+            flash_attention,
+        )
+
+    h = params["embed"][tokens.long()]
+    # only the einsum path materializes a mask; flash masks in its kernel
+    causal = (None if use_flash
+              else torch.ones(seq, seq, dtype=torch.bool,
+                              device=h.device).tril())
+    group = nh // nkv
+    for layer in params["layers"]:
+        a = _rms_norm(h, layer["attn_norm"])
+        q = (a @ layer["wq"]).reshape(batch, seq, nh, hd)
+        k = (a @ layer["wk"]).reshape(batch, seq, nkv, hd)
+        v = (a @ layer["wv"]).reshape(batch, seq, nkv, hd)
+        q, k = _rope(q, config.rope_theta), _rope(k, config.rope_theta)
+        if use_flash:
+            # the kernel reads the nkv-head K/V natively (no repeat)
+            ctx = flash_attention(
+                q.transpose(1, 2).contiguous(),
+                k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(),
+                causal=True, sm_scale=hd ** -0.5)
+            ctx = ctx.transpose(1, 2)
+        else:
+            k = k.repeat_interleave(group, dim=2)
+            v = v.repeat_interleave(group, dim=2)
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (hd ** -0.5)
+            scores = scores.float().masked_fill(~causal, -1e30)
+            attn = torch.softmax(scores, dim=-1).to(h.dtype)
+            ctx = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+        h = h + ctx.reshape(batch, seq, nh * hd) @ layer["wo"]
+
+        m = _rms_norm(h, layer["mlp_norm"])
+        gated = F.silu(m @ layer["w_gate"]) * (m @ layer["w_up"])
+        h = h + gated @ layer["w_down"]
+
+    h = _rms_norm(h, params["final_norm"])
+    return h @ params["lm_head"]
+
+
+def next_token_loss(params, tokens, config: LlamaConfig):
+    """Mean next-token cross-entropy over (B, S) integer tokens."""
+    logits = forward(params, tokens, config)[:, :-1, :]
+    targets = tokens[:, 1:].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    picked = torch.gather(logp, -1, targets[..., None])[..., 0]
+    return -torch.mean(picked)

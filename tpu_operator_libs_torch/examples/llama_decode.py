@@ -1,0 +1,408 @@
+"""Autoregressive decoding with a KV cache for the Llama example.
+
+Mirrors ``tpu_operator_libs/examples/llama_decode.py``: ``init_kv_cache``,
+``_sym_int8``, ``_quantize_kv_block``, ``quantize_params_int8``, ``_mm``,
+``forward_with_cache``, ``_pick_next``, ``_prefill`` and the ``_check_*``
+helpers, ``generate`` and ``generate_on_device``.
+
+The test contract is the JAX package's: feeding a sequence one token at
+a time through :func:`forward_with_cache` reproduces the batch
+:func:`~tpu_operator_libs_torch.examples.llama.forward` logits at every
+position to float tolerance (the cache is a rearrangement, not an
+approximation).
+
+Two differences of form. JAX updates the cache functionally
+(``dynamic_update_slice`` on a donated buffer); here the cache is a list
+of preallocated buffers written in place, and :func:`forward_with_cache`
+returns the same list. Sampling draws Gumbel noise from an explicit
+``torch.Generator`` instead of splitting a ``jax.random`` key; the host
+and device loops consume it in the same order, so they draw the same
+tokens. The int8 matmul and the decode attention stay plain PyTorch in
+this slice (XLA fuses them on the TPU; they have no Pallas source).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from tpu_operator_libs_torch import resolve_device
+from tpu_operator_libs_torch.examples.llama import _rms_norm, _rope
+
+
+def init_kv_cache(config, batch: int, max_seq: int, param_dtype=None,
+                  quantize_kv: bool = False, *, device=None):
+    """Per-layer K/V buffers (B, max_seq, n_kv_heads, head_dim),
+    zero-filled, one fresh buffer per leaf.
+
+    With ``quantize_kv=True`` the buffers are int8 with a per-token
+    per-kv-head float32 scale (``k_s``/``v_s``, (B, max_seq, n_kv)):
+    symmetric per-(token, kv-head) scales make the K dequant a rank-1
+    rescale of the score matrix after the int8 contraction and the V
+    dequant a rescale of the attention weights before the value
+    contraction (see the JAX module for the roofline argument)."""
+    device = resolve_device(device)
+    dtype = param_dtype or torch.float32
+    shape = (batch, max_seq, config.n_kv_heads, config.head_dim)
+
+    def buf(shp, dt):
+        return torch.zeros(shp, dtype=dt, device=device)
+
+    if quantize_kv:
+        return [{"k": buf(shape, torch.int8),
+                 "k_s": buf(shape[:3], torch.float32),
+                 "v": buf(shape, torch.int8),
+                 "v_s": buf(shape[:3], torch.float32)}
+                for _ in range(config.n_layers)]
+    return [{"k": buf(shape, dtype), "v": buf(shape, dtype)}
+            for _ in range(config.n_layers)]
+
+
+def _sym_int8(x, axis):
+    """Symmetric int8 quantization along ``axis``: ``s = max|x| / 127``
+    (floored at 1e-8 so all-zero slices don't divide by zero), ``q =
+    clip(round(x / s))`` with round-half-to-even, as ``jnp.round``.
+    Returns (int8 codes, float32 scales with ``axis`` removed)."""
+    xf = x.float()
+    s = torch.clamp_min(torch.amax(torch.abs(xf), dim=axis), 1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / s.unsqueeze(axis)), -127, 127) \
+        .to(torch.int8)
+    return q, s
+
+
+def _quantize_kv_block(x):
+    """(B, T, n_kv, head_dim) activations -> (int8 codes, (B, T, n_kv)
+    float32 scales), symmetric per-(token, kv-head) over head_dim."""
+    return _sym_int8(x, axis=-1)
+
+
+def quantize_params_int8(params):
+    """Weight-only int8 quantization of every matmul weight: each 2-D
+    weight becomes ``{"q": int8 (in, out), "s": f32 (out,)}`` with a
+    symmetric per-output-channel scale. Norm weights and the embedding
+    table (a gather, not a matmul) stay in the original dtype."""
+    def quant(w):
+        q, s = _sym_int8(w, axis=0)
+        return {"q": q, "s": s}
+
+    out = {"embed": params["embed"],
+           "final_norm": params["final_norm"],
+           "lm_head": quant(params["lm_head"]),
+           "layers": []}
+    for layer in params["layers"]:
+        out["layers"].append({
+            "attn_norm": layer["attn_norm"],
+            "mlp_norm": layer["mlp_norm"],
+            **{k: quant(layer[k])
+               for k in ("wq", "wk", "wv", "wo",
+                         "w_gate", "w_up", "w_down")},
+        })
+    return out
+
+
+def _promoted(a, b):
+    """Both operands in their promoted dtype: JAX promotes mixed-dtype
+    matmuls and einsums (a float32 cache under bfloat16 activations),
+    where PyTorch's refuse them."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dtype), b.to(dtype)
+
+
+def _mm(x, w):
+    """x @ w for a plain weight or an int8-quantized {"q", "s"} one:
+    ``(x @ cast(q)) * s``, exact for a per-output-channel scale."""
+    if isinstance(w, dict):
+        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
+    x, w = _promoted(x, w)
+    return x @ w
+
+
+def forward_with_cache(params, tokens, cache, start_pos: int, config):
+    """Logits for ``tokens`` (B, T) occupying absolute positions
+    ``start_pos .. start_pos+T-1``, attending to everything already in
+    ``cache`` plus themselves. Writes the new keys and values into the
+    cache buffers in place and returns (logits (B, T, vocab), cache)."""
+    if config.attention_impl != "xla":
+        raise ValueError(
+            "forward_with_cache implements the einsum path; decode "
+            "with attention_impl='xla'")
+
+    batch, t_new = tokens.shape
+    hd, nh, nkv = config.head_dim, config.n_heads, config.n_kv_heads
+    group = nh // nkv
+    max_seq = cache[0]["k"].shape[1]
+    device = cache[0]["k"].device
+    end = start_pos + t_new
+    positions = start_pos + torch.arange(t_new, device=device)
+
+    h = params["embed"][tokens.long()]
+    # key validity: cached positions < start_pos+T, and causality
+    # within the new block
+    kv_pos = torch.arange(max_seq, device=device)
+    mask = kv_pos[None, :] <= positions[:, None]  # (T, max_seq)
+
+    for layer, entry in zip(params["layers"], cache):
+        quant_kv = "k_s" in entry
+        a = _rms_norm(h, layer["attn_norm"])
+        q = _mm(a, layer["wq"]).reshape(batch, t_new, nh, hd)
+        k = _mm(a, layer["wk"]).reshape(batch, t_new, nkv, hd)
+        v = _mm(a, layer["wv"]).reshape(batch, t_new, nkv, hd)
+        q = _rope(q, config.rope_theta, positions)
+        k = _rope(k, config.rope_theta, positions)
+        if quant_kv:
+            # quantize AFTER RoPE — the cache holds exactly what dense
+            # attention would read, coded int8 + per-token scale
+            k_q, k_s = _quantize_kv_block(k)
+            v_q, v_s = _quantize_kv_block(v)
+            entry["k"][:, start_pos:end] = k_q
+            entry["v"][:, start_pos:end] = v_q
+            entry["k_s"][:, start_pos:end] = k_s
+            entry["v_s"][:, start_pos:end] = v_s
+        else:
+            entry["k"][:, start_pos:end] = k.to(entry["k"].dtype)
+            entry["v"][:, start_pos:end] = v.to(entry["v"].dtype)
+
+        # grouped einsum over (kv-head, group) — never materializes a
+        # group-times-repeated copy of the cache
+        q_g = q.reshape(batch, t_new, nkv, group, hd)
+        # int8 codes are widened to the compute dtype; a float cache is
+        # left as it is and the einsum promotes
+        k_op = entry["k"].to(h.dtype) if quant_kv else entry["k"]
+        scores = torch.einsum("bqkgd,bskd->bkgqs",
+                              *_promoted(q_g, k_op)) * (hd ** -0.5)
+        scores = scores.float()
+        if quant_kv:
+            # K dequant: one rank-1 rescale of the score matrix
+            scores = scores \
+                * entry["k_s"].permute(0, 2, 1)[:, :, None, None, :]
+        scores = scores.masked_fill(~mask, -1e30)
+        attn = torch.softmax(scores, dim=-1)
+        if quant_kv:
+            # V dequant: fold the per-(s, k) scale into the attention
+            # weights BEFORE the value einsum (s is the contraction)
+            attn = attn \
+                * entry["v_s"].permute(0, 2, 1)[:, :, None, None, :]
+        attn = attn.to(h.dtype)
+        v_op = entry["v"].to(h.dtype) if quant_kv else entry["v"]
+        ctx = torch.einsum("bkgqs,bskd->bqkgd", *_promoted(attn, v_op))
+        h = h + _mm(ctx.reshape(batch, t_new, nh * hd), layer["wo"])
+
+        m = _rms_norm(h, layer["mlp_norm"])
+        gated = F.silu(_mm(m, layer["w_gate"])) * _mm(m, layer["w_up"])
+        h = h + _mm(gated, layer["w_down"])
+
+    h = _rms_norm(h, params["final_norm"])
+    return _mm(h, params["lm_head"]), cache
+
+
+def _categorical(logits, generator):
+    """One draw per row from softmax(logits) by the Gumbel-max trick,
+    with noise from ``generator`` (the same recipe as
+    ``jax.random.categorical``, not the same bits)."""
+    u = torch.rand(logits.shape, generator=generator, dtype=torch.float32,
+                   device=logits.device)
+    u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+def _pick_next(logits_last, temperature: float, top_k, generator,
+               top_p=None, want_logprob: bool = False):
+    """(B, vocab) logits -> ((B, 1) int64 next tokens, logprob or None).
+
+    temperature 0 = greedy argmax (no generator needed). Otherwise
+    sample from softmax(logits/temperature), optionally truncated to the
+    ``top_k`` highest-logit tokens and then to the ``top_p`` nucleus
+    (ties at the nucleus boundary are kept)."""
+    if temperature <= 0.0:
+        choice = torch.argmax(logits_last, dim=-1)
+    else:
+        logits_f = logits_last.float()
+        if top_k is not None:
+            kth = torch.sort(logits_f, dim=-1).values[:, -top_k][:, None]
+            logits_f = logits_f.masked_fill(logits_f < kth, float("-inf"))
+        if top_p is not None:
+            # find the smallest kept probability p* (sorted cumulative
+            # mass exclusive of self < top_p), then mask below it
+            probs = torch.softmax(logits_f / temperature, dim=-1)
+            sp = torch.flip(torch.sort(probs, dim=-1).values, dims=[-1])
+            csum = torch.cumsum(sp, dim=-1)
+            kept = (csum - sp) < top_p  # first token always kept
+            pstar = torch.where(kept, sp, float("inf")) \
+                .amin(dim=-1, keepdim=True)
+            logits_f = logits_f.masked_fill(probs < pstar, float("-inf"))
+        choice = _categorical(logits_f / temperature, generator)
+    if not want_logprob:
+        return choice[:, None], None
+    # logprob of the chosen token under the MODEL's (untempered,
+    # untruncated) distribution — what serving APIs report
+    lp = torch.log_softmax(logits_last.float(), dim=-1)
+    return choice[:, None], torch.gather(lp, -1, choice[:, None])[:, 0]
+
+
+def _prefill(step, params, prompt, cache, prefill_chunk):
+    """Prompt through the cache in one pass, or in ``prefill_chunk``-
+    sized blocks. Returns (last block's logits, cache)."""
+    prompt_len = prompt.shape[1]
+    _check_prefill_chunk(prefill_chunk)
+    if prefill_chunk is None or prompt_len <= prefill_chunk:
+        return step(params, prompt, cache, 0)
+    logits = None
+    for off in range(0, prompt_len, prefill_chunk):
+        block = prompt[:, off:off + prefill_chunk]
+        logits, cache = step(params, block, cache, off)
+    return logits, cache
+
+
+def _check_prefill_chunk(prefill_chunk):
+    """Both generate paths must agree on what a valid chunk is — an
+    int >= 1."""
+    if prefill_chunk is None:
+        return
+    if (not isinstance(prefill_chunk, int)
+            or isinstance(prefill_chunk, bool) or prefill_chunk < 1):
+        raise ValueError(
+            f"prefill_chunk must be an int >= 1, got {prefill_chunk!r}")
+
+
+def _check_sampling_args(temperature, generator, top_p):
+    """Shared sampling-argument validation for both generate paths."""
+    if temperature > 0.0 and generator is None:
+        raise ValueError(
+            "sampling (temperature > 0) requires a torch.Generator")
+    if top_p is not None and not (0.0 < top_p <= 1.0):
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+
+
+def _start(params, prompt, config, max_new_tokens, param_dtype,
+           temperature, generator, quantize_kv, top_p):
+    """Shared set-up of both generate paths: checks, the prompt on the
+    parameters' device, and a fresh cache for prompt + new tokens."""
+    _check_sampling_args(temperature, generator, top_p)
+    if max_new_tokens < 1:
+        raise ValueError("max_new_tokens must be >= 1")
+    device = params["embed"].device
+    prompt = torch.as_tensor(prompt, device=device).long()
+    batch, prompt_len = prompt.shape
+    cache = init_kv_cache(config, batch, prompt_len + max_new_tokens,
+                          param_dtype, quantize_kv=quantize_kv,
+                          device=device)
+    return prompt, cache
+
+
+def generate(params, prompt, config, max_new_tokens: int,
+             param_dtype=None, temperature: float = 0.0, top_k=None,
+             generator=None, quantize_kv: bool = False, top_p=None,
+             eos_id=None, return_logprobs: bool = False,
+             prefill_chunk=None):
+    """Autoregressive decode driven from the host: prefill the prompt,
+    then one cached step per token. ``temperature=0`` (default) is
+    greedy; otherwise softmax sampling, optionally top-k and/or top-p
+    truncated, with noise from ``generator``. ``eos_id``: once a row
+    emits it, every later position in that row is ``eos_id``, and once
+    every row has, the loop stops stepping. Returns (B,
+    prompt+max_new_tokens) int64 on the parameters' device; with
+    ``return_logprobs=True``, a (tokens, logprobs (B, max_new_tokens)
+    float32) pair, eos-padded positions carrying 0.0."""
+    prompt, cache = _start(params, prompt, config, max_new_tokens,
+                           param_dtype, temperature, generator,
+                           quantize_kv, top_p)
+    batch, prompt_len = prompt.shape
+
+    def step(p, t, c, pos):
+        return forward_with_cache(p, t, c, pos, config)
+
+    def pick(logits):
+        return _pick_next(logits[:, -1, :], temperature, top_k, generator,
+                          top_p, return_logprobs)
+
+    logits, cache = _prefill(step, params, prompt, cache, prefill_chunk)
+    tokens = [prompt]
+    lps = []
+    last, lp = pick(logits)
+    done = torch.zeros((batch,), dtype=torch.bool, device=prompt.device)
+    for i in range(max_new_tokens):
+        if eos_id is not None:
+            last = torch.where(done[:, None], eos_id, last)
+            if return_logprobs:
+                lp = torch.where(done, 0.0, lp)
+            done = done | (last[:, 0] == eos_id)
+        tokens.append(last)
+        lps.append(lp)
+        if i + 1 == max_new_tokens:
+            break
+        if eos_id is not None and bool(done.all()):
+            # every row has emitted eos: the remaining positions are
+            # padding, so the host loop stops dispatching steps
+            pad = max_new_tokens - (i + 1)
+            tokens.append(torch.full((batch, pad), eos_id,
+                                     dtype=last.dtype, device=last.device))
+            if return_logprobs:
+                lps.extend(torch.zeros((batch,), dtype=torch.float32,
+                                       device=last.device)
+                           for _ in range(pad))
+            break
+        logits, cache = step(params, last, cache, prompt_len + i)
+        last, lp = pick(logits)
+    out = torch.cat(tokens, dim=1)
+    if return_logprobs:
+        return out, torch.stack(lps, dim=1)
+    return out
+
+
+def generate_on_device(params, prompt, config, max_new_tokens: int,
+                       param_dtype=None, temperature: float = 0.0,
+                       top_k=None, generator=None,
+                       quantize_kv: bool = False, top_p=None,
+                       eos_id=None, return_logprobs: bool = False,
+                       prefill_chunk=None):
+    """:func:`generate` with the whole token loop left on the device.
+
+    The counterpart of the JAX package's single dispatch with a donated
+    cache: no step reads anything back to the host (no ``.item()`` or
+    ``bool(...)``; eos is handled with ``torch.where`` and every step
+    runs), tokens go into one preallocated device buffer, and the caller
+    reads them back once. Same contract and return value as
+    :func:`generate`; greedy output is token-equal to it."""
+    prompt, cache = _start(params, prompt, config, max_new_tokens,
+                           param_dtype, temperature, generator,
+                           quantize_kv, top_p)
+    batch, prompt_len = prompt.shape
+    _check_prefill_chunk(prefill_chunk)
+    if prefill_chunk is not None and prefill_chunk >= prompt_len:
+        prefill_chunk = None
+
+    def step(p, t, c, pos):
+        return forward_with_cache(p, t, c, pos, config)
+
+    def pick(logits):
+        return _pick_next(logits[:, -1, :], temperature, top_k, generator,
+                          top_p, return_logprobs)
+
+    out = torch.empty((batch, prompt_len + max_new_tokens),
+                      dtype=torch.long, device=prompt.device)
+    out[:, :prompt_len] = prompt
+    logprobs = (torch.empty((batch, max_new_tokens), dtype=torch.float32,
+                            device=prompt.device)
+                if return_logprobs else None)
+
+    logits, cache = _prefill(step, params, prompt, cache, prefill_chunk)
+    last, lp = pick(logits)
+    out[:, prompt_len] = last[:, 0]
+    if return_logprobs:
+        logprobs[:, 0] = lp
+    done = last[:, 0] == eos_id if eos_id is not None else None
+    for i in range(max_new_tokens - 1):
+        logits, cache = step(params, last, cache, prompt_len + i)
+        last, lp = pick(logits)
+        if eos_id is not None:
+            # a finished row keeps emitting eos_id; its step still ran
+            last = torch.where(done[:, None], eos_id, last)
+            if return_logprobs:
+                lp = torch.where(done, 0.0, lp)
+            done = done | (last[:, 0] == eos_id)
+        out[:, prompt_len + 1 + i] = last[:, 0]
+        if return_logprobs:
+            logprobs[:, i + 1] = lp
+    if return_logprobs:
+        return out, logprobs
+    return out
