@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving slice on one CUDA card at full width.
+"""Drive the PyTorch port's serving and training slices on one CUDA card
+at full width.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
@@ -9,16 +10,25 @@ Each phase prints one JSON line; any failure raises and the script
 exits non-zero without printing a result. Phases:
 
 1. device: the card's name, count and power limit; TF32 off.
-2. build: the CUDA kernel from ``tpu_operator_libs_torch/csrc``.
-3. kernel: ``flash_attention`` against its plain PyTorch version on the
-   card at the main path's shape and three more, with times.
-4-6. the main path, with the launch counts set to 0 just before it:
+2. build: every CUDA source in ``tpu_operator_libs_torch/csrc``, one
+   ``nvcc`` each, in parallel.
+3. kernel: the flash-attention forward kernel against its plain PyTorch
+   version on the card at the train step's and the serving path's
+   shapes and three more.
+3b. kernel_bwd: the dK/dV and dQ kernels against their plain version at
+   the train step's shape and two more, two launches bit-equal.
+4-6. the serving path, with the launch counts set to 0 just before it:
    ``forward`` of llama-277M with ``attention_impl="flash"`` against
    ``"xla"``; the decode contract (stepwise cache == batch forward, host
    loop == device loop, bf16 and int8 weights + int8 KV); a
    ``DecodeServer`` burst with a mid-burst drain, then decode at the
    bench's shape.
-7. kernels: one line with every kernel's launches, error and times.
+7-8. the training path, with the launch counts set to 0 just before it:
+   6 steps of ``make_train_step`` (flash, batch 16, seq 1024, bf16), its
+   gradients against ``"xla"`` and against ``remat=True``; then save ->
+   checkpoint gate -> restore into another seed's state -> the next
+   loss equal bit for bit.
+9. kernels: one line with every kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``. The model is
 llama-277M as ``bench.py`` builds it (vocab 2048, d_model 2048, 4
@@ -30,11 +40,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -46,6 +59,9 @@ from tpu_operator_libs_torch.examples.llama import (  # noqa: E402
     LlamaConfig,
     forward,
     init_llama_params,
+    make_token_batch,
+    make_train_step,
+    next_token_loss,
 )
 from tpu_operator_libs_torch.examples.llama_decode import (  # noqa: E402
     forward_with_cache,
@@ -58,14 +74,29 @@ from tpu_operator_libs_torch.examples.llama_serving_job import (  # noqa: E402
     DecodeServer,
     run_demo,
 )
+from tpu_operator_libs_torch.examples.training_job import (  # noqa: E402
+    make_checkpoint_manager,
+    restore_state,
+)
+from tpu_operator_libs_torch.health.checkpoint_gate import (  # noqa: E402
+    CheckpointDurabilityGate,
+)
 from tpu_operator_libs_torch.health.serving_gate import (  # noqa: E402
     ServingEndpoint,
 )
 from tpu_operator_libs_torch.kernels import _build  # noqa: E402
 from tpu_operator_libs_torch.kernels.flash_attention import (  # noqa: E402
+    SOURCES,
     flash_attention,
+    flash_attention_backward_reference,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
     flash_attention_reference,
     flash_forward,
+)
+from tpu_operator_libs_torch.optim import (  # noqa: E402
+    tree_leaves,
+    value_and_grad,
 )
 
 #: H100 SXM published dense peaks (NVIDIA data sheet, no sparsity)
@@ -82,7 +113,13 @@ CONFIG_277M = LlamaConfig(vocab=2048, d_model=2048, n_layers=4,
 #: differ by one bf16 ulp of the output, which is at most 2^-7 * |out|;
 #: atol covers outputs near 0 where the f32 sums differ in order.
 #: f32: sums in another order over <= 8192 keys; 2e-5 is the tolerance
-#: the CPU test holds the plain version to against the Pallas kernel.
+#: the CPU test holds the plain version to against the Pallas kernel. The
+#: backward's dK/dV sum up to S * H / H_kv pair terms (4,000 at shape
+#: (c)), where their sound reading is 2.0e-5 and passes through the rtol
+#: term; wrong variants of the algorithm there (dK unscaled, a group head
+#: dropped, the ragged key tile dropped, inputs staged as bf16) are off
+#: by 1.4e-2 and more (tests/test_torch_flash_attention.py). Each row
+#: reports ``limit_use``, the largest share of its limit an element takes.
 KERNEL_TOL = {torch.bfloat16: (2.0 ** -7, 1e-3), torch.float32: (1e-5, 2e-5)}
 #: log-sum-exp, f32 on both sides
 LSE_ATOL = 1e-4
@@ -109,16 +146,19 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def visible_pairs(sq, sk, causal=True) -> int:
+    if causal:
+        return sum(min(i + 1, sk) for i in range(sq))
+    return sq * sk
+
+
 def attention_bound_ms(batch, heads, kv_heads, sq, sk, dim, dtype,
                        causal=True):
     """Least time for the work these inputs need: the larger of the
     FLOPs of the visible (query, key) pairs over the dtype's peak and
     Q, K, V, O and the lse moved once over the memory rate."""
-    if causal:
-        pairs = sum(min(i + 1, sk) for i in range(sq))
-    else:
-        pairs = sq * sk
-    flops = 4 * batch * heads * dim * pairs  # QK^T and PV, 2 FLOPs/MAC
+    # QK^T and PV, 2 FLOPs/MAC
+    flops = 4 * batch * heads * dim * visible_pairs(sq, sk, causal)
     esize = torch.finfo(dtype).bits // 8
     nbytes = (esize * (2 * batch * heads * sq * dim
                        + 2 * batch * kv_heads * sk * dim)
@@ -150,24 +190,35 @@ def phase_device():
 
 
 def phase_build():
-    built = _build.build("flash_attention_fwd.cu")
-    entries = []
-    report = built.ptxas_report
-    for block in report.split("Compiling entry function")[1:]:
-        name = re.search(r"flash_fwd_kernelI(13__nv_bfloat16|f)Li(\d+)E",
-                         block)
-        regs = re.search(r"Used (\d+) registers", block)
-        spill = re.search(r"(\d+) bytes spill stores", block)
-        entries.append({
-            "dtype": ("bfloat16" if name and name.group(1) != "f"
-                      else "float32"),
-            "head_dim": int(name.group(2)) if name else None,
-            "registers": int(regs.group(1)) if regs else None,
-            "spill_store_bytes": int(spill.group(1)) if spill else 0})
-    emit({"phase": "build", "source": "flash_attention_fwd.cu",
-          "build_seconds": built.build_seconds,
-          "dynamic_smem_bytes_per_head_dim": "2*64*D*4",
-          "ptxas": entries})
+    """Build every kernel source at once (one nvcc each, in parallel)
+    and report ptxas' registers and spills per kernel instance."""
+    start = time.perf_counter()
+    built = _build.build_all(SOURCES)
+    wall = time.perf_counter() - start
+    for source, lib in zip(SOURCES, built):
+        entries = []
+        for block in lib.ptxas_report.split("Compiling entry function")[1:]:
+            name = re.search(
+                r"(flash_[a-z_]+_kernel)I(13__nv_bfloat16|f)Li(\d+)E", block)
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            entries.append({
+                "kernel": name.group(1) if name else None,
+                "dtype": ("bfloat16" if name and name.group(2) != "f"
+                          else "float32"),
+                "head_dim": int(name.group(3)) if name else None,
+                "registers": int(regs.group(1)) if regs else None,
+                "spill_store_bytes": int(spill.group(1)) if spill else 0})
+        emit({"phase": "build", "source": source,
+              "build_seconds": lib.build_seconds, "wall_seconds_all": wall,
+              "dynamic_smem_bytes_per_head_dim": "2*64*D*4",
+              "ptxas": entries})
+
+
+def limit_use(err, ref, rtol, atol) -> float:
+    """The largest share of its limit, atol + rtol * |ref|, that an
+    element's error ``err`` takes: the check passes while it is <= 1."""
+    return (err / (atol + rtol * ref.float().abs())).max().item()
 
 
 def check_kernel_shape(label, batch, heads, kv_heads, seq, dim, dtype,
@@ -190,8 +241,8 @@ def check_kernel_shape(label, batch, heads, kv_heads, seq, dim, dtype,
     err = (out.float() - ref.float()).abs()
     max_err = err.max().item()
     lse_err = (lse - ref_lse).abs().max().item()
-    within = bool((err <= atol + rtol * ref.float().abs()).all())
-    if not (within and lse_err <= LSE_ATOL
+    use = limit_use(err, ref, rtol, atol)
+    if not (use <= 1 and lse_err <= LSE_ATOL
             and torch.isfinite(out.float()).all()):
         raise RuntimeError(
             f"flash_attention_fwd disagrees with its plain version at "
@@ -216,8 +267,9 @@ def check_kernel_shape(label, batch, heads, kv_heads, seq, dim, dtype,
            "shape": label, "B": batch, "H": heads, "H_kv": kv_heads,
            "S": seq, "D": dim, "dtype": str(dtype).replace("torch.", ""),
            "max_abs_err": max_err, "rtol": rtol, "atol": atol,
-           "lse_max_abs_err": lse_err, "kernel_ms": kernel_ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
+           "limit_use": use, "lse_max_abs_err": lse_err,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "card": card}
     emit(row)
@@ -228,13 +280,148 @@ def check_kernel_shape(label, batch, heads, kv_heads, seq, dim, dtype,
 
 def phase_kernel(card):
     shapes = [
-        # the main path's call: forward of llama-277M at batch 2, S 1024
+        # the main paths' calls: the train step of llama-277M (batch 16)
+        # and its serving forward (batch 2), S 1024
+        ("train", 16, 16, 16, 1024, 128, torch.bfloat16, 5),
         ("main", 2, 16, 16, 1024, 128, torch.bfloat16, 20),
         ("a", 8, 16, 16, 1024, 128, torch.bfloat16, 10),
         ("b", 1, 16, 16, 8192, 128, torch.bfloat16, 5),
         ("c", 2, 8, 2, 1000, 64, torch.float32, 20),
     ]
     return [check_kernel_shape(*s[:7], card, s[7]) for s in shapes]
+
+
+def backward_bound_ms(products, batch, heads, kv_heads, seq, dim, dtype,
+                      outputs):
+    """Least time for one backward kernel on these inputs: ``products``
+    matrix products of 2*D FLOPs per visible pair over the dtype's peak,
+    against Q, K, V, dO, lse and di read once and ``outputs`` (the
+    element counts it writes) written once, over the memory rate."""
+    flops = products * 2 * dim * batch * heads * visible_pairs(seq, seq)
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (esize * (2 * batch * heads * seq * dim
+                       + 2 * batch * kv_heads * seq * dim + sum(outputs))
+              + 2 * 4 * batch * heads * seq)
+    t_flops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES
+    if t_flops >= t_bytes:
+        return t_flops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def sdpa_backward_ms(q, k, v, do, scale, iters):
+    """F.scaled_dot_product_attention's backward, as (forward + backward)
+    - forward, K/V repeated to q's heads: the library's dq, dk, dv."""
+    group = q.shape[1] // k.shape[1]
+    qg = q.detach().clone().requires_grad_()
+    kg = k.repeat_interleave(group, dim=1).requires_grad_()
+    vg = v.repeat_interleave(group, dim=1).requires_grad_()
+
+    def forward():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=True, scale=scale)
+
+    def forward_backward():
+        torch.autograd.grad(forward(), (qg, kg, vg), do)
+
+    both = cuda_ms(forward_backward, iters)
+    with torch.no_grad():
+        fwd = cuda_ms(forward, iters)
+    return both - fwd
+
+
+def check_backward_shape(label, batch, heads, kv_heads, seq, dim, dtype,
+                         card, iters):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    q = randn(batch, heads, seq, dim)
+    k = randn(batch, kv_heads, seq, dim)
+    v = randn(batch, kv_heads, seq, dim)
+    do = randn(batch, heads, seq, dim)
+    scale = dim ** -0.5
+    o, lse = flash_forward(q, k, v, causal=True, sm_scale=scale)
+    di = (o.float() * do.float()).sum(-1)
+    kw = {"causal": True, "sm_scale": scale}
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
+    torch.cuda.synchronize()
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
+    dq2 = flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
+    torch.cuda.synchronize()
+    bit_equal = {"dkv": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)),
+                 "dq": bool(torch.equal(dq, dq2))}
+    del dk2, dv2, dq2
+    refs = flash_attention_backward_reference(q, k, v, o, lse, do, **kw)
+    rtol, atol = KERNEL_TOL[dtype]
+    errors, use = {}, {}
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        err = (got.float() - ref.float()).abs()
+        use[name] = limit_use(err, ref, rtol, atol)
+        errors[name] = err.max().item()
+        if not (use[name] <= 1 and torch.isfinite(got.float()).all()):
+            raise RuntimeError(
+                f"{name} of the backward kernels disagrees with the plain "
+                f"version at {label}: max|err| {errors[name]} (rtol {rtol}, "
+                f"atol {atol})")
+    if not all(bit_equal.values()):
+        raise RuntimeError(
+            f"two launches of the backward kernels differ at {label}: "
+            f"{bit_equal}")
+    del refs
+    dkv_ms = cuda_ms(
+        lambda: flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw), iters)
+    dq_ms = cuda_ms(
+        lambda: flash_attention_bwd_dq(q, k, v, do, lse, di, **kw), iters)
+    plain_ms = cuda_ms(
+        lambda: flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                   **kw),
+        max(1, iters // 3), warmup=1)
+    library_ms = sdpa_backward_ms(q, k, v, do, scale, iters)
+    kv_elems = batch * kv_heads * seq * dim
+    dkv_bound = backward_bound_ms(4, batch, heads, kv_heads, seq, dim,
+                                  dtype, [kv_elems, kv_elems])
+    dq_bound = backward_bound_ms(3, batch, heads, kv_heads, seq, dim, dtype,
+                                 [batch * heads * seq * dim])
+    common = {"shape": label, "B": batch, "H": heads, "H_kv": kv_heads,
+              "S": seq, "D": dim, "dtype": str(dtype).replace("torch.", ""),
+              "rtol": rtol, "atol": atol, "plain_ms": plain_ms,
+              "library_ms": library_ms,
+              "plain_and_library_cover": "dq, dk and dv together",
+              "card": card}
+    rows = [
+        {"phase": "kernel_bwd", "name": "flash_attention_bwd_dkv", **common,
+         "max_abs_err": max(errors["dk"], errors["dv"]),
+         "dk_max_abs_err": errors["dk"], "dv_max_abs_err": errors["dv"],
+         "limit_use": max(use["dk"], use["dv"]),
+         "bit_equal_launches": bit_equal["dkv"], "kernel_ms": dkv_ms,
+         "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1]},
+        {"phase": "kernel_bwd", "name": "flash_attention_bwd_dq", **common,
+         "max_abs_err": errors["dq"], "limit_use": use["dq"],
+         "bit_equal_launches": bit_equal["dq"], "kernel_ms": dq_ms,
+         "bound_ms": dq_bound[0], "bound_by": dq_bound[1]},
+    ]
+    for row in rows:
+        emit(row)
+    del q, k, v, do, o, lse, di, dq, dk, dv
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernel_bwd(card):
+    shapes = [
+        # the main path's call: the train step of llama-277M, batch 16
+        ("main", 16, 16, 16, 1024, 128, torch.bfloat16, 5),
+        ("b", 1, 16, 16, 8192, 128, torch.bfloat16, 3),
+        ("c", 2, 8, 2, 1000, 64, torch.float32, 10),
+    ]
+    rows = []
+    for s in shapes:
+        rows += check_backward_shape(*s[:7], card, s[7])
+    return rows
 
 
 def cast_params(params, dtype):
@@ -392,19 +579,19 @@ def phase_serving(params, qparams, card):
           "new_tokens": 960, "cells": cells, "card": card})
 
 
-def profile_decode(params, prompt, kw):
-    """Device-busy share and the top kernels by device time over a
-    64-token decode, from torch.profiler (the profiler's own cost is in
-    the wall time, so the share is a lower bound). None where the
-    profiler records no device time on this machine."""
+def profile_device(fn, top: int = 6):
+    """Device-busy share and the top kernels by device time over one
+    call of ``fn`` (which ends by waiting for the device), from
+    torch.profiler (the profiler's own cost is in the wall time, so the
+    share is a lower bound). None where the profiler records no device
+    time on this machine."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        generate_on_device(params, prompt, CONFIG_277M, 64,
-                           param_dtype=torch.bfloat16, **kw).cpu()
+        fn()
         wall_us = (time.perf_counter() - start) * 1e6
 
     def device_us(event):
@@ -418,48 +605,311 @@ def profile_decode(params, prompt, kw):
     busy_us = sum(device_us(e) for e in events)
     if busy_us == 0:
         return None
-    top = sorted(events, key=device_us, reverse=True)[:6]
+    rows = sorted(events, key=device_us, reverse=True)[:top]
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
             "top": [{"name": e.key[:60], "calls": e.count,
-                     "device_ms": device_us(e) / 1e3} for e in top]}
+                     "device_ms": device_us(e) / 1e3} for e in rows]}
+
+
+def profile_decode(params, prompt, kw):
+    """profile_device over a 64-token decode."""
+    return profile_device(lambda: generate_on_device(
+        params, prompt, CONFIG_277M, 64, param_dtype=torch.bfloat16,
+        **kw).cpu())
+
+
+#: every kernel's wrapper, by the name its launch counter reports under
+KERNELS = {"flash_attention_fwd": flash_attention,
+           "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+           "flash_attention_bwd_dq": flash_attention_bwd_dq}
+
+
+def reset_launch_counts() -> None:
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+
+
+def launch_counts() -> "dict[str, int]":
+    return {name: wrapper.launches for name, wrapper in KERNELS.items()}
+
+
+#: the train step's shape (bench.py:530-533): batch 16, seq 1024
+TRAIN_BATCH = 16
+TRAIN_STEPS = 6
+#: f32 gradients against the xla path: rtol = atol = 1e-4, as the f32
+#: logits; remat against no remat in f32: tests/test_llama.py:148's
+#: rtol 1e-5, atol 1e-6 (the same kernels recompute the same values)
+REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-6
+
+
+def expect_launches(delta, fwd, bwd, what):
+    want = {"flash_attention_fwd": fwd, "flash_attention_bwd_dkv": bwd,
+            "flash_attention_bwd_dq": bwd}
+    if delta != want:
+        raise RuntimeError(f"{what} launched {delta}, expected {want}")
+
+
+def grads_with_launches(params, tokens, config):
+    """(loss, grads, launches per kernel) of the loss's gradients."""
+    before = launch_counts()
+    loss, grads = value_and_grad(next_token_loss, params, tokens, config)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return loss, grads, {k: after[k] - before[k] for k in after}
+
+
+def compare_grads(label, got, want, loss_got, loss_want, *, rel_tol=None,
+                  rtol=None, atol=None):
+    """Hold every gradient leaf (and the loss) to the reference: by the
+    max-normalised error ``rel_tol`` in bf16, elementwise rtol/atol in
+    f32. Returns the worst error seen."""
+    worst = 0.0
+    pairs = [(torch.stack([loss_got]), torch.stack([loss_want]))]
+    pairs += list(zip(tree_leaves(got), tree_leaves(want)))
+    for g, w in pairs:
+        if not torch.isfinite(g.float()).all():
+            raise RuntimeError(f"{label}: non-finite gradient")
+        if rel_tol is not None:
+            err = rel_err(g, w)
+            ok = err <= rel_tol
+        else:
+            err = (g.float() - w.float()).abs().max().item()
+            ok = torch.allclose(g.float(), w.float(), rtol=rtol, atol=atol)
+        worst = max(worst, err)
+        if not ok:
+            raise RuntimeError(
+                f"{label} out of tolerance: {err} (shape "
+                f"{tuple(g.shape)}, rel_tol {rel_tol}, rtol {rtol}, "
+                f"atol {atol})")
+    return worst
+
+
+def phase_train(params, card):
+    """make_train_step at llama-277M, flash, batch 16, seq 1024, bf16:
+    TRAIN_STEPS steps on make_token_batch, then the step's gradients
+    against the xla path and against remat, in bf16 and in f32."""
+    config = dataclasses.replace(CONFIG_277M, attention_impl="flash")
+    n_layers = config.n_layers
+    optimizer, step = make_train_step(config)
+    state = {"params": params, "opt": optimizer.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    batches = [make_token_batch(i, config, TRAIN_BATCH)
+               for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    start = time.perf_counter()
+    state, first = step(state, batches[0])
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - start) * 1e3
+    one = launch_counts()
+    expect_launches({k: one[k] - before[k] for k in one}, n_layers,
+                    n_layers, "one train step")
+    losses = [first]
+    start = time.perf_counter()
+    for tokens in batches[1:]:
+        state, loss = step(state, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - start) * 1e3 / (TRAIN_STEPS - 1)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    after = launch_counts()
+    expect_launches({k: after[k] - before[k] for k in after},
+                    n_layers * TRAIN_STEPS, n_layers * TRAIN_STEPS,
+                    f"{TRAIN_STEPS} train steps")
+    losses = [float(x) for x in losses]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"train losses not finite and falling: {losses}")
+    if int(state["step"]) != TRAIN_STEPS:
+        raise RuntimeError(f"state step {int(state['step'])}")
+    profile = profile_device(lambda: step(state, batches[0])[1].item(),
+                             top=10)
+
+    # the step's gradients: flash against xla and against remat, bf16 at
+    # the train shape, f32 at batch 2
+    result = {"phase": "train", "batch": TRAIN_BATCH,
+              "seq": config.seq_len, "steps": TRAIN_STEPS, "losses": losses,
+              "first_step_ms": first_ms, "step_ms": step_ms,
+              "steps_behind_one_sync": TRAIN_STEPS - 1,
+              "tokens_per_s": TRAIN_BATCH * config.seq_len / step_ms * 1e3,
+              "max_memory_allocated_bytes": peak_bytes,
+              "profile_1_step": profile, "card": card}
+    tokens = batches[0]
+    for label, p, toks in (("bf16", params, tokens),
+                           ("f32", cast_params(params, torch.float32),
+                            tokens[:2])):
+        flash_loss, flash_g, flash_n = grads_with_launches(p, toks, config)
+        expect_launches(flash_n, n_layers, n_layers, f"{label} flash grads")
+        xla_loss, xla_g, xla_n = grads_with_launches(p, toks, CONFIG_277M)
+        expect_launches(xla_n, 0, 0, f"{label} xla grads")
+        if label == "bf16":
+            vs_xla = compare_grads("bf16 flash vs xla grads", flash_g, xla_g,
+                                   flash_loss, xla_loss,
+                                   rel_tol=BF16_LOGITS_REL_TOL)
+            tol = {"rel_tol": BF16_LOGITS_REL_TOL}
+        else:
+            vs_xla = compare_grads("f32 flash vs xla grads", flash_g, xla_g,
+                                   flash_loss, xla_loss, rtol=F32_TOL,
+                                   atol=F32_TOL)
+            tol = {"rtol": F32_TOL, "atol": F32_TOL}
+        del xla_g
+        remat = dataclasses.replace(config, remat=True)
+        remat_loss, remat_g, remat_n = grads_with_launches(p, toks, remat)
+        expect_launches(remat_n, 2 * n_layers, n_layers,
+                        f"{label} remat grads")
+        bit_equal = bool(torch.equal(remat_loss, flash_loss) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(remat_g),
+                                              tree_leaves(flash_g))))
+        if label == "bf16":
+            vs_remat = compare_grads("bf16 remat grads", remat_g, flash_g,
+                                     remat_loss, flash_loss,
+                                     rel_tol=BF16_LOGITS_REL_TOL)
+        else:
+            vs_remat = compare_grads("f32 remat grads", remat_g, flash_g,
+                                     remat_loss, flash_loss,
+                                     rtol=REMAT_RTOL, atol=REMAT_ATOL)
+        result[label] = {
+            "batch": toks.shape[0], "flash_loss": float(flash_loss),
+            "xla_loss": float(xla_loss), "flash_vs_xla_max_err": vs_xla,
+            **tol, "remat_vs_plain_max_err": vs_remat,
+            "remat_bit_equal": bit_equal,
+            "launches_flash": flash_n, "launches_remat": remat_n}
+        del flash_g, remat_g, p
+    emit(result)
+    torch.cuda.empty_cache()
+    return state, optimizer, step
+
+
+def phase_checkpoint(state, optimizer, step, card):
+    """__graft_entry__.py:159-217 with the port's manager and gate: the
+    gate is closed on an empty root and opens on the committed save; a
+    state from another seed restored from it gives the uninterrupted
+    run's next loss bit for bit."""
+    config = dataclasses.replace(CONFIG_277M, attention_impl="flash")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        gate = CheckpointDurabilityGate(root)
+        if gate.check():
+            raise RuntimeError("checkpoint gate open on an empty root")
+        manager = make_checkpoint_manager(root)
+        done = int(state["step"])
+        start = time.perf_counter()
+        manager.save(done, state)
+        save_s = time.perf_counter() - start
+        if not gate.check():
+            raise RuntimeError("checkpoint gate closed after a committed "
+                               "save")
+        if CheckpointDurabilityGate(root, min_step=done + 1).check():
+            raise RuntimeError("checkpoint gate open below min_step")
+        tokens = make_token_batch(done, config, TRAIN_BATCH)
+        _, loss_uninterrupted = step(state, tokens)
+        fresh_params = init_llama_params(config, param_dtype=torch.bfloat16,
+                                         seed=SEED + 7)
+        fresh = {"params": fresh_params,
+                 "opt": optimizer.init(fresh_params),
+                 "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+        start = time.perf_counter()
+        restored, start_step = restore_state(manager, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - start
+        if start_step != done:
+            raise RuntimeError(f"resume picked step {start_step}, "
+                               f"wanted {done}")
+        _, loss_resumed = step(restored, tokens)
+        if not torch.equal(loss_uninterrupted, loss_resumed):
+            raise RuntimeError(
+                f"resumed step diverged: {float(loss_resumed)!r} != "
+                f"{float(loss_uninterrupted)!r}")
+        saved_bytes = sum(os.path.getsize(os.path.join(d, f))
+                          for d, _, files in os.walk(root) for f in files)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "checkpoint", "step": done, "saved_bytes": saved_bytes,
+          "save_s": save_s, "restore_s": restore_s,
+          "gate_closed_before_save": True, "gate_open_after_save": True,
+          "resumed_loss": float(loss_resumed),
+          "resumed_loss_bit_equal": True, "card": card})
+
+
+def kernel_entry(name, source, replaces, launches, rows, shape, card):
+    """The kernels line's entry; its times and bound are those of the
+    first row, the shape that the most launches of the main paths had."""
+    main_row = rows[0]
+    return {
+        "name": name, "route": "cuda",
+        "source": f"tpu_operator_libs_torch/csrc/{source}",
+        "replaces": replaces, "launches": sum(launches.values()),
+        "launches_by_path": launches, "ok": True,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"], "shape": shape,
+        "shapes": [{k: r[k] for k in ("shape", "B", "H", "H_kv", "S", "D",
+                                      "dtype", "max_abs_err", "kernel_ms",
+                                      "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by")} for r in rows],
+        "card": card}
 
 
 def main() -> int:
     card = phase_device()
     phase_build()
-    rows = phase_kernel(card)
+    fwd_rows = phase_kernel(card)
+    bwd_rows = phase_kernel_bwd(card)
 
     params = init_llama_params(CONFIG_277M, param_dtype=torch.bfloat16,
                                seed=SEED, device="cuda")
     params32 = cast_params(params, torch.float32)
-    # the main path: counts at 0 just before it, read just after
-    flash_attention.launches = 0
+    # the serving path: counts at 0 just before it, read just after
+    reset_launch_counts()
     phase_forward(params, params32, card)
     qparams = phase_decode(params, params32, card)
     phase_serving(params, qparams, card)
-    launches = flash_attention.launches
-    if launches < 1:
-        raise RuntimeError("the main path never launched flash_attention")
+    serving = launch_counts()
+    del params32, qparams
+    torch.cuda.empty_cache()
+    # the training path, likewise
+    reset_launch_counts()
+    state, optimizer, step = phase_train(params, card)
+    phase_checkpoint(state, optimizer, step, card)
+    training = launch_counts()
+    if serving["flash_attention_fwd"] < 1:
+        raise RuntimeError("the serving path never launched "
+                           "flash_attention_fwd")
+    missing = [name for name, n in training.items() if n < 1]
+    if missing:
+        raise RuntimeError(f"the training path never launched {missing}")
 
-    main_row = rows[0]
-    emit({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "tpu_operator_libs_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758"
-                    " (_flash_attention_impl; reached from "
-                    "tpu_operator_libs/examples/llama.py:293)",
-        "launches": launches, "ok": True,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": "B=2 H=16 S=1024 D=128 bf16 (forward of llama-277M)",
-        "shapes": [{k: r[k] for k in ("shape", "B", "H", "H_kv", "S", "D",
-                                      "dtype", "max_abs_err", "kernel_ms",
-                                      "plain_ms", "library_ms", "bound_ms",
-                                      "bound_by")} for r in rows],
-        "card": card}]})
+    pallas = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    emit({"kernels": [
+        kernel_entry(
+            "flash_attention_fwd", "flash_attention_fwd.cu",
+            f"{pallas}:758 (_flash_attention_impl; reached from "
+            "tpu_operator_libs/examples/llama.py:293)",
+            {"serving": serving["flash_attention_fwd"],
+             "training": training["flash_attention_fwd"]}, fwd_rows,
+            "B=16 H=16 S=1024 D=128 bf16 (the train step's forward of "
+            "llama-277M; B=2 serves)", card),
+        kernel_entry(
+            "flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+            f"{pallas}:1121 (_flash_attention_bwd_dkv, kernel :796; "
+            "reached from jax.grad through "
+            "tpu_operator_libs/examples/llama.py:293)",
+            {"training": training["flash_attention_bwd_dkv"]},
+            bwd_rows[0::2],
+            "B=16 H=16 S=1024 D=128 bf16 (train step of llama-277M)", card),
+        kernel_entry(
+            "flash_attention_bwd_dq", "flash_attention_bwd.cu",
+            f"{pallas}:1456 (_flash_attention_bwd_dq, kernel :1146; "
+            "reached from jax.grad through "
+            "tpu_operator_libs/examples/llama.py:293)",
+            {"training": training["flash_attention_bwd_dq"]},
+            bwd_rows[1::2],
+            "B=16 H=16 S=1024 D=128 bf16 (train step of llama-277M)", card),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
                                  "count": torch.cuda.device_count()}})
     return 0

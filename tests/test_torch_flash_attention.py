@@ -1,6 +1,7 @@
-"""The port's flash-attention forward on the CPU: its plain version
-against JAX's Pallas TPU kernel run in interpret mode, the wrapper's
-contract, and the rule that the port imports nothing of JAX."""
+"""The port's flash attention on the CPU: the plain versions of the
+forward and the backward against JAX's Pallas TPU kernels run in
+interpret mode, the wrappers' contract, and the rule that the port
+imports nothing of JAX."""
 
 import ast
 from pathlib import Path
@@ -15,9 +16,14 @@ from jax.experimental.pallas.ops.tpu.flash_attention import (
     flash_attention as pallas_flash_attention,
 )
 
+from chip_smoke import KERNEL_TOL
 from tpu_operator_libs_torch.kernels.flash_attention import (
     flash_attention,
+    flash_attention_backward_reference,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
     flash_attention_reference,
+    flash_backward,
     flash_forward,
 )
 
@@ -60,6 +66,100 @@ def test_plain_version_matches_pallas_kernel(batch, heads, kv_heads, seq,
                                atol=PALLAS_ATOL)
 
 
+#: f32 on both sides; the Pallas backward recomputes P blockwise from its
+#: (l, m) pair, the plain version from the lse in one pass.
+PALLAS_BWD_ATOL = 1e-5
+#: what chip_smoke.py holds the f32 kernels to on the card
+KERNEL_RTOL_F32, KERNEL_ATOL_F32 = KERNEL_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("batch,heads,kv_heads,seq,dim", [
+    (1, 2, 2, 128, 32),
+    (1, 2, 2, 256, 64),
+    (1, 4, 2, 128, 16),   # GQA: K/V repeated on the JAX side only
+])
+def test_plain_backward_matches_pallas_backward(batch, heads, kv_heads,
+                                                seq, dim):
+    """jax.grad of sum(out * dO) through the Pallas kernel (its
+    _flash_attention_bwd_dkv and _flash_attention_bwd_dq, interpret
+    mode) against flash_attention_backward_reference on the lse of the
+    plain forward. The kernel's own mha_reference has no causal VJP, so
+    it is not the oracle."""
+    q, k, v = _inputs(seq + dim + 1, batch, heads, kv_heads, seq, dim)
+    do = np.random.default_rng(seq + dim + 2).standard_normal(
+        q.shape).astype(np.float32)
+    group = heads // kv_heads
+    scale = dim ** -0.5
+
+    def objective(q, k, v):
+        out = pallas_flash_attention(
+            q, jnp.repeat(k, group, axis=1), jnp.repeat(v, group, axis=1),
+            causal=True, sm_scale=scale)
+        return jnp.sum(out * jnp.asarray(do))
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(objective, argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = flash_forward(qt, kt, vt, causal=True, sm_scale=scale)
+    got = flash_attention_backward_reference(
+        qt, kt, vt, out, lse, torch.from_numpy(do), causal=True,
+        sm_scale=scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=PALLAS_BWD_ATOL, err_msg=name)
+
+
+def wrong_variant_errors(seed=0):
+    """Max |err| against the plain backward, at chip_smoke.py's f32 shape
+    (c) (2, 8 heads / 2 kv heads, 1000, 64), of wrong variants of the
+    kernels' algorithm: the reading that a kernel with such a fault would
+    give there."""
+    batch, heads, kv_heads, seq, dim = 2, 8, 2, 1000, 64
+    q, k, v = (torch.from_numpy(x) for x in _inputs(seed, batch, heads,
+                                                     kv_heads, seq, dim))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(seed))
+    kw = {"causal": True, "sm_scale": dim ** -0.5}
+    o, lse = flash_forward(q, k, v, **kw)
+    dq, dk, dv = flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                    **kw)
+    # the last query head of each group left out of the group sum
+    group = heads // kv_heads
+    keep = [h for h in range(heads) if h % group != group - 1]
+    _, dk_part, dv_part = flash_attention_backward_reference(
+        q[:, keep].contiguous(), k, v, o[:, keep].contiguous(),
+        lse[:, keep].contiguous(), do[:, keep].contiguous(), **kw)
+    # the ragged last key tile (keys 960-999) left out of dQ's key loop
+    dq_tiles, _, _ = flash_attention_backward_reference(
+        q, k[:, :, :960].contiguous(), v[:, :, :960].contiguous(), o, lse,
+        do, **kw)
+    # the f32 inputs staged in shared memory as bf16
+    staged = flash_attention_backward_reference(
+        *(t.to(torch.bfloat16).float() for t in (q, k, v, o)), lse,
+        do.to(torch.bfloat16).float(), **kw)
+    wrong = {"dk_unscaled": (dk / kw["sm_scale"], dk),
+             "dk_group_head_dropped": (dk_part, dk),
+             "dv_group_head_dropped": (dv_part, dv),
+             "dq_ragged_tile_dropped": (dq_tiles, dq)}
+    for name, got, want in zip(("dq", "dk", "dv"), staged, (dq, dk, dv)):
+        wrong[f"{name}_staged_bf16"] = (got, want)
+    return {name: ((got - want).abs().max().item(),
+                   bool(((got - want).abs()
+                         <= KERNEL_ATOL_F32
+                         + KERNEL_RTOL_F32 * want.abs()).all()))
+            for name, (got, want) in wrong.items()}
+
+
+def test_backward_f32_limit_rejects_wrong_variants():
+    """chip_smoke.py holds the f32 backward kernels to their plain
+    version within KERNEL_TOL; the kernels' sound reading at shape (c)
+    is 2.0e-5 (PERF.md). Every wrong variant lies outside that limit by
+    a wide margin, so the limit lies between the two readings."""
+    for name, (err, within) in wrong_variant_errors().items():
+        assert not within and err > 100 * KERNEL_ATOL_F32, (name, err)
+
+
 def test_lse_is_the_log_sum_exp_of_the_masked_scores():
     q, k, v = _inputs(3, 1, 2, 1, 40, 16)
     qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
@@ -100,13 +200,80 @@ class TestWrapperContract:
         got = flash_attention(q, k, v, causal=True, sm_scale=0.25)
         assert got.dtype == torch.bfloat16 and got.shape == q.shape
 
-    def test_grad_mode_raises(self):
-        q, k, v = (torch.from_numpy(x).requires_grad_()
-                   for x in _inputs(7, 1, 2, 2, 8, 16))
-        with pytest.raises(NotImplementedError, match="training slice"):
-            flash_attention(q, k, v, causal=True, sm_scale=0.25)
-        with torch.no_grad():
-            flash_attention(q, k, v, causal=True, sm_scale=0.25)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_backward_through_autograd_is_the_plain_backward(self, dtype):
+        """torch.autograd.grad through flash_attention (GQA, a ragged
+        length, an output gradient that is not contiguous) equals the
+        plain backward on the forward's saved out and lse, and launches
+        nothing on the CPU."""
+        q, k, v = (torch.from_numpy(x).to(dtype).requires_grad_()
+                   for x in _inputs(7, 2, 4, 2, 37, 16))
+        do = torch.randn((2, 37, 4, 16), generator=torch.Generator()
+                         .manual_seed(9)).to(dtype).transpose(1, 2)
+        before = (flash_attention.launches, flash_attention_bwd_dkv.launches,
+                  flash_attention_bwd_dq.launches)
+        out = flash_attention(q, k, v, causal=True, sm_scale=0.25)
+        got = torch.autograd.grad(out, (q, k, v), do)
+        ref_out, lse = flash_forward(q.detach(), k.detach(), v.detach(),
+                                     causal=True, sm_scale=0.25)
+        want = flash_attention_backward_reference(
+            q.detach(), k.detach(), v.detach(), ref_out, lse,
+            do.contiguous(), causal=True, sm_scale=0.25)
+        for g, w, x in zip(got, want, (q, k, v)):
+            assert g.dtype == dtype and g.shape == x.shape
+            assert torch.equal(g, w)
+        assert (flash_attention.launches, flash_attention_bwd_dkv.launches,
+                flash_attention_bwd_dq.launches) == before
+
+    def test_plain_backward_is_autograd_of_the_plain_forward(self):
+        q, k, v = (torch.from_numpy(x).double().requires_grad_()
+                   for x in _inputs(10, 1, 4, 2, 29, 32))
+        do = torch.randn(q.shape, dtype=torch.float64,
+                         generator=torch.Generator().manual_seed(0))
+        scores = torch.einsum(
+            "bhqd,bhkd->bhqk", q, k.repeat_interleave(2, dim=1)) * 0.2
+        scores = scores.masked_fill(
+            ~torch.ones(29, 29, dtype=torch.bool).tril(), float("-inf"))
+        out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, -1),
+                           v.repeat_interleave(2, dim=1))
+        want = torch.autograd.grad(out, (q, k, v), do)
+        f32 = [t.detach().float() for t in (q, k, v)]
+        o, lse = flash_forward(*f32, causal=True, sm_scale=0.2)
+        got = flash_backward(*f32, o, lse, do.float(), causal=True,
+                             sm_scale=0.2)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w.float(), rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("case", ["o_shape", "do_dtype", "lse_dtype",
+                                      "lse_shape", "do_strided"])
+    def test_backward_rejects_what_the_kernels_do_not_take(self, case):
+        q, k, v = (torch.from_numpy(x) for x in _inputs(11, 1, 4, 2, 8,
+                                                         16))
+        o, lse = flash_forward(q, k, v, causal=True, sm_scale=0.25)
+        do = torch.ones_like(o)
+        if case == "o_shape":
+            o = o[:, :2].contiguous()
+        elif case == "do_dtype":
+            do = do.to(torch.bfloat16)
+        elif case == "lse_dtype":
+            lse = lse.double()
+        elif case == "lse_shape":
+            lse = lse[..., :4].contiguous()
+        elif case == "do_strided":
+            do = torch.ones(1, 4, 16, 8).transpose(2, 3)
+        with pytest.raises(ValueError):
+            flash_backward(q, k, v, o, lse, do, causal=True, sm_scale=0.25)
+
+    def test_kernel_launchers_take_only_cuda_tensors(self):
+        q, k, v = (torch.from_numpy(x) for x in _inputs(12, 1, 2, 2, 8,
+                                                         16))
+        lse = di = torch.zeros(1, 2, 8)
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention_bwd_dkv(q, k, v, q, lse, di, causal=True,
+                                    sm_scale=0.25)
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention_bwd_dq(q, k, v, q, lse, di, causal=True,
+                                   sm_scale=0.25)
 
     @pytest.mark.parametrize("case", [
         "dtype", "head_dim", "rank", "kv_heads", "contiguity", "mixed",

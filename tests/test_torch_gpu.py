@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernel against its plain version, on the card.
+"""The CUDA flash-attention kernels against their plain versions, on the
+card.
 
 Run on a machine with an NVIDIA H100:
 
@@ -13,7 +14,11 @@ import torch
 
 from tpu_operator_libs_torch.kernels.flash_attention import (
     flash_attention,
+    flash_attention_backward_reference,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
     flash_attention_reference,
+    flash_backward,
     flash_forward,
 )
 
@@ -53,3 +58,34 @@ def test_kernel_matches_plain_version(cuda, batch, heads, kv_heads, seq,
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
                                atol=atol)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("batch,heads,kv_heads,seq,dim,dtype", [
+    (16, 16, 16, 1024, 128, torch.bfloat16),  # llama-277M train step
+    (2, 8, 2, 1000, 64, torch.float32),       # GQA and a ragged tile
+], ids=["main_train_step_bf16", "c_gqa_ragged_f32"])
+def test_backward_kernels_match_plain_version(cuda, batch, heads, kv_heads,
+                                              seq, dim, dtype):
+    """dK/dV and dQ against flash_attention_backward_reference on the
+    forward kernel's out and lse; two launches give bit-equal results
+    (no atomics, a fixed order of every sum)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, do = (torch.randn((batch, h, seq, dim), generator=gen,
+                               device=cuda).to(dtype)
+                   for h in (heads, kv_heads, kv_heads, heads))
+    kw = {"causal": True, "sm_scale": dim ** -0.5}
+    out, lse = flash_forward(q, k, v, **kw)
+    before = (flash_attention_bwd_dkv.launches,
+              flash_attention_bwd_dq.launches)
+    got = flash_backward(q, k, v, out, lse, do, **kw)
+    again = flash_backward(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dkv.launches,
+            flash_attention_bwd_dq.launches) == (before[0] + 2,
+                                                 before[1] + 2)
+    want = flash_attention_backward_reference(q, k, v, out, lse, do, **kw)
+    rtol, atol = TOL[dtype]
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and torch.equal(g, a)
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=atol)

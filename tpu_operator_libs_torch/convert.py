@@ -1,8 +1,9 @@
-"""Carry JAX parameter pytrees across to the port.
+"""Carry JAX parameter pytrees and training states across to the port.
 
 The port keeps the JAX package's parameter layout (weights ``(in, out)``,
 applied as ``x @ W``), so conversion is a copy leaf by leaf. The tests
-use it so that both packages compute from the same weights.
+use it so that both packages compute from the same weights, and
+:func:`state_from_jax` lets the port continue a JAX training run.
 """
 
 from __future__ import annotations
@@ -44,3 +45,35 @@ def params_from_jax(tree, *, device=None, dtype=None):
         return tensor.to(device)
 
     return convert(tree)
+
+
+def _adam_state(node):
+    """The ``ScaleByAdamState`` (a namedtuple with count, mu and nu)
+    inside an optax state, found through the tuples that ``optax.chain``
+    nests it in."""
+    fields = getattr(node, "_fields", ())
+    if {"count", "mu", "nu"} <= set(fields):
+        return node
+    if isinstance(node, tuple):
+        for child in node:
+            found = _adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def state_from_jax(state, *, device=None):
+    """The port's training state ``{"params", "opt": {"count", "mu",
+    "nu"}, "step"}`` for a JAX one whose ``"opt"`` is the state of
+    ``optax.adamw`` or ``optax.adam``, alone or behind
+    ``clip_by_global_norm`` in an ``optax.chain``."""
+    adam = _adam_state(state["opt"])
+    if adam is None:
+        raise ValueError(
+            "no Adam state (count, mu, nu) in the optimizer state")
+    device = resolve_device(device)
+    return {"params": params_from_jax(state["params"], device=device),
+            "opt": {"count": _leaf_to_tensor(adam.count).to(device),
+                    "mu": params_from_jax(adam.mu, device=device),
+                    "nu": params_from_jax(adam.nu, device=device)},
+            "step": _leaf_to_tensor(state["step"]).to(device)}

@@ -27,44 +27,11 @@
 // are loaded synchronously rather than by TMA or cp.async into a ring of
 // stages, and at D = 128 each thread holds 232 registers (ptxas), so one
 // 256-thread block fills an SM and no second block hides its latency.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_attention_common.cuh"
 
 namespace {
-
-constexpr int kBlockM = 64;      // query rows per block
-constexpr int kBlockN = 64;      // keys per shared-memory tile
-constexpr int kRowThreads = 4;   // threads sharing one query row
-constexpr int kThreads = kBlockM * kRowThreads;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
 
 // q, o: (B, H, Sq, D); k, v: (B, Hkv, Sk, D); lse: (B, H, Sq) f32.
 // scale_log2 = sm_scale * log2(e): scores are kept in base-2 units so the
@@ -207,31 +174,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, Hkv, Sq, Sk,
-      causal, sm_scale * 1.4426950408889634f);
+      causal, sm_scale * kLog2e);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_head_dim(int D, const void* q, const void* k,
-                              const void* v, void* o, float* lse, int B,
-                              int H, int Hkv, int Sq, int Sk, int causal,
-                              float sm_scale, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal,
-                           sm_scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal,
-                           sm_scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal,
-                           sm_scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal,
-                            sm_scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -247,19 +191,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = dispatch_head_dim<float>(D, q, k, v, o, lse_f, B, H, Hkv, Sq, Sk,
-                                   causal, sm_scale, s);
-  } else if (dtype == 1) {
-    err = dispatch_head_dim<__nv_bfloat16>(D, q, k, v, o, lse_f, B, H, Hkv,
-                                           Sq, Sk, causal, sm_scale, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
+  const cudaError_t err = dispatch(dtype, D, [&](auto tag, auto dim) {
+    using T = typename decltype(tag)::type;
+    return launch<T, decltype(dim)::value>(q, k, v, o, lse_f, B, H, Hkv, Sq,
+                                           Sk, causal, sm_scale, s);
+  });
   return static_cast<int>(err);
-}
-
-extern "C" const char* flash_attention_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,27 +1,32 @@
-"""Llama-style decoder-only transformer, forward only, on one device.
+"""Llama-style decoder-only transformer on one device: forward and the
+training step.
 
 Mirrors ``tpu_operator_libs/examples/llama.py``: ``ATTENTION_IMPLS`` and
 ``LlamaConfig`` (copied), ``_rms_norm``, ``_rope``,
-``init_llama_params``, ``forward`` and ``next_token_loss``. RMSNorm ->
-causal self-attention with rotary embeddings and grouped-query KV heads
--> SwiGLU MLP, the Llama-3 block structure.
+``init_llama_params``, ``forward`` (with ``remat``), ``next_token_loss``,
+``config_for_mesh``, ``make_train_step`` and ``make_token_batch``.
+RMSNorm -> causal self-attention with rotary embeddings and grouped-query
+KV heads -> SwiGLU MLP, the Llama-3 block structure.
 
 Parameters are a nested dict of tensors in the JAX package's layout:
 weights are ``(in, out)`` and applied as ``x @ W``, so
 :func:`tpu_operator_libs_torch.convert.params_from_jax` is a plain copy.
 Tensor parallelism and meshes wait for a multi-GPU slice: the functions
-here take no ``mesh``, and the training step comes with the training
-slice.
+here take no ``mesh``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tpu_operator_libs_torch import resolve_device
+from tpu_operator_libs_torch.kernels.flash_attention import flash_attention
+from tpu_operator_libs_torch.optim import AdamW, value_and_grad
 
 #: Attention implementations forward() accepts; validate_for and
 #: forward both check against this single list so they cannot drift.
@@ -162,8 +167,7 @@ def init_llama_params(config: "LlamaConfig | None" = None,
 def forward(params, tokens, config: LlamaConfig):
     """Logits (B, S, vocab) for integer ``tokens`` (B, S), causal, on
     the device the parameters live on."""
-    batch, seq = tokens.shape
-    hd, nh, nkv = config.head_dim, config.n_heads, config.n_kv_heads
+    seq = tokens.shape[1]
     if config.attention_impl not in ATTENTION_IMPLS:
         raise ValueError(
             f"unknown attention_impl {config.attention_impl!r} "
@@ -173,46 +177,55 @@ def forward(params, tokens, config: LlamaConfig):
             "attention_impl='ring' (sequence parallelism) is not ported "
             "yet: see ROADMAP.md Queue 1, ring attention")
     use_flash = config.attention_impl == "flash"
-    if use_flash:
-        from tpu_operator_libs_torch.kernels.flash_attention import (
-            flash_attention,
-        )
-
     h = params["embed"][tokens.long()]
     # only the einsum path materializes a mask; flash masks in its kernel
     causal = (None if use_flash
               else torch.ones(seq, seq, dtype=torch.bool,
                               device=h.device).tril())
-    group = nh // nkv
     for layer in params["layers"]:
-        a = _rms_norm(h, layer["attn_norm"])
-        q = (a @ layer["wq"]).reshape(batch, seq, nh, hd)
-        k = (a @ layer["wk"]).reshape(batch, seq, nkv, hd)
-        v = (a @ layer["wv"]).reshape(batch, seq, nkv, hd)
-        q, k = _rope(q, config.rope_theta), _rope(k, config.rope_theta)
-        if use_flash:
-            # the kernel reads the nkv-head K/V natively (no repeat)
-            ctx = flash_attention(
-                q.transpose(1, 2).contiguous(),
-                k.transpose(1, 2).contiguous(),
-                v.transpose(1, 2).contiguous(),
-                causal=True, sm_scale=hd ** -0.5)
-            ctx = ctx.transpose(1, 2)
+        if config.remat:
+            # recompute the layer's activations on the backward pass; the
+            # saved boundary is the layer's input residual stream
+            h = checkpoint(_layer, h, layer, config, causal,
+                           use_reentrant=False)
         else:
-            k = k.repeat_interleave(group, dim=2)
-            v = v.repeat_interleave(group, dim=2)
-            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (hd ** -0.5)
-            scores = scores.float().masked_fill(~causal, -1e30)
-            attn = torch.softmax(scores, dim=-1).to(h.dtype)
-            ctx = torch.einsum("bhqk,bkhd->bqhd", attn, v)
-        h = h + ctx.reshape(batch, seq, nh * hd) @ layer["wo"]
-
-        m = _rms_norm(h, layer["mlp_norm"])
-        gated = F.silu(m @ layer["w_gate"]) * (m @ layer["w_up"])
-        h = h + gated @ layer["w_down"]
+            h = _layer(h, layer, config, causal)
 
     h = _rms_norm(h, params["final_norm"])
     return h @ params["lm_head"]
+
+
+def _layer(h, layer, config: LlamaConfig, causal):
+    """One decoder layer; ``causal`` is the einsum path's (S, S) mask, or
+    None for the flash kernel, which masks inside."""
+    batch, seq, _ = h.shape
+    hd, nh, nkv = config.head_dim, config.n_heads, config.n_kv_heads
+    a = _rms_norm(h, layer["attn_norm"])
+    q = (a @ layer["wq"]).reshape(batch, seq, nh, hd)
+    k = (a @ layer["wk"]).reshape(batch, seq, nkv, hd)
+    v = (a @ layer["wv"]).reshape(batch, seq, nkv, hd)
+    q, k = _rope(q, config.rope_theta), _rope(k, config.rope_theta)
+    if causal is None:
+        # the kernel reads the nkv-head K/V natively (no repeat)
+        ctx = flash_attention(
+            q.transpose(1, 2).contiguous(),
+            k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(),
+            causal=True, sm_scale=hd ** -0.5)
+        ctx = ctx.transpose(1, 2)
+    else:
+        group = nh // nkv
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (hd ** -0.5)
+        scores = scores.float().masked_fill(~causal, -1e30)
+        attn = torch.softmax(scores, dim=-1).to(h.dtype)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+    h = h + ctx.reshape(batch, seq, nh * hd) @ layer["wo"]
+
+    m = _rms_norm(h, layer["mlp_norm"])
+    gated = F.silu(m @ layer["w_gate"]) * (m @ layer["w_up"])
+    return h + gated @ layer["w_down"]
 
 
 def next_token_loss(params, tokens, config: LlamaConfig):
@@ -222,3 +235,80 @@ def next_token_loss(params, tokens, config: LlamaConfig):
     logp = torch.log_softmax(logits.float(), dim=-1)
     picked = torch.gather(logp, -1, targets[..., None])[..., 0]
     return -torch.mean(picked)
+
+
+def config_for_mesh(tp: int) -> LlamaConfig:
+    """The default config when it shards evenly over ``tp``, otherwise
+    a tp-derived shape that always does (the port runs tp = 1)."""
+    base = LlamaConfig()
+    try:
+        base.validate_for(tp)
+        return base
+    except ValueError:
+        return LlamaConfig(vocab=16 * tp, d_model=8 * tp,
+                           n_heads=tp, n_kv_heads=tp, d_ff=16 * tp,
+                           seq_len=base.seq_len)
+
+
+def make_train_step(config: LlamaConfig, *, device=None):
+    """(optimizer, step) where ``step(state, tokens) -> (state, loss)`` on
+    the state ``{"params", "opt", "step"}`` the checkpoint/resume loop
+    expects; ``optimizer.init(params)`` makes the ``"opt"`` entry. The
+    step is functional: it returns new tensors and leaves ``state`` as it
+    was, so a caller may keep an old state (the checkpoint check does).
+    Tokens are moved to ``device``, where the state must live."""
+    if config.total_steps < 0 or config.warmup_steps < 0:
+        raise ValueError(
+            f"total_steps={config.total_steps} / warmup_steps="
+            f"{config.warmup_steps} must be >= 0 (a negative horizon "
+            "would silently fall back to constant LR)")
+    if config.warmup_steps and config.total_steps <= 0:
+        raise ValueError(
+            f"warmup_steps={config.warmup_steps} requires "
+            "total_steps > 0 (the schedule horizon); total_steps=0 "
+            "means constant LR and would silently skip the warmup")
+    if 0 < config.total_steps <= config.warmup_steps:
+        raise ValueError(
+            f"warmup_steps={config.warmup_steps} must be < "
+            f"total_steps={config.total_steps} (cosine decay needs a "
+            "positive post-warmup horizon)")
+    if config.grad_clip_norm < 0.0:
+        raise ValueError(
+            f"grad_clip_norm must be >= 0, got {config.grad_clip_norm}")
+    device = resolve_device(device)
+    optimizer = AdamW(config.learning_rate, clip_norm=config.grad_clip_norm,
+                      warmup_steps=config.warmup_steps,
+                      total_steps=config.total_steps)
+
+    def train_step(state, tokens):
+        loss, grads = value_and_grad(next_token_loss, state["params"],
+                                     tokens.to(device), config)
+        params, opt = optimizer.update(grads, state["opt"],
+                                       state["params"])
+        return {"params": params, "opt": opt,
+                "step": state["step"] + 1}, loss
+
+    return optimizer, train_step
+
+
+def make_token_batch(step: int, config: LlamaConfig,
+                     batch_per_shard: int = 2, *, device=None, start=None):
+    """Deterministic synthetic sequences with learnable structure: the
+    affine orbit x_{t+1} = (7 x_t + 3) mod vocab from ``start`` (batch,)
+    (default: a CPU ``torch.Generator`` seeded ``7000 + step``), int32
+    (batch, seq_len) on ``device``."""
+    device = resolve_device(device)
+    if start is None:
+        gen = torch.Generator().manual_seed(7000 + step)
+        start = torch.randint(0, config.vocab, (batch_per_shard,),
+                              generator=gen)
+    x = torch.from_numpy(np.array(start, dtype=np.int64).reshape(-1))
+    if x.shape[0] != batch_per_shard:
+        raise ValueError(
+            f"start has {x.shape[0]} rows, batch_per_shard is "
+            f"{batch_per_shard}")
+    columns = []
+    for _ in range(config.seq_len):
+        columns.append(x)
+        x = (x * 7 + 3) % config.vocab
+    return torch.stack(columns, dim=1).to(device=device, dtype=torch.int32)

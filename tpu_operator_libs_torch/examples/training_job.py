@@ -1,0 +1,285 @@
+#!/usr/bin/env python3
+"""Resumable PyTorch training job: the workload the checkpoint gate
+protects.
+
+Mirrors ``tpu_operator_libs/examples/jax_training_job.py``: ``init_state``
+(MLP + Adam), ``make_batch``, ``make_checkpoint_manager``,
+``restore_state``, ``init_state_llama``, ``train`` and ``main``, on one
+device: ``make_mesh`` becomes device selection, and Orbax becomes
+:class:`CheckpointManager`, a small copy of Orbax's contract over
+``torch.distributed.checkpoint`` (DCP). During a rolling upgrade the
+operator parks a node until this job's newest checkpoint is durable
+(:class:`~tpu_operator_libs_torch.health.checkpoint_gate.CheckpointDurabilityGate`),
+evicts the pod, and a replacement resumes from that checkpoint: the
+worst-case loss is the steps since the last commit. Run it on the card:
+
+    python -m tpu_operator_libs_torch.examples.training_job \\
+        --checkpoint-dir ckpt --max-steps 200 --save-interval 20
+
+Kill it at any point and rerun: it continues from the last committed
+step.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import logging
+import os
+import shutil
+import signal
+import sys
+import warnings
+from typing import Optional
+
+import torch
+import torch.distributed.checkpoint as dcp
+
+from tpu_operator_libs_torch import resolve_device
+from tpu_operator_libs_torch.examples.llama import (
+    config_for_mesh,
+    init_llama_params,
+    make_token_batch,
+    make_train_step,
+)
+from tpu_operator_libs_torch.health.checkpoint_gate import committed_steps
+from tpu_operator_libs_torch.optim import AdamW, value_and_grad
+
+logger = logging.getLogger("torch-training-job")
+
+
+def init_state(device, d_in: int = 32, d_hidden: int = 16,
+               learning_rate: float = 1e-2):
+    """(state, apply_update) for the tiny regression MLP with Adam;
+    state is ``{"params", "opt", "step"}`` on ``device``."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(0)
+    params = {
+        "w1": (torch.randn((d_in, d_hidden), generator=gen) * 0.1).to(device),
+        "w2": (torch.randn((d_hidden, 1), generator=gen) * 0.1).to(device),
+    }
+    optimizer = AdamW(learning_rate, weight_decay=0.0)  # optax.adam
+    state = {"params": params, "opt": optimizer.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def loss_fn(params, batch_x, batch_y):
+        hidden = torch.tanh(batch_x @ params["w1"])
+        return torch.mean((hidden @ params["w2"] - batch_y) ** 2)
+
+    def apply_update(state, batch_x, batch_y):
+        loss, grads = value_and_grad(loss_fn, state["params"], batch_x,
+                                     batch_y)
+        params, opt = optimizer.update(grads, state["opt"], state["params"])
+        return {"params": params, "opt": opt,
+                "step": state["step"] + 1}, loss
+
+    return state, apply_update
+
+
+def make_batch(step: int, batch: int = 8, d_in: int = 32, *, device=None):
+    """Deterministic synthetic regression batch (a CPU generator seeded
+    ``1000 + step``, so every device sees the same numbers)."""
+    gen = torch.Generator().manual_seed(1000 + step)
+    x = torch.randn((batch, d_in), generator=gen)
+    y = torch.sum(x[:, :4], dim=1, keepdim=True)  # learnable target
+    device = resolve_device(device)
+    return x.to(device), y.to(device)
+
+
+@contextlib.contextmanager
+def _single_process():
+    """Silence DCP's notice that it runs in one process: one process is
+    this job's layout, asked for with ``no_dist=True``."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is "
+                                "disabled", category=UserWarning)
+        yield
+
+
+class CheckpointManager:
+    """Orbax ``CheckpointManager``'s contract over DCP: step ``n`` is
+    saved to ``<directory>/<n>/``; a save returns only once the step is
+    committed (DCP renames its ``.metadata`` into place last, which is
+    what the checkpoint gate reads); the oldest committed steps beyond
+    ``max_to_keep`` are removed after each save."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        if max_to_keep < 1:
+            raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def all_steps(self) -> "list[int]":
+        return committed_steps(self.directory)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state) -> None:
+        if step in self.all_steps():
+            raise ValueError(f"step {step} is already committed in "
+                             f"{self.directory}")
+        with _single_process():
+            dcp.save(state, checkpoint_id=os.path.join(self.directory,
+                                                       str(step)),
+                     no_dist=True)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.directory, str(old)))
+
+    def restore(self, step: int, state):
+        """Load step ``step`` into ``state``'s tensors, in place (they
+        give the shapes, dtypes and devices), and return ``state``."""
+        with _single_process():
+            dcp.load(state, checkpoint_id=os.path.join(self.directory,
+                                                       str(step)),
+                     no_dist=True)
+        return state
+
+
+def make_checkpoint_manager(checkpoint_dir: str,
+                            max_to_keep: int = 3) -> CheckpointManager:
+    return CheckpointManager(checkpoint_dir, max_to_keep=max_to_keep)
+
+
+def restore_state(manager: CheckpointManager, state):
+    """Resume from the newest committed step, or return ``state`` as-is.
+    Returns (state, start_step); restored tensors land on the devices of
+    ``state``'s."""
+    latest = manager.latest_step()
+    if latest is None:
+        return state, 0
+    manager.restore(latest, state)
+    logger.info("resumed from checkpoint step %d", latest)
+    return state, latest
+
+
+def init_state_llama(device, trainer_overrides=None):
+    """(state, step_fn, config) for the Llama-style decoder on one
+    device, with the MLP's state contract. ``trainer_overrides`` replaces
+    LlamaConfig fields (the schedule and clip knobs); a checkpoint must
+    resume with the same overrides."""
+    config = config_for_mesh(1)
+    if trainer_overrides:
+        config = dataclasses.replace(config, **trainer_overrides)
+    params = init_llama_params(config, device=device)
+    optimizer, step_fn = make_train_step(config, device=device)
+    state = {"params": params, "opt": optimizer.init(params),
+             "step": torch.zeros((), dtype=torch.int32,
+                                 device=resolve_device(device))}
+    return state, step_fn, config
+
+
+def train(checkpoint_dir: str, max_steps: int = 100,
+          save_interval: int = 10, device=None, stop_flag=None,
+          model: str = "mlp", trainer_overrides=None) -> dict:
+    """The training loop. Returns {"final_step", "start_step", "loss"}.
+
+    ``model`` picks the workload: "mlp" (tiny regression net) or "llama"
+    (the Llama-style decoder); ``trainer_overrides`` (llama only)
+    replaces LlamaConfig fields. Importable for tests; ``main`` adds
+    signal handling around it."""
+    if model not in ("mlp", "llama"):
+        raise ValueError(f"unknown model {model!r}")
+    if trainer_overrides and model != "llama":
+        raise ValueError(
+            "trainer_overrides (LR schedule / grad clip) apply to the "
+            "llama workload only")
+    device = resolve_device(device)
+    if model == "llama":
+        state, step_fn, config = init_state_llama(device, trainer_overrides)
+
+        def apply_update(state, x, y):
+            return step_fn(state, x)
+
+        def next_batch(step):
+            return make_token_batch(step, config, device=device), None
+    else:
+        state, apply_update = init_state(device)
+
+        def next_batch(step):
+            return make_batch(step, device=device)
+
+    manager = make_checkpoint_manager(checkpoint_dir)
+    state, start_step = restore_state(manager, state)
+    loss = None
+    step = start_step
+    for step in range(start_step, max_steps):
+        if stop_flag is not None and stop_flag():
+            logger.info("stop requested at step %d", step)
+            break
+        x, y = next_batch(step)
+        state, loss = apply_update(state, x, y)
+        done = step + 1
+        if done % save_interval == 0 or done == max_steps:
+            # blocking save: once save() returns the step is committed,
+            # which is exactly what the operator's gate checks for
+            manager.save(done, state)
+            logger.info("step %d: loss %.5f (checkpoint committed)", done,
+                        float(loss))
+        step = done
+    return {"final_step": step, "start_step": start_step,
+            "loss": None if loss is None else float(loss)}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--checkpoint-dir", required=True)
+    parser.add_argument("--max-steps", type=int, default=100)
+    parser.add_argument("--save-interval", type=int, default=10)
+    parser.add_argument("--n-devices", type=int, default=None,
+                        help="accepted for the reference job's command "
+                             "line; the port trains on one device (1)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the CUDA device)")
+    parser.add_argument("--model", choices=("mlp", "llama"),
+                        default="mlp",
+                        help="workload: tiny regression MLP or the "
+                             "Llama-style decoder")
+    parser.add_argument("--total-steps", type=int, default=0,
+                        help="llama: LR schedule horizon (warmup + "
+                             "cosine decay); 0 = constant LR")
+    parser.add_argument("--warmup-steps", type=int, default=0,
+                        help="llama: linear LR warmup steps")
+    parser.add_argument("--grad-clip-norm", type=float, default=0.0,
+                        help="llama: global-norm gradient clip; "
+                             "0 = off")
+    args = parser.parse_args(argv)
+    if args.n_devices not in (None, 1):
+        parser.error("--n-devices: the port trains on one device; tensor "
+                     "parallelism is not ported yet")
+    trainer_overrides = {
+        k: v for k, v in (("total_steps", args.total_steps),
+                          ("warmup_steps", args.warmup_steps),
+                          ("grad_clip_norm", args.grad_clip_norm))
+        if v} or None
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+
+    stop = {"flag": False}
+
+    def on_term(signum, _frame):
+        # an evicted pod gets SIGTERM: stop cleanly WITHOUT saving —
+        # durability must come from the periodic commits the operator's
+        # gate verified, not from a grace-period race
+        stop["flag"] = True
+        if signum == signal.SIGINT:
+            # keep the Ctrl-C escape hatch: a second SIGINT raises
+            # KeyboardInterrupt even while blocked inside a save
+            signal.signal(signal.SIGINT, signal.default_int_handler)
+
+    signal.signal(signal.SIGTERM, on_term)
+    signal.signal(signal.SIGINT, on_term)
+    result = train(args.checkpoint_dir, args.max_steps, args.save_interval,
+                   args.device, stop_flag=lambda: stop["flag"],
+                   model=args.model, trainer_overrides=trainer_overrides)
+    logger.info("exiting at step %d (started from %d)",
+                result["final_step"], result["start_step"])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

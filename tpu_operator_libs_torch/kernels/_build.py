@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file has a plain C interface. It is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/tpu_operator_libs_torch/`` at the
 root of the checkout and loaded with :mod:`ctypes`. The library name
-carries a hash of the source and the flags, so an edited source is
-rebuilt and a built one is reused within a checkout. Nothing here runs
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt and a built one is reused within a
+checkout. :func:`build_all` starts one ``nvcc`` per source at once. Nothing here runs
 when the module is imported, so the package imports on machines without
 ``nvcc``; only a kernel launch needs it.
 """
@@ -57,30 +58,46 @@ def nvcc_path() -> str:
     return found
 
 
-def build(source: str) -> BuiltLibrary:
-    """Compile ``csrc/<source>`` (once per process) and load it."""
+def _library_path(source: str) -> Path:
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(
+        (CSRC_DIR / source).read_bytes() + headers
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
+
+
+def build_all(sources) -> "list[BuiltLibrary]":
+    """Compile each ``csrc/<source>`` not yet built (once per process),
+    all ``nvcc`` runs in parallel, and load them, in the order given."""
     with _lock:
-        if source in _built:
-            return _built[source]
-        src = CSRC_DIR / source
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        out = BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
-        seconds, report = 0.0, ""
-        if not out.exists():
+        running = []
+        for source in dict.fromkeys(sources):
+            if source in _built:
+                continue
+            out = _library_path(source)
+            if out.exists():
+                _built[source] = BuiltLibrary(ctypes.CDLL(str(out)), out,
+                                              0.0, "")
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            start = time.perf_counter()
-            proc = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True, check=False)
+            proc = subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC_DIR / source)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            running.append((source, out, tmp, proc, time.perf_counter()))
+        failures = []
+        for source, out, tmp, proc, start in running:
+            _, stderr = proc.communicate()
             seconds = time.perf_counter() - start
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                    f"{proc.stderr}")
+                failures.append(f"nvcc failed on {CSRC_DIR / source} "
+                                f"(exit {proc.returncode}):\n{stderr}")
+                continue
             os.replace(tmp, out)
-            report = proc.stderr
-        built = BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, report)
-        _built[source] = built
-        return built
+            _built[source] = BuiltLibrary(ctypes.CDLL(str(out)), out,
+                                          seconds, stderr)
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        return [_built[source] for source in sources]

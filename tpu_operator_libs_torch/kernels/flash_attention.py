@@ -1,20 +1,25 @@
-"""Causal flash-attention forward: the CUDA port of the Pallas TPU kernel.
+"""Causal flash attention, forward and backward: the CUDA port of the
+Pallas TPU kernels.
 
-Mirrors the forward of ``jax.experimental.pallas.ops.tpu.flash_attention``
-(``_flash_attention_impl``: ``pl.pallas_call`` with the kernel
-``_flash_attention_kernel``), which
+Mirrors ``jax.experimental.pallas.ops.tpu.flash_attention``, which
 ``tpu_operator_libs/examples/llama.py::forward`` calls as
 ``flash_attention(q, k, v, causal=True, sm_scale=head_dim ** -0.5)`` on
-``(B, H, S, D)`` inputs. The kernel is ``csrc/flash_attention_fwd.cu``;
-its design note says what bounds it and what it leaves for later.
+``(B, H, S, D)`` inputs, with its ``custom_vjp``
+(``_flash_attention_fwd`` / ``_flash_attention_bwd``):
 
-:func:`flash_attention` takes the plain version
-(:func:`flash_attention_reference`) for tensors on the CPU and launches
-the kernel for tensors on a CUDA device. K/V may carry fewer heads than
-Q (grouped-query attention: kv head = h // (H // H_kv)); the Pallas
-call needs them repeated to H heads first, the kernel reads them as
-they are. The backward kernels (the Pallas ``_flash_attention_bwd_dkv``
-and ``_flash_attention_bwd_dq``) come with the training slice.
+- the forward (``_flash_attention_impl``, kernel
+  ``_flash_attention_kernel``) is ``csrc/flash_attention_fwd.cu``;
+- the backward's two kernels (``_flash_attention_bwd_dkv`` and
+  ``_flash_attention_bwd_dq``) are ``csrc/flash_attention_bwd.cu``.
+
+The sources' design notes say what bounds each kernel and what it leaves
+for later. :func:`flash_forward` and :func:`flash_backward` take the
+plain versions (:func:`flash_attention_reference`,
+:func:`flash_attention_backward_reference`) for tensors on the CPU and
+launch the kernels for tensors on a CUDA device. K/V may carry fewer
+heads than Q (grouped-query attention: kv head = h // (H // H_kv)); the
+Pallas calls need them repeated to H heads first, the kernels read them
+as they are and the dK/dV kernel sums each group's gradients itself.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import torch
 #: narrow widths the tests use.
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SOURCE = "flash_attention_fwd.cu"
+#: the CUDA sources under ``csrc/``, forward and backward
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu")
 
 
 def flash_attention_reference(q, k, v, *, causal: bool, sm_scale: float):
@@ -84,41 +90,65 @@ def _check_inputs(q, k, v) -> None:
         raise ValueError("sequence lengths must be >= 1")
 
 
-_lib = None
+_POINTER = ctypes.c_void_p
+_INT = ctypes.c_int
+#: C signature of each kernel entry point: pointers, then B, H, Hkv, Sq,
+#: Sk, D, dtype, causal, sm_scale and the stream
+_ENTRY_POINTS = {
+    "flash_attention_fwd.cu": {
+        "flash_attention_fwd": [_POINTER] * 5,
+    },
+    "flash_attention_bwd.cu": {
+        "flash_attention_bwd_dkv": [_POINTER] * 8,
+        "flash_attention_bwd_dq": [_POINTER] * 7,
+    },
+}
+_libs: "dict[str, ctypes.CDLL]" = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        from tpu_operator_libs_torch.kernels._build import build
+def _library(source: str):
+    if source not in _libs:
+        from tpu_operator_libs_torch.kernels._build import build_all
 
-        lib = build(_SOURCE).lib
-        lib.flash_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-            + [ctypes.c_float, ctypes.c_void_p])
-        lib.flash_attention_fwd.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        # the first launch builds every kernel source, in parallel
+        for name, built in zip(SOURCES, build_all(SOURCES)):
+            lib = built.lib
+            for fn_name, pointers in _ENTRY_POINTS[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = (pointers + [_INT] * 8
+                               + [ctypes.c_float, _POINTER])
+                fn.restype = _INT
+            err_fn = lib.flash_attention_error_string
+            err_fn.argtypes = [_INT]
+            err_fn.restype = ctypes.c_char_p
+            _libs[name] = lib
+    return _libs[source]
+
+
+def _call(source: str, fn_name: str, pointers, q, k, causal: bool,
+          sm_scale: float) -> None:
+    """Launch ``fn_name`` on q's device and current stream; raise if the
+    launch was refused."""
+    lib = _library(source)
+    batch, heads, sq, dim = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, fn_name)(
+            *(t.data_ptr() for t in pointers), batch, heads, k.shape[1],
+            sq, k.shape[2], dim, _DTYPE_CODES[q.dtype], int(causal),
+            float(sm_scale), stream)
+    if err != 0:
+        message = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"{fn_name} launch failed: {message} ({err})")
 
 
 def _launch(q, k, v, causal: bool, sm_scale: float):
-    lib = _library()
-    batch, heads, sq, dim = q.shape
+    batch, heads, sq, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((batch, heads, sq), dtype=torch.float32,
                       device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), batch, heads, k.shape[1], sq, k.shape[2], dim,
-            _DTYPE_CODES[q.dtype], int(causal), float(sm_scale), stream)
-    if err != 0:
-        raise RuntimeError(
-            "flash_attention_fwd launch failed: "
-            f"{lib.flash_attention_error_string(err).decode()} ({err})")
+    _call(SOURCES[0], "flash_attention_fwd", (q, k, v, out, lse), q, k,
+          causal, sm_scale)
     flash_attention.launches += 1
     return out, lse
 
@@ -135,33 +165,137 @@ def flash_forward(q, k, v, *, causal: bool, sm_scale: float):
     raise ValueError(f"unsupported device {q.device}")
 
 
+def flash_attention_backward_reference(q, k, v, o, lse, do, *,
+                                       causal: bool, sm_scale: float):
+    """Plain PyTorch version of the two backward kernels: (dq, dk, dv) in
+    the dtypes of q, k and v. The kernels' own algorithm, in float32:
+    P = exp(Q K^T * sm_scale - lse) recomputed from the saved lse,
+    dP = dO V^T, di = rowsum(O * dO), dS = P * (dP - di) * sm_scale, then
+    dQ = dS K, dK = dS^T Q and dV = P^T dO, with dK and dV summed over
+    each KV head's group of query heads."""
+    batch, heads, sq, dim = q.shape
+    kv_heads, sk = k.shape[1], k.shape[2]
+    group = heads // kv_heads
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+    if causal:
+        visible = torch.ones(sq, sk, dtype=torch.bool,
+                             device=q.device).tril()
+        scores = scores.masked_fill(~visible, float("-inf"))
+    probs = torch.exp(scores - lse[..., None])
+    del scores
+    dv = torch.einsum("bhqk,bhqd->bhkd", probs, dof)
+    dprobs = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    di = (o.float() * dof).sum(-1)
+    dscores = probs * (dprobs - di[..., None]) * sm_scale
+    del probs, dprobs
+    dq = torch.einsum("bhqk,bhkd->bhqd", dscores, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", dscores, qf)
+
+    def group_sum(x):
+        return x.reshape(batch, kv_heads, group, sk, dim).sum(2)
+
+    return dq.to(q.dtype), group_sum(dk).to(k.dtype), \
+        group_sum(dv).to(v.dtype)
+
+
+def _check_backward_inputs(q, k, v, o, lse, do) -> None:
+    _check_inputs(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if not isinstance(t, torch.Tensor) or t.shape != q.shape \
+                or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous tensor of q's shape, dtype "
+                "and device")
+    if not isinstance(lse, torch.Tensor) or lse.shape != q.shape[:3] \
+            or lse.dtype != torch.float32 or lse.device != q.device \
+            or not lse.is_contiguous():
+        raise ValueError(
+            "lse must be a contiguous float32 (B, H, Sq) tensor on q's "
+            "device")
+
+
+def _require_cuda(q) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"the backward kernels take CUDA tensors, got {q.device}; "
+            "flash_backward takes the plain version on the CPU")
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool,
+                            sm_scale: float):
+    """(dk, dv) from the dK/dV kernel, for CUDA tensors that
+    :func:`flash_backward` has checked; ``di`` is rowsum(O * dO) in
+    float32, (B, H, Sq)."""
+    _require_cuda(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _call(SOURCES[1], "flash_attention_bwd_dkv", (q, k, v, do, lse, di, dk,
+                                                  dv), q, k, causal, sm_scale)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool,
+                           sm_scale: float):
+    """dq from the dQ kernel, on the terms of
+    :func:`flash_attention_bwd_dkv`."""
+    _require_cuda(q)
+    dq = torch.empty_like(q)
+    _call(SOURCES[1], "flash_attention_bwd_dq", (q, k, v, do, lse, di, dq),
+          q, k, causal, sm_scale)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_backward(q, k, v, o, lse, do, *, causal: bool, sm_scale: float):
+    """(dq, dk, dv) for the forward's (out=o, lse) and the output
+    gradient ``do``: the kernels for CUDA tensors, the plain version for
+    CPU tensors."""
+    _check_backward_inputs(q, k, v, o, lse, do)
+    if q.device.type == "cuda":
+        # di outside the kernels, as the Pallas backward computes it
+        di = (o.float() * do.float()).sum(-1)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di,
+                                         causal=causal, sm_scale=sm_scale)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, di, causal=causal,
+                                    sm_scale=sm_scale)
+        return dq, dk, dv
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, o, lse, do, causal=causal, sm_scale=sm_scale)
+    raise ValueError(f"unsupported device {q.device}")
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        out, _ = flash_forward(q, k, v, causal=causal, sm_scale=sm_scale)
+        out, lse = flash_forward(q, k, v, causal=causal, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(_NO_BACKWARD)
-
-
-_NO_BACKWARD = (
-    "flash_attention has no backward yet: the dK/dV and dQ kernels come "
-    "with the training slice (ROADMAP.md Queue 2, kernel rows 2-3); call "
-    "it under torch.no_grad() or on tensors that do not require grad")
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse,
+                                    grad_out.contiguous(),
+                                    causal=ctx.causal,
+                                    sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, sm_scale: float):
     """Attention output (B, H, Sq, D) for q (B, H, Sq, D) and k, v
-    (B, H_kv, Sk, D), float32 or bfloat16, contiguous. Raises in grad
-    mode on inputs that require grad, before any work is done."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)
-            if isinstance(t, torch.Tensor)):
-        raise NotImplementedError(_NO_BACKWARD)
+    (B, H_kv, Sk, D), float32 or bfloat16, contiguous; differentiable
+    through the backward kernels."""
     return _FlashAttention.apply(q, k, v, causal, sm_scale)
 
 
 #: Kernel launches since the last reset (the plain CPU path adds none).
 flash_attention.launches = 0
+flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dq.launches = 0
