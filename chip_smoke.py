@@ -14,9 +14,12 @@ exits non-zero without printing a result. Phases:
    ``nvcc`` each, in parallel.
 3. kernel: the flash-attention forward kernel against its plain PyTorch
    version on the card at the train step's and the serving path's
-   shapes and three more.
+   shapes and four more (bf16 and f32, GQA and a ragged last tile), each
+   row naming the design it ran and timed beside
+   ``scaled_dot_product_attention`` on a pinned backend.
 3b. kernel_bwd: the dK/dV and dQ kernels against their plain version at
-   the train step's shape and two more, two launches bit-equal.
+   the train step's shape and three more, two launches bit-equal, timed
+   beside SDPA's backward alone.
 4-6. the serving path, with the launch counts set to 0 just before it:
    ``forward`` of llama-277M with ``attention_impl="flash"`` against
    ``"xla"``; the decode contract (stepwise cache == batch forward, host
@@ -54,6 +57,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
+from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
 from tpu_operator_libs_torch.examples.llama import (  # noqa: E402
     LlamaConfig,
@@ -93,6 +97,7 @@ from tpu_operator_libs_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd_dq,
     flash_attention_reference,
     flash_forward,
+    kernel_design,
 )
 from tpu_operator_libs_torch.optim import (  # noqa: E402
     tree_leaves,
@@ -125,6 +130,12 @@ KERNEL_TOL = {torch.bfloat16: (2.0 ** -7, 1e-3), torch.float32: (1e-5, 2e-5)}
 LSE_ATOL = 1e-4
 
 SEED = 0
+
+#: the yardstick's backend, pinned so that runs compare like with like:
+#: flash for bf16, memory-efficient for f32 (flash takes no f32)
+SDPA_BACKENDS = {torch.bfloat16: (SDPBackend.FLASH_ATTENTION, "flash"),
+                 torch.float32: (SDPBackend.EFFICIENT_ATTENTION,
+                                 "efficient")}
 
 
 def emit(obj) -> None:
@@ -189,29 +200,53 @@ def phase_device():
     return card
 
 
+#: each C++ kernel template's wrapper name and the dtype of its instances
+#: when the template takes none (the wgmma kernels are bf16 only)
+KERNEL_TEMPLATES = {
+    "flash_fwd_kernel": ("flash_attention_fwd", None),
+    "flash_fwd_wgmma_kernel": ("flash_attention_fwd", torch.bfloat16),
+    "flash_bwd_dkv_kernel": ("flash_attention_bwd_dkv", None),
+    "flash_bwd_dq_kernel": ("flash_attention_bwd_dq", None),
+    "flash_bwd_dq_wgmma_kernel": ("flash_attention_bwd_dq", torch.bfloat16),
+}
+
+
 def phase_build():
     """Build every kernel source at once (one nvcc each, in parallel)
-    and report ptxas' registers and spills per kernel instance."""
+    and report, per kernel instance, ptxas' registers, static shared
+    memory and spills, the dynamic shared memory a block takes and the
+    design the library runs for its (dtype, head_dim)."""
     start = time.perf_counter()
     built = _build.build_all(SOURCES)
     wall = time.perf_counter() - start
     for source, lib in zip(SOURCES, built):
         entries = []
         for block in lib.ptxas_report.split("Compiling entry function")[1:]:
-            name = re.search(
-                r"(flash_[a-z_]+_kernel)I(13__nv_bfloat16|f)Li(\d+)E", block)
+            # the template's name follows its length in the mangled name
+            name = re.search(r"\d(flash_[a-z]+(?:_[a-z]+)*?_kernel)I"
+                             r"(13__nv_bfloat16|f)?Li(\d+)E", block)
+            if name is None:
+                raise RuntimeError(f"unrecognised ptxas entry: {block[:200]}")
+            wrapper, fixed_dtype = KERNEL_TEMPLATES[name.group(1)]
+            dtype = fixed_dtype or (torch.bfloat16 if name.group(2) != "f"
+                                    else torch.float32)
+            head_dim = int(name.group(3))
             regs = re.search(r"Used (\d+) registers", block)
+            smem = re.search(r"(\d+) bytes smem", block)
             spill = re.search(r"(\d+) bytes spill stores", block)
+            design = kernel_design(wrapper, dtype, head_dim)
             entries.append({
-                "kernel": name.group(1) if name else None,
-                "dtype": ("bfloat16" if name and name.group(2) != "f"
-                          else "float32"),
-                "head_dim": int(name.group(3)) if name else None,
+                "kernel": name.group(1),
+                "dtype": str(dtype).replace("torch.", ""),
+                "head_dim": head_dim, "design": design["design"],
                 "registers": int(regs.group(1)) if regs else None,
-                "spill_store_bytes": int(spill.group(1)) if spill else 0})
+                "static_smem_bytes": int(smem.group(1)) if smem else 0,
+                "dynamic_smem_bytes": design["dynamic_smem_bytes"],
+                "spill_store_bytes": int(spill.group(1)) if spill else 0,
+                # ptxas serialises wgmma it cannot keep asynchronous
+                "wgmma_serialized": "serialized" in block})
         emit({"phase": "build", "source": source,
               "build_seconds": lib.build_seconds, "wall_seconds_all": wall,
-              "dynamic_smem_bytes_per_head_dim": "2*64*D*4",
               "ptxas": entries})
 
 
@@ -258,18 +293,21 @@ def check_kernel_shape(label, batch, heads, kv_heads, seq, dim, dtype,
     group = heads // kv_heads
     k_full = k.repeat_interleave(group, dim=1)
     v_full = v.repeat_interleave(group, dim=1)
-    library_ms = cuda_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k_full, v_full, is_causal=True, scale=scale), iters)
+    backend, backend_name = SDPA_BACKENDS[dtype]
+    with sdpa_kernel(backend):
+        library_ms = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k_full, v_full, is_causal=True, scale=scale), iters)
     bound_ms, bound_by = attention_bound_ms(batch, heads, kv_heads, seq,
                                             seq, dim, dtype)
     row = {"phase": "kernel", "name": "flash_attention_fwd",
            "shape": label, "B": batch, "H": heads, "H_kv": kv_heads,
            "S": seq, "D": dim, "dtype": str(dtype).replace("torch.", ""),
+           **kernel_design("flash_attention_fwd", dtype, dim),
            "max_abs_err": max_err, "rtol": rtol, "atol": atol,
            "limit_use": use, "lse_max_abs_err": lse_err,
            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms,
+           "library_ms": library_ms, "library": f"sdpa[{backend_name}]",
            "bound_ms": bound_ms, "bound_by": bound_by,
            "card": card}
     emit(row)
@@ -287,6 +325,8 @@ def phase_kernel(card):
         ("a", 8, 16, 16, 1024, 128, torch.bfloat16, 10),
         ("b", 1, 16, 16, 8192, 128, torch.bfloat16, 5),
         ("c", 2, 8, 2, 1000, 64, torch.float32, 20),
+        # GQA and a ragged last tile through the bf16 (wgmma) design
+        ("d", 2, 8, 2, 1000, 128, torch.bfloat16, 20),
     ]
     return [check_kernel_shape(*s[:7], card, s[7]) for s in shapes]
 
@@ -310,24 +350,21 @@ def backward_bound_ms(products, batch, heads, kv_heads, seq, dim, dtype,
 
 
 def sdpa_backward_ms(q, k, v, do, scale, iters):
-    """F.scaled_dot_product_attention's backward, as (forward + backward)
-    - forward, K/V repeated to q's heads: the library's dq, dk, dv."""
+    """F.scaled_dot_product_attention's backward alone, on its pinned
+    backend, K/V repeated to q's heads: one forward keeps its graph, then
+    each timed call is torch.autograd.grad of it (the library's dq, dk,
+    dv)."""
     group = q.shape[1] // k.shape[1]
     qg = q.detach().clone().requires_grad_()
     kg = k.repeat_interleave(group, dim=1).requires_grad_()
     vg = v.repeat_interleave(group, dim=1).requires_grad_()
-
-    def forward():
-        return torch.nn.functional.scaled_dot_product_attention(
+    with sdpa_kernel(SDPA_BACKENDS[q.dtype][0]):
+        out = torch.nn.functional.scaled_dot_product_attention(
             qg, kg, vg, is_causal=True, scale=scale)
-
-    def forward_backward():
-        torch.autograd.grad(forward(), (qg, kg, vg), do)
-
-    both = cuda_ms(forward_backward, iters)
-    with torch.no_grad():
-        fwd = cuda_ms(forward, iters)
-    return both - fwd
+        ms = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                 retain_graph=True), iters)
+    del out
+    return ms
 
 
 def check_backward_shape(label, batch, heads, kv_heads, seq, dim, dtype,
@@ -390,16 +427,19 @@ def check_backward_shape(label, batch, heads, kv_heads, seq, dim, dtype,
               "S": seq, "D": dim, "dtype": str(dtype).replace("torch.", ""),
               "rtol": rtol, "atol": atol, "plain_ms": plain_ms,
               "library_ms": library_ms,
+              "library": f"sdpa[{SDPA_BACKENDS[dtype][1]}] backward alone",
               "plain_and_library_cover": "dq, dk and dv together",
               "card": card}
     rows = [
         {"phase": "kernel_bwd", "name": "flash_attention_bwd_dkv", **common,
+         **kernel_design("flash_attention_bwd_dkv", dtype, dim),
          "max_abs_err": max(errors["dk"], errors["dv"]),
          "dk_max_abs_err": errors["dk"], "dv_max_abs_err": errors["dv"],
          "limit_use": max(use["dk"], use["dv"]),
          "bit_equal_launches": bit_equal["dkv"], "kernel_ms": dkv_ms,
          "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1]},
         {"phase": "kernel_bwd", "name": "flash_attention_bwd_dq", **common,
+         **kernel_design("flash_attention_bwd_dq", dtype, dim),
          "max_abs_err": errors["dq"], "limit_use": use["dq"],
          "bit_equal_launches": bit_equal["dq"], "kernel_ms": dq_ms,
          "bound_ms": dq_bound[0], "bound_by": dq_bound[1]},
@@ -417,6 +457,8 @@ def phase_kernel_bwd(card):
         ("main", 16, 16, 16, 1024, 128, torch.bfloat16, 5),
         ("b", 1, 16, 16, 8192, 128, torch.bfloat16, 3),
         ("c", 2, 8, 2, 1000, 64, torch.float32, 10),
+        # GQA and a ragged last tile through the bf16 (wgmma) dQ
+        ("d", 2, 8, 2, 1000, 128, torch.bfloat16, 10),
     ]
     rows = []
     for s in shapes:
@@ -846,10 +888,13 @@ def kernel_entry(name, source, replaces, launches, rows, shape, card):
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"], "shape": shape,
+        "library_ms": main_row["library_ms"],
+        "library": main_row["library"], "design": main_row["design"],
+        "shape": shape,
         "shapes": [{k: r[k] for k in ("shape", "B", "H", "H_kv", "S", "D",
-                                      "dtype", "max_abs_err", "kernel_ms",
-                                      "plain_ms", "library_ms", "bound_ms",
+                                      "dtype", "design", "max_abs_err",
+                                      "limit_use", "kernel_ms", "plain_ms",
+                                      "library", "library_ms", "bound_ms",
                                       "bound_by")} for r in rows],
         "card": card}
 

@@ -4,6 +4,7 @@ interpret mode, the wrappers' contract, and the rule that the port
 imports nothing of JAX."""
 
 import ast
+import math
 from pathlib import Path
 
 import jax  # noqa: F401  (imported before torch work: tests/conftest.py pins it to the CPU)
@@ -16,7 +17,7 @@ from jax.experimental.pallas.ops.tpu.flash_attention import (
     flash_attention as pallas_flash_attention,
 )
 
-from chip_smoke import KERNEL_TOL
+from chip_smoke import KERNEL_TOL, limit_use
 from tpu_operator_libs_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_backward_reference,
@@ -158,6 +159,160 @@ def test_backward_f32_limit_rejects_wrong_variants():
     a wide margin, so the limit lies between the two readings."""
     for name, (err, within) in wrong_variant_errors().items():
         assert not within and err > 100 * KERNEL_ATOL_F32, (name, err)
+
+
+#: what chip_smoke.py holds the bf16 kernels to on the card
+KERNEL_RTOL_BF16, KERNEL_ATOL_BF16 = KERNEL_TOL[torch.bfloat16]
+#: the bf16 (wgmma) kernels' key tile
+KEY_TILE = 64
+LOG2E = math.log2(math.e)
+
+
+def _second_product(a, b, how):
+    """a @ b for an f32 ``a`` as a wgmma kernel feeds it from registers:
+    "split" as hi + lo, two bf16 values each run through the product;
+    "round" rounded once to bf16, as the Pallas kernels do before P V and
+    dS K; "f32" as it is."""
+    if how == "f32":
+        return a @ b
+    hi = a.to(torch.bfloat16).float()
+    if how == "round":
+        return hi @ b
+    lo = (a - hi).to(torch.bfloat16).float()
+    return hi @ b + lo @ b
+
+
+def _kv_for_heads(x, heads, kv_head):
+    group = heads // x.shape[1]
+    idx = torch.arange(heads) // group if kv_head is None else kv_head
+    return x.float()[:, idx]
+
+
+def _visible(sq, sk, mask_shift):
+    return torch.arange(sk)[None] <= torch.arange(sq)[:, None] + mask_shift
+
+
+def tiled_forward(q, k, v, sm_scale, *, second="split", drop_alpha=False,
+                  mask_shift=0, kv_head=None):
+    """The bf16 wgmma forward's arithmetic: S in f32 in base-2 units, the
+    online softmax over 64-key tiles, P into P V by ``second``
+    (:func:`_second_product`), O normalised at the end. The faults a
+    tensor-core kernel can have: ``drop_alpha`` leaves O unrescaled when
+    the row max moves, ``mask_shift=1`` lets query i see key i + 1,
+    ``kv_head`` maps the query heads to other KV heads than h // group."""
+    heads, sq, sk = q.shape[1], q.shape[2], k.shape[2]
+    kf = _kv_for_heads(k, heads, kv_head)
+    vf = _kv_for_heads(v, heads, kv_head)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (sm_scale * LOG2E)
+    s = s.masked_fill(~_visible(sq, sk, mask_shift), float("-inf"))
+    m = torch.full(s.shape[:3], float("-inf"))
+    l = torch.zeros(s.shape[:3])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, sk, KEY_TILE):
+        tile = s[..., k0:k0 + KEY_TILE]
+        m_new = torch.maximum(m, tile.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(tile - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        if not drop_alpha:
+            acc = acc * alpha[..., None]
+        acc = acc + _second_product(p, vf[:, :, k0:k0 + KEY_TILE], second)
+        m = m_new
+    return (acc / l[..., None]).to(q.dtype)
+
+
+def tiled_dq(q, k, v, o, lse, do, sm_scale, *, second="split",
+             scaled=True, mask_shift=0, kv_head=None):
+    """The bf16 wgmma dQ's arithmetic: P = exp2(S * scale_log2 - lse *
+    log2e), dS = P * (dP - di) in f32, dS into dS K by ``second``, dQ
+    scaled by sm_scale at the end unless ``scaled`` is False (a fault);
+    ``mask_shift`` and ``kv_head`` as for :func:`tiled_forward`."""
+    heads, sq, sk = q.shape[1], q.shape[2], k.shape[2]
+    kf = _kv_for_heads(k, heads, kv_head)
+    vf = _kv_for_heads(v, heads, kv_head)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (sm_scale * LOG2E)
+    p = torch.exp2(s - lse[..., None] * LOG2E)
+    p = p.masked_fill(~_visible(sq, sk, mask_shift), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vf)
+    di = (o.float() * do.float()).sum(-1)
+    dq = _second_product(p * (dp - di[..., None]), kf, second)
+    return (dq * (sm_scale if scaled else 1.0)).to(q.dtype)
+
+
+def _bf16_limit_use(got, want):
+    """chip_smoke.py's limit_use under the bf16 limit."""
+    return limit_use((got.float() - want.float()).abs(), want,
+                     KERNEL_RTOL_BF16, KERNEL_ATOL_BF16)
+
+
+@pytest.fixture(scope="module", params=[64, 128], ids=["d64", "d128"])
+def shape_d(request):
+    """chip_smoke.py's bf16 shape (d), (2, 8 heads / 2 kv heads, 1000,
+    D): GQA and a ragged last key tile, with the plain versions'
+    out, lse and dq."""
+    dim = request.param
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _inputs(20 + dim, 2, 8, 2, 1000, dim))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(dim)
+                     ).to(torch.bfloat16)
+    kw = {"causal": True, "sm_scale": dim ** -0.5}
+    o, lse = flash_forward(q, k, v, **kw)
+    dq, _, _ = flash_attention_backward_reference(q, k, v, o, lse, do, **kw)
+    return {"q": q, "k": k, "v": v, "do": do, "o": o, "lse": lse, "dq": dq,
+            "sm_scale": kw["sm_scale"]}
+
+
+def test_bf16_kernels_arithmetic_holds_the_bf16_limit(shape_d):
+    """At shape (d), the wgmma kernels' arithmetic (64-key tiles, P and
+    dS as hi + lo bf16 into the second product) lies within the limit
+    chip_smoke.py holds the kernels to against the f32 plain versions."""
+    d = shape_d
+    out = tiled_forward(d["q"], d["k"], d["v"], d["sm_scale"])
+    dq = tiled_dq(d["q"], d["k"], d["v"], d["o"], d["lse"], d["do"],
+                  d["sm_scale"])
+    assert _bf16_limit_use(out, d["o"]) <= 1
+    assert _bf16_limit_use(dq, d["dq"]) <= 1
+
+
+def test_rounding_once_to_bf16_misses_the_bf16_limit(shape_d):
+    """Rounding P and dS once to bf16 before the second product, as the
+    Pallas kernels do, lies outside that limit at shape (d): the reason
+    the kernels carry them as hi + lo."""
+    d = shape_d
+    out = tiled_forward(d["q"], d["k"], d["v"], d["sm_scale"],
+                        second="round")
+    dq = tiled_dq(d["q"], d["k"], d["v"], d["o"], d["lse"], d["do"],
+                  d["sm_scale"], second="round")
+    assert _bf16_limit_use(out, d["o"]) > 1
+    assert _bf16_limit_use(dq, d["dq"]) > 1
+
+
+@pytest.mark.parametrize("fault", [
+    "fwd_alpha_dropped", "fwd_mask_shifted", "fwd_wrong_kv_head",
+    "dq_mask_shifted", "dq_wrong_kv_head", "dq_without_sm_scale",
+])
+def test_bf16_limit_rejects_tensor_core_faults(shape_d, fault):
+    """Each fault a tensor-core kernel can have lies beyond the bf16
+    limit by 10x or more at shape (d), so the limit catches it."""
+    d = shape_d
+    wrong_kv = torch.arange(8) % 2  # h % H_kv instead of h // group
+    args = (d["q"], d["k"], d["v"])
+    bwd_args = args + (d["o"], d["lse"], d["do"], d["sm_scale"])
+    got, want = {
+        "fwd_alpha_dropped": (lambda: tiled_forward(
+            *args, d["sm_scale"], drop_alpha=True), "o"),
+        "fwd_mask_shifted": (lambda: tiled_forward(
+            *args, d["sm_scale"], mask_shift=1), "o"),
+        "fwd_wrong_kv_head": (lambda: tiled_forward(
+            *args, d["sm_scale"], kv_head=wrong_kv), "o"),
+        "dq_mask_shifted": (lambda: tiled_dq(*bwd_args, mask_shift=1),
+                            "dq"),
+        "dq_wrong_kv_head": (lambda: tiled_dq(*bwd_args, kv_head=wrong_kv),
+                             "dq"),
+        "dq_without_sm_scale": (lambda: tiled_dq(*bwd_args, scaled=False),
+                                "dq"),
+    }[fault]
+    assert _bf16_limit_use(got(), d[want]) >= 10
 
 
 def test_lse_is_the_log_sum_exp_of_the_masked_scores():

@@ -41,7 +41,11 @@ def cuda():
 @pytest.mark.parametrize("batch,heads,kv_heads,seq,dim,dtype", [
     (8, 16, 16, 1024, 128, torch.bfloat16),   # llama-277M forward
     (2, 8, 2, 1000, 64, torch.float32),       # GQA and a ragged tile
-], ids=["a_full_width_bf16", "c_gqa_ragged_f32"])
+    # GQA and a ragged tile through the bf16 (wgmma) design
+    (2, 8, 2, 1000, 128, torch.bfloat16),
+    (2, 8, 2, 1000, 64, torch.bfloat16),
+], ids=["a_full_width_bf16", "c_gqa_ragged_f32", "d_gqa_ragged_bf16",
+        "d64_gqa_ragged_bf16"])
 def test_kernel_matches_plain_version(cuda, batch, heads, kv_heads, seq,
                                       dim, dtype):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -63,7 +67,11 @@ def test_kernel_matches_plain_version(cuda, batch, heads, kv_heads, seq,
 @pytest.mark.parametrize("batch,heads,kv_heads,seq,dim,dtype", [
     (16, 16, 16, 1024, 128, torch.bfloat16),  # llama-277M train step
     (2, 8, 2, 1000, 64, torch.float32),       # GQA and a ragged tile
-], ids=["main_train_step_bf16", "c_gqa_ragged_f32"])
+    # GQA and a ragged tile through the bf16 (wgmma) dQ
+    (2, 8, 2, 1000, 128, torch.bfloat16),
+    (2, 8, 2, 1000, 64, torch.bfloat16),
+], ids=["main_train_step_bf16", "c_gqa_ragged_f32", "d_gqa_ragged_bf16",
+        "d64_gqa_ragged_bf16"])
 def test_backward_kernels_match_plain_version(cuda, batch, heads, kv_heads,
                                               seq, dim, dtype):
     """dK/dV and dQ against flash_attention_backward_reference on the

@@ -21,32 +21,48 @@
 // TFLOP/s for bf16 inputs (67 TFLOP/s f32), against Q, K, V, dO, lse and di
 // read and the gradients written once at 3.35 TB/s: the FLOPs bound both.
 //
-// Design, simple first, on the forward's layout (flash_attention_common.cuh):
-// 256 threads, four per row, each row's vectors split in float4 chunks over
-// its four threads, dot products finished by an xor shuffle, f32 products on
-// the CUDA cores.
-// - dK/dV: one block per (64-key tile, KV head, batch). The block holds its
-//   keys' K and V rows and the dK and dV accumulators in registers and walks
-//   the query tiles from the diagonal down (tiles wholly above the diagonal
-//   are never loaded), staging Q, dO, lse and di in shared memory as f32
-//   (2 * 64 * D * 4 bytes, 64 KB at D = 128). It also walks the H / Hkv query
-//   heads of its KV head's group, so GQA's sum over the group happens in
-//   registers: no atomics, and K/V are read narrow (the Pallas call needs
-//   them repeated to H heads and a sum afterwards). Blocks of the first key
-//   tiles, which see the most queries, are scheduled first.
-// - dQ: one block per (64-query tile, head, batch), the forward's grid. The
-//   block holds its rows' Q, dO and dQ in registers, with lse and di, and
-//   walks the K/V tiles up to the diagonal, staged in shared memory as f32.
+// dK/dV, every dtype and D (flash_bwd_dkv_kernel), the scalar design on the
+// forward's layout (flash_attention_common.cuh): 256 threads, four per row,
+// each row's vectors split in float4 chunks over its four threads, dot
+// products finished by an xor shuffle, f32 products on the CUDA cores. One
+// block per (64-key tile, KV head, batch) holds its keys' K and V rows and
+// the dK and dV accumulators in registers and walks the query tiles from
+// the diagonal down (tiles wholly above the diagonal are never loaded),
+// staging Q, dO, lse and di in shared memory as f32 (2 * 64 * D * 4 bytes,
+// 64 KB at D = 128). It also walks the H / Hkv query heads of its KV head's
+// group, so GQA's sum over the group happens in registers: no atomics, and
+// K/V are read narrow (the Pallas call needs them repeated to H heads and a
+// sum afterwards). Blocks of the first key tiles, which see the most
+// queries, are scheduled first.
+//
+// dQ, two designs chosen by (dtype, head_dim) at compile time
+// (sm90::kTakesWgmma):
+// - bf16 at D = 64 and 128, flash_bwd_dq_wgmma_kernel: the wgmma forward's
+//   block (flash_attention_fwd.cu, flash_attention_sm90.cuh): 128 query
+//   rows as two consumer warpgroups and a producer warp that loads the Q
+//   and dO tiles once and the K/V tiles of 64 keys into a two-stage TMA
+//   ring. Per tile each warpgroup runs S = Q K^T and dP = dO V^T as wgmma
+//   from shared memory, recomputes P = exp2(S * scale_log2 - lse * log2e)
+//   and dS = P * (dP - di) in f32 on the fragments, and runs dQ += dS K as
+//   wgmma with dS from registers and K from shared memory (MN-major). dS is
+//   carried as two bf16 words, hi + lo, for the reason the forward carries
+//   P so; the Pallas kernel rounds it once (flash_attention.py:1258). dQ is
+//   scaled by sm_scale in the epilogue.
+// - f32 at every D, and bf16 at D = 16 and 32, flash_bwd_dq_kernel: the
+//   scalar design, one block per (64-query tile, head, batch) holding its
+//   rows' Q, dO and dQ in registers with lse and di, walking the K/V tiles
+//   up to the diagonal, staged in shared memory as f32.
 // Every sum runs in a fixed order and nothing is accumulated across blocks,
 // so two launches on the same inputs give bit-equal results.
-// What it leaves on the table: as in the forward, the products run as scalar
-// f32 FMAs, not on the tensor cores (mma.sync / wgmma would be ~15x the rate
-// for bf16), tiles are loaded synchronously rather than by TMA or cp.async,
-// and each Q / dO (dK/dV) or K / V (dQ) element is read from shared memory
-// twice per pair, once for a dot product and once for an update.
+// What it leaves on the table: dK/dV's products are still scalar f32 FMAs
+// on the CUDA cores, with tiles loaded synchronously and each Q / dO
+// element read from shared memory twice per pair (a dot, then an update);
+// the wgmma dQ waits on its S and dP products before the elementwise work
+// and runs the second product twice (hi and lo).
 #include <math.h>
 
 #include "flash_attention_common.cuh"
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -256,6 +272,200 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+namespace sm90 {
+
+// Dynamic shared memory of the wgmma dQ: the Q and dO tiles and kStages K
+// and V tiles, plus the 1024 bytes of alignment slack.
+template <int D>
+constexpr int dq_smem_bytes() {
+  return 2 * tile_bytes(kBlockM, D) + 2 * kStages * tile_bytes(kBlockN, D)
+         + 1024;
+}
+
+// The maps: q, dout (B*H, Sq, D) with boxes of kBlockM rows; k, v
+// (B*Hkv, Sk, D) with boxes of kBlockN rows. dq: (B, H, Sq, D) bf16;
+// lse, di: (B, H, Sq) f32.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ di,
+                          __nv_bfloat16* __restrict__ dq, int H, int Hkv,
+                          int Sq, int Sk, int causal, float scale_log2,
+                          float sm_scale) {
+  constexpr int kQBytes = tile_bytes(kBlockM, D);
+  constexpr int kKVBytes = tile_bytes(kBlockN, D);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align_1024(smem_raw);
+  uint8_t* do_s = q_s + kQBytes;
+  uint8_t* k_s = do_s + kQBytes;             // [kStages][kKVBytes]
+  uint8_t* v_s = k_s + kStages * kKVBytes;   // [kStages][kKVBytes]
+  __shared__ uint64_t q_full, full[kStages], empty[kStages];
+
+  const int tile = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int bh = b * H + h;
+  const int bh_kv = b * Hkv + h / (H / Hkv);
+  const int m0 = tile * kBlockM;
+  // Keys past the tile's last query row are masked for every row of it.
+  const int kv_end = causal ? min(Sk, m0 + kBlockM) : Sk;
+  const int n_tiles = (kv_end + kBlockN - 1) / kBlockN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp; lane 0 loads
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(&q_full, 2 * kQBytes);
+      tma_load_tile<D>(q_s, &q_map, &q_full, m0, kBlockM, bh);
+      tma_load_tile<D>(do_s, &do_map, &q_full, m0, kBlockM, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[s], (t / kStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * kKVBytes);
+        tma_load_tile<D>(k_s + s * kKVBytes, &k_map, &full[s],
+                         t * kBlockN, kBlockN, bh_kv);
+        tma_load_tile<D>(v_s + s * kKVBytes, &v_map, &full[s],
+                         t * kBlockN, kBlockN, bh_kv);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int wg_row0 = m0 + 64 * wg;  // the warpgroup's first query row
+  // this thread's two rows: row0 and row0 + 8
+  const int row0 = wg_row0 + 16 * (threadIdx.x % 128 / 32) + lane / 4;
+  const uint8_t* q_wg = q_s + 64 * wg * 128;
+  const uint8_t* do_wg = do_s + 64 * wg * 128;
+  const size_t q_base = static_cast<size_t>(bh) * Sq;
+
+  float lse2[2], di_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse2[r] = row < Sq ? lse[q_base + row] * kLog2e : 0.f;
+    di_row[r] = row < Sq ? di[q_base + row] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(&q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const int k0 = t * kBlockN;
+    mbar_wait(&full[s], (t / kStages) & 1);
+    if (causal && k0 > wg_row0 + 63) {  // no row of this warpgroup sees it
+      mbar_arrive(&empty[s]);
+      continue;
+    }
+    const uint8_t* k_t = k_s + s * kKVBytes;
+    const uint8_t* v_t = v_s + s * kKVBytes;
+
+    float sc[kBlockN / 2], dp[kBlockN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(sc, desc_k_major(q_wg, kBlockM, kk),
+               desc_k_major(k_t, kBlockN, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(dp, desc_k_major(do_wg, kBlockM, kk),
+               desc_k_major(v_t, kBlockN, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const bool masked = (causal && k0 + kBlockN - 1 > wg_row0)
+                        || k0 + kBlockN > Sk;
+    uint32_t ds_hi[kBlockN / 4], ds_lo[kBlockN / 4];
+#pragma unroll
+    for (int j = 0; j < kBlockN / 4; ++j) {
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * j + e;
+        const int r = frag_row(i);
+        bool visible = true;
+        if (masked) {
+          const int col = k0 + frag_col(i, lane);
+          visible = col < Sk && (!causal || col <= row0 + 8 * r);
+        }
+        const float p =
+            visible ? exp2f(fmaf(sc[i], scale_log2, -lse2[r])) : 0.f;
+        ds[e] = p * (dp[i] - di_row[r]);
+      }
+      split_bf16x2(ds[0], ds[1], ds_hi[j], ds_lo[j]);
+    }
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      const uint64_t k_desc = desc_mn_major(k_t, kBlockN, kk);
+      wgmma_rs(acc, ds_hi + 4 * kk, k_desc);
+      wgmma_rs(acc, ds_lo + 4 * kk, k_desc);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = row0 + 8 * frag_row(i);
+    if (row < Sq) {
+      *reinterpret_cast<__nv_bfloat162*>(
+          dq + (q_base + row) * D + frag_col(i, lane)) =
+          __floats2bfloat162_rn(acc[i] * sm_scale, acc[i + 1] * sm_scale);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* di,
+                      void* dq, int B, int H, int Hkv, int Sq, int Sk,
+                      int causal, float sm_scale, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map, do_map;
+  // A map cuTensorMapEncodeTiled refuses (an unaligned base) is an
+  // invalid value.
+  if (!encode_tile_map(&q_map, q, D, Sq, B * H, kBlockM)
+      || !encode_tile_map(&do_map, dout, D, Sq, B * H, kBlockM)
+      || !encode_tile_map(&k_map, k, D, Sk, B * Hkv, kBlockN)
+      || !encode_tile_map(&v_map, v, D, Sk, B * Hkv, kBlockN)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int smem = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + kBlockM - 1) / kBlockM, H, B);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q_map, k_map, v_map, do_map, lse, di, static_cast<__nv_bfloat16*>(dq),
+      H, Hkv, Sq, Sk, causal, sm_scale * kLog2e, sm_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+
 // Both kernels stage two 64-row tiles of f32 (64 KB at D = 128, above the
 // 48 KB default, hence the attribute).
 template <typename T, int D>
@@ -279,10 +489,11 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* di,
-                      void* dq, int B, int H, int Hkv, int Sq, int Sk,
-                      int causal, float sm_scale, cudaStream_t stream) {
+cudaError_t launch_dq_scalar(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* di, void* dq, int B, int H,
+                             int Hkv, int Sq, int Sk, int causal,
+                             float sm_scale, cudaStream_t stream) {
   const int smem = 2 * kBlockN * D * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -295,6 +506,21 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       static_cast<T*>(dq), H, Hkv, Sq, Sk, causal, sm_scale * kLog2e,
       sm_scale);
   return cudaGetLastError();
+}
+
+// The dQ design is fixed per (dtype, D) when the library is compiled.
+template <typename T, int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* di,
+                      void* dq, int B, int H, int Hkv, int Sq, int Sk,
+                      int causal, float sm_scale, cudaStream_t stream) {
+  if constexpr (sm90::kTakesWgmma<T, D>) {
+    return sm90::launch_dq<D>(q, k, v, dout, lse, di, dq, B, H, Hkv, Sq, Sk,
+                              causal, sm_scale, stream);
+  } else {
+    return launch_dq_scalar<T, D>(q, k, v, dout, lse, di, dq, B, H, Hkv, Sq,
+                                  Sk, causal, sm_scale, stream);
+  }
 }
 
 bool valid_shape(int B, int H, int Hkv, int Sq, int Sk) {
@@ -337,6 +563,37 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
         q, k, v, dout, static_cast<const float*>(lse),
         static_cast<const float*>(di), dq, B, H, Hkv, Sq, Sk, causal,
         sm_scale, static_cast<cudaStream_t>(stream));
+  });
+  return static_cast<int>(err);
+}
+
+// The design the (dtype, D) instance of each kernel takes (1 = sm90 wgmma,
+// 0 = scalar) and its dynamic shared memory in bytes; a cudaError_t for an
+// instance that is not built.
+extern "C" int flash_attention_bwd_dkv_design(int D, int dtype, int* design,
+                                              int* smem_bytes) {
+  const cudaError_t err = dispatch(dtype, D, [&](auto, auto dim) {
+    *design = 0;
+    *smem_bytes = 2 * kBlockM * decltype(dim)::value
+                  * static_cast<int>(sizeof(float));
+    return cudaSuccess;
+  });
+  return static_cast<int>(err);
+}
+
+extern "C" int flash_attention_bwd_dq_design(int D, int dtype, int* design,
+                                             int* smem_bytes) {
+  const cudaError_t err = dispatch(dtype, D, [&](auto tag, auto dim) {
+    using T = typename decltype(tag)::type;
+    constexpr int kD = decltype(dim)::value;
+    if constexpr (sm90::kTakesWgmma<T, kD>) {
+      *design = 1;
+      *smem_bytes = sm90::dq_smem_bytes<kD>();
+    } else {
+      *design = 0;
+      *smem_bytes = 2 * kBlockN * kD * static_cast<int>(sizeof(float));
+    }
+    return cudaSuccess;
   });
   return static_cast<int>(err);
 }

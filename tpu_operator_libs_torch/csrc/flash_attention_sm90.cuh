@@ -1,0 +1,314 @@
+// Hopper building blocks of the bf16 flash-attention forward
+// (flash_attention_fwd.cu) and dQ (flash_attention_bwd.cu) kernels: TMA
+// tensor maps for 128-byte-swizzled bf16 tiles, mbarriers for a ring of
+// K/V stages, wgmma shared-memory descriptors and instructions, and the
+// accumulator fragment layout the softmax reads. sm_90a only.
+//
+// Block shape: 128 query rows as two consumer warpgroups of 64 rows, plus
+// one producer warp whose lane 0 issues every TMA load. K/V tiles of 64
+// keys pass through a ring of kStages stages, each with a "full" barrier
+// (the TMA bytes have landed) and an "empty" barrier (all 256 consumer
+// threads are done with it).
+//
+// Shared-memory tile layout: a (rows x D) bf16 tile is D / 64 boxes of
+// (rows x 64 columns), one after the other; box c holds columns
+// [64c, 64c + 64) as rows of 128 bytes, swizzled by TMA's 128-byte pattern
+// (the 16-byte chunk index XOR the row index mod 8), which is the layout
+// wgmma's 128-byte-swizzle descriptors read. Every tile starts on a
+// 1024-byte boundary, so the pattern lines up.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+namespace sm90 {
+
+constexpr int kBlockM = 128;  // query rows per block
+constexpr int kBlockN = 64;   // key rows per K/V tile
+constexpr int kStages = 2;    // K/V tiles in flight
+constexpr int kConsumers = 256;  // two warpgroups
+constexpr int kThreads = kConsumers + 32;  // + the producer warp
+constexpr int kBoxCols = 64;  // bf16 columns in one 128-byte swizzled row
+
+// bf16 at D = 64 and 128 takes this design; f32, and bf16 at D = 16 and
+// 32, keep the scalar kernels (flash_attention_common.cuh). TF32 products
+// would not hold the f32 kernels to their 2e-5 limit.
+template <typename T, int D>
+constexpr bool kTakesWgmma =
+    std::is_same<T, __nv_bfloat16>::value && (D == 64 || D == 128);
+
+// Bytes of a (rows x D) bf16 tile.
+__host__ __device__ constexpr int tile_bytes(int rows, int D) {
+  return rows * D * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory rounded up to a 1024-byte boundary; the
+// launch asks for 1024 bytes more than the tiles take.
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// ---- mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// Makes the initialised barriers visible to the TMA unit and the other
+// threads (followed by __syncthreads).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Arrive and expect `bytes` more of TMA traffic before the phase ends.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+// ---- TMA
+
+// One box (64 columns x the map's box rows) at (column c0, row c1, plane
+// c2) of a 3-D map into shared memory; completion counts on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Rows [row0, row0 + rows) of plane `plane` (all D columns) into a tile.
+template <int D>
+__device__ __forceinline__ void tma_load_tile(uint8_t* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int row0,
+                                              int rows, int plane) {
+#pragma unroll
+  for (int c = 0; c < D / kBoxCols; ++c) {
+    tma_load(dst + c * rows * 128, map, bar, c * kBoxCols, row0, plane);
+  }
+}
+
+// ---- wgmma descriptors
+
+__device__ __forceinline__ uint64_t desc_sw128(const uint8_t* p,
+                                               uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16
+         | static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32
+         | 1ull << 62;  // 128-byte swizzle
+}
+
+// K-major operand: the 64 rows from `tile` (a tile of `rows` rows, or a
+// warpgroup's 64 rows inside one), columns [16 kk, 16 kk + 16). 8-row
+// groups lie 1024 bytes apart; a K step of 16 columns is 32 bytes within a
+// box, and box kk / 4 holds it.
+__device__ __forceinline__ uint64_t desc_k_major(const uint8_t* tile,
+                                                 int rows, int kk) {
+  return desc_sw128(tile + (kk / 4) * rows * 128 + (kk % 4) * 32, 16, 1024);
+}
+
+// MN-major operand (B of O += P V and dQ += dS K): rows [16 kk, 16 kk + 16)
+// of a tile of `rows` rows are the K dimension, its D columns the N
+// dimension. 8-row groups lie 1024 bytes apart (stride offset); the next
+// 64 columns lie a box further (leading offset).
+__device__ __forceinline__ uint64_t desc_mn_major(const uint8_t* tile,
+                                                  int rows, int kk) {
+  return desc_sw128(tile + kk * 16 * 128, rows * 128, 1024);
+}
+
+// ---- wgmma
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins the registers in place around the asynchronous wgmma, so that the
+// compiler neither reads them before the wait nor moves writes past it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// d = A B^T (scale_d = 0) or d += A B^T (scale_d = 1), A (64 x 16) and
+// B (64 x 16) both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d += A B, A (64 x 16) in registers, B (16 x 64) MN-major in shared
+// memory (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d += A B, A (64 x 16) in registers, B (16 x 128) MN-major in shared
+// memory (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---- accumulator fragments
+//
+// A warpgroup's m64nN f32 accumulator: thread t (0..127) of warp w = t / 32
+// holds d[i], i < N / 2, at row 16 w + (t % 32) / 4 + 8 ((i / 2) % 2) and
+// column 8 (i / 4) + 2 (t % 4) + i % 2. A thread's values lie in two rows
+// (frag_row 0 and 1), shared with the three other threads of its quad.
+
+__device__ __forceinline__ int frag_row(int i) { return (i >> 1) & 1; }
+
+__device__ __forceinline__ int frag_col(int i, int lane) {
+  return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+}
+
+// The row's max or sum over the quad that shares it.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// (a, b) as two bf16x2 words hi + lo with a ~= hi.x + lo.x: the second
+// product runs once on each, so P and dS keep ~16 bits rather than bf16's
+// 8 (rounding them once to bf16 puts the kernels outside their limit
+// against the f32 plain versions; tests/test_torch_flash_attention.py).
+// The packed order is that of the A fragment of an m64k16 wgmma: the
+// accumulator of a 64 x 64 product, words 4 kk .. 4 kk + 3, is the A
+// operand of K step kk.
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// ---- host: tensor maps
+
+// A (planes, rows, D) contiguous bf16 tensor as a 3-D TMA map with boxes
+// of (64 columns, box_rows rows, 1 plane), 128-byte swizzle. Rows past
+// `rows` read as zeros and never reach the next plane. False if
+// cuTensorMapEncodeTiled refuses the map (e.g. a base not 16-byte aligned).
+inline bool encode_tile_map(CUtensorMap* map, const void* base, int D,
+                            int rows, int planes, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {kBoxCols, static_cast<cuuint32_t>(box_rows),
+                             1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(base), dims, strides, box, elem_strides,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace sm90
+}  // namespace

@@ -2,12 +2,13 @@
 
 Each ``csrc/*.cu`` file has a plain C interface. It is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/tpu_operator_libs_torch/`` at the
-root of the checkout and loaded with :mod:`ctypes`. The library name
-carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
-flags, so an edited source is rebuilt and a built one is reused within a
-checkout. :func:`build_all` starts one ``nvcc`` per source at once. Nothing here runs
-when the module is imported, so the package imports on machines without
-``nvcc``; only a kernel launch needs it.
+root of the checkout, linked against ``libcuda`` (``-lcuda``), and
+loaded with :mod:`ctypes`. The library name carries a hash of the source,
+the shared headers (``csrc/*.cuh``), the flags and the libraries, so an
+edited source is rebuilt and a built one is reused within a checkout.
+:func:`build_all` starts one ``nvcc`` per source at once. Nothing here
+runs when the module is imported, so the package imports on machines
+without ``nvcc``; only a kernel launch needs it.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" \
     / "tpu_operator_libs_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: after the source, so the linker keeps them: libcuda, for
+#: cuTensorMapEncodeTiled (TMA tensor maps)
+NVCC_LIBS = ("-lcuda",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +67,7 @@ def _library_path(source: str) -> Path:
                        for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
         (CSRC_DIR / source).read_bytes() + headers
-        + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        + " ".join(NVCC_FLAGS + NVCC_LIBS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
 
 
@@ -84,7 +88,7 @@ def build_all(sources) -> "list[BuiltLibrary]":
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             proc = subprocess.Popen(
                 [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                 str(CSRC_DIR / source)],
+                 str(CSRC_DIR / source), *NVCC_LIBS],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             running.append((source, out, tmp, proc, time.perf_counter()))
         failures = []

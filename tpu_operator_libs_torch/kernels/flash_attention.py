@@ -12,6 +12,19 @@ Mirrors ``jax.experimental.pallas.ops.tpu.flash_attention``, which
 - the backward's two kernels (``_flash_attention_bwd_dkv`` and
   ``_flash_attention_bwd_dq``) are ``csrc/flash_attention_bwd.cu``.
 
+Which design each launch runs is fixed by (dtype, head_dim) when the
+library is compiled (``sm90::kTakesWgmma`` in
+``csrc/flash_attention_sm90.cuh``; :func:`kernel_design` asks the built
+library):
+
+- bfloat16 at head_dim 64 and 128 (the model's): the forward and dQ are
+  the Hopper design, products on the tensor cores (``wgmma``) over Q, K,
+  V and dO tiles that TMA stages in a ring of shared-memory buffers;
+- float32 at every head_dim, and bfloat16 at 16 and 32: the forward and
+  dQ are the scalar design, f32 FMAs on the CUDA cores, which keeps the
+  f32 kernels within 2e-5 of the plain version;
+- dK/dV is the scalar design for every dtype and head_dim.
+
 The sources' design notes say what bounds each kernel and what it leaves
 for later. :func:`flash_forward` and :func:`flash_backward` take the
 plain versions (:func:`flash_attention_reference`,
@@ -93,7 +106,8 @@ def _check_inputs(q, k, v) -> None:
 _POINTER = ctypes.c_void_p
 _INT = ctypes.c_int
 #: C signature of each kernel entry point: pointers, then B, H, Hkv, Sq,
-#: Sk, D, dtype, causal, sm_scale and the stream
+#: Sk, D, dtype, causal, sm_scale and the stream; each has a
+#: ``<entry point>_design`` query beside it (:func:`kernel_design`)
 _ENTRY_POINTS = {
     "flash_attention_fwd.cu": {
         "flash_attention_fwd": [_POINTER] * 5,
@@ -118,6 +132,10 @@ def _library(source: str):
                 fn.argtypes = (pointers + [_INT] * 8
                                + [ctypes.c_float, _POINTER])
                 fn.restype = _INT
+                # (D, dtype, *design, *smem_bytes), see kernel_design
+                query = getattr(lib, f"{fn_name}_design")
+                query.argtypes = [_INT, _INT] + [ctypes.POINTER(_INT)] * 2
+                query.restype = _INT
             err_fn = lib.flash_attention_error_string
             err_fn.argtypes = [_INT]
             err_fn.restype = ctypes.c_char_p
@@ -140,6 +158,29 @@ def _call(source: str, fn_name: str, pointers, q, k, causal: bool,
     if err != 0:
         message = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"{fn_name} launch failed: {message} ({err})")
+
+
+#: what :func:`kernel_design` reports for each design code
+DESIGNS = {0: "scalar", 1: "sm90 wgmma"}
+
+
+def kernel_design(name: str, dtype: torch.dtype, head_dim: int) -> dict:
+    """The design the built library runs for the entry point ``name``
+    (e.g. ``"flash_attention_bwd_dq"``) at (dtype, head_dim) and the
+    dynamic shared memory a block takes; builds the libraries first if
+    needed (so it needs ``nvcc``)."""
+    source = next(src for src, fns in _ENTRY_POINTS.items() if name in fns)
+    lib = _library(source)
+    design, smem = _INT(), _INT()
+    err = getattr(lib, f"{name}_design")(
+        head_dim, _DTYPE_CODES[dtype], ctypes.byref(design),
+        ctypes.byref(smem))
+    if err != 0:
+        message = lib.flash_attention_error_string(err).decode()
+        raise ValueError(f"{name} has no instance for {dtype}, head_dim "
+                         f"{head_dim}: {message}")
+    return {"design": DESIGNS[design.value],
+            "dynamic_smem_bytes": smem.value}
 
 
 def _launch(q, k, v, causal: bool, sm_scale: float):
