@@ -18,8 +18,9 @@ exits non-zero without printing a result. Phases:
    row naming the design it ran and timed beside
    ``scaled_dot_product_attention`` on a pinned backend.
 3b. kernel_bwd: the dK/dV and dQ kernels against their plain version at
-   the train step's shape and three more, two launches bit-equal, timed
-   beside SDPA's backward alone.
+   the train step's shape and four more (an odd length among them), two
+   launches bit-equal, each row naming the design it ran, timed beside
+   SDPA's backward alone.
 4-6. the serving path, with the launch counts set to 0 just before it:
    ``forward`` of llama-277M with ``attention_impl="flash"`` against
    ``"xla"``; the decode contract (stepwise cache == batch forward, host
@@ -206,6 +207,8 @@ KERNEL_TEMPLATES = {
     "flash_fwd_kernel": ("flash_attention_fwd", None),
     "flash_fwd_wgmma_kernel": ("flash_attention_fwd", torch.bfloat16),
     "flash_bwd_dkv_kernel": ("flash_attention_bwd_dkv", None),
+    "flash_bwd_dkv_wgmma_kernel": ("flash_attention_bwd_dkv",
+                                   torch.bfloat16),
     "flash_bwd_dq_kernel": ("flash_attention_bwd_dq", None),
     "flash_bwd_dq_wgmma_kernel": ("flash_attention_bwd_dq", torch.bfloat16),
 }
@@ -457,8 +460,11 @@ def phase_kernel_bwd(card):
         ("main", 16, 16, 16, 1024, 128, torch.bfloat16, 5),
         ("b", 1, 16, 16, 8192, 128, torch.bfloat16, 3),
         ("c", 2, 8, 2, 1000, 64, torch.float32, 10),
-        # GQA and a ragged last tile through the bf16 (wgmma) dQ
+        # GQA and a ragged last tile through the bf16 (wgmma) kernels
         ("d", 2, 8, 2, 1000, 128, torch.bfloat16, 10),
+        # an odd length: lse and di rows that no 16-byte TMA row could
+        # carry, a ragged 64-query and 128-key tile
+        ("odd", 2, 8, 2, 997, 128, torch.bfloat16, 10),
     ]
     rows = []
     for s in shapes:

@@ -239,6 +239,52 @@ def tiled_dq(q, k, v, o, lse, do, sm_scale, *, second="split",
     return (dq * (sm_scale if scaled else 1.0)).to(q.dtype)
 
 
+#: the bf16 (wgmma) dK/dV's query tile
+QUERY_TILE = 64
+
+
+def tiled_dkv(q, k, v, o, lse, do, sm_scale, *, second="split",
+              scaled=True, mask_shift=0, kv_head=None, group_sum=True,
+              dv_from_ds=False, lse_by_row=False):
+    """The bf16 wgmma dK/dV's arithmetic, transposed (keys as rows):
+    S^T = K Q^T, P^T = exp2(S^T * scale_log2 - lse * log2e) with lse read
+    by column (the query), dS^T = P^T * (dP^T - di) in f32; then
+    dV += P^T dO and dK += dS^T Q over 64-query tiles, P^T and dS^T into
+    the products by ``second`` (:func:`_second_product`); dK scaled by
+    sm_scale at the end and both summed over each KV head's group. The
+    faults a tensor-core kernel can have: ``scaled=False`` leaves dK
+    unscaled, ``group_sum=False`` keeps only the group's last query head
+    (accumulators reset per head), ``dv_from_ds`` feeds dS^T to dV's
+    product for P^T, ``lse_by_row`` reads lse by the fragment's row (the
+    key) instead of its column; ``mask_shift`` and ``kv_head`` as for
+    :func:`tiled_forward`."""
+    batch, heads, sq, dim = q.shape
+    kv_heads, sk = k.shape[1], k.shape[2]
+    group = heads // kv_heads
+    kf = _kv_for_heads(k, heads, kv_head)
+    vf = _kv_for_heads(v, heads, kv_head)
+    st = torch.einsum("bhkd,bhqd->bhkq", kf, q.float()) * (sm_scale * LOG2E)
+    lse_t = lse[..., :sk, None] if lse_by_row else lse[:, :, None]
+    pt = torch.exp2(st - lse_t * LOG2E)
+    pt = pt.masked_fill(~_visible(sq, sk, mask_shift).T, 0.0)
+    dpt = torch.einsum("bhkd,bhqd->bhkq", vf, do.float())
+    di = (o.float() * do.float()).sum(-1)
+    dst = pt * (dpt - di[:, :, None])
+    dk = torch.zeros(batch, heads, sk, dim)
+    dv = torch.zeros(batch, heads, sk, dim)
+    for q0 in range(0, sq, QUERY_TILE):
+        cols = slice(q0, q0 + QUERY_TILE)
+        dv += _second_product((dst if dv_from_ds else pt)[..., cols],
+                              do.float()[:, :, cols], second)
+        dk += _second_product(dst[..., cols], q.float()[:, :, cols], second)
+    dk = dk.reshape(batch, kv_heads, group, sk, dim)
+    dv = dv.reshape(batch, kv_heads, group, sk, dim)
+    dk, dv = (dk.sum(2), dv.sum(2)) if group_sum else (dk[:, :, -1],
+                                                       dv[:, :, -1])
+    return ((dk * (sm_scale if scaled else 1.0)).to(k.dtype),
+            dv.to(v.dtype))
+
+
 def _bf16_limit_use(got, want):
     """chip_smoke.py's limit_use under the bf16 limit."""
     return limit_use((got.float() - want.float()).abs(), want,
@@ -257,9 +303,10 @@ def shape_d(request):
                      ).to(torch.bfloat16)
     kw = {"causal": True, "sm_scale": dim ** -0.5}
     o, lse = flash_forward(q, k, v, **kw)
-    dq, _, _ = flash_attention_backward_reference(q, k, v, o, lse, do, **kw)
+    dq, dk, dv = flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                    **kw)
     return {"q": q, "k": k, "v": v, "do": do, "o": o, "lse": lse, "dq": dq,
-            "sm_scale": kw["sm_scale"]}
+            "dk": dk, "dv": dv, "sm_scale": kw["sm_scale"]}
 
 
 def test_bf16_kernels_arithmetic_holds_the_bf16_limit(shape_d):
@@ -313,6 +360,47 @@ def test_bf16_limit_rejects_tensor_core_faults(shape_d, fault):
                                 "dq"),
     }[fault]
     assert _bf16_limit_use(got(), d[want]) >= 10
+
+
+def _dkv_args(d):
+    return (d["q"], d["k"], d["v"], d["o"], d["lse"], d["do"],
+            d["sm_scale"])
+
+
+def test_dkv_arithmetic_holds_the_bf16_limit(shape_d):
+    """At shape (d), the wgmma dK/dV's arithmetic (transposed products,
+    64-query tiles, P^T and dS^T as hi + lo bf16) lies within the bf16
+    limit for dK and dV (0.78-0.80 and 0.59-0.66 in PERF.md)."""
+    dk, dv = tiled_dkv(*_dkv_args(shape_d))
+    assert _bf16_limit_use(dk, shape_d["dk"]) <= 1
+    assert _bf16_limit_use(dv, shape_d["dv"]) <= 1
+
+
+def test_dkv_rounding_once_to_bf16_misses_the_bf16_limit(shape_d):
+    """Rounding P^T and dS^T once to bf16, as the Pallas dK/dV kernel does
+    (flash_attention.py:900, :918), lies outside the limit for both dK
+    and dV at shape (d): the reason the kernel carries them as hi + lo."""
+    dk, dv = tiled_dkv(*_dkv_args(shape_d), second="round")
+    assert _bf16_limit_use(dk, shape_d["dk"]) > 1
+    assert _bf16_limit_use(dv, shape_d["dv"]) > 1
+
+
+@pytest.mark.parametrize("fault,grad", [
+    ("mask_shift", "dk"), ("mask_shift", "dv"),
+    ("kv_head", "dk"), ("kv_head", "dv"),
+    ("group_sum", "dk"), ("group_sum", "dv"),
+    ("scaled", "dk"), ("dv_from_ds", "dv"),
+    ("lse_by_row", "dk"), ("lse_by_row", "dv"),
+])
+def test_bf16_limit_rejects_dkv_faults(shape_d, fault, grad):
+    """Each fault the tensor-core dK/dV can have puts the gradient it
+    touches 10x or more beyond the bf16 limit at shape (d)."""
+    wrong = {"mask_shift": 1, "kv_head": torch.arange(8) % 2,
+             "group_sum": False, "scaled": False, "dv_from_ds": True,
+             "lse_by_row": True}
+    dk, dv = tiled_dkv(*_dkv_args(shape_d), **{fault: wrong[fault]})
+    got = {"dk": dk, "dv": dv}[grad]
+    assert _bf16_limit_use(got, shape_d[grad]) >= 10
 
 
 def test_lse_is_the_log_sum_exp_of_the_masked_scores():

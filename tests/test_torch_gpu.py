@@ -20,6 +20,7 @@ from tpu_operator_libs_torch.kernels.flash_attention import (
     flash_attention_reference,
     flash_backward,
     flash_forward,
+    kernel_design,
 )
 
 pytestmark = pytest.mark.gpu
@@ -64,24 +65,34 @@ def test_kernel_matches_plain_version(cuda, batch, heads, kv_heads, seq,
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("batch,heads,kv_heads,seq,dim,dtype", [
-    (16, 16, 16, 1024, 128, torch.bfloat16),  # llama-277M train step
-    (2, 8, 2, 1000, 64, torch.float32),       # GQA and a ragged tile
-    # GQA and a ragged tile through the bf16 (wgmma) dQ
-    (2, 8, 2, 1000, 128, torch.bfloat16),
-    (2, 8, 2, 1000, 64, torch.bfloat16),
+@pytest.mark.parametrize("batch,heads,kv_heads,seq,dim,dtype,causal", [
+    (16, 16, 16, 1024, 128, torch.bfloat16, True),  # llama-277M train step
+    (2, 8, 2, 1000, 64, torch.float32, True),       # GQA and a ragged tile
+    # GQA and a ragged tile through the bf16 (wgmma) kernels
+    (2, 8, 2, 1000, 128, torch.bfloat16, True),
+    (2, 8, 2, 1000, 64, torch.bfloat16, True),
+    # an odd length: ragged 64-query and 128-key tiles, lse and di rows
+    # of 997 * 4 bytes
+    (2, 8, 2, 997, 128, torch.bfloat16, True),
+    (2, 8, 2, 1000, 128, torch.bfloat16, False),
 ], ids=["main_train_step_bf16", "c_gqa_ragged_f32", "d_gqa_ragged_bf16",
-        "d64_gqa_ragged_bf16"])
+        "d64_gqa_ragged_bf16", "odd_gqa_ragged_bf16",
+        "d_non_causal_bf16"])
 def test_backward_kernels_match_plain_version(cuda, batch, heads, kv_heads,
-                                              seq, dim, dtype):
+                                              seq, dim, dtype, causal):
     """dK/dV and dQ against flash_attention_backward_reference on the
     forward kernel's out and lse; two launches give bit-equal results
-    (no atomics, a fixed order of every sum)."""
+    (no atomics, a fixed order of every sum); bf16 at head_dim 64 and 128
+    runs both on the tensor cores."""
+    wgmma = dtype == torch.bfloat16 and dim in (64, 128)
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert kernel_design(name, dtype, dim)["design"] == (
+            "sm90 wgmma" if wgmma else "scalar")
     gen = torch.Generator(device=cuda).manual_seed(1)
     q, k, v, do = (torch.randn((batch, h, seq, dim), generator=gen,
                                device=cuda).to(dtype)
                    for h in (heads, kv_heads, kv_heads, heads))
-    kw = {"causal": True, "sm_scale": dim ** -0.5}
+    kw = {"causal": causal, "sm_scale": dim ** -0.5}
     out, lse = flash_forward(q, k, v, **kw)
     before = (flash_attention_bwd_dkv.launches,
               flash_attention_bwd_dq.launches)

@@ -21,44 +21,78 @@
 // TFLOP/s for bf16 inputs (67 TFLOP/s f32), against Q, K, V, dO, lse and di
 // read and the gradients written once at 3.35 TB/s: the FLOPs bound both.
 //
-// dK/dV, every dtype and D (flash_bwd_dkv_kernel), the scalar design on the
-// forward's layout (flash_attention_common.cuh): 256 threads, four per row,
-// each row's vectors split in float4 chunks over its four threads, dot
-// products finished by an xor shuffle, f32 products on the CUDA cores. One
-// block per (64-key tile, KV head, batch) holds its keys' K and V rows and
-// the dK and dV accumulators in registers and walks the query tiles from
-// the diagonal down (tiles wholly above the diagonal are never loaded),
-// staging Q, dO, lse and di in shared memory as f32 (2 * 64 * D * 4 bytes,
-// 64 KB at D = 128). It also walks the H / Hkv query heads of its KV head's
-// group, so GQA's sum over the group happens in registers: no atomics, and
-// K/V are read narrow (the Pallas call needs them repeated to H heads and a
-// sum afterwards). Blocks of the first key tiles, which see the most
-// queries, are scheduled first.
+// Both kernels take one of two designs, chosen by (dtype, head_dim) at
+// compile time (sm90::kTakesWgmma): bf16 at D = 64 and 128 runs every
+// product on the tensor cores (wgmma) over tiles that a producer stages
+// by TMA (flash_attention_sm90.cuh); f32 at every D, and bf16 at
+// D = 16 and 32, keep the scalar design, f32 FMAs on the CUDA cores, which
+// holds the f32 kernels to 2e-5 (TF32 products would not).
 //
-// dQ, two designs chosen by (dtype, head_dim) at compile time
-// (sm90::kTakesWgmma):
+// dK/dV:
+// - bf16 at D = 64 and 128, flash_bwd_dkv_wgmma_kernel: one block of 384
+//   threads per (128-key tile, KV head, batch): two consumer warpgroups of
+//   64 keys and a producer warpgroup that hands its registers to them
+//   (setmaxnreg: 240 a consumer thread, 24 a producer thread), since dK
+//   and dV take 128 of a thread's registers at D = 128 and a 288-thread
+//   block caps each at 168. The producer's first thread loads the block's
+//   K and V rows once by TMA (they stay in shared memory) and streams each
+//   query tile's Q and dO (64 rows) through a two-stage TMA ring of
+//   full/empty mbarriers; each consumer warpgroup stages the tile's lse
+//   and di in shared memory itself, loaded while its first products run
+//   (no TMA: a row of Sq f32 is not 16-byte aligned at odd Sq). The
+//   walk: each query head of the KV head's group, then its query tiles from
+//   the diagonal down; tiles wholly above the diagonal are never loaded,
+//   and a warpgroup whose keys all lie after a tile's last query skips it.
+//   Per tile each warpgroup runs the transposed products, keys as M:
+//   S^T = K Q^T and dP^T = V dO^T as wgmma from shared memory (both
+//   K-major), recomputes P^T = exp2(S^T * scale_log2 - lse * log2e) and
+//   dS^T = P^T * (dP^T - di) in f32 on the fragments (a fragment's column
+//   is a query, so lse and di are read by column), and runs
+//   dV += P^T dO and dK += dS^T Q as wgmma with P^T and dS^T from registers
+//   (the m64n64 accumulator repacked is the A operand) and dO, Q MN-major.
+//   P^T and dS^T are carried as hi + lo bf16 words: rounding them once, as
+//   the Pallas kernel does (flash_attention.py:900, :918), puts dK and dV
+//   outside the bf16 limit against the f32 plain version
+//   (tests/test_torch_flash_attention.py). dK is scaled by sm_scale in the
+//   epilogue. The dK and dV accumulators (D / 2 f32 each a thread) stay in
+//   registers across the whole walk, so GQA's sum over the group needs no
+//   atomics and K/V are read narrow (the Pallas call needs them repeated to
+//   H heads and a sum afterwards). Blocks of the first key tiles, which see
+//   the most queries, are scheduled first.
+// - otherwise flash_bwd_dkv_kernel: the scalar design on the forward's
+//   layout (flash_attention_common.cuh): 256 threads, four per row, each
+//   row's vectors split in float4 chunks over its four threads, dot
+//   products finished by an xor shuffle. One block per (64-key tile, KV
+//   head, batch) holds its keys' K and V rows and the dK and dV
+//   accumulators in registers and walks the group's query heads and tiles
+//   as above, staging Q, dO, lse and di in shared memory as f32.
+//
+// dQ:
 // - bf16 at D = 64 and 128, flash_bwd_dq_wgmma_kernel: the wgmma forward's
-//   block (flash_attention_fwd.cu, flash_attention_sm90.cuh): 128 query
-//   rows as two consumer warpgroups and a producer warp that loads the Q
-//   and dO tiles once and the K/V tiles of 64 keys into a two-stage TMA
-//   ring. Per tile each warpgroup runs S = Q K^T and dP = dO V^T as wgmma
-//   from shared memory, recomputes P = exp2(S * scale_log2 - lse * log2e)
-//   and dS = P * (dP - di) in f32 on the fragments, and runs dQ += dS K as
-//   wgmma with dS from registers and K from shared memory (MN-major). dS is
-//   carried as two bf16 words, hi + lo, for the reason the forward carries
-//   P so; the Pallas kernel rounds it once (flash_attention.py:1258). dQ is
-//   scaled by sm_scale in the epilogue.
-// - f32 at every D, and bf16 at D = 16 and 32, flash_bwd_dq_kernel: the
-//   scalar design, one block per (64-query tile, head, batch) holding its
-//   rows' Q, dO and dQ in registers with lse and di, walking the K/V tiles
-//   up to the diagonal, staged in shared memory as f32.
+//   block (flash_attention_fwd.cu): 128 query rows as two consumer
+//   warpgroups and a producer warp that loads the Q and dO tiles once and
+//   the K/V tiles of 64 keys into a two-stage TMA ring. Per tile each
+//   warpgroup runs S = Q K^T and dP = dO V^T as wgmma from shared memory,
+//   recomputes P = exp2(S * scale_log2 - lse * log2e) and dS = P * (dP -
+//   di) in f32 on the fragments, and runs dQ += dS K as wgmma with dS from
+//   registers and K from shared memory (MN-major). dS is carried as hi + lo
+//   for the same reason; the Pallas kernel rounds it once
+//   (flash_attention.py:1258). dQ is scaled by sm_scale in the epilogue.
+// - otherwise flash_bwd_dq_kernel: the scalar design, one block per
+//   (64-query tile, head, batch) holding its rows' Q, dO and dQ in
+//   registers with lse and di, walking the K/V tiles up to the diagonal,
+//   staged in shared memory as f32.
 // Every sum runs in a fixed order and nothing is accumulated across blocks,
 // so two launches on the same inputs give bit-equal results.
-// What it leaves on the table: dK/dV's products are still scalar f32 FMAs
-// on the CUDA cores, with tiles loaded synchronously and each Q / dO
-// element read from shared memory twice per pair (a dot, then an update);
-// the wgmma dQ waits on its S and dP products before the elementwise work
-// and runs the second product twice (hi and lo).
+// What the wgmma designs leave on the table: each warpgroup waits on its
+// first two products before the elementwise work and on the second
+// products before the next tile (the two warpgroups overlap only each
+// other); the second products run twice (hi and lo), 1.5x the function's
+// tensor-core work for dK/dV and 1.33x for dQ; dK/dV's grid is
+// (S / 128, H_kv, B), which leaves SMs idle where H_kv * B is small (32
+// blocks at (2, 8 / 2, 1000)), and splitting the group across blocks would
+// need a reduction across them; the gradients are stored from registers
+// rather than through shared memory by TMA.
 #include <math.h>
 
 #include "flash_attention_common.cuh"
@@ -274,6 +308,269 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 namespace sm90 {
 
+constexpr int kKeyTile = 128;  // keys per dK/dV block: 64 per warpgroup
+constexpr int kQueryTile = 64;  // query rows per Q/dO stage of the ring
+// The dK/dV block: two consumer warpgroups and a producer warpgroup, whose
+// first thread issues every TMA load. A warp scheduler's share of the
+// register file (16,384) holds one warp of each warpgroup, so at launch a
+// thread has at most 168 registers; the dK and dV accumulators alone take
+// D = 128 of them. The producer gives registers up and the consumers take
+// them (setmaxnreg), within the block's 3 * 168 = 504 a lane.
+constexpr int kDkvThreads = kConsumers + 128;
+// A consumer keeps dK, dV, S^T and dP^T live at once, 192 f32 at D = 128.
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+static_assert(2 * kConsumerRegs + kProducerRegs <= 3 * 168,
+              "setmaxnreg would wait for registers the block does not have");
+
+// Dynamic shared memory of the wgmma dK/dV: the block's K and V tiles and
+// kStages Q and dO tiles, plus the 1024 bytes of alignment slack.
+template <int D>
+constexpr int dkv_smem_bytes() {
+  return 2 * tile_bytes(kKeyTile, D) + 2 * kStages * tile_bytes(kQueryTile, D)
+         + 1024;
+}
+
+// The maps: q, dout (B*H, Sq, D) with boxes of kQueryTile rows; k, v
+// (B*Hkv, Sk, D) with boxes of kKeyTile rows. dk, dv: (B, Hkv, Sk, D)
+// bf16; lse, di: (B, H, Sq) f32.
+//
+// Every product runs transposed, keys as the M dimension, so that the
+// accumulators are the block's own dK and dV rows and P^T and dS^T come out
+// of the first products in the layout of the second products' A operand:
+// S^T = K Q^T and dP^T = V dO^T from shared memory (both K-major), then
+// dV += P^T dO and dK += dS^T Q with P^T, dS^T from registers and dO, Q
+// MN-major. A fragment's row is a key and its column a query, so lse and
+// di are read by column: each warpgroup stages the tile's 64 of each in
+// shared memory itself, loaded while its first products run.
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ di,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int H, int Hkv,
+                           int Sq, int Sk, int causal, float scale_log2,
+                           float sm_scale) {
+  constexpr int kQBytes = tile_bytes(kQueryTile, D);
+  constexpr int kKVBytes = tile_bytes(kKeyTile, D);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = align_1024(smem_raw);
+  uint8_t* v_s = k_s + kKVBytes;
+  uint8_t* q_s = v_s + kKVBytes;              // [kStages][kQBytes]
+  uint8_t* do_s = q_s + kStages * kQBytes;    // [kStages][kQBytes]
+  // [warpgroup][tile parity]: lse * log2(e) and di of the tile's queries
+  __shared__ __align__(16) float lse_s[2][2][kQueryTile];
+  __shared__ __align__(16) float di_s[2][2][kQueryTile];
+  __shared__ uint64_t kv_full, full[kStages], empty[kStages];
+
+  const int tile = blockIdx.x;  // the first key tiles see the most queries
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = H / Hkv;
+  const int n0 = tile * kKeyTile;
+  // Query i sees key j iff j <= i: the query tiles before the one holding
+  // the block's first key see none of its keys and are never loaded.
+  const int q_first = causal ? n0 / kQueryTile : 0;
+  const int n_qtiles = (Sq + kQueryTile - 1) / kQueryTile;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // The walk, the same for the producer and the consumers: each query head
+  // of the KV head's group, then its query tiles from the diagonal down;
+  // `it` counts the stages filled.
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(&kv_full, 2 * kKVBytes);
+      tma_load_tile<D>(k_s, &k_map, &kv_full, n0, kKeyTile, b * Hkv + hk);
+      tma_load_tile<D>(v_s, &v_map, &kv_full, n0, kKeyTile, b * Hkv + hk);
+      int it = 0;
+      for (int hh = 0; hh < group; ++hh) {
+        const int bh = b * H + hk * group + hh;
+        for (int t = q_first; t < n_qtiles; ++t, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) mbar_wait(&empty[s], (it / kStages - 1) & 1);
+          mbar_expect_tx(&full[s], 2 * kQBytes);
+          tma_load_tile<D>(q_s + s * kQBytes, &q_map, &full[s],
+                           t * kQueryTile, kQueryTile, bh);
+          tma_load_tile<D>(do_s + s * kQBytes, &do_map, &full[s],
+                           t * kQueryTile, kQueryTile, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int kw0 = n0 + 64 * wg;  // the warpgroup's first key
+  // this thread's two keys: row0 and row0 + 8
+  const int row0 = kw0 + 16 * (threadIdx.x % 128 / 32) + lane / 4;
+  const uint8_t* k_wg = k_s + 64 * wg * 128;
+  const uint8_t* v_wg = v_s + 64 * wg * 128;
+  // thread r < 64 of the warpgroup stages lse of query r, 64 + r its di
+  const int stat_row = threadIdx.x % kQueryTile;
+  const bool stages_lse = threadIdx.x % 128 < kQueryTile;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dk_acc[i] = 0.f;
+    dv_acc[i] = 0.f;
+  }
+
+  mbar_wait(&kv_full, 0);
+  int it = 0;
+  int parity = 0;  // flips with every tile the warpgroup computes
+  for (int hh = 0; hh < group; ++hh) {
+    const float* stat = (stages_lse ? lse : di)
+                        + static_cast<size_t>(b * H + hk * group + hh) * Sq;
+    for (int t = q_first; t < n_qtiles; ++t, ++it) {
+      const int s = it % kStages;
+      const int q0 = t * kQueryTile;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      if (causal && kw0 > q0 + kQueryTile - 1) {  // no query sees its keys
+        mbar_arrive(&empty[s]);
+        continue;
+      }
+      const uint8_t* q_t = q_s + s * kQBytes;
+      const uint8_t* do_t = do_s + s * kQBytes;
+      // rows past Sq read 0; their columns are masked
+      const int stat_q = q0 + stat_row;
+      const float x = stat_q < Sq ? stat[stat_q] : 0.f;
+
+      float st[kQueryTile / 2], dpt[kQueryTile / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss(st, desc_k_major(k_wg, kKeyTile, kk),
+                 desc_k_major(q_t, kQueryTile, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss(dpt, desc_k_major(v_wg, kKeyTile, kk),
+                 desc_k_major(do_t, kQueryTile, kk), kk > 0);
+      }
+      wgmma_commit();
+      // Two buffers by parity: a warp that runs ahead writes the other one
+      // while the rest of its warpgroup still reads this tile's.
+      float* lse_t = lse_s[wg][parity];
+      float* di_t = di_s[wg][parity];
+      if (stages_lse) {
+        lse_t[stat_row] = x * kLog2e;
+      } else {
+        di_t[stat_row] = x;
+      }
+      named_barrier_sync(1 + wg, 128);
+      parity ^= 1;
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      const bool masked = (causal && kw0 + 63 > q0) || kw0 + 64 > Sk
+                          || q0 + kQueryTile > Sq;
+      // P^T and dS^T as hi + lo bf16 pairs, in place of S^T and dP^T
+      uint32_t p_hi[kQueryTile / 4], p_lo[kQueryTile / 4];
+      uint32_t ds_hi[kQueryTile / 4], ds_lo[kQueryTile / 4];
+#pragma unroll
+      for (int j = 0; j < kQueryTile / 4; ++j) {
+        const int col = frag_col(2 * j, lane);  // queries col, col + 1
+        const float2 lse2 = *reinterpret_cast<const float2*>(lse_t + col);
+        const float2 di2 = *reinterpret_cast<const float2*>(di_t + col);
+        const int key = row0 + 8 * frag_row(2 * j);
+        float p[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          bool visible = true;
+          if (masked) {
+            const int qi = q0 + col + e;
+            visible = key < Sk && qi < Sq && (!causal || key <= qi);
+          }
+          p[e] = visible ? exp2f(fmaf(st[2 * j + e], scale_log2,
+                                      -(e ? lse2.y : lse2.x)))
+                         : 0.f;
+          ds[e] = p[e] * (dpt[2 * j + e] - (e ? di2.y : di2.x));
+        }
+        split_bf16x2(p[0], p[1], p_hi[j], p_lo[j]);
+        split_bf16x2(ds[0], ds[1], ds_hi[j], ds_lo[j]);
+      }
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQueryTile / 16; ++kk) {
+        const uint64_t do_desc = desc_mn_major(do_t, kQueryTile, kk);
+        wgmma_rs(dv_acc, p_hi + 4 * kk, do_desc);
+        wgmma_rs(dv_acc, p_lo + 4 * kk, do_desc);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kQueryTile / 16; ++kk) {
+        const uint64_t q_desc = desc_mn_major(q_t, kQueryTile, kk);
+        wgmma_rs(dk_acc, ds_hi + 4 * kk, q_desc);
+        wgmma_rs(dk_acc, ds_lo + 4 * kk, q_desc);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      mbar_arrive(&empty[s]);
+    }
+  }
+
+  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int key = row0 + 8 * frag_row(i);
+    if (key < Sk) {
+      const size_t off = (kv_base + key) * D + frag_col(i, lane);
+      *reinterpret_cast<__nv_bfloat162*>(dk + off) = __floats2bfloat162_rn(
+          dk_acc[i] * sm_scale, dk_acc[i + 1] * sm_scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off) =
+          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* di,
+                       void* dk, void* dv, int B, int H, int Hkv, int Sq,
+                       int Sk, int causal, float sm_scale,
+                       cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map, do_map;
+  // A map cuTensorMapEncodeTiled refuses (an unaligned base) is an
+  // invalid value.
+  if (!encode_tile_map(&q_map, q, D, Sq, B * H, kQueryTile)
+      || !encode_tile_map(&do_map, dout, D, Sq, B * H, kQueryTile)
+      || !encode_tile_map(&k_map, k, D, Sk, B * Hkv, kKeyTile)
+      || !encode_tile_map(&v_map, v, D, Sk, B * Hkv, kKeyTile)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int smem = dkv_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sk + kKeyTile - 1) / kKeyTile, Hkv, B);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, kDkvThreads, smem, stream>>>(
+      q_map, k_map, v_map, do_map, lse, di, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, Hkv, Sq, Sk, causal,
+      sm_scale * kLog2e, sm_scale);
+  return cudaGetLastError();
+}
+
 // Dynamic shared memory of the wgmma dQ: the Q and dO tiles and kStages K
 // and V tiles, plus the 1024 bytes of alignment slack.
 template <int D>
@@ -466,14 +763,14 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 
 }  // namespace sm90
 
-// Both kernels stage two 64-row tiles of f32 (64 KB at D = 128, above the
-// 48 KB default, hence the attribute).
+// Both scalar kernels stage two 64-row tiles of f32 (64 KB at D = 128,
+// above the 48 KB default, hence the attribute).
 template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse, const float* di,
-                       void* dk, void* dv, int B, int H, int Hkv, int Sq,
-                       int Sk, int causal, float sm_scale,
-                       cudaStream_t stream) {
+cudaError_t launch_dkv_scalar(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse,
+                              const float* di, void* dk, void* dv, int B,
+                              int H, int Hkv, int Sq, int Sk, int causal,
+                              float sm_scale, cudaStream_t stream) {
   const int smem = 2 * kBlockM * D * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>,
@@ -508,7 +805,23 @@ cudaError_t launch_dq_scalar(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The dQ design is fixed per (dtype, D) when the library is compiled.
+// Each kernel's design is fixed per (dtype, D) when the library is
+// compiled.
+template <typename T, int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* di,
+                       void* dk, void* dv, int B, int H, int Hkv, int Sq,
+                       int Sk, int causal, float sm_scale,
+                       cudaStream_t stream) {
+  if constexpr (sm90::kTakesWgmma<T, D>) {
+    return sm90::launch_dkv<D>(q, k, v, dout, lse, di, dk, dv, B, H, Hkv, Sq,
+                               Sk, causal, sm_scale, stream);
+  } else {
+    return launch_dkv_scalar<T, D>(q, k, v, dout, lse, di, dk, dv, B, H, Hkv,
+                                   Sq, Sk, causal, sm_scale, stream);
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* di,
@@ -572,10 +885,16 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
 // instance that is not built.
 extern "C" int flash_attention_bwd_dkv_design(int D, int dtype, int* design,
                                               int* smem_bytes) {
-  const cudaError_t err = dispatch(dtype, D, [&](auto, auto dim) {
-    *design = 0;
-    *smem_bytes = 2 * kBlockM * decltype(dim)::value
-                  * static_cast<int>(sizeof(float));
+  const cudaError_t err = dispatch(dtype, D, [&](auto tag, auto dim) {
+    using T = typename decltype(tag)::type;
+    constexpr int kD = decltype(dim)::value;
+    if constexpr (sm90::kTakesWgmma<T, kD>) {
+      *design = 1;
+      *smem_bytes = sm90::dkv_smem_bytes<kD>();
+    } else {
+      *design = 0;
+      *smem_bytes = 2 * kBlockM * kD * static_cast<int>(sizeof(float));
+    }
     return cudaSuccess;
   });
   return static_cast<int>(err);

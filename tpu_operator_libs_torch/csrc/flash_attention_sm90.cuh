@@ -1,14 +1,15 @@
 // Hopper building blocks of the bf16 flash-attention forward
-// (flash_attention_fwd.cu) and dQ (flash_attention_bwd.cu) kernels: TMA
-// tensor maps for 128-byte-swizzled bf16 tiles, mbarriers for a ring of
-// K/V stages, wgmma shared-memory descriptors and instructions, and the
+// (flash_attention_fwd.cu), dK/dV and dQ (flash_attention_bwd.cu) kernels:
+// TMA tensor maps for 128-byte-swizzled bf16 tiles, mbarriers for a ring
+// of stages, wgmma shared-memory descriptors and instructions, and the
 // accumulator fragment layout the softmax reads. sm_90a only.
 //
-// Block shape: 128 query rows as two consumer warpgroups of 64 rows, plus
-// one producer warp whose lane 0 issues every TMA load. K/V tiles of 64
-// keys pass through a ring of kStages stages, each with a "full" barrier
-// (the TMA bytes have landed) and an "empty" barrier (all 256 consumer
-// threads are done with it).
+// Block shape: 128 rows (query rows for the forward and dQ, keys for
+// dK/dV) as two consumer warpgroups of 64 rows, plus one producer warp
+// whose lane 0 issues every TMA load. The tiles streamed against them (K/V
+// of 64 keys, or Q/dO of 64 queries) pass through a ring of kStages
+// stages, each with a "full" barrier (the bytes have landed) and an
+// "empty" barrier (all 256 consumer threads are done with it).
 //
 // Shared-memory tile layout: a (rows x D) bf16 tile is D / 64 boxes of
 // (rows x 64 columns), one after the other; box c holds columns
@@ -123,6 +124,27 @@ __device__ __forceinline__ void tma_load_tile(uint8_t* dst,
   }
 }
 
+// ---- register reallocation between warpgroups
+
+// Every thread of the warpgroup raises (inc) or lowers (dec) its register
+// count to N. An inc draws on the registers the block's decs released and
+// waits until they suffice: the counts after must not exceed the block's
+// registers at launch.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 // ---- wgmma descriptors
 
 __device__ __forceinline__ uint64_t desc_sw128(const uint8_t* p,
@@ -142,7 +164,8 @@ __device__ __forceinline__ uint64_t desc_k_major(const uint8_t* tile,
   return desc_sw128(tile + (kk / 4) * rows * 128 + (kk % 4) * 32, 16, 1024);
 }
 
-// MN-major operand (B of O += P V and dQ += dS K): rows [16 kk, 16 kk + 16)
+// MN-major operand (B of O += P V, dQ += dS K, dV += P^T dO and
+// dK += dS^T Q): rows [16 kk, 16 kk + 16)
 // of a tile of `rows` rows are the K dimension, its D columns the N
 // dimension. 8-row groups lie 1024 bytes apart (stride offset); the next
 // 64 columns lie a box further (leading offset).

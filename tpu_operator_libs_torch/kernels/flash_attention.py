@@ -17,13 +17,12 @@ library is compiled (``sm90::kTakesWgmma`` in
 ``csrc/flash_attention_sm90.cuh``; :func:`kernel_design` asks the built
 library):
 
-- bfloat16 at head_dim 64 and 128 (the model's): the forward and dQ are
+- bfloat16 at head_dim 64 and 128 (the model's): all three kernels are
   the Hopper design, products on the tensor cores (``wgmma``) over Q, K,
   V and dO tiles that TMA stages in a ring of shared-memory buffers;
-- float32 at every head_dim, and bfloat16 at 16 and 32: the forward and
-  dQ are the scalar design, f32 FMAs on the CUDA cores, which keeps the
-  f32 kernels within 2e-5 of the plain version;
-- dK/dV is the scalar design for every dtype and head_dim.
+- float32 at every head_dim, and bfloat16 at 16 and 32: the scalar
+  design, f32 FMAs on the CUDA cores, which keeps the f32 kernels within
+  2e-5 of the plain version.
 
 The sources' design notes say what bounds each kernel and what it leaves
 for later. :func:`flash_forward` and :func:`flash_backward` take the
