@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training slices on one CUDA card
-at full width.
+"""Drive the PyTorch port's serving, training and multi-device slices on
+the CUDA cards at full width.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
+
+(``python3 chip_smoke.py --multichip-only`` runs phases 1, 2 and 9 alone,
+for a machine with several cards.)
 
 Each phase prints one JSON line; any failure raises and the script
 exits non-zero without printing a result. Phases:
@@ -32,7 +35,15 @@ exits non-zero without printing a result. Phases:
    gradients against ``"xla"`` and against ``remat=True``; then save ->
    checkpoint gate -> restore into another seed's state -> the next
    loss equal bit for bit.
-9. kernels: one line with every kernel's launches, error and times.
+9. multichip, with the launch counts set to 0 just before it in its
+   ranks: the one-card probe step; then one NCCL rank per visible card
+   over the dp x tp mesh (``parallel.dp_tp_split``) running llama-277M
+   (flash at tp=1, xla otherwise): 3 train steps at batch 16 x 1024
+   (at one card, the losses held to phase 7's first three), host loop ==
+   device loop decode in bf16 and int8, save -> gate -> restore -> the
+   next loss bit-equal, the fabric battery over every shifted ring, and
+   at two cards or more the bandwidth ring.
+10. kernels: one line with every kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``. The model is
 llama-277M as ``bench.py`` builds it (vocab 2048, d_model 2048, 4
@@ -43,6 +54,7 @@ from a seed. Without CUDA the script exits 1.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -89,9 +101,11 @@ from tpu_operator_libs_torch.health.checkpoint_gate import (  # noqa: E402
 from tpu_operator_libs_torch.health.serving_gate import (  # noqa: E402
     ServingEndpoint,
 )
+from tpu_operator_libs_torch import multichip  # noqa: E402
 from tpu_operator_libs_torch.kernels import _build  # noqa: E402
 from tpu_operator_libs_torch.kernels.flash_attention import (  # noqa: E402
     SOURCES,
+    WRAPPERS,
     flash_attention,
     flash_attention_backward_reference,
     flash_attention_bwd_dkv,
@@ -103,6 +117,10 @@ from tpu_operator_libs_torch.kernels.flash_attention import (  # noqa: E402
 from tpu_operator_libs_torch.optim import (  # noqa: E402
     tree_leaves,
     value_and_grad,
+)
+from tpu_operator_libs_torch.parallel import (  # noqa: E402
+    dp_tp_split,
+    run_ranks,
 )
 
 #: H100 SXM published dense peaks (NVIDIA data sheet, no sparsity)
@@ -668,9 +686,7 @@ def profile_decode(params, prompt, kw):
 
 
 #: every kernel's wrapper, by the name its launch counter reports under
-KERNELS = {"flash_attention_fwd": flash_attention,
-           "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
-           "flash_attention_bwd_dq": flash_attention_bwd_dq}
+KERNELS = WRAPPERS
 
 
 def reset_launch_counts() -> None:
@@ -826,7 +842,7 @@ def phase_train(params, card):
         del flash_g, remat_g, p
     emit(result)
     torch.cuda.empty_cache()
-    return state, optimizer, step
+    return state, optimizer, step, losses
 
 
 def phase_checkpoint(state, optimizer, step, card):
@@ -882,6 +898,103 @@ def phase_checkpoint(state, optimizer, step, card):
           "resumed_loss_bit_equal": True, "card": card})
 
 
+#: the multichip phase's train steps, and the tolerance of its losses
+#: against phase 7's first steps on the same state and batches at one card
+MULTI_STEPS = 3
+MULTI_LOSS_TOL = 1e-3
+#: the one-card probe: tests/test_health.py's tolerance of the JAX probe
+PROBE_ATOL = 1e-2
+
+
+def phase_multichip(card, train_losses=None):
+    """The multi-device slice on every visible card, one NCCL rank each
+    (``multichip.run_stages`` at llama-277M width): one line per stage.
+    ``train_losses``: phase 7's, which a one-card run's losses must match
+    within MULTI_LOSS_TOL. Returns rank 0's kernel launches."""
+    fn, args = multichip.entry()
+    out = fn(*args)
+    probe_err = (out - (math.tanh(0.5) + 0.25)).abs().max().item()
+    emit({"phase": "multichip_probe", "single_chip_max_abs_err": probe_err,
+          "atol": PROBE_ATOL, "card": card})
+    if not probe_err <= PROBE_ATOL:
+        raise RuntimeError(f"single-chip probe off by {probe_err}")
+
+    n = torch.cuda.device_count()
+    dp, tp = dp_tp_split(n)
+    config = dataclasses.replace(
+        CONFIG_277M, attention_impl="flash" if tp == 1 else "xla")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_multichip_",
+                                dir=os.path.join(ROOT, "build"))
+    stages = functools.partial(
+        multichip.run_stages, param_dtype=torch.bfloat16,
+        batch_per_shard=TRAIN_BATCH // dp, train_steps=MULTI_STEPS,
+        prompt_len=64, new_tokens=16, decode_rows=8, payload_mib=16,
+        rounds=8)
+    start = time.perf_counter()
+    try:
+        ranks = run_ranks(stages, n, config, ckpt_dir, device="cuda",
+                          timeout=600.0)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    wall_s = time.perf_counter() - start
+    first = ranks[0]
+    common = {"n": n, "dp": dp, "tp": tp, "card": card}
+
+    rings = first["fabric"]
+    emit({"phase": "multichip_fabric", **common,
+          "rings": len(rings), "shifts": [r["shift"] for r in rings],
+          "max_abs_err": max(r["max_abs_error"] for r in rings),
+          "latency_ms": [r["latency_s"] * 1e3 for r in rings]})
+    bw = first.get("bandwidth")
+    emit({"phase": "multichip_bandwidth", **common,
+          **({"gbytes_per_s": bw["gbytes_per_s"],
+              "bytes_per_hop": bw["bytes_per_hop"], "rounds": bw["rounds"],
+              "latency_ms": bw["latency_s"] * 1e3} if bw else
+             {"gbytes_per_s": None,
+              "not_run": "one card: no fabric to time"})})
+
+    launches = first["launches"]
+    # flash at tp=1: each kernel once a layer a step, the train stage's
+    # steps and the checkpoint stage's two; xla otherwise
+    per_kernel = (config.n_layers * (MULTI_STEPS + 2)
+                  if config.attention_impl == "flash" else 0)
+    for rank in ranks:
+        expect_launches(rank["launches"], per_kernel, per_kernel,
+                        f"multichip rank path at tp={tp}")
+        if rank["losses"] != first["losses"]:
+            raise RuntimeError("ranks disagree on the losses")
+    train = {"phase": "multichip_train", **common,
+             "attention_impl": config.attention_impl,
+             "batch": TRAIN_BATCH, "seq": config.seq_len,
+             "steps": MULTI_STEPS, "step_ms": first["step_ms"],
+             "losses": first["losses"], "launches": launches,
+             "wall_s_all_stages": wall_s}
+    if n == 1 and train_losses is not None:
+        ref = train_losses[:MULTI_STEPS]
+        diff = max(abs(a - b) for a, b in zip(first["losses"], ref))
+        train.update({"phase7_losses": ref, "max_abs_diff_vs_phase7": diff,
+                      "tol": MULTI_LOSS_TOL,
+                      "bit_equal_to_phase7": first["losses"] == ref})
+        if not diff <= MULTI_LOSS_TOL:
+            raise RuntimeError(f"multichip losses {first['losses']} off "
+                               f"phase 7's {ref} by {diff}")
+    emit(train)
+    emit({"phase": "multichip_decode", **common, "batch": 8, "prompt": 64,
+          "new_tokens": 16, "bf16_host_equals_device": True,
+          "int8_weights_int8_kv_host_equals_device": True,
+          "tokens_equal_on_every_rank": all(
+              (r["decode_plain"] == first["decode_plain"]).all()
+              for r in ranks)})
+    emit({"phase": "multichip_checkpoint", **common,
+          "saved_bytes": first["saved_bytes"], "save_s": first["save_s"],
+          "restore_s": first["restore_s"],
+          "resumed_loss": first["resumed_loss"],
+          "gate_closed_before_save": True, "gate_open_after_save": True,
+          "resumed_loss_bit_equal": True})
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, shape, card):
     """The kernels line's entry; its times and bound are those of the
     first row, the shape that the most launches of the main paths had."""
@@ -905,9 +1018,16 @@ def kernel_entry(name, source, replaces, launches, rows, shape, card):
         "card": card}
 
 
-def main() -> int:
+def main(argv) -> int:
     card = phase_device()
     phase_build()
+    if argv == ["--multichip-only"]:
+        phase_multichip(card)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if argv:
+        raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     fwd_rows = phase_kernel(card)
     bwd_rows = phase_kernel_bwd(card)
 
@@ -924,9 +1044,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the training path, likewise
     reset_launch_counts()
-    state, optimizer, step = phase_train(params, card)
+    state, optimizer, step, train_losses = phase_train(params, card)
     phase_checkpoint(state, optimizer, step, card)
     training = launch_counts()
+    del state, params
+    torch.cuda.empty_cache()
+    # the multi-device path: its ranks set their counts to 0 before it
+    multi = phase_multichip(card, train_losses)
     if serving["flash_attention_fwd"] < 1:
         raise RuntimeError("the serving path never launched "
                            "flash_attention_fwd")
@@ -941,7 +1065,8 @@ def main() -> int:
             f"{pallas}:758 (_flash_attention_impl; reached from "
             "tpu_operator_libs/examples/llama.py:293)",
             {"serving": serving["flash_attention_fwd"],
-             "training": training["flash_attention_fwd"]}, fwd_rows,
+             "training": training["flash_attention_fwd"],
+             "multichip": multi["flash_attention_fwd"]}, fwd_rows,
             "B=16 H=16 S=1024 D=128 bf16 (the train step's forward of "
             "llama-277M; B=2 serves)", card),
         kernel_entry(
@@ -949,7 +1074,8 @@ def main() -> int:
             f"{pallas}:1121 (_flash_attention_bwd_dkv, kernel :796; "
             "reached from jax.grad through "
             "tpu_operator_libs/examples/llama.py:293)",
-            {"training": training["flash_attention_bwd_dkv"]},
+            {"training": training["flash_attention_bwd_dkv"],
+             "multichip": multi["flash_attention_bwd_dkv"]},
             bwd_rows[0::2],
             "B=16 H=16 S=1024 D=128 bf16 (train step of llama-277M)", card),
         kernel_entry(
@@ -957,7 +1083,8 @@ def main() -> int:
             f"{pallas}:1456 (_flash_attention_bwd_dq, kernel :1146; "
             "reached from jax.grad through "
             "tpu_operator_libs/examples/llama.py:293)",
-            {"training": training["flash_attention_bwd_dq"]},
+            {"training": training["flash_attention_bwd_dq"],
+             "multichip": multi["flash_attention_bwd_dq"]},
             bwd_rows[1::2],
             "B=16 H=16 S=1024 D=128 bf16 (train step of llama-277M)", card),
     ]})
@@ -967,4 +1094,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

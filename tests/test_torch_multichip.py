@@ -1,0 +1,84 @@
+"""The port's multi-device entry (``multichip.py``, the counterpart of
+``__graft_entry__.py``) and the multi-rank training job on gloo ranks:
+the dry run's stages, a 4-rank job that saves, opens the gate and resumes
+bit for bit, and a tp=2 checkpoint whose every shard comes back."""
+
+import numpy as np
+import pytest
+import torch
+
+import test_torch_rank_workers as workers
+from tpu_operator_libs_torch import multichip
+from tpu_operator_libs_torch.examples import training_job as job
+from tpu_operator_libs_torch.health.checkpoint_gate import (
+    CheckpointDurabilityGate,
+    latest_committed_step,
+)
+from tpu_operator_libs_torch.parallel import dp_tp_split, run_ranks
+
+
+@pytest.mark.parametrize("n,split", [(1, (1, 1)), (2, (1, 2)), (4, (2, 2)),
+                                     (6, (2, 3)), (8, (2, 4)), (9, (3, 3))])
+def test_dp_tp_split_is_the_reference_rule(n, split):
+    assert dp_tp_split(n) == split
+
+
+def test_dryrun_multichip_on_four_cpu_ranks(capsys):
+    results = multichip.dryrun_multichip(4, device="cpu")
+    out = capsys.readouterr().out
+    assert "dryrun_multichip OK: stages train, decode, checkpoint, fabric" \
+        in out and "dp=2 tp=2" in out
+    assert len(results) == 4
+    for rank in results:
+        assert (rank["dp"], rank["tp"]) == (2, 2)
+        assert np.isfinite(rank["losses"]).all()
+        assert rank["losses"] == results[0]["losses"]
+        assert [f["healthy"] for f in rank["fabric"]] == [True] * 3
+        assert rank["bandwidth"]["n_devices"] == 4
+        np.testing.assert_array_equal(rank["decode_plain"],
+                                      results[0]["decode_plain"])
+        assert rank["decode_plain"].shape == (4, 8)
+        assert rank["launches"] == {name: 0 for name in
+                                    multichip.WRAPPERS}  # xla path
+
+
+def test_entry_runs_on_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multichip.entry()
+
+
+def test_training_job_on_four_ranks_saves_gates_and_resumes_bit_equal(
+        tmp_path):
+    ckpt = str(tmp_path / "ckpt")
+    gate = CheckpointDurabilityGate(ckpt)
+    assert not gate.check()
+    assert job.main(["--checkpoint-dir", ckpt, "--max-steps", "2",
+                     "--save-interval", "2", "--n-devices", "4",
+                     "--device", "cpu", "--model", "llama"]) == 0
+    assert gate.check() and latest_committed_step(ckpt) == 2
+    resumed = job.train(ckpt, max_steps=3, save_interval=3, device="cpu",
+                        model="llama", n_devices=4)
+    straight = job.train(str(tmp_path / "straight"), max_steps=3,
+                         save_interval=3, device="cpu", model="llama",
+                         n_devices=4)
+    assert resumed["start_step"] == 2 and resumed["final_step"] == 3
+    assert straight["start_step"] == 0
+    assert resumed["loss"] == straight["loss"]
+
+
+def test_checkpoint_at_tp2_restores_every_shard(tmp_path):
+    ranks = run_ranks(workers.checkpoint_shards_rank, 2, str(tmp_path),
+                      device="cpu")
+    for tp_rank, rank in enumerate(ranks):
+        assert rank["start"] == 1
+        assert rank["differed_before"] > 0
+        assert rank["equal"] == rank["leaves"], rank
+        assert rank["wq_shape"][1] * 2 == 64  # a shard, not the whole
+    keys = ranks[0]["keys"]
+    assert keys == ranks[1]["keys"]
+    for tp_rank in (0, 1):
+        for prefix in ("params.layers.0.wq", "opt.mu.lm_head",
+                       "opt.nu.layers.1.w_down"):
+            assert f"{prefix}@tp{tp_rank}" in keys
+    assert "params.embed" in keys  # replicated: one copy, its own key

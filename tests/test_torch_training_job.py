@@ -159,9 +159,14 @@ class TestEntryPoints:
                          "--model", "llama", "--grad-clip-norm", "1.0"]) == 0
         assert latest_committed_step(ckpt) == 4
 
-    def test_main_refuses_more_than_one_device(self, tmp_path):
+    def test_main_refuses_more_than_one_device(self, tmp_path,
+                                               monkeypatch):
+        # more devices than there are cards, or fewer than one
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
         with pytest.raises(SystemExit):
-            job.main(["--checkpoint-dir", str(tmp_path), "--n-devices", "2",
+            job.main(["--checkpoint-dir", str(tmp_path), "--n-devices", "2"])
+        with pytest.raises(SystemExit):
+            job.main(["--checkpoint-dir", str(tmp_path), "--n-devices", "0",
                       "--device", "cpu"])
 
     def test_bad_arguments(self, tmp_path):

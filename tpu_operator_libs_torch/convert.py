@@ -3,7 +3,10 @@
 The port keeps the JAX package's parameter layout (weights ``(in, out)``,
 applied as ``x @ W``), so conversion is a copy leaf by leaf. The tests
 use it so that both packages compute from the same weights, and
-:func:`state_from_jax` lets the port continue a JAX training run.
+:func:`state_from_jax` lets the port continue a JAX training run. With a
+``mesh`` each rank keeps its tp shards (:func:`shard_params`), the blocks
+that the JAX package's ``NamedSharding``s give the device at its place in
+the grid.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import numpy as np
 import torch
 
 from tpu_operator_libs_torch import resolve_device
+from tpu_operator_libs_torch.parallel import TP_SPLIT_DIM, tp_of
 
 
 def _leaf_to_tensor(value) -> torch.Tensor:
@@ -25,12 +29,55 @@ def _leaf_to_tensor(value) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def params_from_jax(tree, *, device=None, dtype=None):
+def _shard(x, dim: int, mesh):
+    """This rank's tp block of ``x`` along ``dim``."""
+    if x.shape[dim] % mesh.tp:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over tp={mesh.tp}")
+    return x.chunk(mesh.tp, dim=dim)[mesh.tp_rank].contiguous()
+
+
+def shard_params(params, mesh):
+    """This rank's shards of a whole parameter tree: column-parallel
+    weights (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``, ``lm_head``)
+    split over their output dim, row-parallel ones (``wo``, ``w_down``)
+    over their input dim, the rest replicated
+    (``tpu_operator_libs/examples/llama.py:176-198``;
+    ``parallel.TP_SPLIT_DIM``). The int8 ``{"q", "s"}`` leaves of
+    ``quantize_params_int8`` split their codes so; the per-output-channel
+    scale splits with a column-parallel weight's columns and stays whole
+    for a row-parallel one. At tp = 1 (or ``mesh=None``) the tree comes
+    back as it is."""
+    if tp_of(mesh) == 1:
+        return params
+
+    def split(key, value):
+        dim = TP_SPLIT_DIM.get(key)
+        if dim is None:
+            return walk(value)
+        if isinstance(value, dict):
+            return {"q": _shard(value["q"], dim, mesh),
+                    "s": _shard(value["s"], 0, mesh) if dim == 1
+                    else value["s"]}
+        return _shard(value, dim, mesh)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: split(k, v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(params)
+
+
+def params_from_jax(tree, *, device=None, dtype=None, mesh=None):
     """The port's parameter dict for a JAX params pytree (dicts, lists
     and array leaves). ``dtype`` recasts the plain floating weights; the
     int8 ``{"q": int8, "s": f32}`` leaves of
-    ``quantize_params_int8`` are copied as they are."""
-    device = resolve_device(device)
+    ``quantize_params_int8`` are copied as they are. With a ``mesh``, on
+    its device, the rank's shards (:func:`shard_params`)."""
+    device = mesh.device if mesh is not None else resolve_device(device)
 
     def convert(node, quantized=False):
         if isinstance(node, dict):
@@ -44,7 +91,7 @@ def params_from_jax(tree, *, device=None, dtype=None):
             tensor = tensor.to(dtype)
         return tensor.to(device)
 
-    return convert(tree)
+    return shard_params(convert(tree), mesh)
 
 
 def _adam_state(node):
@@ -62,18 +109,22 @@ def _adam_state(node):
     return None
 
 
-def state_from_jax(state, *, device=None):
+def state_from_jax(state, *, device=None, mesh=None):
     """The port's training state ``{"params", "opt": {"count", "mu",
     "nu"}, "step"}`` for a JAX one whose ``"opt"`` is the state of
     ``optax.adamw`` or ``optax.adam``, alone or behind
-    ``clip_by_global_norm`` in an ``optax.chain``."""
+    ``clip_by_global_norm`` in an ``optax.chain``. With a ``mesh`` the
+    parameters and both moments are the rank's shards."""
     adam = _adam_state(state["opt"])
     if adam is None:
         raise ValueError(
             "no Adam state (count, mu, nu) in the optimizer state")
-    device = resolve_device(device)
-    return {"params": params_from_jax(state["params"], device=device),
+    device = mesh.device if mesh is not None else resolve_device(device)
+
+    def tree(value):
+        return params_from_jax(value, device=device, mesh=mesh)
+
+    return {"params": tree(state["params"]),
             "opt": {"count": _leaf_to_tensor(adam.count).to(device),
-                    "mu": params_from_jax(adam.mu, device=device),
-                    "nu": params_from_jax(adam.nu, device=device)},
+                    "mu": tree(adam.mu), "nu": tree(adam.nu)},
             "step": _leaf_to_tensor(state["step"]).to(device)}

@@ -11,8 +11,15 @@ KV heads -> SwiGLU MLP, the Llama-3 block structure.
 Parameters are a nested dict of tensors in the JAX package's layout:
 weights are ``(in, out)`` and applied as ``x @ W``, so
 :func:`tpu_operator_libs_torch.convert.params_from_jax` is a plain copy.
-Tensor parallelism and meshes wait for a multi-GPU slice: the functions
-here take no ``mesh``.
+
+With a ``mesh`` (:class:`tpu_operator_libs_torch.parallel.Mesh`) each rank
+holds its tp shards of the weights (the JAX package's PartitionSpecs,
+``parallel.TP_SPLIT_DIM``) and its dp block of the batch: it runs
+n_heads/tp query heads over n_kv_heads/tp KV heads (the GQA repeat stays
+inside the shard), and the tp all-reduces XLA inserts from the shardings
+are ``parallel.copy_to_tp`` / ``reduce_from_tp``. The column-parallel
+``lm_head``'s vocabulary shards are all-gathered, so every tp rank holds
+the whole logits and the loss is the JAX package's, unchanged.
 """
 
 from __future__ import annotations
@@ -25,8 +32,17 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tpu_operator_libs_torch import resolve_device
+from tpu_operator_libs_torch.convert import shard_params
 from tpu_operator_libs_torch.kernels.flash_attention import flash_attention
-from tpu_operator_libs_torch.optim import AdamW, value_and_grad
+from tpu_operator_libs_torch.optim import AdamW, tree_map, value_and_grad
+from tpu_operator_libs_torch.parallel import (
+    copy_to_tp,
+    gather_from_tp,
+    local_rows,
+    mean_over_dp,
+    reduce_from_tp,
+    tp_of,
+)
 
 #: Attention implementations forward() accepts; validate_for and
 #: forward both check against this single list so they cannot drift.
@@ -123,13 +139,16 @@ def _rope(x, theta: float, positions=None):
 
 
 def init_llama_params(config: "LlamaConfig | None" = None,
-                      param_dtype=None, seed: int = 0, *, device=None):
+                      param_dtype=None, seed: int = 0, *, device=None,
+                      mesh=None):
     """Random parameters from a ``torch.Generator`` seeded with ``seed``
     on ``device``. The layout is the JAX package's; the numbers differ
-    from its ``jax.random`` draws (tests convert JAX's params instead)."""
+    from its ``jax.random`` draws (tests convert JAX's params instead).
+    With a ``mesh``, on its device, every rank draws the whole tree and
+    keeps its tp shards, so any tp splits the same weights."""
     config = config or LlamaConfig()
-    config.validate_for(1)
-    device = resolve_device(device)
+    config.validate_for(tp_of(mesh))
+    device = mesh.device if mesh is not None else resolve_device(device)
     dtype = param_dtype or torch.float32
     d, hd = config.d_model, config.head_dim
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -161,12 +180,13 @@ def init_llama_params(config: "LlamaConfig | None" = None,
             "w_up": tensor((d, config.d_ff)),
             "w_down": tensor((config.d_ff, d)),
         })
-    return params
+    return shard_params(params, mesh)
 
 
-def forward(params, tokens, config: LlamaConfig):
+def forward(params, tokens, config: LlamaConfig, mesh=None):
     """Logits (B, S, vocab) for integer ``tokens`` (B, S), causal, on
-    the device the parameters live on."""
+    the device the parameters live on. With a ``mesh``, ``params`` are
+    this rank's shards and the logits are whole on every tp rank."""
     seq = tokens.shape[1]
     if config.attention_impl not in ATTENTION_IMPLS:
         raise ValueError(
@@ -186,21 +206,24 @@ def forward(params, tokens, config: LlamaConfig):
         if config.remat:
             # recompute the layer's activations on the backward pass; the
             # saved boundary is the layer's input residual stream
-            h = checkpoint(_layer, h, layer, config, causal,
+            h = checkpoint(_layer, h, layer, config, causal, mesh,
                            use_reentrant=False)
         else:
-            h = _layer(h, layer, config, causal)
+            h = _layer(h, layer, config, causal, mesh)
 
-    h = _rms_norm(h, params["final_norm"])
-    return h @ params["lm_head"]
+    h = copy_to_tp(_rms_norm(h, params["final_norm"]), mesh)
+    return gather_from_tp(h @ params["lm_head"], mesh)
 
 
-def _layer(h, layer, config: LlamaConfig, causal):
-    """One decoder layer; ``causal`` is the einsum path's (S, S) mask, or
-    None for the flash kernel, which masks inside."""
+def _layer(h, layer, config: LlamaConfig, causal, mesh=None):
+    """One decoder layer on this rank's heads and d_ff columns;
+    ``causal`` is the einsum path's (S, S) mask, or None for the flash
+    kernel, which masks inside."""
     batch, seq, _ = h.shape
-    hd, nh, nkv = config.head_dim, config.n_heads, config.n_kv_heads
-    a = _rms_norm(h, layer["attn_norm"])
+    tp = tp_of(mesh)
+    hd = config.head_dim
+    nh, nkv = config.n_heads // tp, config.n_kv_heads // tp
+    a = copy_to_tp(_rms_norm(h, layer["attn_norm"]), mesh)
     q = (a @ layer["wq"]).reshape(batch, seq, nh, hd)
     k = (a @ layer["wk"]).reshape(batch, seq, nkv, hd)
     v = (a @ layer["wv"]).reshape(batch, seq, nkv, hd)
@@ -221,16 +244,18 @@ def _layer(h, layer, config: LlamaConfig, causal):
         scores = scores.float().masked_fill(~causal, -1e30)
         attn = torch.softmax(scores, dim=-1).to(h.dtype)
         ctx = torch.einsum("bhqk,bkhd->bqhd", attn, v)
-    h = h + ctx.reshape(batch, seq, nh * hd) @ layer["wo"]
+    h = h + reduce_from_tp(ctx.reshape(batch, seq, nh * hd) @ layer["wo"],
+                           mesh)
 
-    m = _rms_norm(h, layer["mlp_norm"])
+    m = copy_to_tp(_rms_norm(h, layer["mlp_norm"]), mesh)
     gated = F.silu(m @ layer["w_gate"]) * (m @ layer["w_up"])
-    return h + gated @ layer["w_down"]
+    return h + reduce_from_tp(gated @ layer["w_down"], mesh)
 
 
-def next_token_loss(params, tokens, config: LlamaConfig):
-    """Mean next-token cross-entropy over (B, S) integer tokens."""
-    logits = forward(params, tokens, config)[:, :-1, :]
+def next_token_loss(params, tokens, config: LlamaConfig, mesh=None):
+    """Mean next-token cross-entropy over (B, S) integer tokens (this
+    rank's rows, with a ``mesh``)."""
+    logits = forward(params, tokens, config, mesh)[:, :-1, :]
     targets = tokens[:, 1:].long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     picked = torch.gather(logp, -1, targets[..., None])[..., 0]
@@ -239,7 +264,7 @@ def next_token_loss(params, tokens, config: LlamaConfig):
 
 def config_for_mesh(tp: int) -> LlamaConfig:
     """The default config when it shards evenly over ``tp``, otherwise
-    a tp-derived shape that always does (the port runs tp = 1)."""
+    a tp-derived shape that always does."""
     base = LlamaConfig()
     try:
         base.validate_for(tp)
@@ -250,13 +275,19 @@ def config_for_mesh(tp: int) -> LlamaConfig:
                            seq_len=base.seq_len)
 
 
-def make_train_step(config: LlamaConfig, *, device=None):
+def make_train_step(config: LlamaConfig, *, device=None, mesh=None):
     """(optimizer, step) where ``step(state, tokens) -> (state, loss)`` on
     the state ``{"params", "opt", "step"}`` the checkpoint/resume loop
     expects; ``optimizer.init(params)`` makes the ``"opt"`` entry. The
     step is functional: it returns new tensors and leaves ``state`` as it
     was, so a caller may keep an old state (the checkpoint check does).
-    Tokens are moved to ``device``, where the state must live."""
+    Tokens are moved to ``device``, where the state must live.
+
+    With a ``mesh`` the state holds this rank's shards and ``tokens`` its
+    rows (:func:`make_token_batch` with the mesh): the loss and the
+    gradients are averaged over dp, so the step minimises the global
+    batch's mean, the clip takes the norm of the whole model
+    (``parallel.global_norm``), and AdamW runs on the shards."""
     if config.total_steps < 0 or config.warmup_steps < 0:
         raise ValueError(
             f"total_steps={config.total_steps} / warmup_steps="
@@ -275,14 +306,18 @@ def make_train_step(config: LlamaConfig, *, device=None):
     if config.grad_clip_norm < 0.0:
         raise ValueError(
             f"grad_clip_norm must be >= 0, got {config.grad_clip_norm}")
-    device = resolve_device(device)
+    config.validate_for(tp_of(mesh))
+    device = mesh.device if mesh is not None else resolve_device(device)
     optimizer = AdamW(config.learning_rate, clip_norm=config.grad_clip_norm,
                       warmup_steps=config.warmup_steps,
-                      total_steps=config.total_steps)
+                      total_steps=config.total_steps, mesh=mesh)
 
     def train_step(state, tokens):
         loss, grads = value_and_grad(next_token_loss, state["params"],
-                                     tokens.to(device), config)
+                                     tokens.to(device), config, mesh)
+        if mesh is not None:
+            loss = mean_over_dp(loss, mesh)
+            grads = tree_map(lambda g: mean_over_dp(g, mesh), grads)
         params, opt = optimizer.update(grads, state["opt"],
                                        state["params"])
         return {"params": params, "opt": opt,
@@ -292,21 +327,25 @@ def make_train_step(config: LlamaConfig, *, device=None):
 
 
 def make_token_batch(step: int, config: LlamaConfig,
-                     batch_per_shard: int = 2, *, device=None, start=None):
+                     batch_per_shard: int = 2, *, device=None, start=None,
+                     mesh=None):
     """Deterministic synthetic sequences with learnable structure: the
     affine orbit x_{t+1} = (7 x_t + 3) mod vocab from ``start`` (batch,)
     (default: a CPU ``torch.Generator`` seeded ``7000 + step``), int32
-    (batch, seq_len) on ``device``."""
-    device = resolve_device(device)
+    (batch, seq_len) on ``device``. The global batch has
+    ``batch_per_shard * dp`` rows; with a ``mesh``, on its device, the
+    rank gets its dp block of them."""
+    device = mesh.device if mesh is not None else resolve_device(device)
+    batch = batch_per_shard * (mesh.dp if mesh is not None else 1)
     if start is None:
         gen = torch.Generator().manual_seed(7000 + step)
-        start = torch.randint(0, config.vocab, (batch_per_shard,),
-                              generator=gen)
+        start = torch.randint(0, config.vocab, (batch,), generator=gen)
     x = torch.from_numpy(np.array(start, dtype=np.int64).reshape(-1))
-    if x.shape[0] != batch_per_shard:
+    if x.shape[0] != batch:
         raise ValueError(
-            f"start has {x.shape[0]} rows, batch_per_shard is "
-            f"{batch_per_shard}")
+            f"start has {x.shape[0]} rows, the global batch has {batch} "
+            f"(batch_per_shard {batch_per_shard})")
+    x = local_rows(x, mesh)
     columns = []
     for _ in range(config.seq_len):
         columns.append(x)

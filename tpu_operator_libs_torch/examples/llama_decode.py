@@ -19,21 +19,42 @@ returns the same list. Sampling draws Gumbel noise from an explicit
 and device loops consume it in the same order, so they draw the same
 tokens. The int8 matmul and the decode attention stay plain PyTorch in
 this slice (XLA fuses them on the TPU; they have no Pallas source).
+
+With a ``mesh`` (dp x tp, as the JAX package shards its cache on the
+batch and KV-head axes) every entry point takes the global prompt and
+returns the global tokens on every rank: a rank decodes its dp block of
+the rows over its n_kv_heads/tp KV heads, the forward's tp reduce points
+sum the row-parallel products, the vocabulary shards are gathered before
+sampling, and the rows are gathered once at the end. Every tp rank then
+picks from the same logits; a sampling caller gives each rank an equally
+seeded generator.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from tpu_operator_libs_torch import resolve_device
 from tpu_operator_libs_torch.examples.llama import _rms_norm, _rope
+from tpu_operator_libs_torch.parallel import (
+    TP_SPLIT_DIM,
+    any_rank,
+    gather_from_tp,
+    gather_rows,
+    local_rows,
+    reduce_from_tp,
+    tp_of,
+)
 
 
 def init_kv_cache(config, batch: int, max_seq: int, param_dtype=None,
-                  quantize_kv: bool = False, *, device=None):
+                  quantize_kv: bool = False, *, device=None, mesh=None):
     """Per-layer K/V buffers (B, max_seq, n_kv_heads, head_dim),
-    zero-filled, one fresh buffer per leaf.
+    zero-filled, one fresh buffer per leaf. With a ``mesh``, on its
+    device, the rank holds its batch // dp rows and n_kv_heads // tp KV
+    heads of them, codes and scales alike.
 
     With ``quantize_kv=True`` the buffers are int8 with a per-token
     per-kv-head float32 scale (``k_s``/``v_s``, (B, max_seq, n_kv)):
@@ -41,9 +62,15 @@ def init_kv_cache(config, batch: int, max_seq: int, param_dtype=None,
     rescale of the score matrix after the int8 contraction and the V
     dequant a rescale of the attention weights before the value
     contraction (see the JAX module for the roofline argument)."""
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     dtype = param_dtype or torch.float32
-    shape = (batch, max_seq, config.n_kv_heads, config.head_dim)
+    if mesh is not None:
+        if batch % mesh.dp:
+            raise ValueError(f"batch {batch} does not split over "
+                             f"dp={mesh.dp}")
+        batch //= mesh.dp
+    shape = (batch, max_seq, config.n_kv_heads // tp_of(mesh),
+             config.head_dim)
 
     def buf(shp, dt):
         return torch.zeros(shp, dtype=dt, device=device)
@@ -58,13 +85,19 @@ def init_kv_cache(config, batch: int, max_seq: int, param_dtype=None,
             for _ in range(config.n_layers)]
 
 
-def _sym_int8(x, axis):
+def _sym_int8(x, axis, group=None):
     """Symmetric int8 quantization along ``axis``: ``s = max|x| / 127``
     (floored at 1e-8 so all-zero slices don't divide by zero), ``q =
     clip(round(x / s))`` with round-half-to-even, as ``jnp.round``.
+    With a ``group``, ``x`` is one shard of a tensor split along ``axis``
+    and the max is taken over the whole of it (all-reduce max), so the
+    scales are those of the unsplit tensor.
     Returns (int8 codes, float32 scales with ``axis`` removed)."""
     xf = x.float()
-    s = torch.clamp_min(torch.amax(torch.abs(xf), dim=axis), 1e-8) / 127.0
+    amax = torch.amax(torch.abs(xf), dim=axis)
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    s = torch.clamp_min(amax, 1e-8) / 127.0
     q = torch.clamp(torch.round(xf / s.unsqueeze(axis)), -127, 127) \
         .to(torch.int8)
     return q, s
@@ -76,24 +109,32 @@ def _quantize_kv_block(x):
     return _sym_int8(x, axis=-1)
 
 
-def quantize_params_int8(params):
+def quantize_params_int8(params, mesh=None):
     """Weight-only int8 quantization of every matmul weight: each 2-D
     weight becomes ``{"q": int8 (in, out), "s": f32 (out,)}`` with a
     symmetric per-output-channel scale. Norm weights and the embedding
-    table (a gather, not a matmul) stay in the original dtype."""
-    def quant(w):
-        q, s = _sym_int8(w, axis=0)
+    table (a gather, not a matmul) stay in the original dtype.
+
+    The JAX package quantizes the whole weight. On tp shards (a
+    ``mesh``) a column-parallel weight holds whole columns, so its scales
+    are the whole weight's for those columns; a row-parallel one (``wo``,
+    ``w_down``) holds a block of each column, so its max is all-reduced
+    over tp and every rank gets the whole weight's scales."""
+    def quant(name, w):
+        split_rows = tp_of(mesh) > 1 and TP_SPLIT_DIM[name] == 0
+        q, s = _sym_int8(w, axis=0,
+                         group=mesh.tp_group if split_rows else None)
         return {"q": q, "s": s}
 
     out = {"embed": params["embed"],
            "final_norm": params["final_norm"],
-           "lm_head": quant(params["lm_head"]),
+           "lm_head": quant("lm_head", params["lm_head"]),
            "layers": []}
     for layer in params["layers"]:
         out["layers"].append({
             "attn_norm": layer["attn_norm"],
             "mlp_norm": layer["mlp_norm"],
-            **{k: quant(layer[k])
+            **{k: quant(k, layer[k])
                for k in ("wq", "wk", "wv", "wo",
                          "w_gate", "w_up", "w_down")},
         })
@@ -117,18 +158,23 @@ def _mm(x, w):
     return x @ w
 
 
-def forward_with_cache(params, tokens, cache, start_pos: int, config):
+def forward_with_cache(params, tokens, cache, start_pos: int, config,
+                       mesh=None):
     """Logits for ``tokens`` (B, T) occupying absolute positions
     ``start_pos .. start_pos+T-1``, attending to everything already in
     ``cache`` plus themselves. Writes the new keys and values into the
-    cache buffers in place and returns (logits (B, T, vocab), cache)."""
+    cache buffers in place and returns (logits (B, T, vocab), cache).
+    With a ``mesh``: this rank's rows, shards and cache; the logits are
+    whole on every tp rank."""
     if config.attention_impl != "xla":
         raise ValueError(
             "forward_with_cache implements the einsum path; decode "
             "with attention_impl='xla'")
 
     batch, t_new = tokens.shape
-    hd, nh, nkv = config.head_dim, config.n_heads, config.n_kv_heads
+    tp = tp_of(mesh)
+    hd = config.head_dim
+    nh, nkv = config.n_heads // tp, config.n_kv_heads // tp
     group = nh // nkv
     max_seq = cache[0]["k"].shape[1]
     device = cache[0]["k"].device
@@ -185,14 +231,15 @@ def forward_with_cache(params, tokens, cache, start_pos: int, config):
         attn = attn.to(h.dtype)
         v_op = entry["v"].to(h.dtype) if quant_kv else entry["v"]
         ctx = torch.einsum("bkgqs,bskd->bqkgd", *_promoted(attn, v_op))
-        h = h + _mm(ctx.reshape(batch, t_new, nh * hd), layer["wo"])
+        h = h + reduce_from_tp(
+            _mm(ctx.reshape(batch, t_new, nh * hd), layer["wo"]), mesh)
 
         m = _rms_norm(h, layer["mlp_norm"])
         gated = F.silu(_mm(m, layer["w_gate"])) * _mm(m, layer["w_up"])
-        h = h + _mm(gated, layer["w_down"])
+        h = h + reduce_from_tp(_mm(gated, layer["w_down"]), mesh)
 
     h = _rms_norm(h, params["final_norm"])
-    return _mm(h, params["lm_head"]), cache
+    return gather_from_tp(_mm(h, params["lm_head"]), mesh), cache
 
 
 def _categorical(logits, generator):
@@ -274,9 +321,10 @@ def _check_sampling_args(temperature, generator, top_p):
 
 
 def _start(params, prompt, config, max_new_tokens, param_dtype,
-           temperature, generator, quantize_kv, top_p):
-    """Shared set-up of both generate paths: checks, the prompt on the
-    parameters' device, and a fresh cache for prompt + new tokens."""
+           temperature, generator, quantize_kv, top_p, mesh):
+    """Shared set-up of both generate paths: checks, the prompt's rows
+    of this rank on the parameters' device, and a fresh cache for
+    prompt + new tokens."""
     _check_sampling_args(temperature, generator, top_p)
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
@@ -285,15 +333,15 @@ def _start(params, prompt, config, max_new_tokens, param_dtype,
     batch, prompt_len = prompt.shape
     cache = init_kv_cache(config, batch, prompt_len + max_new_tokens,
                           param_dtype, quantize_kv=quantize_kv,
-                          device=device)
-    return prompt, cache
+                          device=device, mesh=mesh)
+    return local_rows(prompt, mesh), cache
 
 
 def generate(params, prompt, config, max_new_tokens: int,
              param_dtype=None, temperature: float = 0.0, top_k=None,
              generator=None, quantize_kv: bool = False, top_p=None,
              eos_id=None, return_logprobs: bool = False,
-             prefill_chunk=None):
+             prefill_chunk=None, mesh=None):
     """Autoregressive decode driven from the host: prefill the prompt,
     then one cached step per token. ``temperature=0`` (default) is
     greedy; otherwise softmax sampling, optionally top-k and/or top-p
@@ -302,14 +350,16 @@ def generate(params, prompt, config, max_new_tokens: int,
     every row has, the loop stops stepping. Returns (B,
     prompt+max_new_tokens) int64 on the parameters' device; with
     ``return_logprobs=True``, a (tokens, logprobs (B, max_new_tokens)
-    float32) pair, eos-padded positions carrying 0.0."""
+    float32) pair, eos-padded positions carrying 0.0. ``mesh``: see the
+    module's docstring; the loop stops early only once every dp replica's
+    rows are done."""
     prompt, cache = _start(params, prompt, config, max_new_tokens,
                            param_dtype, temperature, generator,
-                           quantize_kv, top_p)
+                           quantize_kv, top_p, mesh)
     batch, prompt_len = prompt.shape
 
     def step(p, t, c, pos):
-        return forward_with_cache(p, t, c, pos, config)
+        return forward_with_cache(p, t, c, pos, config, mesh)
 
     def pick(logits):
         return _pick_next(logits[:, -1, :], temperature, top_k, generator,
@@ -330,7 +380,7 @@ def generate(params, prompt, config, max_new_tokens: int,
         lps.append(lp)
         if i + 1 == max_new_tokens:
             break
-        if eos_id is not None and bool(done.all()):
+        if eos_id is not None and not any_rank(not bool(done.all()), mesh):
             # every row has emitted eos: the remaining positions are
             # padding, so the host loop stops dispatching steps
             pad = max_new_tokens - (i + 1)
@@ -343,9 +393,9 @@ def generate(params, prompt, config, max_new_tokens: int,
             break
         logits, cache = step(params, last, cache, prompt_len + i)
         last, lp = pick(logits)
-    out = torch.cat(tokens, dim=1)
+    out = gather_rows(torch.cat(tokens, dim=1), mesh)
     if return_logprobs:
-        return out, torch.stack(lps, dim=1)
+        return out, gather_rows(torch.stack(lps, dim=1), mesh)
     return out
 
 
@@ -354,7 +404,7 @@ def generate_on_device(params, prompt, config, max_new_tokens: int,
                        top_k=None, generator=None,
                        quantize_kv: bool = False, top_p=None,
                        eos_id=None, return_logprobs: bool = False,
-                       prefill_chunk=None):
+                       prefill_chunk=None, mesh=None):
     """:func:`generate` with the whole token loop left on the device.
 
     The counterpart of the JAX package's single dispatch with a donated
@@ -362,17 +412,18 @@ def generate_on_device(params, prompt, config, max_new_tokens: int,
     ``bool(...)``; eos is handled with ``torch.where`` and every step
     runs), tokens go into one preallocated device buffer, and the caller
     reads them back once. Same contract and return value as
-    :func:`generate`; greedy output is token-equal to it."""
+    :func:`generate`; greedy output is token-equal to it. With a
+    ``mesh`` the rows are gathered once, after the loop."""
     prompt, cache = _start(params, prompt, config, max_new_tokens,
                            param_dtype, temperature, generator,
-                           quantize_kv, top_p)
+                           quantize_kv, top_p, mesh)
     batch, prompt_len = prompt.shape
     _check_prefill_chunk(prefill_chunk)
     if prefill_chunk is not None and prefill_chunk >= prompt_len:
         prefill_chunk = None
 
     def step(p, t, c, pos):
-        return forward_with_cache(p, t, c, pos, config)
+        return forward_with_cache(p, t, c, pos, config, mesh)
 
     def pick(logits):
         return _pick_next(logits[:, -1, :], temperature, top_k, generator,
@@ -403,6 +454,7 @@ def generate_on_device(params, prompt, config, max_new_tokens: int,
         out[:, prompt_len + 1 + i] = last[:, 0]
         if return_logprobs:
             logprobs[:, i + 1] = lp
+    out = gather_rows(out, mesh)
     if return_logprobs:
-        return out, logprobs
+        return out, gather_rows(logprobs, mesh)
     return out

@@ -339,3 +339,7 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale: float):
 flash_attention.launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dq.launches = 0
+#: every kernel's wrapper, by the name its launch count reports under
+WRAPPERS = {"flash_attention_fwd": flash_attention,
+            "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq}

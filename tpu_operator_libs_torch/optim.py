@@ -22,7 +22,9 @@ square root, bias correction at ``count + 1``, moments in the parameter
 dtype, the learning rate of a schedule taken at the count before the
 increment, and clipping by ``max_norm / norm`` only when
 ``norm >= max_norm``, with no epsilon (``clip_grad_norm_`` divides by
-``norm + 1e-6``). The global norm is taken in float32.
+``norm + 1e-6``). The global norm is taken in float32; on tp shards
+(a ``mesh``) it is the whole model's (``parallel.global_norm``), as optax
+takes it over the global arrays.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from tpu_operator_libs_torch.parallel import global_norm
 
 #: optax.adamw's defaults, which make_train_step takes as they are
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -91,12 +95,13 @@ class AdamW:
 
     def __init__(self, learning_rate: float, *, weight_decay: float = 1e-4,
                  clip_norm: float = 0.0, warmup_steps: int = 0,
-                 total_steps: int = 0):
+                 total_steps: int = 0, mesh=None):
         self.peak_lr = learning_rate
         self.weight_decay = weight_decay
         self.clip_norm = clip_norm
         self.warmup_steps = warmup_steps
         self.total_steps = total_steps
+        self.mesh = mesh
 
     def init(self, params):
         leaf = tree_leaves(params)[0]
@@ -118,8 +123,7 @@ class AdamW:
     def update(self, grads, state, params):
         """(new params, new state) after one step on ``grads``."""
         if self.clip_norm > 0.0:
-            norm = torch.sqrt(sum(torch.sum(g.float() ** 2)
-                                  for g in tree_leaves(grads)))
+            norm = global_norm(grads, self.mesh)
             keep = norm < self.clip_norm
             grads = tree_map(
                 lambda g: torch.where(

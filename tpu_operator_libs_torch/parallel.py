@@ -1,0 +1,349 @@
+"""Data and tensor parallelism on ``torch.distributed``: the (dp, tp)
+mesh, a launcher for its ranks, and the collectives that XLA inserts
+from shardings in the JAX package, written out.
+
+Mirrors the JAX package's 2-D ``Mesh(devices.reshape(dp, tp), ("dp",
+"tp"))`` with its split rule, the largest dp <= sqrt(n) that divides n
+(``__graft_entry__.py::_dp_tp_split``,
+``examples/jax_training_job.py::make_mesh``). Rank ``r`` sits at
+``divmod(r, tp)``, as device ``r`` does in the reshaped JAX array.
+
+The weights follow the Megatron split of
+``tpu_operator_libs/examples/llama.py::init_llama_params``
+(:data:`TP_SPLIT_DIM`): column-parallel weights hold a block of output
+columns, row-parallel ones a block of input rows, and everything else is
+replicated. XLA derives two conjugate collectives from those shardings;
+here they are autograd functions:
+
+- :func:`copy_to_tp` before each column-parallel product: identity
+  forward, all-reduce over tp backward, so a replicated activation (and
+  the replicated norm weights before it) gets the whole gradient;
+- :func:`reduce_from_tp` after each row-parallel product: all-reduce over
+  tp forward, identity backward.
+
+:func:`gather_from_tp` all-gathers the column-parallel ``lm_head``'s
+vocabulary shards, and :func:`mean_over_dp` averages gradients over the
+data-parallel replicas. On the card the ranks talk over NCCL, on the CPU
+over gloo; :func:`run_ranks` starts them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import multiprocessing as mp
+import os
+import queue as queue_lib
+import tempfile
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+
+from tpu_operator_libs_torch import resolve_device
+
+#: the dimension each tensor-parallel weight is split on, by its key:
+#: column-parallel weights over their output dim (1), row-parallel ones
+#: over their input dim (0); every other leaf is replicated. The Llama
+#: weights are ``tpu_operator_libs/examples/llama.py:176-198``'s
+#: PartitionSpecs, ``w1``/``w2`` the MLP's of
+#: ``examples/jax_training_job.py:66-74``.
+TP_SPLIT_DIM = {"wq": 1, "wk": 1, "wv": 1, "w_gate": 1, "w_up": 1,
+                "lm_head": 1, "w1": 1, "wo": 0, "w_down": 0, "w2": 0}
+
+def dp_tp_split(n: int) -> "tuple[int, int]":
+    """Largest dp <= sqrt(n) that divides n; tp = n // dp."""
+    if n < 1:
+        raise ValueError(f"need at least one rank, got {n}")
+    dp = max(c for c in range(1, math.isqrt(n) + 1) if n % c == 0)
+    return dp, n // dp
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place in the (dp, tp) grid and its two subgroups."""
+
+    dp: int
+    tp: int
+    dp_rank: int
+    tp_rank: int
+    #: the ranks that hold the same tp shard (this rank's column)
+    dp_group: object
+    #: the ranks that hold one replica's tp shards (this rank's row)
+    tp_group: object
+    device: torch.device
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.tp
+
+
+def make_mesh(n=None, *, device=None) -> Mesh:
+    """The mesh of the initialised default process group (``n``, when
+    given, must be its size). Every rank creates every subgroup, in one
+    order, as ``torch.distributed.new_group`` requires."""
+    world = dist.get_world_size()
+    if n is not None and n != world:
+        raise ValueError(f"mesh of {n} ranks asked for in a process group "
+                         f"of {world}")
+    dp, tp = dp_tp_split(world)
+    dp_rank, tp_rank = divmod(dist.get_rank(), tp)
+    tp_groups = [dist.new_group(list(range(d * tp, (d + 1) * tp)))
+                 for d in range(dp)]
+    dp_groups = [dist.new_group(list(range(t, world, tp)))
+                 for t in range(tp)]
+    return Mesh(dp=dp, tp=tp, dp_rank=dp_rank, tp_rank=tp_rank,
+                dp_group=dp_groups[tp_rank], tp_group=tp_groups[dp_rank],
+                device=resolve_device(device))
+
+
+def tp_of(mesh) -> int:
+    return 1 if mesh is None else mesh.tp
+
+
+# --------------------------------------------------------------------------
+# the conjugate collectives
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, tp, tp_rank):
+        ctx.tp, ctx.tp_rank = tp, tp_rank
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(tp)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        width = grad.shape[-1] // ctx.tp
+        start = ctx.tp_rank * width
+        return grad[..., start:start + width].contiguous(), None, None, None
+
+
+def copy_to_tp(x, mesh):
+    """Identity forward; all-reduce of the gradient over tp backward."""
+    if tp_of(mesh) == 1:
+        return x
+    return _CopyToTP.apply(x, mesh.tp_group)
+
+
+def reduce_from_tp(x, mesh):
+    """All-reduce (sum) over tp forward; identity backward."""
+    if tp_of(mesh) == 1:
+        return x
+    return _ReduceFromTP.apply(x, mesh.tp_group)
+
+
+def gather_from_tp(x, mesh):
+    """The tp shards of the last dim, concatenated in rank order;
+    backward hands each rank its own slice of the gradient."""
+    if tp_of(mesh) == 1:
+        return x
+    return _GatherFromTP.apply(x, mesh.tp_group, mesh.tp, mesh.tp_rank)
+
+
+def mean_over_dp(x, mesh):
+    """``x`` averaged over the dp replicas (a mean of equal-sized local
+    means is the global batch's mean)."""
+    x = x.contiguous().clone()
+    dist.all_reduce(x, group=mesh.dp_group)
+    return x / mesh.dp
+
+
+def gather_rows(x, mesh):
+    """The dp replicas' rows of ``x``, concatenated in rank order (every
+    rank gets the global batch)."""
+    if mesh is None or mesh.dp == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(mesh.dp)]
+    dist.all_gather(parts, x.contiguous(), group=mesh.dp_group)
+    return torch.cat(parts, dim=0)
+
+
+def local_rows(x, mesh):
+    """This rank's block of the global batch's rows."""
+    if mesh is None:
+        return x
+    if x.shape[0] % mesh.dp:
+        raise ValueError(f"batch {x.shape[0]} does not split over "
+                         f"dp={mesh.dp}")
+    rows = x.shape[0] // mesh.dp
+    return x[mesh.dp_rank * rows:(mesh.dp_rank + 1) * rows]
+
+
+def any_rank(flag: bool, mesh) -> bool:
+    """True when ``flag`` holds on any rank. Ranks that leave a loop
+    must leave it together: one left waiting in a collective hangs."""
+    if mesh is None or mesh.size == 1:
+        return bool(flag)
+    value = torch.tensor([1 if flag else 0], device=mesh.device)
+    dist.all_reduce(value, op=dist.ReduceOp.MAX)
+    return bool(value.item())
+
+
+def named_leaves(tree, key=None):
+    """(innermost dict key, leaf) pairs of nested dicts and lists, in
+    ``optim.tree_leaves``' order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, k)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from named_leaves(v, key)
+    else:
+        yield key, tree
+
+
+def global_norm(grads, mesh=None):
+    """optax's ``global_norm`` over a tree of tp shards: each sharded
+    leaf's sum of squares is summed over tp, each replicated leaf counts
+    once, and the leaves add in tree order. Float32."""
+    keys, squares = [], []
+    for key, g in named_leaves(grads):
+        keys.append(key)
+        squares.append(torch.sum(g.float() ** 2))
+    if tp_of(mesh) > 1:
+        sharded = [i for i, k in enumerate(keys) if k in TP_SPLIT_DIM]
+        summed = torch.stack([squares[i] for i in sharded])
+        dist.all_reduce(summed, group=mesh.tp_group)
+        for i, value in zip(sharded, summed):
+            squares[i] = value
+    return torch.sqrt(sum(squares))
+
+
+# --------------------------------------------------------------------------
+# the ranks
+
+
+def to_numpy(tree):
+    """Tensors of nested dicts, lists and tuples as numpy arrays (bfloat16
+    widened to float32, which holds it exactly); other leaves as they
+    are."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+    return tree
+
+
+def _rank_main(rank, n, init_method, device_type, fn, args, results):
+    """One rank: join the process group, build the mesh, run ``fn(mesh,
+    *args)`` and send back ``(rank, ok, numpy result or traceback)``."""
+    try:
+        if device_type == "cuda":
+            torch.cuda.set_device(rank)
+            device = torch.device("cuda", rank)
+        else:
+            device = torch.device("cpu")
+            # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+        dist.init_process_group(
+            "nccl" if device_type == "cuda" else "gloo",
+            init_method=init_method, world_size=n, rank=rank)
+        try:
+            out = to_numpy(fn(make_mesh(n, device=device), *args))
+        finally:
+            dist.destroy_process_group()
+    except Exception:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    results.put((rank, True, out))
+
+
+def spawn_context():
+    """The ranks' start method: spawn, since the parent may run threads
+    (a JAX runtime, a profiler) that fork would copy half-way."""
+    return mp.get_context("spawn")
+
+
+def run_ranks(fn, n: int, *args, device=None, timeout: float = 900.0):
+    """Start ``n`` ranks, one process each, that each run ``fn(mesh,
+    *args)`` in one process group (NCCL on the card, rank i on card i;
+    gloo on the CPU), and return their results in rank order, tensors as
+    numpy arrays. ``fn`` and ``args`` must pickle (a module-level
+    function). The ranks meet through a ``file://`` store in a fresh
+    temporary directory, so concurrent launches never share a port. A
+    rank that raises, dies or outlasts ``timeout`` fails the call, and
+    every rank still running is stopped."""
+    device = resolve_device(device)
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        raise ValueError(f"{n} ranks need {n} cards, "
+                         f"{torch.cuda.device_count()} visible")
+    ctx = spawn_context()
+    results = ctx.Queue()
+    got: "dict[int, object]" = {}
+    with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
+        init_method = f"file://{tmp}/store"
+        procs = [ctx.Process(target=_rank_main, daemon=True,
+                             args=(rank, n, init_method, device.type, fn,
+                                   args, results))
+                 for rank in range(n)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        try:
+            while len(got) < n:
+                try:
+                    rank, ok, payload = results.get(timeout=0.5)
+                except queue_lib.Empty:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(
+                            f"ranks {sorted(set(range(n)) - set(got))} gave "
+                            f"no result within {timeout} s") from None
+                    dead = [r for r, p in enumerate(procs)
+                            if r not in got and p.exitcode is not None]
+                    if dead:
+                        # a result may still be in the pipe: one more look
+                        try:
+                            rank, ok, payload = results.get(timeout=2.0)
+                        except queue_lib.Empty:
+                            raise RuntimeError(
+                                f"ranks {dead} exited (codes "
+                                f"{[procs[r].exitcode for r in dead]}) "
+                                "without a result") from None
+                    else:
+                        continue
+                if not ok:
+                    raise RuntimeError(f"rank {rank} of {n} failed:\n"
+                                       f"{payload}")
+                got[rank] = payload
+        finally:
+            for p in procs:
+                p.join(timeout=10.0)
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10.0)
+    return [got[rank] for rank in range(n)]
