@@ -24,6 +24,15 @@ exits non-zero without printing a result. Phases:
    the train step's shape and four more (an odd length among them), two
    launches bit-equal, each row naming the design it ran, timed beside
    SDPA's backward alone.
+3c. ring_kernels, with the launch counts set to 0 just before its chain:
+   the three flash kernels launched without the causal mask (a ring's
+   past blocks) against plain and SDPA; the long-context shape (b) cut
+   into 4 blocks, each query block's ring chain (``_block_attention``:
+   a flash forward per visible block, folded by the fold kernel) against
+   the whole-sequence flash forward and against the plain chain; the
+   fold kernel against its plain version (rows that have seen nothing
+   among them); the ring's backward schedule against the whole-sequence
+   backward.
 4-6. the serving path, with the launch counts set to 0 just before it:
    ``forward`` of llama-277M with ``attention_impl="flash"`` against
    ``"xla"``; the decode contract (stepwise cache == batch forward, host
@@ -42,7 +51,11 @@ exits non-zero without printing a result. Phases:
    (at one card, the losses held to phase 7's first three), host loop ==
    device loop decode in bf16 and int8, save -> gate -> restore -> the
    next loss bit-equal, the fabric battery over every shifted ring, and
-   at two cards or more the bandwidth ring.
+   at two cards or more the bandwidth ring; then, at llama-277M's
+   widths, ring (ring attention against dense; the ring Llama on a 1 x n
+   dp x sp mesh, its forward at 1 x 8192 against the one-card flash
+   forward and 3 train steps at 16 x 1024, held to phase 7's at one
+   card), pipeline (GPipe, f32) and moe (both dispatch modes, f32).
 10. kernels: one line with every kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``. The model is
@@ -102,15 +115,27 @@ from tpu_operator_libs_torch.health.serving_gate import (  # noqa: E402
     ServingEndpoint,
 )
 from tpu_operator_libs_torch import multichip  # noqa: E402
-from tpu_operator_libs_torch.kernels import _build  # noqa: E402
-from tpu_operator_libs_torch.kernels.flash_attention import (  # noqa: E402
+from tpu_operator_libs_torch.examples.ring_attention import (  # noqa: E402
+    _block_attention,
+    _block_backward,
+    _schedule,
+)
+from tpu_operator_libs_torch.kernels import (  # noqa: E402
     SOURCES,
     WRAPPERS,
+    _build,
+)
+from tpu_operator_libs_torch.kernels.attention_fold import (  # noqa: E402
+    attention_fold,
+    attention_fold_reference,
+)
+from tpu_operator_libs_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_backward_reference,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
     flash_attention_reference,
+    flash_backward,
     flash_forward,
     kernel_design,
 )
@@ -232,6 +257,22 @@ KERNEL_TEMPLATES = {
 }
 
 
+def ptxas_entry(block, kernel, dtype, head_dim, design):
+    """One kernel instance's line of the build phase from its ptxas
+    report."""
+    regs = re.search(r"Used (\d+) registers", block)
+    smem = re.search(r"(\d+) bytes smem", block)
+    spill = re.search(r"(\d+) bytes spill stores", block)
+    return {"kernel": kernel, "dtype": str(dtype).replace("torch.", ""),
+            "head_dim": head_dim, "design": design["design"],
+            "registers": int(regs.group(1)) if regs else None,
+            "static_smem_bytes": int(smem.group(1)) if smem else 0,
+            "dynamic_smem_bytes": design["dynamic_smem_bytes"],
+            "spill_store_bytes": int(spill.group(1)) if spill else 0,
+            # ptxas serialises wgmma it cannot keep asynchronous
+            "wgmma_serialized": "serialized" in block}
+
+
 def phase_build():
     """Build every kernel source at once (one nvcc each, in parallel)
     and report, per kernel instance, ptxas' registers, static shared
@@ -243,6 +284,15 @@ def phase_build():
     for source, lib in zip(SOURCES, built):
         entries = []
         for block in lib.ptxas_report.split("Compiling entry function")[1:]:
+            fold = re.search(r"\dattention_fold_kernelI(13__nv_bfloat16|f)E",
+                             block)
+            if fold is not None:
+                entries.append(ptxas_entry(
+                    block, "attention_fold_kernel",
+                    torch.float32 if fold.group(1) == "f" else torch.bfloat16,
+                    None, {"design": "one warp a row",
+                           "dynamic_smem_bytes": 0}))
+                continue
             # the template's name follows its length in the mangled name
             name = re.search(r"\d(flash_[a-z]+(?:_[a-z]+)*?_kernel)I"
                              r"(13__nv_bfloat16|f)?Li(\d+)E", block)
@@ -252,20 +302,9 @@ def phase_build():
             dtype = fixed_dtype or (torch.bfloat16 if name.group(2) != "f"
                                     else torch.float32)
             head_dim = int(name.group(3))
-            regs = re.search(r"Used (\d+) registers", block)
-            smem = re.search(r"(\d+) bytes smem", block)
-            spill = re.search(r"(\d+) bytes spill stores", block)
-            design = kernel_design(wrapper, dtype, head_dim)
-            entries.append({
-                "kernel": name.group(1),
-                "dtype": str(dtype).replace("torch.", ""),
-                "head_dim": head_dim, "design": design["design"],
-                "registers": int(regs.group(1)) if regs else None,
-                "static_smem_bytes": int(smem.group(1)) if smem else 0,
-                "dynamic_smem_bytes": design["dynamic_smem_bytes"],
-                "spill_store_bytes": int(spill.group(1)) if spill else 0,
-                # ptxas serialises wgmma it cannot keep asynchronous
-                "wgmma_serialized": "serialized" in block})
+            entries.append(ptxas_entry(block, name.group(1), dtype, head_dim,
+                                       kernel_design(wrapper, dtype,
+                                                     head_dim)))
         emit({"phase": "build", "source": source,
               "build_seconds": lib.build_seconds, "wall_seconds_all": wall,
               "ptxas": entries})
@@ -278,7 +317,7 @@ def limit_use(err, ref, rtol, atol) -> float:
 
 
 def check_kernel_shape(label, batch, heads, kv_heads, seq, dim, dtype,
-                       card, iters):
+                       card, iters, causal=True):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def randn(*shape):
@@ -289,9 +328,9 @@ def check_kernel_shape(label, batch, heads, kv_heads, seq, dim, dtype,
     k = randn(batch, kv_heads, seq, dim)
     v = randn(batch, kv_heads, seq, dim)
     scale = dim ** -0.5
-    out, lse = flash_forward(q, k, v, causal=True, sm_scale=scale)
+    out, lse = flash_forward(q, k, v, causal=causal, sm_scale=scale)
     torch.cuda.synchronize()
-    ref, ref_lse = flash_attention_reference(q, k, v, causal=True,
+    ref, ref_lse = flash_attention_reference(q, k, v, causal=causal,
                                              sm_scale=scale)
     rtol, atol = KERNEL_TOL[dtype]
     err = (out.float() - ref.float()).abs()
@@ -306,9 +345,9 @@ def check_kernel_shape(label, batch, heads, kv_heads, seq, dim, dtype,
             f"lse max|err| {lse_err} (atol {LSE_ATOL})")
     del ref, ref_lse, err
     kernel_ms = cuda_ms(
-        lambda: flash_forward(q, k, v, causal=True, sm_scale=scale), iters)
+        lambda: flash_forward(q, k, v, causal=causal, sm_scale=scale), iters)
     plain_ms = cuda_ms(
-        lambda: flash_attention_reference(q, k, v, causal=True,
+        lambda: flash_attention_reference(q, k, v, causal=causal,
                                           sm_scale=scale),
         max(1, iters // 3), warmup=1)
     group = heads // kv_heads
@@ -318,11 +357,12 @@ def check_kernel_shape(label, batch, heads, kv_heads, seq, dim, dtype,
     with sdpa_kernel(backend):
         library_ms = cuda_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k_full, v_full, is_causal=True, scale=scale), iters)
+                q, k_full, v_full, is_causal=causal, scale=scale), iters)
     bound_ms, bound_by = attention_bound_ms(batch, heads, kv_heads, seq,
-                                            seq, dim, dtype)
+                                            seq, dim, dtype, causal)
     row = {"phase": "kernel", "name": "flash_attention_fwd",
-           "shape": label, "B": batch, "H": heads, "H_kv": kv_heads,
+           "shape": label, "causal": causal, "B": batch, "H": heads,
+           "H_kv": kv_heads,
            "S": seq, "D": dim, "dtype": str(dtype).replace("torch.", ""),
            **kernel_design("flash_attention_fwd", dtype, dim),
            "max_abs_err": max_err, "rtol": rtol, "atol": atol,
@@ -353,12 +393,13 @@ def phase_kernel(card):
 
 
 def backward_bound_ms(products, batch, heads, kv_heads, seq, dim, dtype,
-                      outputs):
+                      outputs, causal=True):
     """Least time for one backward kernel on these inputs: ``products``
     matrix products of 2*D FLOPs per visible pair over the dtype's peak,
     against Q, K, V, dO, lse and di read once and ``outputs`` (the
     element counts it writes) written once, over the memory rate."""
-    flops = products * 2 * dim * batch * heads * visible_pairs(seq, seq)
+    flops = products * 2 * dim * batch * heads * visible_pairs(seq, seq,
+                                                                causal)
     esize = torch.finfo(dtype).bits // 8
     nbytes = (esize * (2 * batch * heads * seq * dim
                        + 2 * batch * kv_heads * seq * dim + sum(outputs))
@@ -370,7 +411,7 @@ def backward_bound_ms(products, batch, heads, kv_heads, seq, dim, dtype,
     return t_bytes * 1e3, "bytes"
 
 
-def sdpa_backward_ms(q, k, v, do, scale, iters):
+def sdpa_backward_ms(q, k, v, do, scale, iters, causal=True):
     """F.scaled_dot_product_attention's backward alone, on its pinned
     backend, K/V repeated to q's heads: one forward keeps its graph, then
     each timed call is torch.autograd.grad of it (the library's dq, dk,
@@ -381,7 +422,7 @@ def sdpa_backward_ms(q, k, v, do, scale, iters):
     vg = v.repeat_interleave(group, dim=1).requires_grad_()
     with sdpa_kernel(SDPA_BACKENDS[q.dtype][0]):
         out = torch.nn.functional.scaled_dot_product_attention(
-            qg, kg, vg, is_causal=True, scale=scale)
+            qg, kg, vg, is_causal=causal, scale=scale)
         ms = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
                                                  retain_graph=True), iters)
     del out
@@ -389,7 +430,7 @@ def sdpa_backward_ms(q, k, v, do, scale, iters):
 
 
 def check_backward_shape(label, batch, heads, kv_heads, seq, dim, dtype,
-                         card, iters):
+                         card, iters, causal=True):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
 
     def randn(*shape):
@@ -401,9 +442,9 @@ def check_backward_shape(label, batch, heads, kv_heads, seq, dim, dtype,
     v = randn(batch, kv_heads, seq, dim)
     do = randn(batch, heads, seq, dim)
     scale = dim ** -0.5
-    o, lse = flash_forward(q, k, v, causal=True, sm_scale=scale)
+    o, lse = flash_forward(q, k, v, causal=causal, sm_scale=scale)
     di = (o.float() * do.float()).sum(-1)
-    kw = {"causal": True, "sm_scale": scale}
+    kw = {"causal": causal, "sm_scale": scale}
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
     torch.cuda.synchronize()
@@ -438,13 +479,14 @@ def check_backward_shape(label, batch, heads, kv_heads, seq, dim, dtype,
         lambda: flash_attention_backward_reference(q, k, v, o, lse, do,
                                                    **kw),
         max(1, iters // 3), warmup=1)
-    library_ms = sdpa_backward_ms(q, k, v, do, scale, iters)
+    library_ms = sdpa_backward_ms(q, k, v, do, scale, iters, causal)
     kv_elems = batch * kv_heads * seq * dim
     dkv_bound = backward_bound_ms(4, batch, heads, kv_heads, seq, dim,
-                                  dtype, [kv_elems, kv_elems])
+                                  dtype, [kv_elems, kv_elems], causal)
     dq_bound = backward_bound_ms(3, batch, heads, kv_heads, seq, dim, dtype,
-                                 [batch * heads * seq * dim])
-    common = {"shape": label, "B": batch, "H": heads, "H_kv": kv_heads,
+                                 [batch * heads * seq * dim], causal)
+    common = {"shape": label, "causal": causal, "B": batch, "H": heads,
+              "H_kv": kv_heads,
               "S": seq, "D": dim, "dtype": str(dtype).replace("torch.", ""),
               "rtol": rtol, "atol": atol, "plain_ms": plain_ms,
               "library_ms": library_ms,
@@ -488,6 +530,242 @@ def phase_kernel_bwd(card):
     for s in shapes:
         rows += check_backward_shape(*s[:7], card, s[7])
     return rows
+
+
+#: the ring phase's long-context shape (PERF.md section 4, (b)) and the
+#: number of sequence blocks it is cut into
+RING_SHAPE = (1, 16, 8192, 128)
+RING_BLOCKS = 4
+
+
+def ring_limit(ref, parts_abs, dtype):
+    """The elementwise limit of a ring chain against an unsplit
+    computation (or another chain): ``KERNEL_TOL``'s rtol on the
+    reference, for the two sides' final roundings, plus the same rtol on
+    ``parts_abs``, the sum over the chain's blocks of each block's
+    magnitude (each block's output or gradient is rounded once to bf16
+    before the float32 sum, and is at most one bf16 ulp off its plain
+    counterpart, so the sum's error is at most 2^-7 of that), plus
+    ``KERNEL_TOL``'s atol for elements near 0."""
+    rtol, atol = KERNEL_TOL[dtype]
+    return atol + rtol * (ref.float().abs() + parts_abs)
+
+
+def fold_bound_ms(rows, dim, o_dtype):
+    """Least time of one fold: acc (f32) read and written, o_blk read,
+    lse_acc read and written and lse_blk read, over the memory rate (3
+    FLOPs an element: far below the card's ratio)."""
+    esize = torch.finfo(o_dtype).bits // 8
+    return (rows * dim * (8 + esize) + rows * 12) / PEAK_BYTES * 1e3
+
+
+def phase_ring_kernels(card):
+    """The kernels as the ring runs them, on one card: rows without the
+    causal mask, the 4-block chain of the long-context shape, the fold
+    kernel against its plain version, and the ring's backward schedule.
+    Returns (non-causal forward rows, non-causal backward rows, the fold
+    row, the chain's launches)."""
+    fwd_rows = [check_kernel_shape("ring_block", 1, 16, 16, 2048, 128,
+                                   torch.bfloat16, card, 10, causal=False)]
+    bwd_rows = check_backward_shape("ring_block", 1, 16, 16, 2048, 128,
+                                    torch.bfloat16, card, 10, causal=False)
+
+    batch, heads, seq, dim = RING_SHAPE
+    dtype, n = torch.bfloat16, RING_BLOCKS
+    width, scale = seq // n, dim ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+
+    def randn():
+        return torch.randn(RING_SHAPE, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    q, k, v, do = randn(), randn(), randn(), randn()
+
+    def block(x, j):
+        return x[:, :, j * width:(j + 1) * width].contiguous()
+
+    qb, kb, vb, dob = ([block(x, j) for j in range(n)] for x in (q, k, v, do))
+    # the yardsticks first: their launches are not the chain's
+    whole, whole_lse = flash_forward(q, k, v, causal=True, sm_scale=scale)
+    whole_grads = flash_backward(q, k, v, whole, whole_lse, do, causal=True,
+                                 sm_scale=scale)
+
+    def chain(me, fold_block):
+        """Query block ``me``'s ring steps; ``fold_block(k, v, acc, lse,
+        causal)`` folds one visible block. Returns (out, lse, the sum of
+        the blocks' |output|)."""
+        acc = torch.zeros(qb[me].shape, dtype=torch.float32, device="cuda")
+        lse = torch.full(qb[me].shape[:3], float("-inf"), device="cuda")
+        parts = torch.zeros_like(acc)
+        for _, src, causal in _schedule(me, n, True):
+            if causal is not None:
+                parts += fold_block(qb[me], kb[src], vb[src], acc, lse,
+                                    causal).float().abs()
+        return acc.to(dtype), lse, parts
+
+    def kernel_block(qm, ks, vs, acc, lse, causal):
+        out, lse_blk = flash_forward(qm, ks, vs, causal=causal,
+                                     sm_scale=scale)
+        attention_fold(acc, lse, out, lse_blk)
+        return out
+
+    def plain_block(qm, ks, vs, acc, lse, causal):
+        out, lse_blk = flash_attention_reference(qm, ks, vs, causal=causal,
+                                                 sm_scale=scale)
+        attention_fold_reference(acc, lse, out, lse_blk)
+        return out
+
+    reset_launch_counts()
+    kernel_chain = [chain(me, kernel_block) for me in range(n)]
+    torch.cuda.synchronize()
+    chain_launches = launch_counts()
+    plain_chain = [chain(me, plain_block) for me in range(n)]
+    use_whole, use_plain, err_whole, err_plain, lse_err = 0.0, 0.0, 0.0, 0.0, 0.0
+    for me, ((out, lse, parts), (ref, ref_lse, ref_parts)) in enumerate(
+            zip(kernel_chain, plain_chain)):
+        want = block(whole, me)
+        for got_ref, ref_parts_abs, name in ((want, parts, "whole"),
+                                             (ref, ref_parts, "plain")):
+            err = (out.float() - got_ref.float()).abs()
+            use = (err / ring_limit(got_ref, torch.maximum(
+                parts, ref_parts_abs), dtype)).max().item()
+            if name == "whole":
+                use_whole, err_whole = (max(use_whole, use),
+                                        max(err_whole, err.max().item()))
+            else:
+                use_plain, err_plain = (max(use_plain, use),
+                                        max(err_plain, err.max().item()))
+        lse_err = max(lse_err, (lse - block(whole_lse, me)).abs().max().item(),
+                      (lse - ref_lse).abs().max().item())
+        if not torch.isfinite(out.float()).all():
+            raise RuntimeError(f"ring chain of block {me} not finite")
+    if not (use_whole <= 1 and use_plain <= 1 and lse_err <= LSE_ATOL):
+        raise RuntimeError(
+            f"ring chain off: limit_use vs whole {use_whole}, vs plain "
+            f"{use_plain}, lse max|err| {lse_err}")
+    def port_chain():
+        """The chains as the ring runs them: ``_block_attention`` on
+        every visible block, no magnitudes kept."""
+        for me in range(n):
+            acc = torch.zeros(qb[me].shape, device="cuda")
+            lse = torch.full(qb[me].shape[:3], float("-inf"), device="cuda")
+            for _, src, causal in _schedule(me, n, True):
+                if causal is not None:
+                    _block_attention(qb[me], kb[src], vb[src], acc, lse,
+                                     causal, scale)
+            acc.to(dtype)
+
+    chain_ms = cuda_ms(port_chain, 5)
+    plain_chain_ms = cuda_ms(
+        lambda: [chain(me, plain_block) for me in range(n)], 1, warmup=1)
+    whole_ms = cuda_ms(lambda: flash_forward(q, k, v, causal=True,
+                                             sm_scale=scale), 5)
+    emit({"phase": "ring_chain", "shape": list(RING_SHAPE), "blocks": n,
+          "dtype": "bfloat16", "launches": chain_launches,
+          "max_abs_err_vs_whole": err_whole, "limit_use_vs_whole": use_whole,
+          "max_abs_err_vs_plain": err_plain, "limit_use_vs_plain": use_plain,
+          "lse_max_abs_err": lse_err, "lse_atol": LSE_ATOL,
+          "limit": "atol + rtol * (|ref| + sum of |block outputs|), "
+                   f"rtol {KERNEL_TOL[dtype][0]}, atol {KERNEL_TOL[dtype][1]}",
+          "chain_ms": chain_ms, "plain_chain_ms": plain_chain_ms,
+          "whole_sequence_flash_ms": whole_ms, "card": card})
+
+    # the fold kernel against its plain version on identical inputs: a
+    # past block folded into the diagonal's state, rows 0-63 of head 0
+    # having seen nothing on either side (the guard's rows)
+    diag, diag_lse = flash_forward(qb[1], kb[1], vb[1], causal=True,
+                                   sm_scale=scale)
+    past, past_lse = flash_forward(qb[1], kb[0], vb[0], causal=False,
+                                   sm_scale=scale)
+    acc0, lse0 = diag.float(), diag_lse.clone()
+    acc0[:, 0, :64], lse0[:, 0, :64] = 0.0, float("-inf")
+    past_lse[:, 0, :64] = float("-inf")
+    got_acc, got_lse = attention_fold(acc0.clone(), lse0.clone(), past,
+                                      past_lse)
+    ref_acc, ref_lse = attention_fold_reference(acc0.clone(), lse0.clone(),
+                                                past, past_lse)
+    torch.cuda.synchronize()
+    rtol, atol = KERNEL_TOL[torch.float32]
+    fold_err = (got_acc - ref_acc).abs()
+    fold_use = limit_use(fold_err, ref_acc, rtol, atol)
+    seen = torch.isfinite(ref_lse)
+    fold_lse_err = (got_lse[seen] - ref_lse[seen]).abs().max().item()
+    guard_ok = bool((got_acc[:, 0, :64] == 0).all()
+                    and torch.isneginf(got_lse[~seen]).all()
+                    and int((~seen).sum()) == batch * 64)
+    if not (fold_use <= 1 and guard_ok and fold_lse_err <= LSE_ATOL
+            and torch.isfinite(got_acc).all()):
+        raise RuntimeError(
+            f"attention_fold off its plain version: limit_use {fold_use}, "
+            f"guard rows zero {guard_ok}, lse err {fold_lse_err}")
+    bit_equal = bool(torch.equal(got_acc, ref_acc))
+    rows = batch * heads * width
+    fold_ms = cuda_ms(lambda: attention_fold(acc0, lse0, past, past_lse), 50)
+    fold_plain_ms = cuda_ms(
+        lambda: attention_fold_reference(acc0, lse0, past, past_lse), 20)
+    fold_row = {"phase": "ring_fold", "name": "attention_fold",
+                "shape": "ring_block", "B": batch, "H": heads, "S": width,
+                "D": dim, "o_dtype": "bfloat16", "max_abs_err":
+                fold_err.max().item(), "rtol": rtol, "atol": atol,
+                "limit_use": fold_use, "lse_max_abs_err": fold_lse_err,
+                "bit_equal": bit_equal,
+                "guard_rows_zero": guard_ok, "kernel_ms": fold_ms,
+                "plain_ms": fold_plain_ms,
+                "bound_ms": fold_bound_ms(rows, dim, dtype),
+                "bound_by": "bytes", "library_ms": None,
+                "library": "none: no single PyTorch call folds",
+                "card": card}
+    emit(fold_row)
+
+    # the ring's backward schedule over the blocks, given the whole
+    # sequence's output and lse, against the whole-sequence backward
+    dq = [torch.zeros(x.shape, device="cuda") for x in qb]
+    dk = [torch.zeros(x.shape, device="cuda") for x in kb]
+    dv = [torch.zeros(x.shape, device="cuda") for x in vb]
+    parts = {name: [torch.zeros_like(t) for t in ts]
+             for name, ts in (("dq", dq), ("dk", dk), ("dv", dv))}
+
+    def ring_backward(accumulate):
+        for me in range(n):
+            out_me, lse_me = block(whole, me), block(whole_lse, me)
+            di = (out_me.float() * dob[me].float()).sum(-1)
+            for _, src, causal in _schedule(me, n, True):
+                if causal is None:
+                    continue
+                got = _block_backward(qb[me], kb[src], vb[src], out_me,
+                                      lse_me, dob[me], di, causal, scale)
+                if accumulate:
+                    for name, acc, index, part in zip(
+                            ("dq", "dk", "dv"), (dq, dk, dv),
+                            (me, src, src), got):
+                        acc[index] += part.float()
+                        parts[name][index] += part.float().abs()
+
+    ring_backward(True)
+    torch.cuda.synchronize()
+    bwd_use, bwd_err = 0.0, 0.0
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), whole_grads):
+        for j in range(n):
+            want = block(ref, j)
+            err = (got[j].to(dtype).float() - want.float()).abs()
+            bwd_err = max(bwd_err, err.max().item())
+            bwd_use = max(bwd_use, (err / ring_limit(
+                want, parts[name][j], dtype)).max().item())
+            if not torch.isfinite(got[j]).all():
+                raise RuntimeError(f"ring backward {name} not finite")
+    if not bwd_use <= 1:
+        raise RuntimeError(f"ring backward off the whole-sequence backward: "
+                           f"limit_use {bwd_use}, max|err| {bwd_err}")
+    emit({"phase": "ring_backward", "shape": list(RING_SHAPE), "blocks": n,
+          "max_abs_err": bwd_err, "limit_use": bwd_use,
+          "ring_ms": cuda_ms(lambda: ring_backward(False), 3),
+          "whole_sequence_flash_backward_ms": cuda_ms(
+              lambda: flash_backward(q, k, v, whole, whole_lse, do,
+                                     causal=True, sm_scale=scale), 3),
+          "card": card})
+    del q, k, v, do, qb, kb, vb, dob, whole, whole_grads, dq, dk, dv, parts
+    torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows, fold_row, chain_launches
 
 
 def cast_params(params, dtype):
@@ -707,9 +985,9 @@ TRAIN_STEPS = 6
 REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-6
 
 
-def expect_launches(delta, fwd, bwd, what):
+def expect_launches(delta, fwd, bwd, what, fold=0):
     want = {"flash_attention_fwd": fwd, "flash_attention_bwd_dkv": bwd,
-            "flash_attention_bwd_dq": bwd}
+            "flash_attention_bwd_dq": bwd, "attention_fold": fold}
     if delta != want:
         raise RuntimeError(f"{what} launched {delta}, expected {want}")
 
@@ -906,11 +1184,24 @@ MULTI_LOSS_TOL = 1e-3
 PROBE_ATOL = 1e-2
 
 
+def multichip_shapes(n) -> "multichip.ParallelShapes":
+    """Phase 9's pipeline and moe stages at llama-277M's widths (d_model
+    2048, hidden 8192) on n cards: 8 microbatches of 2,048 tokens, and 16
+    x 1024 tokens for the experts, both in f32 (TF32 off) so that the dry
+    run's 1e-4 holds; and the ring Llama itself."""
+    return multichip.ParallelShapes(
+        d_model=2048, d_hidden=8192, microbatches=(8, 2048),
+        tokens_per_rank=TRAIN_BATCH * 1024 // n,
+        ring_llama=dataclasses.replace(CONFIG_277M, attention_impl="ring"))
+
+
 def phase_multichip(card, train_losses=None):
     """The multi-device slice on every visible card, one NCCL rank each
     (``multichip.run_stages`` at llama-277M width): one line per stage.
-    ``train_losses``: phase 7's, which a one-card run's losses must match
-    within MULTI_LOSS_TOL. Returns rank 0's kernel launches."""
+    ``train_losses``: phase 7's, which a one-card run's losses (of the
+    dp x tp and of the ring Llama) must match within MULTI_LOSS_TOL.
+    Returns rank 0's kernel launches of stages 1-4 and of the ring
+    stage."""
     fn, args = multichip.entry()
     out = fn(*args)
     probe_err = (out - (math.tanh(0.5) + 0.25)).abs().max().item()
@@ -930,7 +1221,7 @@ def phase_multichip(card, train_losses=None):
         multichip.run_stages, param_dtype=torch.bfloat16,
         batch_per_shard=TRAIN_BATCH // dp, train_steps=MULTI_STEPS,
         prompt_len=64, new_tokens=16, decode_rows=8, payload_mib=16,
-        rounds=8)
+        rounds=8, shapes=multichip_shapes(n))
     start = time.perf_counter()
     try:
         ranks = run_ranks(stages, n, config, ckpt_dir, device="cuda",
@@ -992,7 +1283,39 @@ def phase_multichip(card, train_losses=None):
           "resumed_loss": first["resumed_loss"],
           "gate_closed_before_save": True, "gate_open_after_save": True,
           "resumed_loss_bit_equal": True})
-    return launches
+
+    # ring, pipeline, moe: every rank checked its own against its
+    # reference; rank 0's numbers, every rank's launches
+    ring = first["ring"]
+    llama = ring["llama"]
+    for rank in ranks:
+        idle = [k for k, c in rank["launches_ring"].items() if c < 1]
+        if idle:
+            raise RuntimeError(f"the ring stage never launched {idle}")
+        if rank["ring"]["llama"]["losses"] != llama["losses"]:
+            raise RuntimeError("ranks disagree on the ring Llama's losses")
+    if n == 1 and train_losses is not None:
+        ref = train_losses[:MULTI_STEPS]
+        diff = max(abs(a - b) for a, b in zip(llama["losses"], ref))
+        llama.update({"phase7_losses": ref, "max_abs_diff_vs_phase7": diff,
+                      "tol": MULTI_LOSS_TOL,
+                      "bit_equal_to_phase7": llama["losses"] == ref})
+        if not diff <= MULTI_LOSS_TOL:
+            raise RuntimeError(f"ring Llama losses {llama['losses']} off "
+                               f"phase 7's {ref} by {diff}")
+    llama["logits_rel_err_max_over_ranks"] = max(
+        r["ring"]["llama"]["logits_rel_err"] for r in ranks)
+    llama["logits_bit_equal_on_every_rank"] = all(
+        r["ring"]["llama"]["logits_bit_equal_to_flash"] for r in ranks)
+    emit({"phase": "multichip_ring", **common, "sp": n,
+          "attention": {k: ring[k] for k in ("shape", "max_abs_err", "tol",
+                                              "ms")},
+          "llama": llama, "launches": first["launches_ring"]})
+    emit({"phase": "multichip_pipeline", **common, **first["pipeline"],
+          "dtype": "float32"})
+    emit({"phase": "multichip_moe", **common, **first["moe"],
+          "dtype": "float32"})
+    return launches, first["launches_ring"]
 
 
 def kernel_entry(name, source, replaces, launches, rows, shape, card):
@@ -1010,8 +1333,9 @@ def kernel_entry(name, source, replaces, launches, rows, shape, card):
         "library_ms": main_row["library_ms"],
         "library": main_row["library"], "design": main_row["design"],
         "shape": shape,
-        "shapes": [{k: r[k] for k in ("shape", "B", "H", "H_kv", "S", "D",
-                                      "dtype", "design", "max_abs_err",
+        "shapes": [{k: r[k] for k in ("shape", "causal", "B", "H", "H_kv",
+                                      "S", "D", "dtype", "design",
+                                      "max_abs_err",
                                       "limit_use", "kernel_ms", "plain_ms",
                                       "library", "library_ms", "bound_ms",
                                       "bound_by")} for r in rows],
@@ -1030,6 +1354,10 @@ def main(argv) -> int:
         raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     fwd_rows = phase_kernel(card)
     bwd_rows = phase_kernel_bwd(card)
+    # the ring's chain: counts at 0 just before it, read just after
+    ring_fwd, ring_bwd, fold_row, chain = phase_ring_kernels(card)
+    fwd_rows += ring_fwd
+    bwd_rows += ring_bwd
 
     params = init_llama_params(CONFIG_277M, param_dtype=torch.bfloat16,
                                seed=SEED, device="cuda")
@@ -1050,13 +1378,16 @@ def main(argv) -> int:
     del state, params
     torch.cuda.empty_cache()
     # the multi-device path: its ranks set their counts to 0 before it
-    multi = phase_multichip(card, train_losses)
-    if serving["flash_attention_fwd"] < 1:
-        raise RuntimeError("the serving path never launched "
-                           "flash_attention_fwd")
-    missing = [name for name, n in training.items() if n < 1]
-    if missing:
-        raise RuntimeError(f"the training path never launched {missing}")
+    multi, ring = phase_multichip(card, train_losses)
+    flash_names = [name for name in KERNELS if name != "attention_fold"]
+    for path, counts, names in (
+            ("serving", serving, ["flash_attention_fwd"]),
+            ("training", training, flash_names),
+            ("ring chain", chain, ["flash_attention_fwd", "attention_fold"]),
+            ("multichip ring", ring, list(KERNELS))):
+        missing = [name for name in names if counts[name] < 1]
+        if missing:
+            raise RuntimeError(f"the {path} path never launched {missing}")
 
     pallas = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     emit({"kernels": [
@@ -1066,7 +1397,9 @@ def main(argv) -> int:
             "tpu_operator_libs/examples/llama.py:293)",
             {"serving": serving["flash_attention_fwd"],
              "training": training["flash_attention_fwd"],
-             "multichip": multi["flash_attention_fwd"]}, fwd_rows,
+             "multichip": multi["flash_attention_fwd"],
+             "ring_kernels": chain["flash_attention_fwd"],
+             "ring": ring["flash_attention_fwd"]}, fwd_rows,
             "B=16 H=16 S=1024 D=128 bf16 (the train step's forward of "
             "llama-277M; B=2 serves)", card),
         kernel_entry(
@@ -1075,7 +1408,8 @@ def main(argv) -> int:
             "reached from jax.grad through "
             "tpu_operator_libs/examples/llama.py:293)",
             {"training": training["flash_attention_bwd_dkv"],
-             "multichip": multi["flash_attention_bwd_dkv"]},
+             "multichip": multi["flash_attention_bwd_dkv"],
+             "ring": ring["flash_attention_bwd_dkv"]},
             bwd_rows[0::2],
             "B=16 H=16 S=1024 D=128 bf16 (train step of llama-277M)", card),
         kernel_entry(
@@ -1084,9 +1418,25 @@ def main(argv) -> int:
             "reached from jax.grad through "
             "tpu_operator_libs/examples/llama.py:293)",
             {"training": training["flash_attention_bwd_dq"],
-             "multichip": multi["flash_attention_bwd_dq"]},
+             "multichip": multi["flash_attention_bwd_dq"],
+             "ring": ring["flash_attention_bwd_dq"]},
             bwd_rows[1::2],
             "B=16 H=16 S=1024 D=128 bf16 (train step of llama-277M)", card),
+        {"name": "attention_fold", "route": "cuda",
+         "source": "tpu_operator_libs_torch/csrc/attention_fold.cu",
+         "replaces": "tpu_operator_libs/examples/ring_attention.py:25-57 "
+                     "(_block_attention's online-softmax update, fused by "
+                     "XLA; no pallas_call)",
+         "launches": chain["attention_fold"] + ring["attention_fold"],
+         "launches_by_path": {"ring_kernels": chain["attention_fold"],
+                              "ring": ring["attention_fold"]},
+         "ok": True, "max_abs_err": fold_row["max_abs_err"],
+         "ms": fold_row["kernel_ms"], "plain_ms": fold_row["plain_ms"],
+         "bound_ms": fold_row["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "library": fold_row["library"],
+         "design": "one warp a row", "shape": "B=1 H=16 S=2048 D=128, "
+         "o_blk bf16 (a ring block of the long-context shape)",
+         "card": card},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
                                  "count": torch.cuda.device_count()}})

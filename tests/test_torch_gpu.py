@@ -1,5 +1,6 @@
-"""The CUDA flash-attention kernels against their plain versions, on the
-card.
+"""The CUDA kernels (flash attention, the ring-attention fold) against
+their plain versions, on the card, and the ring's block chain against
+the whole-sequence kernels.
 
 Run on a machine with an NVIDIA H100:
 
@@ -12,6 +13,15 @@ so that every pytest-xdist worker collects the same tests).
 import pytest
 import torch
 
+from tpu_operator_libs_torch.examples.ring_attention import (
+    _block_attention,
+    _block_backward,
+    _schedule,
+)
+from tpu_operator_libs_torch.kernels.attention_fold import (
+    attention_fold,
+    attention_fold_reference,
+)
 from tpu_operator_libs_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_backward_reference,
@@ -75,9 +85,13 @@ def test_kernel_matches_plain_version(cuda, batch, heads, kv_heads, seq,
     # of 997 * 4 bytes
     (2, 8, 2, 997, 128, torch.bfloat16, True),
     (2, 8, 2, 1000, 128, torch.bfloat16, False),
+    # a ring's past block: no mask
+    (1, 16, 16, 2048, 128, torch.bfloat16, False),
+    (2, 8, 2, 1000, 64, torch.float32, False),
 ], ids=["main_train_step_bf16", "c_gqa_ragged_f32", "d_gqa_ragged_bf16",
         "d64_gqa_ragged_bf16", "odd_gqa_ragged_bf16",
-        "d_non_causal_bf16"])
+        "d_non_causal_bf16", "ring_block_non_causal_bf16",
+        "c_non_causal_f32"])
 def test_backward_kernels_match_plain_version(cuda, batch, heads, kv_heads,
                                               seq, dim, dtype, causal):
     """dK/dV and dQ against flash_attention_backward_reference on the
@@ -108,3 +122,112 @@ def test_backward_kernels_match_plain_version(cuda, batch, heads, kv_heads,
         assert g.dtype == dtype and torch.equal(g, a)
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
                                    atol=atol)
+
+
+@pytest.mark.parametrize("batch,heads,kv_heads,seq,dim,dtype", [
+    (1, 16, 16, 2048, 128, torch.bfloat16),   # a ring's past block
+    (2, 8, 2, 1000, 64, torch.float32),
+    (2, 8, 2, 1000, 128, torch.bfloat16),
+], ids=["ring_block_bf16", "c_gqa_ragged_f32", "d_gqa_ragged_bf16"])
+def test_non_causal_forward_matches_plain_version(cuda, batch, heads,
+                                                  kv_heads, seq, dim, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn((batch, h, seq, dim), generator=gen,
+                           device=cuda).to(dtype)
+               for h in (heads, kv_heads, kv_heads))
+    kw = {"causal": False, "sm_scale": dim ** -0.5}
+    out, lse = flash_forward(q, k, v, **kw)
+    ref, ref_lse = flash_attention_reference(q, k, v, **kw)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fold_kernel_matches_plain_version(cuda, dtype):
+    """One launch against the plain version on the same state and
+    block, rows 0-63 of head 0 having seen nothing in the state or the
+    block: they keep zero weight (the guard), never NaN."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    shape = (2, 16, 2048, 128)
+    acc = torch.randn(shape, generator=gen, device=cuda)
+    o_blk = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    lse = torch.randn(shape[:3], generator=gen, device=cuda) * 4
+    lse_blk = torch.randn(shape[:3], generator=gen, device=cuda) * 4
+    acc[:, 0, :64], lse[:, 0, :64], lse_blk[:, 0, :64] = (
+        0.0, float("-inf"), float("-inf"))
+    before = attention_fold.launches
+    got_acc, got_lse = attention_fold(acc.clone(), lse.clone(), o_blk,
+                                      lse_blk)
+    torch.cuda.synchronize()
+    assert attention_fold.launches == before + 1
+    want_acc, want_lse = attention_fold_reference(acc.clone(), lse.clone(),
+                                                  o_blk, lse_blk)
+    assert torch.isfinite(got_acc).all()
+    assert (got_acc[:, 0, :64] == 0).all()
+    assert torch.isneginf(got_lse[:, 0, :64]).all()
+    rtol, atol = TOL[torch.float32]
+    torch.testing.assert_close(got_acc, want_acc, rtol=rtol, atol=atol)
+    torch.testing.assert_close(got_lse, want_lse, rtol=0, atol=1e-5)
+
+
+def test_ring_chain_matches_the_whole_sequence(cuda):
+    """The ring's schedule on one card over 4 blocks of a bf16 sequence:
+    each query block's chain of flash forwards folded by the fold kernel
+    against the whole-sequence forward, and the backward's blocks with
+    the whole sequence's lse and di against the whole-sequence backward.
+    The limit adds to the bf16 one a bf16 ulp of the sum of the blocks'
+    magnitudes: each block's result is rounded to bf16 once before the
+    f32 sum."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    batch, heads, kv_heads, seq, dim, n = 1, 8, 4, 4096, 128, 4
+    width, scale = seq // n, dim ** -0.5
+    q, do = (torch.randn((batch, heads, seq, dim), generator=gen,
+                         device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn((batch, kv_heads, seq, dim), generator=gen,
+                        device=cuda).bfloat16() for _ in range(2))
+
+    def block(x, j):
+        return x[:, :, j * width:(j + 1) * width].contiguous()
+
+    out, lse = flash_forward(q, k, v, causal=True, sm_scale=scale)
+    grads = flash_backward(q, k, v, out, lse, do, causal=True,
+                           sm_scale=scale)
+    rtol, atol = TOL[torch.bfloat16]
+    sums = {name: [torch.zeros(block(x, j).shape, device=cuda)
+                   for j in range(n)]
+            for name, x in (("dq", q), ("dk", k), ("dv", v))}
+    mags = {name: [torch.zeros_like(t) for t in ts]
+            for name, ts in sums.items()}
+    for me in range(n):
+        acc = torch.zeros(block(q, me).shape, device=cuda)
+        state_lse = torch.full(acc.shape[:3], float("-inf"), device=cuda)
+        di = (block(out, me).float() * block(do, me).float()).sum(-1)
+        mag = torch.zeros_like(acc)
+        for _, src, causal in _schedule(me, n, True):
+            if causal is None:
+                continue
+            qm, ks, vs = block(q, me), block(k, src), block(v, src)
+            _block_attention(qm, ks, vs, acc, state_lse, causal, scale)
+            part, _ = flash_forward(qm, ks, vs, causal=causal,
+                                    sm_scale=scale)
+            mag += part.float().abs()
+            parts = _block_backward(qm, ks, vs, block(out, me),
+                                    block(lse, me), block(do, me), di,
+                                    causal, scale)
+            for name, index, p in zip(("dq", "dk", "dv"), (me, src, src),
+                                      parts):
+                sums[name][index] += p.float()
+                mags[name][index] += p.float().abs()
+        want = block(out, me).float()
+        limit = atol + rtol * (want.abs() + mag)
+        assert ((acc.bfloat16().float() - want).abs() <= limit).all()
+        torch.testing.assert_close(state_lse, block(lse, me), rtol=0,
+                                   atol=1e-4)
+    for name, whole in zip(("dq", "dk", "dv"), grads):
+        for j in range(n):
+            want = block(whole, j).float()
+            got = sums[name][j].bfloat16().float()
+            limit = atol + rtol * (want.abs() + mags[name][j])
+            assert ((got - want).abs() <= limit).all(), name

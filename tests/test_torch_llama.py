@@ -99,9 +99,12 @@ def test_next_token_loss_matches_jax():
 
 
 def test_ring_attention_is_not_ported_yet():
+    """The ring is ported now (tests/test_torch_sequence_parallel.py);
+    the same call without a mesh fails as the reference's does: the ring
+    needs a mesh with an sp axis."""
     cfg = tllama.LlamaConfig(attention_impl="ring")
     params = tllama.init_llama_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="'sp' axis"):
         tllama.forward(params, torch.zeros((1, 4), dtype=torch.long), cfg)
 
 

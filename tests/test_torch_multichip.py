@@ -28,6 +28,10 @@ def test_dryrun_multichip_on_four_cpu_ranks(capsys):
     out = capsys.readouterr().out
     assert "dryrun_multichip OK: stages train, decode, checkpoint, fabric" \
         in out and "dp=2 tp=2" in out
+    assert multichip.STAGES == ("train", "decode", "checkpoint", "fabric",
+                                "ring", "pipeline", "moe")
+    assert "fabric, ring, pipeline, moe;" in out
+    assert "not ported" not in out
     assert len(results) == 4
     for rank in results:
         assert (rank["dp"], rank["tp"]) == (2, 2)
@@ -40,6 +44,17 @@ def test_dryrun_multichip_on_four_cpu_ranks(capsys):
         assert rank["decode_plain"].shape == (4, 8)
         assert rank["launches"] == {name: 0 for name in
                                     multichip.WRAPPERS}  # xla path
+        # __graft_entry__.py's shapes, ring at head_dim 16, within 1e-4
+        assert rank["ring"]["shape"] == [2, 32, 2, 16]
+        assert rank["pipeline"]["layers"] == 8
+        assert rank["moe"]["experts"] == 8
+        for err in (rank["ring"]["max_abs_err"],
+                    rank["pipeline"]["max_abs_err"],
+                    rank["moe"]["gather"]["max_abs_err"],
+                    rank["moe"]["all_to_all"]["max_abs_err"]):
+            assert err <= multichip.PARALLEL_TOL
+        a2a = rank["moe"]["all_to_all"]
+        assert a2a["dropped"] == a2a["plain_dropped"]
 
 
 def test_entry_runs_on_the_card(monkeypatch):

@@ -4,11 +4,12 @@ It imports torch and the port, never jax: a child that imported a test module wo
 its platform plugin and XLA flags. Inputs arrive as numpy arrays and
 plain values; results go back as numpy arrays.
 
-Two of the functions break one collective on purpose, to show that the
+Some of the functions break one collective on purpose, to show that the
 tests would catch its absence: ``variant="no_copy_to_tp"`` drops the
 all-reduce of ``copy_to_tp``'s backward, ``variant="local_clip"`` takes
-the clip's norm over this rank's shards only, and
-:func:`probe_with_a_corrupt_sender` makes rank 1 send a wrong tile.
+the clip's norm over this rank's shards only,
+:func:`probe_with_a_corrupt_sender` makes rank 1 send a wrong tile, and
+:func:`sp_train_rank` also trains without the gradients' sum over sp.
 """
 
 from __future__ import annotations
@@ -20,12 +21,24 @@ import torch
 import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
 
+import threading
+
 from tpu_operator_libs_torch import optim
-from tpu_operator_libs_torch.convert import shard_params
-from tpu_operator_libs_torch.examples import llama, llama_decode
+from tpu_operator_libs_torch.convert import shard_params, \
+    stacked_params_from_jax
+from tpu_operator_libs_torch.examples import llama, llama_decode, moe
+from tpu_operator_libs_torch.examples import llama_serving_job as serving
+from tpu_operator_libs_torch.examples import pipeline as pp_lib
+from tpu_operator_libs_torch.examples import ring_attention as ring
 from tpu_operator_libs_torch.examples import training_job as job
 from tpu_operator_libs_torch.health import fabric_probe
-from tpu_operator_libs_torch.parallel import local_rows, mean_over_dp
+from tpu_operator_libs_torch.parallel import (
+    gather_axis,
+    local_rows,
+    local_seq,
+    make_mesh,
+    mean_over_dp,
+)
 
 
 def _tensors(tree, dtype=None):
@@ -141,3 +154,127 @@ def checkpoint_shards_rank(mesh, ckpt_dir):
     return {"start": start, "leaves": len(equal), "equal": sum(equal),
             "differed_before": differed, "keys": keys,
             "wq_shape": tuple(state["params"]["layers"][0]["wq"].shape)}
+
+
+def ring_cases_rank(mesh, cases):
+    """Ring attention on a 1-D sp mesh of every rank for each case
+    ``{"q", "k", "v", "causal", "dtype", "grads"}`` (global numpy
+    (B, S, H, D) inputs): the gathered output, its dtype, and with
+    ``grads`` the gradients of sum(out ** 2) for q, k and v, each rank
+    differentiating its own block's part."""
+    results = []
+    for case in cases:
+        dtype = getattr(torch, case["dtype"])
+        q, k, v = (torch.from_numpy(case[x]).to(dtype) for x in "qkv")
+        run = ring.make_ring_attention(mesh, causal=case["causal"])
+        out = run(q, k, v)
+        result = {"out": out, "dtype": str(out.dtype)}
+        if case["grads"]:
+            blocks = [local_seq(x, mesh).clone().requires_grad_()
+                      for x in (q, k, v)]
+            local = ring.ring_attention(*blocks, mesh, case["causal"])
+            (local.float() ** 2).sum().backward()
+            result["grads"] = [gather_axis(b.grad, mesh, "sp", dim=1)
+                               for b in blocks]
+        results.append(result)
+    return results
+
+
+def sp_train_rank(mesh, params_np, config_kw, tokens_np):
+    """The ring Llama on a dp x sp mesh from JAX's parameters and JAX's
+    global token batches (each rank takes its rows and its block of the
+    sequence): the logits of batch 0 (this rank's block), then
+    ``len(tokens_np)`` steps; and the same steps again without the sum
+    of the gradients over sp."""
+    config = llama.LlamaConfig(**config_kw)
+    batches = [local_seq(local_rows(torch.from_numpy(t), mesh), mesh)
+               for t in tokens_np]
+    with torch.no_grad():
+        logits = llama.forward(_tensors(params_np), batches[0], config,
+                               mesh)
+
+    def train():
+        params = _tensors(params_np)
+        optimizer, step = llama.make_train_step(config, mesh=mesh)
+        state = {"params": params, "opt": optimizer.init(params),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        losses = []
+        for tokens in batches:
+            state, loss = step(state, tokens)
+            losses.append(float(loss))
+        return losses, state["params"]
+
+    losses, params = train()
+    summed = llama.sum_over
+    llama.sum_over = lambda x, mesh, name: x
+    try:
+        unsummed_losses, _ = train()
+    finally:
+        llama.sum_over = summed
+    return {"logits": logits, "losses": losses, "params": params,
+            "unsummed_losses": unsummed_losses, "dp_rank": mesh.dp_rank,
+            "sp_rank": mesh.sp_rank}
+
+
+def pipeline_moe_rank(mesh, cases):
+    """Each case on 1-D pp and ep meshes of every rank, from JAX's
+    parameters: ``{"kind": "pipeline", "params", "x"}`` gives the
+    pipeline's output; ``{"kind": "moe", "params", "tokens",
+    "n_experts", "dispatch", "capacity_factor", "dtype"}`` the MoE's
+    output (and the drops, all-to-all)."""
+    meshes = {"pipeline": make_mesh(shape={"pp": mesh.size},
+                                    device=mesh.device),
+              "moe": make_mesh(shape={"ep": mesh.size}, device=mesh.device)}
+    results = []
+    for case in cases:
+        sub = meshes[case["kind"]]
+        params = stacked_params_from_jax(case["params"], device="cpu")
+        if case["kind"] == "pipeline":
+            out = pp_lib.make_pipeline(sub)(params,
+                                            torch.from_numpy(case["x"]))
+            results.append({"out": out})
+            continue
+        dtype = getattr(torch, case["dtype"])
+        params = {k: (v if k == "router" else v.to(dtype))
+                  for k, v in params.items()}
+        tokens = torch.from_numpy(case["tokens"]).to(dtype)
+        run = moe.make_moe(sub, case["n_experts"],
+                           dispatch=case["dispatch"],
+                           capacity_factor=case["capacity_factor"])
+        out = run(params, tokens)
+        if case["dispatch"] == "all_to_all":
+            out, dropped = out
+            results.append({"out": out, "dropped": int(dropped)})
+        else:
+            results.append({"out": out})
+    return results
+
+
+def serving_pod_rank(mesh, prompts, demo_kw):
+    """A pod of f32 servers over the mesh: rank 0 serves ``prompts``
+    (greedy), then the demo burst with its mid-burst drain; then a second
+    pod whose rank 1 was told to stop before its first round. Rank 0
+    returns the tokens, the demo's summary and the second pod's; the
+    others the rounds they served."""
+    server = serving.build_server(mesh=mesh, param_dtype=torch.float32)
+    stopped_event = threading.Event()
+    if dist.get_rank() == 1:
+        stopped_event.set()
+    if dist.get_rank() != 0:
+        served = server.serve()
+        stopped = serving.build_server(mesh=mesh,
+                                       param_dtype=torch.float32,
+                                       stop_event=stopped_event)
+        return {"served": served, "stopped_served": stopped.serve()}
+    try:
+        tokens = [server.handle(p) for p in prompts]
+        summary = serving.run_demo(server, **demo_kw)
+    finally:
+        server.shutdown()
+    stopped = serving.build_server(mesh=mesh, param_dtype=torch.float32,
+                                   stop_event=stopped_event)
+    refused = stopped.handle(prompts[0])
+    stopped.shutdown()
+    return {"tokens": tokens, "summary": summary,
+            "stopped": {"refused": refused is None,
+                        **stopped.summary()}}

@@ -169,6 +169,25 @@ class TestEntryPoints:
             job.main(["--checkpoint-dir", str(tmp_path), "--n-devices", "0",
                       "--device", "cpu"])
 
+    def test_trains_on_every_visible_card_by_default(self, tmp_path,
+                                                     monkeypatch):
+        """The reference's ``make_mesh(None)`` takes every device: without
+        ``n_devices`` the job asks for one rank per visible card (1 on the
+        CPU, where the other tests train in this process)."""
+        asked = []
+
+        def fake_run_ranks(fn, n, *args, device=None, **kw):
+            asked.append((fn, n, device.type))
+            return [{"final_step": 1, "start_step": 0, "loss": 0.0}]
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+        monkeypatch.setattr(job, "run_ranks", fake_run_ranks)
+        assert job.train(str(tmp_path / "a"), max_steps=1)["final_step"] == 1
+        assert job.main(["--checkpoint-dir", str(tmp_path / "b"),
+                         "--max-steps", "1"]) == 0
+        assert asked == [(job.train_rank, 4, "cuda")] * 2
+
     def test_bad_arguments(self, tmp_path):
         with pytest.raises(ValueError, match="unknown model"):
             job.train(str(tmp_path), device="cpu", model="gpt")

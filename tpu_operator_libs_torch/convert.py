@@ -1,7 +1,9 @@
 """Carry JAX parameter pytrees and training states across to the port.
 
 The port keeps the JAX package's parameter layout (weights ``(in, out)``,
-applied as ``x @ W``), so conversion is a copy leaf by leaf. The tests
+applied as ``x @ W``), so conversion is a copy leaf by leaf. The
+pipeline's and the experts' stacked weights split over their ``pp`` or
+``ep`` axis by layer or expert (:func:`axis_block`). The tests
 use it so that both packages compute from the same weights, and
 :func:`state_from_jax` lets the port continue a JAX training run. With a
 ``mesh`` each rank keeps its tp shards (:func:`shard_params`), the blocks
@@ -69,6 +71,37 @@ def shard_params(params, mesh):
         return node
 
     return walk(params)
+
+
+#: leaves of the pipeline's and the experts' parameters that every rank
+#: of their axis holds whole (``tpu_operator_libs/examples/moe.py:208``);
+#: every other leaf is stacked by layer or expert on dim 0
+REPLICATED_ON_AXIS = ("router",)
+
+
+def axis_block(params, mesh, name: str):
+    """This rank's block of the layer- or expert-stacked leaves of a flat
+    parameter dict (dim 0 over the mesh axis ``name``: the reference's
+    ``P(name, None, None)``); the router stays whole."""
+    size, index, _ = mesh.axis(name)
+
+    def block(key, value):
+        if key in REPLICATED_ON_AXIS:
+            return value
+        if value.shape[0] % size:
+            raise ValueError(f"{key} {tuple(value.shape)} does not split "
+                             f"over {name}={size}")
+        return value.chunk(size)[index].contiguous()
+
+    return {key: block(key, value) for key, value in params.items()}
+
+
+def stacked_params_from_jax(tree, *, device=None):
+    """The port's pipeline or MoE parameters for the JAX package's
+    (``init_stage_params`` / ``init_moe_params``): a flat dict of arrays
+    copied leaf by leaf; :func:`axis_block` gives a rank its block."""
+    return {key: _leaf_to_tensor(value).to(resolve_device(device))
+            for key, value in tree.items()}
 
 
 def params_from_jax(tree, *, device=None, dtype=None, mesh=None):

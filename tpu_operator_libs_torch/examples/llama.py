@@ -20,6 +20,16 @@ inside the shard), and the tp all-reduces XLA inserts from the shardings
 are ``parallel.copy_to_tp`` / ``reduce_from_tp``. The column-parallel
 ``lm_head``'s vocabulary shards are all-gathered, so every tp rank holds
 the whole logits and the loss is the JAX package's, unchanged.
+
+With ``attention_impl="ring"`` the mesh is dp x sp (tp = 1): each rank
+holds the whole weights, its dp rows and its sp block of the sequence,
+and attention is ``examples/ring_attention.py``. What the JAX package
+gets from global arrays is written out: RoPE at the block's global
+positions, logits left sharded over the sequence, a loss whose target
+shift crosses the block boundary (the last position of block r predicts
+the first token of block r + 1) and whose mean is over the global
+``B * (S - 1)``, and the gradients of the replicated weights summed over
+sp before the mean over dp.
 """
 
 from __future__ import annotations
@@ -33,14 +43,19 @@ from torch.utils.checkpoint import checkpoint
 
 from tpu_operator_libs_torch import resolve_device
 from tpu_operator_libs_torch.convert import shard_params
+from tpu_operator_libs_torch.examples.ring_attention import ring_attention
 from tpu_operator_libs_torch.kernels.flash_attention import flash_attention
 from tpu_operator_libs_torch.optim import AdamW, tree_map, value_and_grad
 from tpu_operator_libs_torch.parallel import (
     copy_to_tp,
     gather_from_tp,
     local_rows,
+    local_seq,
     mean_over_dp,
+    reduce_from_sp,
     reduce_from_tp,
+    ring_hop,
+    sum_over,
     tp_of,
 )
 
@@ -69,9 +84,10 @@ class LlamaConfig:
     total_steps: int = 0
     # Optional global-norm gradient clipping (0 = off).
     grad_clip_norm: float = 0.0
-    # "xla" (einsum softmax over materialized scores) or "flash" (the
+    # "xla" (einsum softmax over materialized scores), "flash" (the
     # hand-written CUDA kernel of kernels/flash_attention.py; never
-    # materializes the S x S scores). tp=1 only.
+    # materializes the S x S scores; tp=1 only) or "ring" (the sequence
+    # sharded over a dp x sp mesh, examples/ring_attention.py).
     attention_impl: str = "xla"
     # Rematerialize each decoder layer on the backward pass (a training
     # option; forward-only callers are unaffected).
@@ -192,33 +208,42 @@ def forward(params, tokens, config: LlamaConfig, mesh=None):
         raise ValueError(
             f"unknown attention_impl {config.attention_impl!r} "
             f"(expected one of {ATTENTION_IMPLS})")
-    if config.attention_impl == "ring":
-        raise NotImplementedError(
-            "attention_impl='ring' (sequence parallelism) is not ported "
-            "yet: see ROADMAP.md Queue 1, ring attention")
-    use_flash = config.attention_impl == "flash"
     h = params["embed"][tokens.long()]
-    # only the einsum path materializes a mask; flash masks in its kernel
-    causal = (None if use_flash
-              else torch.ones(seq, seq, dtype=torch.bool,
-                              device=h.device).tril())
+    positions = None
+    if config.attention_impl == "ring":
+        if mesh is None or "sp" not in mesh.axis_names:
+            raise ValueError(
+                "attention_impl='ring' needs a mesh with an 'sp' axis")
+        # the rank's block of the sequence rotates at its global positions
+        positions = mesh.sp_rank * seq + torch.arange(seq, device=h.device)
+    elif mesh is not None and mesh.sp > 1:
+        raise ValueError(
+            f"a mesh with sp={mesh.sp} shards the sequence: it runs "
+            "attention_impl='ring' only")
+    # only the einsum path materializes a mask; flash and ring mask in
+    # their kernels
+    causal = (torch.ones(seq, seq, dtype=torch.bool, device=h.device).tril()
+              if config.attention_impl == "xla" else None)
     for layer in params["layers"]:
         if config.remat:
             # recompute the layer's activations on the backward pass; the
             # saved boundary is the layer's input residual stream
             h = checkpoint(_layer, h, layer, config, causal, mesh,
-                           use_reentrant=False)
+                           positions, use_reentrant=False)
         else:
-            h = _layer(h, layer, config, causal, mesh)
+            h = _layer(h, layer, config, causal, mesh, positions)
 
     h = copy_to_tp(_rms_norm(h, params["final_norm"]), mesh)
+    # ring: the logits stay sharded over the sequence
     return gather_from_tp(h @ params["lm_head"], mesh)
 
 
-def _layer(h, layer, config: LlamaConfig, causal, mesh=None):
+def _layer(h, layer, config: LlamaConfig, causal, mesh=None,
+           positions=None):
     """One decoder layer on this rank's heads and d_ff columns;
     ``causal`` is the einsum path's (S, S) mask, or None for the flash
-    kernel, which masks inside."""
+    and ring kernels, which mask inside; ``positions``: the ring block's
+    global positions for RoPE."""
     batch, seq, _ = h.shape
     tp = tp_of(mesh)
     hd = config.head_dim
@@ -227,8 +252,12 @@ def _layer(h, layer, config: LlamaConfig, causal, mesh=None):
     q = (a @ layer["wq"]).reshape(batch, seq, nh, hd)
     k = (a @ layer["wk"]).reshape(batch, seq, nkv, hd)
     v = (a @ layer["wv"]).reshape(batch, seq, nkv, hd)
-    q, k = _rope(q, config.rope_theta), _rope(k, config.rope_theta)
-    if causal is None:
+    q = _rope(q, config.rope_theta, positions)
+    k = _rope(k, config.rope_theta, positions)
+    if config.attention_impl == "ring":
+        # only the narrow KV heads travel the ring
+        ctx = ring_attention(q, k, v, mesh, causal=True)
+    elif causal is None:
         # the kernel reads the nkv-head K/V natively (no repeat)
         ctx = flash_attention(
             q.transpose(1, 2).contiguous(),
@@ -254,12 +283,34 @@ def _layer(h, layer, config: LlamaConfig, causal, mesh=None):
 
 def next_token_loss(params, tokens, config: LlamaConfig, mesh=None):
     """Mean next-token cross-entropy over (B, S) integer tokens (this
-    rank's rows, with a ``mesh``)."""
+    rank's rows, with a ``mesh``; with ``attention_impl="ring"`` this
+    rank's block of them, and the mean is the dp replica's over its whole
+    sequence, on every sp rank)."""
+    if config.attention_impl == "ring":
+        return _ring_loss(params, tokens, config, mesh)
     logits = forward(params, tokens, config, mesh)[:, :-1, :]
     targets = tokens[:, 1:].long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     picked = torch.gather(logp, -1, targets[..., None])[..., 0]
     return -torch.mean(picked)
+
+
+def _ring_loss(params, tokens, config: LlamaConfig, mesh):
+    """The sequence block's part of the loss, summed over sp: its last
+    position's target is the next block's first token (one hop back
+    round the ring), the last block drops its last position, and each
+    block's mean is weighted by its share of the ``B * (S - 1)``
+    targets."""
+    logits = forward(params, tokens, config, mesh)
+    sp, sp_rank, _ = mesh.axis("sp")
+    after = ring_hop([tokens[:, :1]], mesh, "sp", shift=-1)[0]
+    targets = torch.cat([tokens[:, 1:], after], dim=1).long()
+    if sp_rank == sp - 1:
+        logits, targets = logits[:, :-1, :], targets[:, :-1]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    picked = torch.gather(logp, -1, targets[..., None])[..., 0]
+    share = picked.numel() / (tokens.shape[0] * (tokens.shape[1] * sp - 1))
+    return reduce_from_sp(-torch.mean(picked) * share, mesh)
 
 
 def config_for_mesh(tp: int) -> LlamaConfig:
@@ -287,7 +338,9 @@ def make_train_step(config: LlamaConfig, *, device=None, mesh=None):
     rows (:func:`make_token_batch` with the mesh): the loss and the
     gradients are averaged over dp, so the step minimises the global
     batch's mean, the clip takes the norm of the whole model
-    (``parallel.global_norm``), and AdamW runs on the shards."""
+    (``parallel.global_norm``), and AdamW runs on the shards. On a dp x
+    sp mesh (``"ring"``) each rank's gradients are its sequence block's
+    part, summed over sp before the dp mean."""
     if config.total_steps < 0 or config.warmup_steps < 0:
         raise ValueError(
             f"total_steps={config.total_steps} / warmup_steps="
@@ -317,7 +370,8 @@ def make_train_step(config: LlamaConfig, *, device=None, mesh=None):
                                      tokens.to(device), config, mesh)
         if mesh is not None:
             loss = mean_over_dp(loss, mesh)
-            grads = tree_map(lambda g: mean_over_dp(g, mesh), grads)
+            grads = tree_map(
+                lambda g: mean_over_dp(sum_over(g, mesh, "sp"), mesh), grads)
         params, opt = optimizer.update(grads, state["opt"],
                                        state["params"])
         return {"params": params, "opt": opt,
@@ -334,7 +388,8 @@ def make_token_batch(step: int, config: LlamaConfig,
     (default: a CPU ``torch.Generator`` seeded ``7000 + step``), int32
     (batch, seq_len) on ``device``. The global batch has
     ``batch_per_shard * dp`` rows; with a ``mesh``, on its device, the
-    rank gets its dp block of them."""
+    rank gets its dp block of them, and on a mesh with an sp axis its sp
+    block of their columns."""
     device = mesh.device if mesh is not None else resolve_device(device)
     batch = batch_per_shard * (mesh.dp if mesh is not None else 1)
     if start is None:
@@ -350,4 +405,7 @@ def make_token_batch(step: int, config: LlamaConfig,
     for _ in range(config.seq_len):
         columns.append(x)
         x = (x * 7 + 3) % config.vocab
-    return torch.stack(columns, dim=1).to(device=device, dtype=torch.int32)
+    tokens = torch.stack(columns, dim=1)
+    if mesh is not None:
+        tokens = local_seq(tokens, mesh)
+    return tokens.to(device=device, dtype=torch.int32)

@@ -8,17 +8,29 @@ request intake is a :class:`~tpu_operator_libs_torch.health.serving_gate
 :func:`~tpu_operator_libs_torch.examples.llama_decode.generate_on_device`.
 During a rolling upgrade the operator flips the endpoint to draining:
 new requests are parked (never dropped), in-flight generations run to
-completion, and only then does eviction proceed. ``make_mesh`` of the
-JAX job becomes device selection: the server runs on one device.
+completion, and only then does eviction proceed.
+
+The JAX job serves on ``make_mesh()``, one program over every device.
+Here every card is a rank (``parallel.run_ranks``) over the same dp x tp
+mesh, and each request is one round that all ranks take together: rank 0
+holds the endpoint and its dispatch lock, and for each admitted request
+broadcasts a header (prompt shape and sampling seed, or stop) and the
+prompt; the ranks agree whether any of them was told to stop
+(``parallel.any_rank``), every rank runs the sharded
+``generate_on_device(..., mesh=mesh)``, and rank 0 returns the gathered
+tokens. The followers wait for the next header; rank 0 always sends one
+more, stop, before it leaves, so no follower is left in a collective.
 
 Run the self-contained demo on the card:
 
     python -m tpu_operator_libs_torch.examples.llama_serving_job --demo
 
-It serves a burst of concurrent requests, begins draining mid-burst,
+(on every visible card; ``--n-devices 4 --device cpu`` runs four gloo
+ranks). It serves a burst of concurrent requests, begins draining mid-burst,
 lets the in-flight generations finish, and prints one JSON summary line
 — ``dropped`` is 0 and ``parked`` counts the requests the drain turned
-away. On SIGTERM it marks any still-in-flight generations dropped.
+away. On SIGTERM it marks any still-in-flight generations dropped (on
+several ranks: the request that the next round would have served).
 """
 
 from __future__ import annotations
@@ -33,10 +45,17 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_operator_libs_torch import resolve_device
+from tpu_operator_libs_torch.parallel import any_rank, run_ranks, \
+    spawn_context
 
 logger = logging.getLogger("llama-serving-job")
+
+
+#: a round's header operations
+_STOP, _GENERATE = 0, 1
 
 
 class DecodeServer:
@@ -45,32 +64,83 @@ class DecodeServer:
     ``handle`` is the whole request path — admission, generation,
     accounting. It returns the generated tokens as a numpy array, or
     ``None`` when the endpoint is draining (the request was PARKED: it
-    never started, so it is not a drop)."""
+    never started, so it is not a drop).
+
+    With a ``mesh`` the server is built on every rank: rank 0 calls
+    ``handle`` and, before it leaves, ``shutdown``; every other rank
+    calls ``serve``, which takes rounds until rank 0 says stop.
+    ``stop_event`` (an ``Event``, on any rank) asks the pod to stop: at
+    the next round the ranks agree on it, and rank 0 kills its endpoint,
+    which counts the generation it was admitting as dropped."""
 
     def __init__(self, config, params, endpoint,
                  max_new_tokens: int = 8, temperature: float = 0.0,
-                 quantize_kv: bool = False):
+                 quantize_kv: bool = False, mesh=None, stop_event=None):
         self.config = config
         self.params = params
         self.endpoint = endpoint
         self.max_new_tokens = max_new_tokens
         self.temperature = temperature
         self.quantize_kv = quantize_kv
+        self.mesh = mesh
+        self.stop_event = stop_event
+        self.device = params["embed"].device
         self.parked = 0
         #: wall seconds of each served request, admission to readback
         self.request_seconds: "list[float]" = []
         self._lock = threading.Lock()
-        # One generation on the device at a time: the card is one
-        # device set, so serializing dispatch models real contention;
+        # One generation on the device(s) at a time: the card (or the
+        # ranks' cards) is one device set, so serializing dispatch models
+        # real contention, and with a mesh it keeps the rounds in order;
         # admission and drain stay concurrent (try_begin/finish are
         # outside the lock).
         self._dispatch_lock = threading.Lock()
+        self._stopped = False
 
-    def handle(self, prompt, generator=None):
+    def _generate(self, prompt, generator):
         from tpu_operator_libs_torch.examples.llama_decode import (
             generate_on_device,
         )
 
+        return generate_on_device(
+            self.params, prompt, self.config, self.max_new_tokens,
+            temperature=self.temperature, generator=generator,
+            quantize_kv=self.quantize_kv, mesh=self.mesh)
+
+    def _round(self, op, prompt=None, seed=None):
+        """One round on every rank: rank 0's header (and prompt) reach
+        every rank, the ranks agree on a stop, and on a go they all
+        generate. Returns (go, tokens on the device or None)."""
+        header = torch.zeros(4, dtype=torch.long, device=self.device)
+        if prompt is not None:
+            header.copy_(torch.tensor(
+                [op, *prompt.shape, -1 if seed is None else seed]))
+        dist.broadcast(header, src=0)
+        stop = self.stop_event is not None and self.stop_event.is_set()
+        if any_rank(stop, self.mesh) or int(header[0]) == _STOP:
+            self._stopped = True
+            return False, None
+        batch, prompt_len, seed = (int(x) for x in header[1:])
+        if prompt is None:
+            prompt = torch.empty((batch, prompt_len), dtype=torch.long,
+                                 device=self.device)
+        else:
+            prompt = torch.as_tensor(prompt, dtype=torch.long,
+                                     device=self.device)
+        dist.broadcast(prompt, src=0)
+        generator = (None if seed < 0 else
+                     torch.Generator(device=self.device).manual_seed(seed))
+        return True, self._generate(prompt, generator)
+
+    def handle(self, prompt, generator=None, seed=None):
+        """Serve one request of (B, prompt_len) tokens. ``generator`` (one
+        rank) or ``seed`` (any number of ranks: each makes an equally
+        seeded generator) drives sampling when ``temperature`` > 0."""
+        if self.mesh is not None and generator is not None:
+            raise ValueError("a pod of several ranks samples from a seed, "
+                             "not a generator")
+        if seed is not None and self.mesh is None:
+            generator = torch.Generator(device=self.device).manual_seed(seed)
         if not self.endpoint.try_begin():
             with self._lock:
                 self.parked += 1
@@ -78,10 +148,15 @@ class DecodeServer:
         start = time.perf_counter()
         try:
             with self._dispatch_lock:
-                out = generate_on_device(
-                    self.params, prompt, self.config, self.max_new_tokens,
-                    temperature=self.temperature, generator=generator,
-                    quantize_kv=self.quantize_kv)
+                if self.mesh is None:
+                    out = self._generate(prompt, generator)
+                else:
+                    go, out = (False, None) if self._stopped else \
+                        self._round(_GENERATE, np.asarray(prompt), seed)
+                    if not go:
+                        # the pod is stopping: this generation is lost
+                        self.endpoint.kill()
+                        return None
                 tokens = out.cpu().numpy()  # the one readback
             with self._lock:
                 self.request_seconds.append(time.perf_counter() - start)
@@ -96,6 +171,23 @@ class DecodeServer:
                 # not crash the worker thread during shutdown
                 pass
 
+    def serve(self) -> int:
+        """A follower rank's loop: take rounds until rank 0 says stop (or
+        a rank was told to); returns the number of generations run."""
+        served = 0
+        while True:
+            go, _ = self._round(_STOP)
+            if not go:
+                return served
+            served += 1
+
+    def shutdown(self) -> None:
+        """Rank 0: the last round, stop, so every follower leaves its
+        loop; a no-op once the pod has stopped or without a mesh."""
+        with self._dispatch_lock:
+            if self.mesh is not None and not self._stopped:
+                self._round(_STOP, np.zeros((0, 0), dtype=np.int64))
+
     def summary(self) -> dict:
         return {
             "completed": self.endpoint.completed,
@@ -107,10 +199,12 @@ class DecodeServer:
 
 def build_server(n_layers: int = 2, d_model: int = 64,
                  quantize: bool = False, quantize_kv: bool = False,
-                 max_new_tokens: int = 8, *, device=None):
-    """A small Llama-style decode server with random bf16 weights
-    (demo-sized). ``quantize``/``quantize_kv`` switch on the int8
-    weight / int8 KV-cache serving stack."""
+                 max_new_tokens: int = 8, *, device=None, mesh=None,
+                 param_dtype=torch.bfloat16, stop_event=None):
+    """A small Llama-style decode server with random weights, bfloat16
+    by default (demo-sized). ``quantize``/``quantize_kv`` switch on the
+    int8 weight / int8 KV-cache serving stack. With a ``mesh`` every rank
+    builds its part of the pod (the same weights, its tp shards)."""
     from tpu_operator_libs_torch.examples.llama import (
         LlamaConfig,
         init_llama_params,
@@ -126,14 +220,17 @@ def build_server(n_layers: int = 2, d_model: int = 64,
                          n_kv_heads=max(4, d_model // 16),
                          d_ff=4 * d_model, seq_len=64,
                          learning_rate=1e-4)
-    params = init_llama_params(config, param_dtype=torch.bfloat16,
-                               device=resolve_device(device))
+    params = init_llama_params(
+        config, param_dtype=param_dtype,
+        device=None if mesh is not None else resolve_device(device),
+        mesh=mesh)
     if quantize:
-        params = quantize_params_int8(params)
+        params = quantize_params_int8(params, mesh)
     endpoint = ServingEndpoint("llama-serving-demo")
     return DecodeServer(config, params, endpoint,
                         max_new_tokens=max_new_tokens,
-                        quantize_kv=quantize_kv)
+                        quantize_kv=quantize_kv, mesh=mesh,
+                        stop_event=stop_event)
 
 
 def run_demo(server, n_requests: int = 12, drain_after: int = 6,
@@ -194,7 +291,20 @@ def run_demo(server, n_requests: int = 12, drain_after: int = 6,
     return out
 
 
-def main() -> int:
+def serve_rank(mesh, server_kw, demo_kw, stop_event=None):
+    """One rank of a pod over the mesh: every rank builds its part of
+    the server; rank 0 runs the demo burst and returns its summary, the
+    others serve until it stops them."""
+    server = build_server(mesh=mesh, stop_event=stop_event, **server_kw)
+    if dist.get_rank() != 0:
+        return {"follower_generations": server.serve()}
+    try:
+        return run_demo(server, **demo_kw)
+    finally:
+        server.shutdown()
+
+
+def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description=__doc__.split("\n")[0])
     parser.add_argument("--demo", action="store_true",
@@ -205,18 +315,41 @@ def main() -> int:
     parser.add_argument("--int8", action="store_true",
                         help="serve the int8 weight + int8 KV stack")
     parser.add_argument("--max-new-tokens", type=int, default=8)
+    parser.add_argument("--n-devices", type=int, default=None,
+                        help="ranks over a dp x tp mesh, one per card "
+                             "(gloo processes with --device cpu); "
+                             "default: every visible card (1 with "
+                             "--device cpu)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA device)")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     if not args.demo:
         parser.error("only --demo mode is implemented standalone; "
                      "real deployments embed DecodeServer")
+    device = resolve_device(args.device)
+    n = args.n_devices
+    if n is None:
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n < 1:
+        parser.error(f"--n-devices must be >= 1, got {n}")
+    server_kw = {"quantize": args.int8, "quantize_kv": args.int8,
+                 "max_new_tokens": args.max_new_tokens}
+    demo_kw = {"n_requests": args.requests,
+               "drain_after": args.drain_after}
 
-    server = build_server(quantize=args.int8, quantize_kv=args.int8,
-                          max_new_tokens=args.max_new_tokens,
-                          device=args.device)
+    if n > 1:
+        stop = spawn_context().Event()
+        # eviction: the ranks agree on it at the next round, and rank 0
+        # counts the generation it was admitting as dropped
+        signal.signal(signal.SIGTERM, lambda signum, frame: stop.set())
+        summary = run_ranks(serve_rank, n, server_kw, demo_kw, stop,
+                            device=device)[0]
+        print(json.dumps({"ranks": n, **summary}))
+        return 0 if summary["dropped"] == 0 else 1
+
+    server = build_server(device=device, **server_kw)
 
     def on_sigterm(signum, frame):
         # eviction arriving BEFORE the gate opened: every in-flight
@@ -228,8 +361,7 @@ def main() -> int:
         sys.exit(1)
 
     signal.signal(signal.SIGTERM, on_sigterm)
-    summary = run_demo(server, n_requests=args.requests,
-                       drain_after=args.drain_after)
+    summary = run_demo(server, **demo_kw)
     print(json.dumps(summary))
     return 0 if summary["dropped"] == 0 else 1
 

@@ -289,6 +289,8 @@ def train(checkpoint_dir: str, max_steps: int = 100,
     replaces LlamaConfig fields. ``n_devices`` > 1 trains on that many
     ranks over the dp x tp mesh (``parallel.dp_tp_split``) and returns
     rank 0's result; ``stop_flag`` is then polled here and passed on.
+    ``n_devices=None`` takes every visible card, as the reference's
+    ``make_mesh(None)`` takes every device (one process on the CPU).
     Importable for tests; ``main`` adds signal handling around it."""
     if model not in ("mlp", "llama"):
         raise ValueError(f"unknown model {model!r}")
@@ -299,7 +301,10 @@ def train(checkpoint_dir: str, max_steps: int = 100,
     if n_devices is not None and n_devices < 1:
         raise ValueError(f"n_devices must be >= 1, got {n_devices}")
     device = resolve_device(device)
-    if not n_devices or n_devices == 1:
+    if n_devices is None:
+        n_devices = (torch.cuda.device_count() if device.type == "cuda"
+                     else 1)
+    if n_devices == 1:
         return _train_loop(checkpoint_dir, max_steps, save_interval, model,
                            trainer_overrides, device, stop_flag)
     stop = spawn_context().Event()
@@ -331,7 +336,8 @@ def main(argv=None) -> int:
     parser.add_argument("--n-devices", type=int, default=None,
                         help="ranks over a dp x tp mesh, one per card "
                              "(gloo processes with --device cpu); "
-                             "default 1")
+                             "default: every visible card (1 with "
+                             "--device cpu)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA device)")
     parser.add_argument("--model", choices=("mlp", "llama"),

@@ -1,6 +1,7 @@
-"""Data and tensor parallelism on ``torch.distributed``: the (dp, tp)
-mesh, a launcher for its ranks, and the collectives that XLA inserts
-from shardings in the JAX package, written out.
+"""Data, tensor, sequence, pipeline and expert parallelism on
+``torch.distributed``: the meshes, a launcher for their ranks, and the
+collectives that XLA inserts from shardings in the JAX package, written
+out.
 
 Mirrors the JAX package's 2-D ``Mesh(devices.reshape(dp, tp), ("dp",
 "tp"))`` with its split rule, the largest dp <= sqrt(n) that divides n
@@ -25,6 +26,15 @@ here they are autograd functions:
 vocabulary shards, and :func:`mean_over_dp` averages gradients over the
 data-parallel replicas. On the card the ranks talk over NCCL, on the CPU
 over gloo; :func:`run_ranks` starts them.
+
+The other meshes of the JAX package are a ``shape`` for
+:func:`make_mesh`: ``{"dp": a, "sp": b}``, the dp x sp mesh of
+sequence parallelism (``tests/test_llama.py:173-178``), and the 1-D
+``{"sp": n}``, ``{"pp": n}`` and ``{"ep": n}`` of ring attention, the
+pipeline and the experts (``__graft_entry__.py:228, 254, 270``). Ranks
+are placed as ``devices.reshape(...)`` places devices, row-major. Their
+neighbours on an axis trade tensors with :func:`ring_hop` (the
+``ppermute`` of a ring) or, differentiably, :func:`ring_shift`.
 """
 
 from __future__ import annotations
@@ -33,11 +43,13 @@ import dataclasses
 import math
 import multiprocessing as mp
 import os
+import pickle
 import queue as queue_lib
 import tempfile
 import time
 import traceback
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -60,9 +72,15 @@ def dp_tp_split(n: int) -> "tuple[int, int]":
     return dp, n // dp
 
 
+#: the axes a mesh may have, in the order their ranks are laid out
+AXES = ("dp", "tp", "sp", "pp", "ep")
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in the (dp, tp) grid and its two subgroups."""
+    """This rank's place in the grid and its subgroups. ``dp`` and
+    ``tp`` are 1 (with no group) on a mesh without those axes; the other
+    axes are in ``other``."""
 
     dp: int
     tp: int
@@ -73,29 +91,74 @@ class Mesh:
     #: the ranks that hold one replica's tp shards (this rank's row)
     tp_group: object
     device: torch.device
+    #: the mesh's axes, in the JAX package's order
+    axis_names: tuple = ("dp", "tp")
+    #: the axes besides dp and tp, by name: (size, this rank's index on
+    #: it, the group of the ranks along it)
+    other: dict = dataclasses.field(default_factory=dict)
+
+    def axis(self, name: str) -> "tuple[int, int, object]":
+        """(size, this rank's index, group) of the axis ``name``; (1, 0,
+        None) for an axis the mesh does not have."""
+        if name == "dp":
+            return self.dp, self.dp_rank, self.dp_group
+        if name == "tp":
+            return self.tp, self.tp_rank, self.tp_group
+        return self.other.get(name, (1, 0, None))
+
+    @property
+    def sp(self) -> int:
+        return self.axis("sp")[0]
+
+    @property
+    def sp_rank(self) -> int:
+        return self.axis("sp")[1]
 
     @property
     def size(self) -> int:
-        return self.dp * self.tp
+        return math.prod(self.axis(name)[0] for name in self.axis_names)
 
 
-def make_mesh(n=None, *, device=None) -> Mesh:
+def make_mesh(n=None, *, device=None, shape=None) -> Mesh:
     """The mesh of the initialised default process group (``n``, when
-    given, must be its size). Every rank creates every subgroup, in one
-    order, as ``torch.distributed.new_group`` requires."""
+    given, must be its size). ``shape`` maps axis names (:data:`AXES`,
+    in that order) to sizes whose product is the world; the default is
+    the dp x tp split of :func:`dp_tp_split`. Every rank creates every
+    subgroup, in one order, as ``torch.distributed.new_group``
+    requires."""
     world = dist.get_world_size()
     if n is not None and n != world:
         raise ValueError(f"mesh of {n} ranks asked for in a process group "
                          f"of {world}")
-    dp, tp = dp_tp_split(world)
-    dp_rank, tp_rank = divmod(dist.get_rank(), tp)
-    tp_groups = [dist.new_group(list(range(d * tp, (d + 1) * tp)))
-                 for d in range(dp)]
-    dp_groups = [dist.new_group(list(range(t, world, tp)))
-                 for t in range(tp)]
+    if shape is None:
+        dp, tp = dp_tp_split(world)
+        shape = {"dp": dp, "tp": tp}
+    names = tuple(shape)
+    if not names or any(a not in AXES for a in names) \
+            or list(names) != sorted(names, key=AXES.index):
+        raise ValueError(f"mesh axes {names} must be some of {AXES}, in "
+                         "that order")
+    sizes = tuple(int(shape[a]) for a in names)
+    if math.prod(sizes) != world:
+        raise ValueError(f"mesh shape {dict(shape)} does not hold "
+                         f"{world} ranks")
+    grid = np.arange(world).reshape(sizes)
+    coords = np.unravel_index(dist.get_rank(), sizes)
+    axes = {}
+    for i, name in enumerate(names):
+        # the ranks along axis i: one group per place on the other axes
+        mine = None
+        for ranks in np.moveaxis(grid, i, -1).reshape(-1, sizes[i]):
+            group = dist.new_group([int(r) for r in ranks])
+            if dist.get_rank() in ranks:
+                mine = group
+        axes[name] = (sizes[i], int(coords[i]), mine)
+    dp, dp_rank, dp_group = axes.pop("dp", (1, 0, None))
+    tp, tp_rank, tp_group = axes.pop("tp", (1, 0, None))
     return Mesh(dp=dp, tp=tp, dp_rank=dp_rank, tp_rank=tp_rank,
-                dp_group=dp_groups[tp_rank], tp_group=tp_groups[dp_rank],
-                device=resolve_device(device))
+                dp_group=dp_group, tp_group=tp_group,
+                device=resolve_device(device), axis_names=names,
+                other=axes)
 
 
 def tp_of(mesh) -> int:
@@ -119,7 +182,7 @@ class _CopyToTP(torch.autograd.Function):
         return grad, None
 
 
-class _ReduceFromTP(torch.autograd.Function):
+class _SumForward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         out = x.contiguous().clone()
@@ -158,7 +221,7 @@ def reduce_from_tp(x, mesh):
     """All-reduce (sum) over tp forward; identity backward."""
     if tp_of(mesh) == 1:
         return x
-    return _ReduceFromTP.apply(x, mesh.tp_group)
+    return _SumForward.apply(x, mesh.tp_group)
 
 
 def gather_from_tp(x, mesh):
@@ -172,9 +235,96 @@ def gather_from_tp(x, mesh):
 def mean_over_dp(x, mesh):
     """``x`` averaged over the dp replicas (a mean of equal-sized local
     means is the global batch's mean)."""
+    if mesh.dp == 1:
+        return x
     x = x.contiguous().clone()
     dist.all_reduce(x, group=mesh.dp_group)
     return x / mesh.dp
+
+
+def reduce_from_sp(x, mesh):
+    """All-reduce (sum) over sp forward; identity backward: a loss whose
+    sequence blocks sit on the sp ranks, each rank differentiating its
+    own block's part."""
+    if mesh.sp == 1:
+        return x
+    return _SumForward.apply(x, mesh.axis("sp")[2])
+
+
+def sum_over(x, mesh, name: str):
+    """``x`` summed over the ranks along the axis ``name``: a replicated
+    weight's gradient whose sequence blocks each gave a part (sp), or
+    disjoint outputs combined (pp, ep)."""
+    size, _, group = mesh.axis(name)
+    if size == 1:
+        return x
+    x = x.contiguous().clone()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def local_seq(x, mesh, name: str = "sp"):
+    """This rank's block of dim 1 (the sequence) along the axis
+    ``name``."""
+    size, index, _ = mesh.axis(name)
+    if x.shape[1] % size:
+        raise ValueError(f"sequence {x.shape[1]} does not split over "
+                         f"{name}={size}")
+    width = x.shape[1] // size
+    return x[:, index * width:(index + 1) * width]
+
+
+def gather_axis(x, mesh, name: str, dim: int = 0):
+    """The blocks of ``x`` that the ranks along the axis ``name`` hold,
+    concatenated on ``dim`` in rank order."""
+    size, _, group = mesh.axis(name)
+    if size == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def ring_hop(tensors, mesh, name: str = "sp", shift: int = 1):
+    """Every rank sends ``tensors`` to the rank ``shift`` places on along
+    the axis ``name`` and receives the same-shaped tensors of the rank
+    ``shift`` places back (mod the axis size): ``lax.ppermute`` over
+    the ring ``i -> i + shift``, as the fabric probe's ring pass
+    (``health/fabric_probe.py::_ring_pass``). One ``batch_isend_irecv``
+    for all of them; every rank of the axis must make the same calls in
+    the same order. At size 1, or a shift of 0 mod the size, it is the
+    identity (gloo cannot send a rank to itself)."""
+    size, index, group = mesh.axis(name)
+    tensors = [t.contiguous() for t in tensors]
+    if shift % size == 0:
+        return tensors
+    ranks = dist.get_process_group_ranks(group)
+    to, frm = ranks[(index + shift) % size], ranks[(index - shift) % size]
+    got = [torch.empty_like(t) for t in tensors]
+    ops = [dist.P2POp(dist.isend, t, to, group=group) for t in tensors]
+    ops += [dist.P2POp(dist.irecv, g, frm, group=group) for g in got]
+    for request in dist.batch_isend_irecv(ops):
+        request.wait()
+    return got
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, name, shift):
+        ctx.mesh, ctx.name, ctx.shift = mesh, name, shift
+        return ring_hop([x], mesh, name, shift)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        # the transpose of a permutation is its inverse: hop back
+        return (ring_hop([grad], ctx.mesh, ctx.name, -ctx.shift)[0], None,
+                None, None)
+
+
+def ring_shift(x, mesh, name: str = "sp", shift: int = 1):
+    """:func:`ring_hop` of one tensor, differentiable: its backward hops
+    the gradient the other way round the ring."""
+    return _RingShift.apply(x, mesh, name, shift)
 
 
 def gather_rows(x, mesh):
@@ -258,10 +408,15 @@ def to_numpy(tree):
     return tree
 
 
-def _rank_main(rank, n, init_method, device_type, fn, args, results):
+def _rank_main(rank, n, init_method, device_type, fn, args, results,
+               mesh_shape=None):
     """One rank: join the process group, build the mesh, run ``fn(mesh,
-    *args)`` and send back ``(rank, ok, numpy result or traceback)``."""
+    *args)`` and send back ``(rank, ok, numpy result or traceback)``.
+    ``args`` is a path when the launcher left them in a file."""
     try:
+        if isinstance(args, str):
+            with open(args, "rb") as f:
+                args = pickle.load(f)
         if device_type == "cuda":
             torch.cuda.set_device(rank)
             device = torch.device("cuda", rank)
@@ -273,7 +428,8 @@ def _rank_main(rank, n, init_method, device_type, fn, args, results):
             "nccl" if device_type == "cuda" else "gloo",
             init_method=init_method, world_size=n, rank=rank)
         try:
-            out = to_numpy(fn(make_mesh(n, device=device), *args))
+            mesh = make_mesh(n, device=device, shape=mesh_shape)
+            out = to_numpy(fn(mesh, *args))
         finally:
             dist.destroy_process_group()
     except Exception:
@@ -288,11 +444,13 @@ def spawn_context():
     return mp.get_context("spawn")
 
 
-def run_ranks(fn, n: int, *args, device=None, timeout: float = 900.0):
+def run_ranks(fn, n: int, *args, device=None, timeout: float = 900.0,
+              mesh_shape=None):
     """Start ``n`` ranks, one process each, that each run ``fn(mesh,
     *args)`` in one process group (NCCL on the card, rank i on card i;
     gloo on the CPU), and return their results in rank order, tensors as
-    numpy arrays. ``fn`` and ``args`` must pickle (a module-level
+    numpy arrays. ``mesh`` is :func:`make_mesh`'s for ``mesh_shape``
+    (default: the dp x tp split). ``fn`` and ``args`` must pickle (a module-level
     function). The ranks meet through a ``file://`` store in a fresh
     temporary directory, so concurrent launches never share a port. A
     rank that raises, dies or outlasts ``timeout`` fails the call, and
@@ -306,9 +464,20 @@ def run_ranks(fn, n: int, *args, device=None, timeout: float = 900.0):
     got: "dict[int, object]" = {}
     with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
         init_method = f"file://{tmp}/store"
+        # A child reads its start-up arguments only after importing the
+        # parent's main module, and start() blocks until the pipe holds
+        # what the child has not read: arguments larger than the pipe's
+        # buffer would start the ranks one after the other. So they go
+        # through a file, unless they only pickle for a child (an Event).
+        try:
+            with open(f"{tmp}/args.pkl", "wb") as f:
+                pickle.dump(args, f)
+            rank_args = f"{tmp}/args.pkl"
+        except (RuntimeError, TypeError, pickle.PicklingError):
+            rank_args = args
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(rank, n, init_method, device.type, fn,
-                                   args, results))
+                                   rank_args, results, mesh_shape))
                  for rank in range(n)]
         for p in procs:
             p.start()
