@@ -33,12 +33,18 @@ exits non-zero without printing a result. Phases:
    fold kernel against its plain version (rows that have seen nothing
    among them); the ring's backward schedule against the whole-sequence
    backward.
+3d. int8_matmul: the int8-weight matmul kernel against its plain version
+   at every shape the decode paths give it (decode M 8 and 2, prefill M
+   512, phase 9's tp shards at M 4, a ragged shape, one f32 row), two
+   launches bit-equal, timed in CUDA graphs beside
+   ``torch._weight_int8pack_mm`` and cuBLAS on a bf16 copy.
 4-6. the serving path, with the launch counts set to 0 just before it:
    ``forward`` of llama-277M with ``attention_impl="flash"`` against
    ``"xla"``; the decode contract (stepwise cache == batch forward, host
-   loop == device loop, bf16 and int8 weights + int8 KV); a
-   ``DecodeServer`` burst with a mid-burst drain, then decode at the
-   bench's shape.
+   loop == graph-replayed device loop in bf16, int8 weights + int8 KV
+   and a sampled case with eos and logprobs; each call's graph launches
+   and capture ms); a ``DecodeServer`` burst with a mid-burst drain, then
+   decode at the bench's shape through the graph and the host loop.
 7-8. the training path, with the launch counts set to 0 just before it:
    6 steps of ``make_train_step`` (flash, batch 16, seq 1024, bf16), its
    gradients against ``"xla"`` and against ``remat=True``; then save ->
@@ -128,6 +134,11 @@ from tpu_operator_libs_torch.kernels import (  # noqa: E402
 from tpu_operator_libs_torch.kernels.attention_fold import (  # noqa: E402
     attention_fold,
     attention_fold_reference,
+)
+from tpu_operator_libs_torch.kernels.int8_matmul import (  # noqa: E402
+    int8_matmul,
+    int8_matmul_reference,
+    split_plan,
 )
 from tpu_operator_libs_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
@@ -284,6 +295,18 @@ def phase_build():
     for source, lib in zip(SOURCES, built):
         entries = []
         for block in lib.ptxas_report.split("Compiling entry function")[1:]:
+            mm = re.search(r"\d(int8_matmul(?:_reduce)?_kernel)I"
+                           r"(13__nv_bfloat16|f)(?:Li(\d)ELb([01])E)?", block)
+            if mm is not None:
+                loads = "16-byte" if mm.group(4) == "1" else "bytewise"
+                design = ("split-K sum in split order" if mm.group(3) is None
+                          else f"CUDA-core FMA, {mm.group(3)} rows of x a "
+                               f"block, {loads} code loads")
+                entries.append(ptxas_entry(
+                    block, mm.group(1),
+                    torch.float32 if mm.group(2) == "f" else torch.bfloat16,
+                    None, {"design": design, "dynamic_smem_bytes": 0}))
+                continue
             fold = re.search(r"\dattention_fold_kernelI(13__nv_bfloat16|f)E",
                              block)
             if fold is not None:
@@ -768,6 +791,147 @@ def phase_ring_kernels(card):
     return fwd_rows, bwd_rows, fold_row, chain_launches
 
 
+def graph_ms(fn, iters: int, replays: int = 3) -> float:
+    """Mean device milliseconds of ``fn`` over ``iters`` calls captured
+    in one CUDA graph and replayed ``replays`` times, CUDA events: the
+    launches follow each other with no host work between them, as in
+    the replayed decode step."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def int8_bound_ms(m, k, n, dtype):
+    """Least time of one int8-weight matmul: the codes, x, the output
+    and the scales moved once over the memory rate, against the product's
+    2*M*K*N FLOPs over x's dtype's peak."""
+    esize = torch.finfo(dtype).bits // 8
+    t_bytes = (k * n + esize * (m * k + m * n) + 4 * n) / PEAK_BYTES
+    t_flops = 2 * m * k * n / PEAK_FLOPS[dtype]
+    if t_flops >= t_bytes:
+        return t_flops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def int8_limit(ref, pre_scale, dtype):
+    """The elementwise limit of the kernel against its plain version.
+    Both round twice: the f32 sum to x's dtype, then its product with the
+    rounded scale. The sums differ in order, so the first rounding may
+    land one ulp apart (at most rtol of the unscaled product, carried
+    through the scale: rtol * |round(x @ q) * s|), and the second adds
+    at most rtol * |ref|: ``KERNEL_TOL``'s rtol once for each rounding,
+    plus its atol. A single rtol * |ref| is exceeded by outputs whose two
+    roundings both fall apart (2 ulps), which the card shows."""
+    rtol, atol = KERNEL_TOL[dtype]
+    return atol + rtol * (ref.float().abs() + pre_scale)
+
+
+#: (label, M, K, N, dtype, iters) of the int8 matmul phase: every (K, N)
+#: of llama-277M at decode (M 8 at the bench shape, 2 in the decode
+#: contract) and prefill (M 512 = 8 x 64), phase 9's tp = 2 shards at
+#: its M of 4 rows a rank, a ragged shape and one f32 row
+INT8_SHAPES = [
+    ("decode_qkvo_lm_head", 8, 2048, 2048, torch.bfloat16, 200),
+    ("decode_gate_up", 8, 2048, 8192, torch.bfloat16, 200),
+    ("decode_down", 8, 8192, 2048, torch.bfloat16, 200),
+    ("contract_qkvo_lm_head", 2, 2048, 2048, torch.bfloat16, 200),
+    ("contract_gate_up", 2, 2048, 8192, torch.bfloat16, 200),
+    ("contract_down", 2, 8192, 2048, torch.bfloat16, 200),
+    ("prefill_qkvo_lm_head", 512, 2048, 2048, torch.bfloat16, 20),
+    ("prefill_gate_up", 512, 2048, 8192, torch.bfloat16, 10),
+    ("prefill_down", 512, 8192, 2048, torch.bfloat16, 10),
+    ("tp2_qkv_lm_head", 4, 2048, 1024, torch.bfloat16, 200),
+    ("tp2_o", 4, 1024, 2048, torch.bfloat16, 200),
+    ("tp2_gate_up", 4, 2048, 4096, torch.bfloat16, 200),
+    ("tp2_down", 4, 4096, 2048, torch.bfloat16, 200),
+    ("ragged", 3, 2000, 1000, torch.bfloat16, 200),
+    ("decode_qkvo_f32", 8, 2048, 2048, torch.float32, 200),
+]
+
+
+def check_int8_shape(label, m, k, n, dtype, iters, card):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    # a weight at the model's init scale, quantized as quantize_params_int8
+    w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+    s = torch.clamp_min(w.abs().amax(dim=0), 1e-8) / 127.0
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    del w
+    got = int8_matmul(x, q, s)
+    again = int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    ref = int8_matmul_reference(x, q, s)
+    pre_scale = (x @ q.to(dtype)).float().abs() * s.to(dtype).float()
+    err = (got.float() - ref.float()).abs()
+    use = (err / int8_limit(ref, pre_scale, dtype)).max().item()
+    bit_equal = bool(torch.equal(got, again))
+    if not (use <= 1 and bit_equal and got.shape == (m, n)
+            and torch.isfinite(got.float()).all()):
+        raise RuntimeError(
+            f"int8_matmul off its plain version at {label}: limit_use "
+            f"{use}, max|err| {err.max().item()}, bit-equal launches "
+            f"{bit_equal}")
+    row = {"phase": "int8_matmul", "name": "int8_matmul", "shape": label,
+           "M": m, "K": k, "N": n, "dtype": str(dtype).replace("torch.", ""),
+           "split_plan": list(split_plan(
+               m, n, k, torch.cuda.get_device_properties(0)
+               .multi_processor_count)),
+           "max_abs_err": err.max().item(),
+           "limit": "atol + rtol * (|ref| + |round(x @ q) * s|)",
+           "rtol": KERNEL_TOL[dtype][0], "atol": KERNEL_TOL[dtype][1],
+           "limit_use": use,
+           "bit_equal_to_plain_share": (got == ref).float().mean().item(),
+           "bit_equal_launches": bit_equal}
+    del got, again, ref, pre_scale, err
+    row["kernel_ms"] = graph_ms(lambda: int8_matmul(x, q, s), iters)
+    row["kernel_eager_ms"] = cuda_ms(lambda: int8_matmul(x, q, s), iters)
+    row["plain_ms"] = graph_ms(lambda: int8_matmul_reference(x, q, s),
+                               iters)
+    if dtype == torch.bfloat16:
+        # the library's int8-weight product takes the codes as (N, K) and
+        # the scales in x's dtype: both made outside the timing
+        q_nk, s_x = q.t().contiguous(), s.to(dtype)
+        row["library"] = "torch._weight_int8pack_mm"
+        row["library_ms"] = graph_ms(
+            lambda: torch._weight_int8pack_mm(x, q_nk, s_x),
+            max(2, iters // 10))
+        del q_nk
+    else:
+        row["library"] = "none: torch._weight_int8pack_mm takes no f32"
+        row["library_ms"] = None
+    # cuBLAS on a bf16 copy of the codes made outside the timing: the
+    # product alone, without the conversion the plain version pays
+    w_x = q.to(dtype)
+    row["cublas_on_converted_copy_ms"] = graph_ms(lambda: x @ w_x, iters)
+    row["bound_ms"], row["bound_by"] = int8_bound_ms(m, k, n, dtype)
+    row["card"] = card
+    emit(row)
+    del x, q, s, w_x
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_int8_matmul(card):
+    return [check_int8_shape(*shape, card) for shape in INT8_SHAPES]
+
+
 def cast_params(params, dtype):
     if isinstance(params, dict):
         return {k: cast_params(v, dtype) for k, v in params.items()}
@@ -874,11 +1038,59 @@ def phase_decode(params, params32, card):
         equal = bool(torch.equal(host, dev))
         valid = bool(((dev >= 0) & (dev < CONFIG_277M.vocab)).all())
         result[f"host_equals_device_{label}"] = equal
+        result[f"device_loop_{label}"] = dict(generate_on_device.last_call)
         if not (equal and valid and dev.shape == (8, 96)):
             raise RuntimeError(
                 f"host and device decode loops differ ({label})")
+        expect_graph(generate_on_device.last_call, 32, label)
+    result["sampled"] = sampled_contract(qparams, prompt)
     emit(result)
     return qparams
+
+
+def expect_graph(run, new_tokens, what):
+    """The device loop on the card replays its graph once a token after
+    prefill, the first pick and the eager warm-up step."""
+    if run["eager_steps"] != 1 or run["graph_launches"] != new_tokens - 2:
+        raise RuntimeError(f"{what}: the device loop ran {run}, expected "
+                           f"1 eager step and {new_tokens - 2} graph "
+                           "launches")
+
+
+#: the decode contract's sampling settings
+SAMPLING = {"temperature": 1.0, "top_k": 50, "top_p": 0.9,
+            "return_logprobs": True}
+
+
+def sampled_contract(qparams, prompt):
+    """Sampled decode, int8 weights + int8 KV, with eos and logprobs: the
+    graph-replayed device loop against the host loop from equally seeded
+    generators, tokens and logprobs bit for bit. The eos is a token that
+    row 0 draws at its fifth step without one, so that row pads."""
+    def run(fn, **kw):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        return fn(qparams, prompt, CONFIG_277M, 32,
+                  param_dtype=torch.bfloat16, quantize_kv=True,
+                  generator=gen, **SAMPLING, **kw)
+
+    free, _ = run(generate)
+    eos = int(free[0, 64 + 4])
+    host, host_lp = run(generate, eos_id=eos)
+    dev, dev_lp = run(generate_on_device, eos_id=eos)
+    graph = dict(generate_on_device.last_call)
+    out = {**SAMPLING, "eos_id": eos,
+           "tokens_equal": bool(torch.equal(host, dev)),
+           "logprobs_equal": bool(torch.equal(host_lp, dev_lp)),
+           "row0_padded_from": 64 + 4,
+           "rows_that_hit_eos": int((dev[:, 64:] == eos).any(dim=1).sum()),
+           "device_loop": graph}
+    if not (out["tokens_equal"] and out["logprobs_equal"]
+            and bool((dev[0, 64 + 4:] == eos).all())
+            and torch.isfinite(dev_lp).all()):
+        raise RuntimeError(f"sampled decode: host and device loops differ "
+                           f"or row 0 did not pad: {out}")
+    expect_graph(graph, 32, "sampled decode")
+    return out
 
 
 def phase_serving(params, qparams, card):
@@ -907,18 +1119,33 @@ def phase_serving(params, qparams, card):
     for label, p, kw in (("bf16", params, {}),
                          ("int8_weights_int8_kv", qparams,
                           {"quantize_kv": True})):
-        generate_on_device(p, prompt, CONFIG_277M, 8,
-                           param_dtype=torch.bfloat16, **kw)  # warm
-        start = time.perf_counter()
-        out = generate_on_device(p, prompt, CONFIG_277M, 960,
-                                 param_dtype=torch.bfloat16, **kw).cpu()
-        seconds = time.perf_counter() - start
-        if out.shape != (8, 1024) \
-                or not bool(((out >= 0) & (out < CONFIG_277M.vocab)).all()):
-            raise RuntimeError(f"bench-shape decode malformed ({label})")
-        cells[label] = {"seconds": seconds,
-                        "tok_per_s": 8 * 960 / seconds,
-                        "profile_64_steps": profile_decode(p, prompt, kw)}
+        cell = {}
+        # the graph-replayed device loop, then the host loop as the eager
+        # yardstick, each warmed by a short call
+        for loop, fn in (("graph", generate_on_device), ("host", generate)):
+            fn(p, prompt, CONFIG_277M, 8, param_dtype=torch.bfloat16, **kw)
+            start = time.perf_counter()
+            out = fn(p, prompt, CONFIG_277M, 960,
+                     param_dtype=torch.bfloat16, **kw).cpu()
+            seconds = time.perf_counter() - start
+            if out.shape != (8, 1024) or not bool(
+                    ((out >= 0) & (out < CONFIG_277M.vocab)).all()):
+                raise RuntimeError(
+                    f"bench-shape decode malformed ({label}, {loop})")
+            cell[loop] = {"seconds": seconds, "tok_per_s": 8 * 960 / seconds}
+            if loop == "graph":
+                run = dict(generate_on_device.last_call)
+                expect_graph(run, 960, f"bench-shape decode ({label})")
+                cell[loop]["device_loop"] = run
+                tokens = out
+            elif not torch.equal(out, tokens):
+                raise RuntimeError(f"bench-shape decode: host and graph "
+                                   f"loops differ ({label})")
+            cell[loop]["profile_64_steps"] = profile_decode(fn, p, prompt,
+                                                            kw)
+        cell["graph_over_host"] = (cell["graph"]["tok_per_s"]
+                                   / cell["host"]["tok_per_s"])
+        cells[label] = cell
     emit({"phase": "decode_bench_shape", "batch": 8, "prompt": 64,
           "new_tokens": 960, "cells": cells, "card": card})
 
@@ -956,15 +1183,20 @@ def profile_device(fn, top: int = 6):
                      "device_ms": device_us(e) / 1e3} for e in rows]}
 
 
-def profile_decode(params, prompt, kw):
-    """profile_device over a 64-token decode."""
-    return profile_device(lambda: generate_on_device(
+def profile_decode(fn, params, prompt, kw):
+    """profile_device over a 64-token decode by ``fn`` (the device loop
+    or the host loop)."""
+    return profile_device(lambda: fn(
         params, prompt, CONFIG_277M, 64, param_dtype=torch.bfloat16,
         **kw).cpu())
 
 
 #: every kernel's wrapper, by the name its launch counter reports under
 KERNELS = WRAPPERS
+#: the kernels the training path runs, and the ring's
+FLASH_KERNELS = ["flash_attention_fwd", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"]
+RING_KERNELS = FLASH_KERNELS + ["attention_fold"]
 
 
 def reset_launch_counts() -> None:
@@ -985,9 +1217,10 @@ TRAIN_STEPS = 6
 REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-6
 
 
-def expect_launches(delta, fwd, bwd, what, fold=0):
+def expect_launches(delta, fwd, bwd, what, fold=0, int8=0):
     want = {"flash_attention_fwd": fwd, "flash_attention_bwd_dkv": bwd,
-            "flash_attention_bwd_dq": bwd, "attention_fold": fold}
+            "flash_attention_bwd_dq": bwd, "attention_fold": fold,
+            "int8_matmul": int8}
     if delta != want:
         raise RuntimeError(f"{what} launched {delta}, expected {want}")
 
@@ -1180,6 +1413,8 @@ def phase_checkpoint(state, optimizer, step, card):
 #: against phase 7's first steps on the same state and batches at one card
 MULTI_STEPS = 3
 MULTI_LOSS_TOL = 1e-3
+#: the multichip decode stage's new tokens a loop
+MULTI_NEW_TOKENS = 16
 #: the one-card probe: tests/test_health.py's tolerance of the JAX probe
 PROBE_ATOL = 1e-2
 
@@ -1220,7 +1455,8 @@ def phase_multichip(card, train_losses=None):
     stages = functools.partial(
         multichip.run_stages, param_dtype=torch.bfloat16,
         batch_per_shard=TRAIN_BATCH // dp, train_steps=MULTI_STEPS,
-        prompt_len=64, new_tokens=16, decode_rows=8, payload_mib=16,
+        prompt_len=64, new_tokens=MULTI_NEW_TOKENS, decode_rows=8,
+        payload_mib=16,
         rounds=8, shapes=multichip_shapes(n))
     start = time.perf_counter()
     try:
@@ -1247,12 +1483,15 @@ def phase_multichip(card, train_losses=None):
 
     launches = first["launches"]
     # flash at tp=1: each kernel once a layer a step, the train stage's
-    # steps and the checkpoint stage's two; xla otherwise
+    # steps and the checkpoint stage's two; xla otherwise. The int8
+    # decode's two loops: a forward for each new token (prefill and the
+    # steps), seven int8 products a layer and the lm_head's each
     per_kernel = (config.n_layers * (MULTI_STEPS + 2)
                   if config.attention_impl == "flash" else 0)
+    int8 = 2 * MULTI_NEW_TOKENS * (7 * config.n_layers + 1)
     for rank in ranks:
         expect_launches(rank["launches"], per_kernel, per_kernel,
-                        f"multichip rank path at tp={tp}")
+                        f"multichip rank path at tp={tp}", int8=int8)
         if rank["losses"] != first["losses"]:
             raise RuntimeError("ranks disagree on the losses")
     train = {"phase": "multichip_train", **common,
@@ -1272,7 +1511,9 @@ def phase_multichip(card, train_losses=None):
                                f"phase 7's {ref} by {diff}")
     emit(train)
     emit({"phase": "multichip_decode", **common, "batch": 8, "prompt": 64,
-          "new_tokens": 16, "bf16_host_equals_device": True,
+          "new_tokens": MULTI_NEW_TOKENS,
+          "int8_matmul_launches": launches["int8_matmul"],
+          "bf16_host_equals_device": True,
           "int8_weights_int8_kv_host_equals_device": True,
           "tokens_equal_on_every_rank": all(
               (r["decode_plain"] == first["decode_plain"]).all()
@@ -1289,7 +1530,7 @@ def phase_multichip(card, train_losses=None):
     ring = first["ring"]
     llama = ring["llama"]
     for rank in ranks:
-        idle = [k for k, c in rank["launches_ring"].items() if c < 1]
+        idle = [k for k in RING_KERNELS if rank["launches_ring"][k] < 1]
         if idle:
             raise RuntimeError(f"the ring stage never launched {idle}")
         if rank["ring"]["llama"]["losses"] != llama["losses"]:
@@ -1342,6 +1583,36 @@ def kernel_entry(name, source, replaces, launches, rows, shape, card):
         "card": card}
 
 
+def int8_entry(rows, serving, multi, card):
+    """The kernels line's int8_matmul entry; its times and bound are the
+    bench shape's decode of wq/wk/wv/wo and the lm_head, (8, 2048, 2048),
+    the product most launched on the serving path."""
+    main_row = rows[0]
+    return {
+        "name": "int8_matmul", "route": "cuda",
+        "source": "tpu_operator_libs_torch/csrc/int8_matmul.cu",
+        "replaces": "tpu_operator_libs/examples/llama_decode.py:135-143 "
+                    "(_mm, fused by XLA; no pallas_call)",
+        "launches": serving + multi,
+        "launches_by_path": {"serving": serving, "multichip": multi},
+        "launches_counted": "eager calls plus, for a replayed graph, the "
+                            "launches recorded at capture times the replays",
+        "ok": True, "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"], "library": main_row["library"],
+        "design": "CUDA-core FMA over 16-byte int8 loads, split-K with a "
+                  "fixed-order second pass",
+        "shape": "M=8 K=2048 N=2048 bf16 x int8 (decode at the bench "
+                 "shape: wq, wk, wv, wo, lm_head)",
+        "shapes": [{k: r[k] for k in (
+            "shape", "M", "K", "N", "dtype", "split_plan", "max_abs_err",
+            "limit_use", "bit_equal_launches", "kernel_ms", "plain_ms",
+            "library", "library_ms", "cublas_on_converted_copy_ms",
+            "bound_ms", "bound_by")} for r in rows],
+        "card": card}
+
+
 def main(argv) -> int:
     card = phase_device()
     phase_build()
@@ -1358,6 +1629,7 @@ def main(argv) -> int:
     ring_fwd, ring_bwd, fold_row, chain = phase_ring_kernels(card)
     fwd_rows += ring_fwd
     bwd_rows += ring_bwd
+    int8_rows = phase_int8_matmul(card)
 
     params = init_llama_params(CONFIG_277M, param_dtype=torch.bfloat16,
                                seed=SEED, device="cuda")
@@ -1379,12 +1651,12 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     # the multi-device path: its ranks set their counts to 0 before it
     multi, ring = phase_multichip(card, train_losses)
-    flash_names = [name for name in KERNELS if name != "attention_fold"]
     for path, counts, names in (
-            ("serving", serving, ["flash_attention_fwd"]),
-            ("training", training, flash_names),
+            ("serving", serving, ["flash_attention_fwd", "int8_matmul"]),
+            ("training", training, FLASH_KERNELS),
             ("ring chain", chain, ["flash_attention_fwd", "attention_fold"]),
-            ("multichip ring", ring, list(KERNELS))):
+            ("multichip", multi, ["int8_matmul"]),
+            ("multichip ring", ring, RING_KERNELS)):
         missing = [name for name in names if counts[name] < 1]
         if missing:
             raise RuntimeError(f"the {path} path never launched {missing}")
@@ -1437,6 +1709,8 @@ def main(argv) -> int:
          "design": "one warp a row", "shape": "B=1 H=16 S=2048 D=128, "
          "o_blk bf16 (a ring block of the long-context shape)",
          "card": card},
+        int8_entry(int8_rows, serving["int8_matmul"],
+                   multi["int8_matmul"], card),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
                                  "count": torch.cuda.device_count()}})

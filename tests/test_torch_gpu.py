@@ -1,6 +1,7 @@
-"""The CUDA kernels (flash attention, the ring-attention fold) against
-their plain versions, on the card, and the ring's block chain against
-the whole-sequence kernels.
+"""The CUDA kernels (flash attention, the ring-attention fold, the
+int8-weight matmul) against their plain versions, on the card, the
+ring's block chain against the whole-sequence kernels, and the
+graph-replayed decode loop against the host loop.
 
 Run on a machine with an NVIDIA H100:
 
@@ -13,6 +14,8 @@ so that every pytest-xdist worker collects the same tests).
 import pytest
 import torch
 
+from tpu_operator_libs_torch.examples import llama as tllama
+from tpu_operator_libs_torch.examples import llama_decode as tdecode
 from tpu_operator_libs_torch.examples.ring_attention import (
     _block_attention,
     _block_backward,
@@ -21,6 +24,10 @@ from tpu_operator_libs_torch.examples.ring_attention import (
 from tpu_operator_libs_torch.kernels.attention_fold import (
     attention_fold,
     attention_fold_reference,
+)
+from tpu_operator_libs_torch.kernels.int8_matmul import (
+    int8_matmul,
+    int8_matmul_reference,
 )
 from tpu_operator_libs_torch.kernels.flash_attention import (
     flash_attention,
@@ -231,3 +238,96 @@ def test_ring_chain_matches_the_whole_sequence(cuda):
             got = sums[name][j].bfloat16().float()
             limit = atol + rtol * (want.abs() + mags[name][j])
             assert ((got - want).abs() <= limit).all(), name
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (8, 2048, 2048, torch.bfloat16),    # decode at the bench shape
+    (8, 2048, 8192, torch.bfloat16),
+    (8, 8192, 2048, torch.bfloat16),
+    (2, 2048, 2048, torch.bfloat16),    # the decode contract's batch
+    (512, 2048, 2048, torch.bfloat16),  # prefill, 8 x 64
+    (512, 2048, 8192, torch.bfloat16),
+    (512, 8192, 2048, torch.bfloat16),
+    (4, 2048, 1024, torch.bfloat16),    # tp = 2 shards, 4 rows a rank
+    (4, 1024, 2048, torch.bfloat16),
+    (3, 2000, 1000, torch.bfloat16),    # ragged: bytewise code loads
+    (8, 2048, 2048, torch.float32),
+], ids=["decode_qkvo", "decode_gate_up", "decode_down", "contract_qkvo",
+        "prefill_qkvo", "prefill_gate_up", "prefill_down", "tp2_column",
+        "tp2_row", "ragged", "decode_f32"])
+def test_int8_matmul_matches_plain_version(cuda, m, k, n, dtype):
+    """The kernel against ``(x @ q.to(x.dtype)) * s.to(x.dtype)`` on the
+    same inputs; two launches bit-equal (split-K sums in a fixed order).
+    Both sides round the f32 sum and then its product with the rounded
+    scale, so the limit takes the dtype's rtol once for each rounding
+    (``chip_smoke.int8_limit``)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    w = torch.randn((k, n), generator=gen, device=cuda) * 0.02
+    s = torch.clamp_min(w.abs().amax(dim=0), 1e-8) / 127.0
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    before = int8_matmul.launches
+    got = int8_matmul(x, q, s)
+    again = int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    want = int8_matmul_reference(x, q, s)
+    pre_scale = (x @ q.to(dtype)).float().abs() * s.to(dtype).float()
+    rtol, atol = TOL[dtype]
+    limit = atol + rtol * (want.float().abs() + pre_scale)
+    assert ((got.float() - want.float()).abs() <= limit).all()
+
+
+#: a narrow Llama for the decode loops on the card (the kernels' shapes
+#: at full width are in test_int8_matmul_matches_plain_version)
+DECODE_CFG = tllama.LlamaConfig(vocab=512, d_model=256, n_layers=2,
+                                n_heads=4, n_kv_heads=2, d_ff=512,
+                                seq_len=64)
+
+
+@pytest.mark.parametrize("case", ["greedy_bf16",
+                                  "greedy_int8_weights_int8_kv",
+                                  "sampled_int8_eos_logprobs"])
+def test_graph_decode_equals_host_loop(cuda, case):
+    """generate_on_device on the card replays one captured step per
+    token after one eager step; its tokens (and logprobs) equal the host
+    loop's bit for bit, so no step was lost or doubled, and the int8
+    kernel's launches count every replay."""
+    int8 = "int8" in case
+    params = tllama.init_llama_params(DECODE_CFG, param_dtype=torch.bfloat16,
+                                      seed=1, device=cuda)
+    if int8:
+        params = tdecode.quantize_params_int8(params)
+    prompt = torch.randint(0, DECODE_CFG.vocab, (4, 8), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(2))
+    new = 12
+    kw = {"param_dtype": torch.bfloat16, "quantize_kv": int8}
+    if case.startswith("sampled"):
+        kw.update(temperature=1.0, top_k=50, top_p=0.9,
+                  return_logprobs=True)
+        free, _ = tdecode.generate(
+            params, prompt, DECODE_CFG, new,
+            generator=torch.Generator(device=cuda).manual_seed(3), **kw)
+        kw["eos_id"] = int(free[0, 8 + 3])
+
+    def run(fn):
+        gen = (torch.Generator(device=cuda).manual_seed(3)
+               if "temperature" in kw else None)
+        return fn(params, prompt, DECODE_CFG, new, generator=gen, **kw)
+
+    host = run(tdecode.generate)
+    before = int8_matmul.launches
+    dev = run(tdecode.generate_on_device)
+    torch.cuda.synchronize()
+    assert tdecode.generate_on_device.last_call["eager_steps"] == 1
+    assert tdecode.generate_on_device.last_call["graph_launches"] == new - 2
+    per_forward = 7 * DECODE_CFG.n_layers + 1
+    assert int8_matmul.launches - before == (new * per_forward if int8
+                                             else 0)
+    if "return_logprobs" in kw:
+        (host, host_lp), (dev, dev_lp) = host, dev
+        assert torch.equal(host_lp, dev_lp)
+        assert (dev[0, 8 + 3:] == kw["eos_id"]).all()
+    assert torch.equal(host, dev)

@@ -228,6 +228,110 @@ class TestHostLoopEqualsDeviceLoop:
             assert (top == out[:, 4 + step, None]).any(dim=-1).all()
 
 
+class TestPositionOnTheDevice:
+    """``forward_with_cache`` with its position as a 0-d device tensor
+    (what the captured step advances in place) against the int one."""
+
+    @pytest.mark.parametrize("t_new", [1, 3], ids=["step", "block"])
+    @pytest.mark.parametrize("dtype,int8_weights,quantize_kv", [
+        (torch.bfloat16, False, False),
+        (torch.bfloat16, True, True),
+        (torch.float32, False, True),
+    ], ids=["bf16", "bf16_int8_weights_int8_kv", "f32_int8_kv"])
+    def test_tensor_start_pos_bit_equal_to_int(self, dtype, int8_weights,
+                                                quantize_kv, t_new):
+        params = tllama.init_llama_params(TCFG, param_dtype=dtype, seed=8,
+                                          device="cpu")
+        if int8_weights:
+            params = tdecode.quantize_params_int8(params)
+        toks = torch.from_numpy(tokens(23, 2, 12)).long()
+        caches = [tdecode.init_kv_cache(TCFG, 2, 12, dtype,
+                                        quantize_kv=quantize_kv,
+                                        device="cpu") for _ in range(2)]
+        for cache in caches:
+            tdecode.forward_with_cache(params, toks[:, :5], cache, 0, TCFG)
+        block = toks[:, 5:5 + t_new]
+        at_int, _ = tdecode.forward_with_cache(params, block, caches[0], 5,
+                                               TCFG)
+        pos = torch.tensor(5, dtype=torch.long)
+        at_tensor, _ = tdecode.forward_with_cache(params, block, caches[1],
+                                                  pos, TCFG)
+        assert int(pos) == 5  # read, not advanced
+        assert torch.equal(at_int, at_tensor)
+        for a, b in zip(*caches):
+            assert a.keys() == b.keys()
+            for name in a:
+                assert torch.equal(a[name], b[name]), name
+        # the block landed at positions 5 .. 5 + t_new - 1 and nowhere else
+        k = caches[1][0]["k"]
+        assert (k[:, 5:5 + t_new] != 0).any()
+        assert not (k[:, 5 + t_new:] != 0).any()
+
+
+class TestDecodeStep:
+    """The device loop's step on preallocated buffers, looped on the CPU
+    (the card replays it from a graph: ``tests/test_torch_gpu.py``)."""
+
+    def test_step_writes_at_the_device_position_and_advances_it(
+            self, weights):
+        _, tp = weights
+        prompt = torch.from_numpy(tokens(24, 2, 4)).long()
+        cache = tdecode.init_kv_cache(TCFG, 2, 7, device="cpu")
+        logits, cache = tdecode.forward_with_cache(tp, prompt, cache, 0,
+                                                   TCFG)
+        last = logits[:, -1].argmax(-1)[:, None]
+        out = torch.full((2, 7), -1, dtype=torch.long)
+        out[:, :4], out[:, 4] = prompt, last[:, 0]
+        state = tdecode._DecodeState(
+            last=last.clone(), pos=torch.tensor(4), done=None, out=out,
+            logprobs=None, cache=cache)
+
+        def pick(logits):
+            return tdecode._pick_next(logits[:, -1], 0.0, None, None)
+
+        for step in range(2):
+            tdecode._decode_step(state, tp, TCFG, None, pick, None, 4)
+            assert int(state.pos) == 5 + step
+            assert torch.equal(state.out[:, 5 + step], state.last[:, 0])
+        assert (out[:, :7] >= 0).all()  # every column written once
+        assert torch.equal(out, tdecode.generate(tp, prompt, TCFG, 3))
+
+    @pytest.mark.parametrize("case", ["greedy_bf16",
+                                      "greedy_int8_weights_int8_kv",
+                                      "sampled_int8_eos_logprobs"])
+    def test_looped_step_equals_host_loop(self, case):
+        int8 = "int8" in case
+        dtype = torch.bfloat16 if case == "greedy_bf16" else torch.float32
+        params = tllama.init_llama_params(TCFG, param_dtype=dtype, seed=9,
+                                          device="cpu")
+        if int8:
+            params = tdecode.quantize_params_int8(params)
+        prompt = tokens(25, 3, 5)
+        kw = {"param_dtype": dtype, "quantize_kv": int8}
+        if case.startswith("sampled"):
+            kw.update(temperature=1.0, top_k=6, top_p=0.8,
+                      return_logprobs=True)
+            free, _ = tdecode.generate(
+                params, prompt, TCFG, 7,
+                generator=torch.Generator().manual_seed(3), **kw)
+            kw["eos_id"] = int(free[0, 5 + 2])
+
+        def run(fn):
+            gen = (torch.Generator().manual_seed(3)
+                   if "temperature" in kw else None)
+            return fn(params, prompt, TCFG, 7, generator=gen, **kw)
+
+        host, dev = run(tdecode.generate), run(tdecode.generate_on_device)
+        assert tdecode.generate_on_device.last_call == {
+            "eager_steps": 6, "graph_launches": 0, "capture_ms": 0.0}
+        if "return_logprobs" in kw:
+            (host, host_lp), (dev, dev_lp) = host, dev
+            assert torch.equal(host_lp, dev_lp)
+            assert (dev[0, 5 + 2:] == kw["eos_id"]).all()
+            assert (dev_lp[0, 3:] == 0.0).all()
+        assert torch.equal(host, dev)
+
+
 def test_greedy_logprobs_match_batch_forward(weights):
     _, tp = weights
     prompt = tokens(20, 2, 4)

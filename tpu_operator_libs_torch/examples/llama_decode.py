@@ -17,8 +17,14 @@ of preallocated buffers written in place, and :func:`forward_with_cache`
 returns the same list. Sampling draws Gumbel noise from an explicit
 ``torch.Generator`` instead of splitting a ``jax.random`` key; the host
 and device loops consume it in the same order, so they draw the same
-tokens. The int8 matmul and the decode attention stay plain PyTorch in
-this slice (XLA fuses them on the TPU; they have no Pallas source).
+tokens. The int8-weight matmul is a hand-written kernel
+(``kernels/int8_matmul.py``) that reads the codes as int8; the decode
+attention stays plain PyTorch (XLA fuses both on the TPU; neither has a
+Pallas source).
+
+On the card, :func:`generate_on_device` replays one decode step from a
+captured CUDA graph where JAX runs a ``lax.scan``: the step reads and
+writes only preallocated device tensors, its position among them.
 
 With a ``mesh`` (dp x tp, as the JAX package shards its cache on the
 batch and KV-head axes) every entry point takes the global prompt and
@@ -32,12 +38,17 @@ seeded generator.
 
 from __future__ import annotations
 
+import dataclasses
+import time
+
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
 from tpu_operator_libs_torch import resolve_device
 from tpu_operator_libs_torch.examples.llama import _rms_norm, _rope
+from tpu_operator_libs_torch.kernels import WRAPPERS
+from tpu_operator_libs_torch.kernels.int8_matmul import int8_matmul
 from tpu_operator_libs_torch.parallel import (
     TP_SPLIT_DIM,
     any_rank,
@@ -151,21 +162,31 @@ def _promoted(a, b):
 
 def _mm(x, w):
     """x @ w for a plain weight or an int8-quantized {"q", "s"} one:
-    ``(x @ cast(q)) * s``, exact for a per-output-channel scale."""
+    ``(x @ cast(q)) * s``, exact for a per-output-channel scale, by
+    :func:`~tpu_operator_libs_torch.kernels.int8_matmul.int8_matmul` over
+    x's leading axes (on the card the codes stay int8 in device memory)."""
     if isinstance(w, dict):
-        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
+        out = int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w["q"],
+                          w["s"])
+        return out.reshape(*x.shape[:-1], out.shape[-1])
     x, w = _promoted(x, w)
     return x @ w
 
 
-def forward_with_cache(params, tokens, cache, start_pos: int, config,
+def forward_with_cache(params, tokens, cache, start_pos, config,
                        mesh=None):
     """Logits for ``tokens`` (B, T) occupying absolute positions
     ``start_pos .. start_pos+T-1``, attending to everything already in
     ``cache`` plus themselves. Writes the new keys and values into the
     cache buffers in place and returns (logits (B, T, vocab), cache).
     With a ``mesh``: this rank's rows, shards and cache; the logits are
-    whole on every tp rank."""
+    whole on every tp rank.
+
+    ``start_pos`` is a Python int or a 0-d int64 tensor on the cache's
+    device, as JAX's may be traced: both take the same ops (positions,
+    RoPE angles, mask and cache writes from one positions tensor), and
+    nothing reads it back to the host, so a captured step can advance it
+    in place."""
     if config.attention_impl != "xla":
         raise ValueError(
             "forward_with_cache implements the einsum path; decode "
@@ -178,8 +199,7 @@ def forward_with_cache(params, tokens, cache, start_pos: int, config,
     group = nh // nkv
     max_seq = cache[0]["k"].shape[1]
     device = cache[0]["k"].device
-    end = start_pos + t_new
-    positions = start_pos + torch.arange(t_new, device=device)
+    positions = torch.arange(t_new, device=device) + start_pos
 
     h = params["embed"][tokens.long()]
     # key validity: cached positions < start_pos+T, and causality
@@ -200,13 +220,13 @@ def forward_with_cache(params, tokens, cache, start_pos: int, config,
             # attention would read, coded int8 + per-token scale
             k_q, k_s = _quantize_kv_block(k)
             v_q, v_s = _quantize_kv_block(v)
-            entry["k"][:, start_pos:end] = k_q
-            entry["v"][:, start_pos:end] = v_q
-            entry["k_s"][:, start_pos:end] = k_s
-            entry["v_s"][:, start_pos:end] = v_s
+            new = {"k": k_q, "k_s": k_s, "v": v_q, "v_s": v_s}
         else:
-            entry["k"][:, start_pos:end] = k.to(entry["k"].dtype)
-            entry["v"][:, start_pos:end] = v.to(entry["v"].dtype)
+            new = {"k": k.to(entry["k"].dtype), "v": v.to(entry["v"].dtype)}
+        # written at the positions tensor along the sequence axis, the
+        # counterpart of JAX's dynamic_update_slice at a traced start
+        for name, block in new.items():
+            entry[name].index_copy_(1, positions, block)
 
         # grouped einsum over (kv-head, group) — never materializes a
         # group-times-repeated copy of the cache
@@ -399,6 +419,86 @@ def generate(params, prompt, config, max_new_tokens: int,
     return out
 
 
+@dataclasses.dataclass
+class _DecodeState:
+    """The preallocated device tensors one decode step reads and writes:
+    the token it feeds, that token's absolute position, the rows that
+    have emitted eos, the output and logprob buffers, and the cache."""
+
+    last: torch.Tensor  # (B, 1) int64
+    pos: torch.Tensor  # 0-d int64
+    done: "torch.Tensor | None"  # (B,) bool, with an eos_id
+    out: torch.Tensor  # (B, prompt_len + max_new_tokens) int64
+    logprobs: "torch.Tensor | None"  # (B, max_new_tokens) float32
+    cache: list
+
+
+def _decode_step(state, params, config, mesh, pick, eos_id, prompt_len):
+    """One cached step, all on the device: the next token (eos-masked as
+    in :func:`generate`) goes into ``out`` at ``pos + 1`` and into
+    ``last``, its logprob into ``logprobs``, and ``pos`` advances in
+    place as the last op. The same ops whether run eagerly or replayed
+    from a graph."""
+    logits, _ = forward_with_cache(params, state.last, state.cache,
+                                   state.pos, config, mesh)
+    nxt, lp = pick(logits)
+    if eos_id is not None:
+        # a finished row keeps emitting eos_id; its step still ran
+        nxt = torch.where(state.done[:, None], eos_id, nxt)
+        if lp is not None:
+            lp = torch.where(state.done, 0.0, lp)
+        state.done |= nxt[:, 0] == eos_id
+    column = (state.pos + 1).reshape(1)
+    state.out.index_copy_(1, column, nxt)
+    if lp is not None:
+        state.logprobs.index_copy_(1, column - prompt_len, lp[:, None])
+    state.last.copy_(nxt)
+    state.pos += 1
+
+
+def _replay_steps(step, steps: int, generator, device) -> dict:
+    """``steps`` calls of ``step`` on the card: the first runs eagerly on
+    the capture's stream, as the warm-up that torch's capture recipe asks
+    for (a real step: it writes the cache and draws from the generator
+    like any other); then ``step`` is captured once into a CUDA graph,
+    which only records and runs nothing, and the graph is replayed once
+    for each step left. ``generator`` (sampling) is registered with the
+    graph, so every replay draws at the next offsets of the caller's
+    generator, as the eager steps would. Capture is thread-local: other
+    threads' work on the card does not break it. Returns once the
+    replays have run: the graph and its memory pool die with the call."""
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(main)
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    with torch.cuda.stream(side):
+        step()
+        captured = {name: w.launches for name, w in WRAPPERS.items()}
+        start = time.perf_counter()
+        # not torch.cuda.graph: it would also synchronise the card and
+        # empty the allocator's cache before every capture (0.5 s after
+        # the allocations of a kernel benchmark, on the H100)
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            step()
+        finally:
+            graph.capture_end()
+        capture_ms = (time.perf_counter() - start) * 1e3
+    main.wait_stream(side)
+    with torch.cuda.stream(main):
+        for _ in range(steps - 1):
+            graph.replay()
+    main.synchronize()
+    # the wrappers ran once, at capture: their counts stand for the first
+    # replay, and each further replay launches the same kernels again
+    for name, wrapper in WRAPPERS.items():
+        wrapper.launches += (wrapper.launches - captured[name]) * (steps - 2)
+    return {"eager_steps": 1, "graph_launches": steps - 1,
+            "capture_ms": capture_ms}
+
+
 def generate_on_device(params, prompt, config, max_new_tokens: int,
                        param_dtype=None, temperature: float = 0.0,
                        top_k=None, generator=None,
@@ -410,51 +510,69 @@ def generate_on_device(params, prompt, config, max_new_tokens: int,
     The counterpart of the JAX package's single dispatch with a donated
     cache: no step reads anything back to the host (no ``.item()`` or
     ``bool(...)``; eos is handled with ``torch.where`` and every step
-    runs), tokens go into one preallocated device buffer, and the caller
-    reads them back once. Same contract and return value as
-    :func:`generate`; greedy output is token-equal to it. With a
-    ``mesh`` the rows are gathered once, after the loop."""
+    runs), each step writes preallocated device buffers (the position
+    among them), and the caller reads the tokens back once. Same
+    contract and return value as :func:`generate`; greedy output is
+    token-equal to it, and so is sampled output drawn from an equally
+    seeded generator.
+
+    On the card without a ``mesh``, prefill, the first pick and one
+    decode step run eagerly and the remaining steps replay one captured
+    CUDA graph, one launch a token (:func:`_replay_steps`); on the CPU
+    and with a ``mesh`` (capture over NCCL is not done) the same step
+    runs in a Python loop, and with a ``mesh`` the rows are gathered once,
+    after it. ``generate_on_device.last_call`` records the eager steps,
+    graph launches and capture milliseconds of the latest call."""
     prompt, cache = _start(params, prompt, config, max_new_tokens,
                            param_dtype, temperature, generator,
                            quantize_kv, top_p, mesh)
     batch, prompt_len = prompt.shape
+    device = prompt.device
     _check_prefill_chunk(prefill_chunk)
     if prefill_chunk is not None and prefill_chunk >= prompt_len:
         prefill_chunk = None
-
-    def step(p, t, c, pos):
-        return forward_with_cache(p, t, c, pos, config, mesh)
 
     def pick(logits):
         return _pick_next(logits[:, -1, :], temperature, top_k, generator,
                           top_p, return_logprobs)
 
     out = torch.empty((batch, prompt_len + max_new_tokens),
-                      dtype=torch.long, device=prompt.device)
+                      dtype=torch.long, device=device)
     out[:, :prompt_len] = prompt
     logprobs = (torch.empty((batch, max_new_tokens), dtype=torch.float32,
-                            device=prompt.device)
+                            device=device)
                 if return_logprobs else None)
 
-    logits, cache = _prefill(step, params, prompt, cache, prefill_chunk)
+    logits, cache = _prefill(
+        lambda p, t, c, pos: forward_with_cache(p, t, c, pos, config, mesh),
+        params, prompt, cache, prefill_chunk)
     last, lp = pick(logits)
     out[:, prompt_len] = last[:, 0]
     if return_logprobs:
         logprobs[:, 0] = lp
     done = last[:, 0] == eos_id if eos_id is not None else None
-    for i in range(max_new_tokens - 1):
-        logits, cache = step(params, last, cache, prompt_len + i)
-        last, lp = pick(logits)
-        if eos_id is not None:
-            # a finished row keeps emitting eos_id; its step still ran
-            last = torch.where(done[:, None], eos_id, last)
-            if return_logprobs:
-                lp = torch.where(done, 0.0, lp)
-            done = done | (last[:, 0] == eos_id)
-        out[:, prompt_len + 1 + i] = last[:, 0]
-        if return_logprobs:
-            logprobs[:, i + 1] = lp
+    state = _DecodeState(
+        last=last, done=done, out=out, logprobs=logprobs,
+        pos=torch.tensor(prompt_len, dtype=torch.long, device=device),
+        cache=cache)
+
+    def step():
+        _decode_step(state, params, config, mesh, pick, eos_id, prompt_len)
+
+    steps = max_new_tokens - 1
+    if device.type == "cuda" and mesh is None and steps > 1:
+        run = _replay_steps(step, steps,
+                            generator if temperature > 0.0 else None, device)
+    else:
+        for _ in range(steps):
+            step()
+        run = {"eager_steps": steps, "graph_launches": 0, "capture_ms": 0.0}
+    generate_on_device.last_call = run
     out = gather_rows(out, mesh)
     if return_logprobs:
         return out, gather_rows(logprobs, mesh)
     return out
+
+
+#: what the latest call ran: eager steps, graph launches, capture ms
+generate_on_device.last_call = {}
