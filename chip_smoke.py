@@ -35,9 +35,14 @@ exits non-zero without printing a result. Phases:
    backward.
 3d. int8_matmul: the int8-weight matmul kernel against its plain version
    at every shape the decode paths give it (decode M 8 and 2, prefill M
-   512, phase 9's tp shards at M 4, a ragged shape, one f32 row), two
-   launches bit-equal, timed in CUDA graphs beside
-   ``torch._weight_int8pack_mm`` and cuBLAS on a bf16 copy.
+   512, phase 9's tp shards at M 4, a ragged shape, one f32 row) and at
+   the edges of its plan (ragged prefill M, M around the wgmma design's
+   threshold, an N that TMA cannot take, ragged wgmma tiles in K and N),
+   each row naming the design it ran and its CUDA launches a call (1);
+   two launches and a graph-replayed one bit-equal; timed in CUDA graphs
+   over copies of the weight that overflow L2 (so read from device
+   memory), beside ``torch._weight_int8pack_mm`` and cuBLAS on a bf16
+   copy.
 4-6. the serving path, with the launch counts set to 0 just before it:
    ``forward`` of llama-277M with ``attention_impl="flash"`` against
    ``"xla"``; the decode contract (stepwise cache == batch forward, host
@@ -74,6 +79,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -138,7 +144,7 @@ from tpu_operator_libs_torch.kernels.attention_fold import (  # noqa: E402
 from tpu_operator_libs_torch.kernels.int8_matmul import (  # noqa: E402
     int8_matmul,
     int8_matmul_reference,
-    split_plan,
+    plan as int8_plan,
 )
 from tpu_operator_libs_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
@@ -268,20 +274,27 @@ KERNEL_TEMPLATES = {
 }
 
 
-def ptxas_entry(block, kernel, dtype, head_dim, design):
+def ptxas_entry(block, kernel, dtype, head_dim, design, serialized=()):
     """One kernel instance's line of the build phase from its ptxas
-    report."""
+    report; ``serialized``: the mangled names that ptxas warned (C7515)
+    run their wgmma serialised, a warning it may print apart from the
+    function's own lines."""
+    name = re.match(r"\s*'([^']+)'", block)
     regs = re.search(r"Used (\d+) registers", block)
     smem = re.search(r"(\d+) bytes smem", block)
     spill = re.search(r"(\d+) bytes spill stores", block)
+    stack = re.search(r"(\d+) bytes cumulative stack size", block)
     return {"kernel": kernel, "dtype": str(dtype).replace("torch.", ""),
             "head_dim": head_dim, "design": design["design"],
             "registers": int(regs.group(1)) if regs else None,
             "static_smem_bytes": int(smem.group(1)) if smem else 0,
             "dynamic_smem_bytes": design["dynamic_smem_bytes"],
             "spill_store_bytes": int(spill.group(1)) if spill else 0,
+            # local memory, e.g. an array indexed at run time
+            "stack_bytes": int(stack.group(1)) if stack else 0,
             # ptxas serialises wgmma it cannot keep asynchronous
-            "wgmma_serialized": "serialized" in block}
+            "wgmma_serialized": "serialized" in block or (
+                name is not None and name.group(1) in serialized)}
 
 
 def phase_build():
@@ -294,18 +307,52 @@ def phase_build():
     wall = time.perf_counter() - start
     for source, lib in zip(SOURCES, built):
         entries = []
+        serialized = set(re.findall(r"serialized[^\n]*function '([^']+)'",
+                                    lib.ptxas_report))
         for block in lib.ptxas_report.split("Compiling entry function")[1:]:
-            mm = re.search(r"\d(int8_matmul(?:_reduce)?_kernel)I"
-                           r"(13__nv_bfloat16|f)(?:Li(\d)ELb([01])E)?", block)
-            if mm is not None:
-                loads = "16-byte" if mm.group(4) == "1" else "bytewise"
-                design = ("split-K sum in split order" if mm.group(3) is None
-                          else f"CUDA-core FMA, {mm.group(3)} rows of x a "
-                               f"block, {loads} code loads")
+            def loads(aligned):  # the template's kAligned, mangled
+                return "16-byte cp.async" if aligned == "1" else "bytewise"
+            mf = re.search(r"\d(int8_matmul_kernel)ILi(\d)ELb([01])E", block)
+            if mf is not None:
+                # kRing stages of 64 x 128 codes and 64 f32 columns of kM
+                # rows of x
                 entries.append(ptxas_entry(
-                    block, mm.group(1),
-                    torch.float32 if mm.group(2) == "f" else torch.bfloat16,
-                    None, {"design": design, "dynamic_smem_bytes": 0}))
+                    block, mf.group(1), torch.float32, None,
+                    {"design": f"cuda_cores: {mf.group(2)} rows of x a "
+                               f"block, {loads(mf.group(3))} ring, "
+                               "in-kernel split-K fixup",
+                     "dynamic_smem_bytes": 6 * (64 * 128
+                                                + int(mf.group(2)) * 64 * 4)},
+                    serialized))
+                continue
+            mm = re.search(r"\d(int8_matmul_mma_kernel)ILb([01])ELi(\d)E",
+                           block)
+            if mm is not None:
+                rows = 8 * int(mm.group(3))
+                # kRing stages of 128 x 128 codes and `rows` rows of 144
+                # bf16, or the 8 warps' f32 sums that reuse them
+                entries.append(ptxas_entry(
+                    block, mm.group(1), torch.bfloat16, None,
+                    {"design": f"mma_sync: {rows} rows of x a block, "
+                               f"{loads(mm.group(2))} ring, in-kernel "
+                               "split-K fixup",
+                     "dynamic_smem_bytes": max(
+                         4 * (128 * 128 + rows * 144 * 2),
+                         8 * rows * 128 * 4)},
+                    serialized))
+                continue
+            mw = re.search(r"\d(int8_matmul_wgmma_kernel)ILi(\d+)E", block)
+            if mw is not None:
+                block_m = int(mw.group(2))
+                # 4 stages of x and code tiles, two converted tiles, and
+                # 1024 bytes of alignment
+                smem = 1024 + 4 * (block_m * 64 * 2 + 64 * 128) \
+                    + 2 * 64 * 128 * 2
+                entries.append(ptxas_entry(
+                    block, mw.group(1), torch.bfloat16, None,
+                    {"design": f"wgmma: {block_m} x 128 tiles, TMA ring, "
+                               "codes converted in shared memory",
+                     "dynamic_smem_bytes": smem}, serialized))
                 continue
             fold = re.search(r"\dattention_fold_kernelI(13__nv_bfloat16|f)E",
                              block)
@@ -327,7 +374,7 @@ def phase_build():
             head_dim = int(name.group(3))
             entries.append(ptxas_entry(block, name.group(1), dtype, head_dim,
                                        kernel_design(wrapper, dtype,
-                                                     head_dim)))
+                                                     head_dim), serialized))
         emit({"phase": "build", "source": source,
               "build_seconds": lib.build_seconds, "wall_seconds_all": wall,
               "ptxas": entries})
@@ -818,6 +865,19 @@ def graph_ms(fn, iters: int, replays: int = 3) -> float:
     return start.elapsed_time(end) / (replays * iters)
 
 
+#: bytes of weight copies that a timed int8 product turns through, four
+#: times an H100's 50 MB L2, so that each call reads its weight from
+#: device memory, as the decode step's products read theirs
+ROTATE_BYTES = 200 << 20
+
+
+def rotated_ms(fn, pool, iters: int) -> float:
+    """``graph_ms`` of ``fn(*args)`` with args taken from ``pool`` in
+    turn: each call reads another copy of its operands."""
+    turn = itertools.cycle(pool)
+    return graph_ms(lambda: fn(*next(turn)), iters)
+
+
 def int8_bound_ms(m, k, n, dtype):
     """Least time of one int8-weight matmul: the codes, x, the output
     and the scales moved once over the memory rate, against the product's
@@ -846,7 +906,13 @@ def int8_limit(ref, pre_scale, dtype):
 #: (label, M, K, N, dtype, iters) of the int8 matmul phase: every (K, N)
 #: of llama-277M at decode (M 8 at the bench shape, 2 in the decode
 #: contract) and prefill (M 512 = 8 x 64), phase 9's tp = 2 shards at
-#: its M of 4 rows a rank, a ragged shape and one f32 row
+#: its M of 4 rows a rank, a ragged shape, one f32 row, and the plan's
+#: edges: M just below and at the wgmma design's threshold (63 / 64 rows
+#: at N 8192, 128 / 129 at N 2048, where its tiles first fill a quarter
+#: of an H100), ragged prefill M (64, 100, 500), an N that TMA cannot
+#: take at M 512, and K and N that leave the wgmma design a ragged last
+#: tile (TMA's zero fill past K, a partial code box and masked columns
+#: past N)
 INT8_SHAPES = [
     ("decode_qkvo_lm_head", 8, 2048, 2048, torch.bfloat16, 200),
     ("decode_gate_up", 8, 2048, 8192, torch.bfloat16, 200),
@@ -854,16 +920,62 @@ INT8_SHAPES = [
     ("contract_qkvo_lm_head", 2, 2048, 2048, torch.bfloat16, 200),
     ("contract_gate_up", 2, 2048, 8192, torch.bfloat16, 200),
     ("contract_down", 2, 8192, 2048, torch.bfloat16, 200),
-    ("prefill_qkvo_lm_head", 512, 2048, 2048, torch.bfloat16, 20),
-    ("prefill_gate_up", 512, 2048, 8192, torch.bfloat16, 10),
-    ("prefill_down", 512, 8192, 2048, torch.bfloat16, 10),
+    ("prefill_qkvo_lm_head", 512, 2048, 2048, torch.bfloat16, 50),
+    ("prefill_gate_up", 512, 2048, 8192, torch.bfloat16, 20),
+    ("prefill_down", 512, 8192, 2048, torch.bfloat16, 20),
     ("tp2_qkv_lm_head", 4, 2048, 1024, torch.bfloat16, 200),
     ("tp2_o", 4, 1024, 2048, torch.bfloat16, 200),
     ("tp2_gate_up", 4, 2048, 4096, torch.bfloat16, 200),
     ("tp2_down", 4, 4096, 2048, torch.bfloat16, 200),
     ("ragged", 3, 2000, 1000, torch.bfloat16, 200),
     ("decode_qkvo_f32", 8, 2048, 2048, torch.float32, 200),
+    ("below_threshold_m63", 63, 2048, 8192, torch.bfloat16, 100),
+    ("threshold_m64", 64, 2048, 8192, torch.bfloat16, 100),
+    ("below_threshold_m128", 128, 2048, 2048, torch.bfloat16, 100),
+    ("threshold_m129", 129, 2048, 2048, torch.bfloat16, 100),
+    ("prefill_m64", 64, 2048, 2048, torch.bfloat16, 100),
+    ("prefill_m100", 100, 2048, 2048, torch.bfloat16, 100),
+    ("prefill_m500", 500, 2048, 2048, torch.bfloat16, 50),
+    ("prefill_unaligned_n", 512, 2048, 1000, torch.bfloat16, 20),
+    ("prefill_k_ragged_tile", 512, 2040, 2048, torch.bfloat16, 50),
+    ("prefill_n_ragged_tile", 512, 2048, 1040, torch.bfloat16, 50),
 ]
+
+
+def cuda_launches(fn) -> int:
+    """Kernels (and memsets or copies) that one call of ``fn`` puts on
+    the card, from torch.profiler's device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def graph_replay_equal(fn, eager) -> bool:
+    """Whether one call of ``fn`` captured in a CUDA graph and replayed
+    returns ``eager`` bit for bit."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # the stream's first call runs eagerly, as a capture asks
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(out, eager))
+    del graph, out
+    return equal
 
 
 def check_int8_shape(label, m, k, n, dtype, iters, card):
@@ -882,48 +994,64 @@ def check_int8_shape(label, m, k, n, dtype, iters, card):
     err = (got.float() - ref.float()).abs()
     use = (err / int8_limit(ref, pre_scale, dtype)).max().item()
     bit_equal = bool(torch.equal(got, again))
-    if not (use <= 1 and bit_equal and got.shape == (m, n)
-            and torch.isfinite(got.float()).all()):
+    graph_equal = graph_replay_equal(lambda: int8_matmul(x, q, s), got)
+    launches = cuda_launches(lambda: int8_matmul(x, q, s))
+    if not (use <= 1 and bit_equal and graph_equal and launches == 1
+            and got.shape == (m, n) and torch.isfinite(got.float()).all()):
         raise RuntimeError(
             f"int8_matmul off its plain version at {label}: limit_use "
             f"{use}, max|err| {err.max().item()}, bit-equal launches "
-            f"{bit_equal}")
+            f"{bit_equal}, graph replay bit-equal {graph_equal}, CUDA "
+            f"launches a call {launches}")
+    p = int8_plan(m, k, n, dtype,
+                  torch.cuda.get_device_properties(0).multi_processor_count)
     row = {"phase": "int8_matmul", "name": "int8_matmul", "shape": label,
            "M": m, "K": k, "N": n, "dtype": str(dtype).replace("torch.", ""),
-           "split_plan": list(split_plan(
-               m, n, k, torch.cuda.get_device_properties(0)
-               .multi_processor_count)),
+           "design": p.design,
+           "plan": {"block_m": p.block_m, "splits": p.splits,
+                    "k_per_split": p.k_per_split},
+           "cuda_launches_per_call": launches,
            "max_abs_err": err.max().item(),
            "limit": "atol + rtol * (|ref| + |round(x @ q) * s|)",
            "rtol": KERNEL_TOL[dtype][0], "atol": KERNEL_TOL[dtype][1],
            "limit_use": use,
            "bit_equal_to_plain_share": (got == ref).float().mean().item(),
-           "bit_equal_launches": bit_equal}
+           "bit_equal_launches": bit_equal,
+           "graph_replay_bit_equal": graph_equal}
     del got, again, ref, pre_scale, err
-    row["kernel_ms"] = graph_ms(lambda: int8_matmul(x, q, s), iters)
+    # timed inside a CUDA graph, each call on another copy of the weight
+    # (ROTATE_BYTES of them): the weight comes from device memory, as in
+    # the decode step, not from L2
+    qs = [q] + [q.clone() for _ in range(-(-ROTATE_BYTES // (k * n)) - 1)]
+    row["weight_copies"] = len(qs)
+    row["kernel_ms"] = rotated_ms(lambda qi: int8_matmul(x, qi, s),
+                                  [(qi,) for qi in qs], iters)
+    # one weight, read again and again, so from L2 where it fits: how
+    # PR 8 timed the kernel
+    row["kernel_l2_ms"] = graph_ms(lambda: int8_matmul(x, q, s), iters)
+    # one weight, eager: the wrapper's host cost shows
     row["kernel_eager_ms"] = cuda_ms(lambda: int8_matmul(x, q, s), iters)
-    row["plain_ms"] = graph_ms(lambda: int8_matmul_reference(x, q, s),
-                               iters)
+    row["plain_ms"] = rotated_ms(lambda qi: int8_matmul_reference(x, qi, s),
+                                 [(qi,) for qi in qs], iters)
     if dtype == torch.bfloat16:
         # the library's int8-weight product takes the codes as (N, K) and
         # the scales in x's dtype: both made outside the timing
-        q_nk, s_x = q.t().contiguous(), s.to(dtype)
+        s_x = s.to(dtype)
         row["library"] = "torch._weight_int8pack_mm"
-        row["library_ms"] = graph_ms(
-            lambda: torch._weight_int8pack_mm(x, q_nk, s_x),
-            max(2, iters // 10))
-        del q_nk
+        row["library_ms"] = rotated_ms(
+            lambda qi: torch._weight_int8pack_mm(x, qi, s_x),
+            [(qi.t().contiguous(),) for qi in qs], max(2, iters // 10))
     else:
         row["library"] = "none: torch._weight_int8pack_mm takes no f32"
         row["library_ms"] = None
-    # cuBLAS on a bf16 copy of the codes made outside the timing: the
+    # cuBLAS on bf16 copies of the codes made outside the timing: the
     # product alone, without the conversion the plain version pays
-    w_x = q.to(dtype)
-    row["cublas_on_converted_copy_ms"] = graph_ms(lambda: x @ w_x, iters)
+    row["cublas_on_converted_copy_ms"] = rotated_ms(
+        lambda wi: x @ wi, [(qi.to(dtype),) for qi in qs], iters)
     row["bound_ms"], row["bound_by"] = int8_bound_ms(m, k, n, dtype)
     row["card"] = card
     emit(row)
-    del x, q, s, w_x
+    del x, q, s, qs
     torch.cuda.empty_cache()
     return row
 
@@ -1180,7 +1308,11 @@ def profile_device(fn, top: int = 6):
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
             "top": [{"name": e.key[:60], "calls": e.count,
-                     "device_ms": device_us(e) / 1e3} for e in rows]}
+                     "device_ms": device_us(e) / 1e3} for e in rows],
+            # the int8 kernel's instances, in or out of the top rows
+            "int8_matmul": [{"name": e.key[:100], "calls": e.count,
+                             "device_ms": device_us(e) / 1e3}
+                            for e in events if "int8_matmul" in e.key]}
 
 
 def profile_decode(fn, params, prompt, kw):
@@ -1588,6 +1720,7 @@ def int8_entry(rows, serving, multi, card):
     bench shape's decode of wq/wk/wv/wo and the lm_head, (8, 2048, 2048),
     the product most launched on the serving path."""
     main_row = rows[0]
+    ms = {r["shape"]: r["kernel_ms"] for r in rows}
     return {
         "name": "int8_matmul", "route": "cuda",
         "source": "tpu_operator_libs_torch/csrc/int8_matmul.cu",
@@ -1601,13 +1734,22 @@ def int8_entry(rows, serving, multi, card):
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "library": main_row["library"],
-        "design": "CUDA-core FMA over 16-byte int8 loads, split-K with a "
-                  "fixed-order second pass",
+        "design": "wgmma over converted code tiles (bf16 prefill); "
+                  "mma.sync with the weight as A (the rest of bf16); f32 "
+                  "FMAs on the CUDA cores (f32); split-K added in split "
+                  "order inside the launch",
         "shape": "M=8 K=2048 N=2048 bf16 x int8 (decode at the bench "
                  "shape: wq, wk, wv, wo, lm_head)",
+        # one bench-shape decode step's 29 products (wq, wk, wv, wo of 4
+        # layers and the lm_head, w_gate and w_up of 4, w_down of 4), each
+        # weight read from device memory (phase 3d's kernel_ms)
+        "decode_step_29_launches_ms": 17 * ms["decode_qkvo_lm_head"]
+        + 8 * ms["decode_gate_up"] + 4 * ms["decode_down"],
         "shapes": [{k: r[k] for k in (
-            "shape", "M", "K", "N", "dtype", "split_plan", "max_abs_err",
-            "limit_use", "bit_equal_launches", "kernel_ms", "plain_ms",
+            "shape", "M", "K", "N", "dtype", "design", "plan",
+            "cuda_launches_per_call", "max_abs_err", "limit_use",
+            "bit_equal_launches", "graph_replay_bit_equal", "kernel_ms",
+            "kernel_l2_ms", "plain_ms",
             "library", "library_ms", "cublas_on_converted_copy_ms",
             "bound_ms", "bound_by")} for r in rows],
         "card": card}

@@ -240,6 +240,17 @@ def test_ring_chain_matches_the_whole_sequence(cuda):
             assert ((got - want).abs() <= limit).all(), name
 
 
+def int8_operands(cuda, m, k, n, dtype):
+    """x, and a weight at the model's init scale quantized as
+    ``quantize_params_int8`` does: (x, q int8, s f32) on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    w = torch.randn((k, n), generator=gen, device=cuda) * 0.02
+    s = torch.clamp_min(w.abs().amax(dim=0), 1e-8) / 127.0
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    return x, q, s
+
+
 @pytest.mark.parametrize("m,k,n,dtype", [
     (8, 2048, 2048, torch.bfloat16),    # decode at the bench shape
     (8, 2048, 8192, torch.bfloat16),
@@ -252,20 +263,33 @@ def test_ring_chain_matches_the_whole_sequence(cuda):
     (4, 1024, 2048, torch.bfloat16),
     (3, 2000, 1000, torch.bfloat16),    # ragged: bytewise code loads
     (8, 2048, 2048, torch.float32),
+    (64, 2048, 8192, torch.bfloat16),   # at the wgmma design's threshold
+    (63, 2048, 8192, torch.bfloat16),   # just below it: mma.sync
+    (129, 2048, 2048, torch.bfloat16),  # at it for N 2048
+    (128, 2048, 2048, torch.bfloat16),  # just below it
+    (64, 2048, 2048, torch.bfloat16),   # ragged prefill rows
+    (100, 2048, 2048, torch.bfloat16),
+    (500, 2048, 2048, torch.bfloat16),
+    (512, 2048, 1000, torch.bfloat16),  # N that TMA cannot take
+    (512, 2040, 2048, torch.bfloat16),  # wgmma, K % 64 != 0: TMA zero-fills
+    (512, 2048, 1040, torch.bfloat16),  # wgmma, N % 128 != 0: the last
+                                        # code box partial, columns masked
+    (3, 200, 101, torch.bfloat16),      # odd N: bytewise code loads
+    (3, 200, 101, torch.float32),
 ], ids=["decode_qkvo", "decode_gate_up", "decode_down", "contract_qkvo",
         "prefill_qkvo", "prefill_gate_up", "prefill_down", "tp2_column",
-        "tp2_row", "ragged", "decode_f32"])
+        "tp2_row", "ragged", "decode_f32", "threshold_m64",
+        "below_threshold_m63", "threshold_m129", "below_threshold_m128",
+        "prefill_m64", "prefill_m100", "prefill_m500",
+        "prefill_unaligned_n", "prefill_k_ragged_tile",
+        "prefill_n_ragged_tile", "odd_n", "odd_n_f32"])
 def test_int8_matmul_matches_plain_version(cuda, m, k, n, dtype):
     """The kernel against ``(x @ q.to(x.dtype)) * s.to(x.dtype)`` on the
     same inputs; two launches bit-equal (split-K sums in a fixed order).
     Both sides round the f32 sum and then its product with the rounded
     scale, so the limit takes the dtype's rtol once for each rounding
     (``chip_smoke.int8_limit``)."""
-    gen = torch.Generator(device=cuda).manual_seed(5)
-    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
-    w = torch.randn((k, n), generator=gen, device=cuda) * 0.02
-    s = torch.clamp_min(w.abs().amax(dim=0), 1e-8) / 127.0
-    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    x, q, s = int8_operands(cuda, m, k, n, dtype)
     before = int8_matmul.launches
     got = int8_matmul(x, q, s)
     again = int8_matmul(x, q, s)
@@ -277,6 +301,40 @@ def test_int8_matmul_matches_plain_version(cuda, m, k, n, dtype):
     rtol, atol = TOL[dtype]
     limit = atol + rtol * (want.float().abs() + pre_scale)
     assert ((got.float() - want.float()).abs() <= limit).all()
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (8, 2048, 2048, torch.bfloat16),    # split-K with the in-kernel fixup
+    (4, 2048, 1024, torch.bfloat16),    # 16 splits
+    (8, 2048, 8192, torch.bfloat16),
+    (8, 2048, 2048, torch.float32),
+    (512, 2048, 2048, torch.bfloat16),  # the tensor cores
+    (512, 2040, 1040, torch.bfloat16),  # their ragged K and N tiles
+], ids=["decode_qkvo", "tp2_column", "decode_gate_up", "decode_f32",
+        "prefill_qkvo", "prefill_ragged_tiles"])
+def test_int8_matmul_graph_replay_equals_eager(cuda, m, k, n, dtype):
+    """A launch captured in a CUDA graph and replayed (three times, so the
+    split-K counters must be back at 0 after each) returns the eager
+    launch's output bit for bit."""
+    x, q, s = int8_operands(cuda, m, k, n, dtype)
+    eager = int8_matmul(x, q, s)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        int8_matmul(x, q, s)  # the stream's first call is eager
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            out = int8_matmul(x, q, s)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert torch.equal(int8_matmul(x, q, s), eager)
 
 
 #: a narrow Llama for the decode loops on the card (the kernels' shapes

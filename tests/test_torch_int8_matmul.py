@@ -1,19 +1,22 @@
 """The int8-weight matmul's plain version against the JAX package's
-``_mm`` on the CPU, its wrapper's checks and its split-K plan. The CUDA
-kernel itself is held to the plain version on the card
-(``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 3d)."""
+``_mm`` on the CPU, its wrapper's checks, its plan (which design and
+tiling a shape takes) and emulations of the split-K designs' sums in
+their order. The CUDA kernel itself is held to the plain version on the
+card (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 3d)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import INT8_SHAPES, KERNEL_TOL, int8_limit
 from tpu_operator_libs.examples import llama_decode as jdecode
 from tpu_operator_libs_torch.examples import llama_decode as tdecode
 from tpu_operator_libs_torch.kernels import int8_matmul as kmod
 from tpu_operator_libs_torch.kernels.int8_matmul import (
+    Plan,
     int8_matmul,
-    split_plan,
+    plan,
 )
 
 #: f32 on both sides: the products are exact, the sums differ in order
@@ -119,6 +122,30 @@ class TestRejects:
             int8_matmul(x, q.t().contiguous().t(), s)
 
 
+#: an H100's SMs
+H100_SMS = 132
+
+
+def check_plan(p, m, k, n, sms):
+    """The invariants of a plan: the split-K designs cover K once with
+    whole ring stages within one wave of blocks; the wgmma design takes
+    all of K in 64- or 128-row tiles."""
+    if p.design == "wgmma":
+        assert (p.splits, p.k_per_split) == (1, k)
+        assert p.block_m in (64, 128)
+        return
+    assert p.block_m == {"mma_sync": kmod.mma_rows(m),
+                         "cuda_cores": kmod.m_tile(m)}[p.design]
+    assert p.k_per_split % kmod.STAGE_K[p.design] == 0
+    # every row of K in exactly one split, none empty
+    assert (p.splits - 1) * p.k_per_split < k <= p.splits * p.k_per_split
+    assert 1 <= p.splits <= kmod.MAX_SPLITS
+    tiles = -(-n // kmod.BLOCK_N) * -(-m // p.block_m)
+    assert p.splits == 1 or tiles * p.splits <= sms
+    # the split-K counters hold one int an SM
+    assert p.splits == 1 or tiles <= sms // 2
+
+
 class TestSplitPlan:
     @pytest.mark.parametrize("m,k,n", [
         (8, 2048, 2048), (8, 2048, 8192), (8, 8192, 2048), (2, 2048, 2048),
@@ -126,23 +153,258 @@ class TestSplitPlan:
         (4, 4096, 2048), (3, 2000, 1000), (1, 100, 10), (8, 257, 128)])
     @pytest.mark.parametrize("sms", [1, 132])
     def test_splits_cover_k_once_within_a_wave(self, m, k, n, sms):
-        splits, k_per_split = split_plan(m, n, k, sms)
-        assert k_per_split % kmod.CHUNK_K == 0
-        # every row of K in exactly one split, none empty
-        assert (splits - 1) * k_per_split < k <= splits * k_per_split
-        assert 1 <= splits <= kmod.MAX_SPLITS
-        tiles = -(-n // kmod.BLOCK_N) * -(-m // kmod.m_tile(m))
-        assert splits == 1 or tiles * splits <= sms
+        for dtype in (torch.bfloat16, torch.float32):
+            check_plan(plan(m, k, n, dtype, sms), m, k, n, sms)
 
     def test_decode_shapes_split_k_on_an_h100(self):
         # the bench shape's decode products have 16 or 64 column strips
-        # for 132 SMs: K is split; prefill fills the card without
-        assert split_plan(8, 2048, 2048, 132) == (8, 256)
-        assert split_plan(8, 8192, 2048, 132) == (2, 1024)
-        assert split_plan(8, 2048, 8192, 132) == (8, 1024)
-        assert split_plan(512, 2048, 2048, 132) == (1, 2048)
+        # for 132 SMs: K is split; prefill takes wgmma
+        bf16 = torch.bfloat16
+        assert plan(8, 2048, 2048, bf16, 132) == Plan("mma_sync", 8, 8, 256)
+        assert plan(8, 2048, 8192, bf16, 132) == Plan("mma_sync", 8, 2, 1024)
+        assert plan(8, 8192, 2048, bf16, 132) == Plan("mma_sync", 8, 8, 1024)
+        assert plan(512, 2048, 2048, bf16, 132) == Plan("wgmma", 64, 1, 2048)
+        assert plan(8, 2048, 2048, torch.float32, 132) \
+            == Plan("cuda_cores", 8, 8, 256)
 
     @pytest.mark.parametrize("m,want", [(1, 1), (2, 2), (3, 4), (4, 4),
                                         (5, 8), (512, 8)])
     def test_m_tile(self, m, want):
         assert kmod.m_tile(m) == want
+
+    @pytest.mark.parametrize("m,want", [(1, 8), (8, 8), (9, 32), (63, 32),
+                                        (512, 32)])
+    def test_mma_rows(self, m, want):
+        # decode fills one mma's n of 8; more rows share each converted
+        # code among 32
+        assert kmod.mma_rows(m) == want
+
+
+class TestPlan:
+    @pytest.mark.parametrize("m,n,want", [
+        (1, 2048, "mma_sync"), (8, 2048, "mma_sync"),
+        (62, 8192, "mma_sync"), (63, 8192, "mma_sync"),
+        (64, 8192, "wgmma"), (65, 8192, "wgmma"),
+        # at N 2048 the 64-row tiles fill a quarter of 132 SMs from 129
+        # rows on (3 x 16 of them)
+        (64, 2048, "mma_sync"), (100, 2048, "mma_sync"),
+        (128, 2048, "mma_sync"), (129, 2048, "wgmma"),
+        (500, 2048, "wgmma"), (512, 2048, "wgmma"), (4096, 2048, "wgmma"),
+        # never below WGMMA_MIN_M rows, however wide
+        (32, 65536, "mma_sync")])
+    def test_bf16_takes_wgmma_from_the_threshold(self, m, n, want):
+        p = plan(m, 2048, n, torch.bfloat16, H100_SMS)
+        assert p.design == want
+        check_plan(p, m, 2048, n, H100_SMS)
+
+    def test_the_threshold_scales_with_the_card(self):
+        # a quarter of 66 SMs is 16.5 tiles: 2 x 16 at N 2048
+        assert plan(65, 2048, 2048, torch.bfloat16, 66).design == "wgmma"
+        assert plan(64, 2048, 2048, torch.bfloat16, 66).design \
+            == "mma_sync"
+
+    @pytest.mark.parametrize("m", [1, 8, 64, 512])
+    def test_f32_stays_on_the_cuda_cores(self, m):
+        p = plan(m, 2048, 2048, torch.float32, H100_SMS)
+        assert p.design == "cuda_cores"
+        check_plan(p, m, 2048, 2048, H100_SMS)
+
+    @pytest.mark.parametrize("k,n", [(2048, 1000), (2048, 1032),
+                                     (2044, 2048), (2001, 2048), (13, 7)],
+                             ids=["n_mod_16_is_8", "n_mod_16_is_8_wide",
+                                  "k_mod_8_is_4", "k_odd", "both"])
+    def test_shapes_tma_cannot_take_go_to_mma_sync(self, k, n):
+        # TMA needs 16-byte row strides: n % 16 == 0 for the int8 codes,
+        # k % 8 == 0 for bf16 x; decided from the shape, before a launch
+        p = plan(512, k, n, torch.bfloat16, H100_SMS)
+        assert p.design == "mma_sync"
+        check_plan(p, 512, k, n, H100_SMS)
+
+    @pytest.mark.parametrize("k,n", [(2040, 2048), (2048, 1040),
+                                     (2040, 1040)],
+                             ids=["k_mod_64_is_56", "n_mod_128_is_16",
+                                  "both"])
+    def test_ragged_tiles_stay_on_wgmma(self, k, n):
+        # TMA takes rows 16-byte aligned but not whole tiles: it fills
+        # the last K tile past K with zeros, the epilogue masks columns
+        # past N, so these take the tensor cores
+        p = plan(512, k, n, torch.bfloat16, H100_SMS)
+        assert (p.design, p.splits, p.k_per_split) == ("wgmma", 1, k)
+
+    @pytest.mark.parametrize("m,n,want", [
+        (512, 2048, 64),     # 64 tiles of 128 rows: 64-row tiles fill more
+        (512, 8192, 128),    # 256 tiles of 128 rows fill the card
+        (100, 32768, 64),    # fewer than 128 rows: 64-row tiles
+        (4096, 2048, 128)])
+    def test_tensor_core_tile_rows(self, m, n, want):
+        assert plan(m, 2048, n, torch.bfloat16, H100_SMS).block_m == want
+
+    @pytest.mark.parametrize("shape", INT8_SHAPES,
+                             ids=[shape[0] for shape in INT8_SHAPES])
+    def test_every_chip_smoke_shape_on_an_h100(self, shape):
+        _, m, k, n, dtype, _ = shape
+        p = plan(m, k, n, dtype, H100_SMS)
+        check_plan(p, m, k, n, H100_SMS)
+        aligned = n % 16 == 0 and k % 8 == 0
+        tiles = -(-m // 64) * -(-n // kmod.BLOCK_N)
+        if dtype == torch.float32:
+            assert p.design == "cuda_cores"
+        else:
+            assert p.design == ("wgmma" if m >= kmod.WGMMA_MIN_M and aligned
+                                and 4 * tiles >= H100_SMS else "mma_sync")
+
+    def test_a_function_of_the_shape_dtype_and_card_alone(self):
+        args = (8, 2048, 2048, torch.bfloat16, H100_SMS)
+        assert plan(*args) == plan(*args)
+        assert plan(8, 2048, 2048, torch.bfloat16, 66) \
+            == Plan("mma_sync", 8, 4, 512)
+
+
+def mma_sums(x, q, p):
+    """The mma.sync design's f32 sums of x @ q in the kernel's order
+    (``csrc/int8_matmul.cu::int8_matmul_mma_kernel``), in numpy: x as f32
+    (bf16 values), q int8, ``p`` its plan. In each split, warp w (of 8)
+    of a block adds rows [16 w, 16 w + 16) of every 128-row stage of K in
+    turn, one mma each: the 16 exact products are summed and added to the
+    warp's f32 sums (here with one rounding each; the tensor cores' own
+    order within an mma is not the CPU's); the eight warps add in order,
+    and the splits in split order."""
+    m, k = x.shape
+    x64 = x.astype(np.float64)
+    q64 = q.astype(np.float64)
+    total = None
+    for split in range(p.splits):
+        k0 = split * p.k_per_split
+        k1 = min(k, k0 + p.k_per_split)
+        acc = [np.zeros((m, q.shape[1]), np.float32) for _ in range(8)]
+        for c0 in range(k0, k1, kmod.STAGE_K["mma_sync"]):
+            for w in range(8):
+                r0, r1 = c0 + 16 * w, min(k1, c0 + 16 * w + 16)
+                if r0 < r1:
+                    step = (x64[:, r0:r1] @ q64[r0:r1]).astype(np.float32)
+                    acc[w] = acc[w] + step
+        block = acc[0]
+        for w in range(1, 8):
+            block = block + acc[w]
+        total = block if total is None else total + block
+    return total
+
+
+def cuda_core_sums(x, q, p):
+    """The CUDA-core (f32) design's f32 sums of x @ q in the kernel's
+    order (``csrc/int8_matmul.cu::int8_matmul_kernel``), in numpy: ``p``
+    its plan. In each split, thread group g (of 32) of a block adds rows
+    2g and 2g + 1 of every 64-row stage of K in turn, one fused
+    multiply-add each; a warp's four groups add as (g0 + g1) + (g2 + g3),
+    the eight warps in order, and the splits in split order."""
+    m, k = x.shape
+    n = q.shape[1]
+    x32 = x.astype(np.float32)
+    q32 = q.astype(np.float32)
+    total = None
+    for split in range(p.splits):
+        k0 = split * p.k_per_split
+        k1 = min(k, k0 + p.k_per_split)
+        acc = np.zeros((32, m, n), np.float32)  # by thread group
+        for c0 in range(k0, k1, kmod.STAGE_K["cuda_cores"]):
+            for h in range(2):
+                rows = c0 + 2 * np.arange(32) + h
+                ok = rows < k1
+                r = np.where(ok, rows, 0)
+                # an f32 product of x and a code is exact, so an f32 add
+                # of it rounds as the fused multiply-add does
+                prod = x32[:, r].T[:, :, None] * q32[r][:, None, :]
+                acc += np.where(ok[:, None, None], prod, np.float32(0))
+        warps = (acc[0::4] + acc[1::4]) + (acc[2::4] + acc[3::4])
+        block = warps[0]
+        for w in range(1, 8):
+            block = block + warps[w]
+        total = block if total is None else total + block
+    return total
+
+
+def epilogue(sums, s, dtype):
+    """The kernels' two roundings: the f32 sum to x's dtype, then its
+    product with the scale rounded to x's dtype."""
+    t = torch.from_numpy(sums).to(dtype)
+    return (t * torch.from_numpy(s).to(dtype)).float().numpy()
+
+
+class TestSumOrder:
+    @pytest.mark.parametrize("m,k,n,sms", [
+        (8, 256, 128, H100_SMS),     # 2 splits of one stage
+        (8, 512, 256, H100_SMS),     # 4 splits, 2 strips
+        (2, 1000, 128, H100_SMS),    # a ragged last stage
+        (3, 200, 100, H100_SMS),     # ragged everything
+        (8, 512, 128, 1),            # no split: one block walks all of K
+        (63, 256, 128, H100_SMS)],   # below the threshold: 8 row tiles
+        ids=["splits2", "splits4", "ragged_stage", "ragged",
+             "one_split", "m63"])
+    def test_mma_sync_bf16_matches_jax_within_one_ulp(self, m, k, n, sms):
+        x, q, s = operands(m, k, n, seed=3)
+        xb = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+        p = plan(m, k, n, torch.bfloat16, sms)
+        assert p.design == "mma_sync"
+        got = epilogue(mma_sums(xb, q, p), s, torch.bfloat16)
+        want = jax_mm(x, q, s, jnp.bfloat16)
+        np.testing.assert_allclose(got, want, rtol=BF16_RTOL, atol=0)
+
+    @pytest.mark.parametrize("m,k,n,splits", [(8, 2048, 2048, 8),
+                                              (4, 2048, 128, 16)],
+                             ids=["bench_splits8", "splits16"])
+    def test_mma_sync_bf16_long_k_within_the_card_limit(self, m, k, n,
+                                                         splits):
+        # from K ~ 1000 an f32 sum near 0 summed in another order may
+        # round to bf16 an ulp apart twice, off by more than an ulp of
+        # the (small) output: the card holds the kernel to chip_smoke's
+        # int8_limit, an rtol for each rounding, and so is this
+        x, q, s = operands(m, k, n, seed=3)
+        xb = torch.from_numpy(x).to(torch.bfloat16)
+        p = plan(m, k, n, torch.bfloat16, H100_SMS)
+        assert (p.design, p.splits) == ("mma_sync", splits)
+        got = epilogue(mma_sums(xb.float().numpy(), q, p), s,
+                       torch.bfloat16)
+        assert got.shape == (m, n)
+        want = jax_mm(x, q, s, jnp.bfloat16)
+        pre_scale = ((xb @ torch.from_numpy(q).to(torch.bfloat16)).float()
+                     .abs() * torch.from_numpy(s).to(torch.bfloat16).float())
+        limit = int8_limit(torch.tensor(want), pre_scale,
+                           torch.bfloat16).numpy()
+        assert (np.abs(got - want) <= limit).all()
+
+    @pytest.mark.parametrize("m,k,n", [(8, 2048, 2048), (3, 200, 100),
+                                       (1, 1000, 128)],
+                             ids=["bench_splits8", "ragged", "m1"])
+    def test_cuda_cores_f32_matches_jax(self, m, k, n):
+        # held where the card holds the kernel (chip_smoke.KERNEL_TOL): at
+        # K = 2048 the two orders of an f32 sum near 0 differ by more than
+        # F32_TOL's atol, which is for K <= 256
+        x, q, s = operands(m, k, n, seed=4)
+        p = plan(m, k, n, torch.float32, H100_SMS)
+        assert p.design == "cuda_cores"
+        got = epilogue(cuda_core_sums(x, q, p), s, torch.float32)
+        rtol, atol = KERNEL_TOL[torch.float32]
+        np.testing.assert_allclose(got, jax_mm(x, q, s, jnp.float32),
+                                   rtol=rtol, atol=atol)
+
+    def test_split_order_is_fixed(self):
+        # the fixup adds the splits' partials in split order 0..S-1,
+        # whichever block draws the last ticket: the emulation's sums are
+        # each split's own sums added in that order, bit for bit; and an
+        # order that followed the blocks' arrival (here the reverse) rounds
+        # differently, so the fixed order is what keeps launches bit-equal
+        x, q, _ = operands(8, 2048, 2048, seed=5)
+        p = plan(8, 2048, 2048, torch.float32, H100_SMS)
+        assert p.splits == 8
+        parts = [cuda_core_sums(x[:, k0:k0 + p.k_per_split],
+                                q[k0:k0 + p.k_per_split],
+                                Plan(p.design, p.block_m, 1, p.k_per_split))
+                 for k0 in range(0, 2048, p.k_per_split)]
+        in_order = parts[0]
+        for part in parts[1:]:
+            in_order = in_order + part
+        assert np.array_equal(cuda_core_sums(x, q, p), in_order)
+        reverse = parts[-1]
+        for part in parts[-2::-1]:
+            reverse = reverse + part
+        assert not np.array_equal(in_order, reverse)

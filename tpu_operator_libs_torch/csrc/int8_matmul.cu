@@ -1,5 +1,5 @@
 // The int8-weight matmul (W8A16): out = (x @ q) * s with int8 codes q read
-// as int8 from device memory and converted in registers.
+// as int8 from device memory and converted on the SM.
 //
 // Replaces tpu_operator_libs/examples/llama_decode.py::_mm (:135-143),
 // `(x @ q.astype(x.dtype)) * s.astype(x.dtype)`, which XLA fuses on the
@@ -11,53 +11,89 @@
 // Rounding points, those of the plain PyTorch version: the products are
 // summed in f32 and rounded once to x's dtype, s is rounded to x's dtype,
 // and their product is rounded again. |q| <= 127 is exact in bf16 and a
-// bf16 x bf16 product is exact in f32, so every FMA rounds only its sum.
+// bf16 x bf16 product is exact in f32, so every product is exact and only
+// the sums round.
 //
 // Bound: at decode (M = batch, 2 to 8) bytes. The weight's K*N int8 bytes
 // dominate `K*N + 2*M*K + 2*M*N + 4*N`; at 3.35 TB/s a (2048, 8192)
-// weight takes 5.0 us. At prefill (M = 512) the larger of that and
-// 2*M*K*N FLOPs at 989 TFLOP/s (4.3 us for (2048, 2048)); this kernel
-// runs its FMAs on the CUDA cores, not the tensor cores, so prefill is
-// bound by its FMA rate instead (later work: mma/wgmma on the codes).
+// weight takes 5.0 us. At prefill (M = 512) operations: 2*M*K*N FLOPs at
+// 989 TFLOP/s on the tensor cores (4.3 us for (2048, 2048)).
 //
-// Design for that bound. A block of 256 threads owns a strip of 128
-// columns and up to 8 rows of x (kM); each thread loads 16 neighbouring
-// codes of a row at once (one 16-byte load, eight threads on a row's
-// 128 contiguous bytes) and 8 rows of K at a time, all in flight before
-// their FMAs; the 32 thread groups of the block walk K 32 rows apart.
-// The block's slice of x is staged in shared memory as f32, 256 rows of
-// K at a time, while that chunk's codes are in flight. At M = 8 a (2048,
-// 2048) weight has only 16 strips for 132 SMs, so K is split over blocks
-// (split-K, at most 8 splits, chosen by the wrapper from the SM count to
-// fill one wave). No float atomics: each block sums its 32 thread groups
-// by a fixed butterfly and then in warp order, the splits' sums go to an
-// f32 workspace (splits, M, N), and a second pass adds them in split
-// order and applies the epilogue. Two launches on the same inputs are
-// bit-equal, and so are the host-driven and the graph-replayed decode
-// loops. (Measured on the H100: a cluster of the split blocks reducing
-// over distributed shared memory ran the 128-block decode launches
-// slower than this second pass, and prefetching the next chunk's codes
-// gained nothing.)
+// Three kernels; the wrapper's plan (tpu_operator_libs_torch/kernels/
+// int8_matmul.py::plan, a function of the shape, x's dtype and the SM
+// count alone) picks one and the C entry checks what it was given:
+//
+// 1. int8_matmul_wgmma_kernel, prefill: bf16 x with M >= 64, N % 16 == 0
+//    and K % 8 == 0 (TMA's 16-byte row strides), and 64-row output tiles
+//    for at least a quarter of the SMs (it does not split K, so with
+//    fewer the split-K kernel 2 is faster). One block of 288 threads
+//    per (kBM = 64 or 128 rows) x 128-column output tile walks K in steps
+//    of 64; no split-K. A producer warp stages the x tile (K-major, 128-byte
+//    swizzle) and the int8 code tile (64 x 128, 8 KB, row-major) by TMA
+//    into a ring of kStages stages with full/empty mbarriers
+//    (flash_attention_sm90.cuh). The two consumer warpgroups convert each
+//    code tile once, int8 -> bf16 in registers (exact), into a swizzled
+//    bf16 tile laid out like the flash kernels' V tile (MN-major), one of
+//    two that alternate: the loop is software-pipelined, so step t's
+//    wgmma (A = x from shared memory, K-major; B = the converted codes with
+//    the transpose bit) runs while tile t + 1 is converted, and the wait
+//    for it stays inside the iteration (a wait across the loop's back edge
+//    serialises the wgmma). At kBM = 128 each warpgroup owns 64 rows and
+//    all 128 columns (m64n128k16); at kBM = 64, all 64 rows and 64 columns
+//    each (m64n64k16). f32 sums stay in registers.
+// 2. int8_matmul_mma_kernel, decode: the rest of bf16 x (decode, short
+//    prefill, unaligned shapes). 256 threads own 128 columns and 8 rows of x (32 above 8
+//    rows, each converted code then serving 4 mma), and run the product
+//    transposed on the tensor cores, out^T = q^T x^T with mma.sync
+//    m16n8k16: the weight is the A operand, so a decode batch of up to 8
+//    rows fills the instruction's n. The block's slice of K streams
+//    through a ring of kRing shared-memory stages of 128 rows of codes
+//    (16 KB, swizzled) and the matching x columns, filled by 16-byte
+//    cp.async (bytewise synchronous loads where rows are not 16-byte
+//    aligned), so kRing - 1 stages are in flight
+//    while one is multiplied; each warp converts its 16 rows of a stage
+//    to bf16 in registers, in the A fragment's order. (f32 FMAs on the CUDA
+//    cores over the same ring, as kernel 3 runs them, were slower at
+//    decode on an H100: the FMAs, and the 32-way block reduction they
+//    need, cost more than the loads.)
+// 3. int8_matmul_kernel: f32 x (which TF32 products would not hold to its
+//    limit), on the CUDA cores: 256 threads, each 16 neighbouring columns
+//    by up to 8 rows of x (kM) for 2 of every 64 rows of K, over a ring
+//    of 64-row stages; codes become f32 by a byte permute and one add
+//    (exact).
+//
+// Codes become bf16 (kernels 1 and 2) two at a time and exactly: 128 plus
+// a code's low 7 bits, less 128 plus 128 times its sign bit, both made by
+// masks under the exponent of 128, in one bf16x2 subtract.
+//
+// Kernels 2 and 3 split K over blocks when the output has too few tiles
+// for the card (the plan fills one wave, at most kMaxSplits), in one
+// launch. No float atomics: each block sums its warps in a fixed order
+// (through the ring's memory, reused), each split writes its f32 sums to
+// a workspace and, after the block's barrier, one thread fences and takes
+// a ticket from the tile's counter; the block that draws the last ticket
+// adds the splits in split order 0..S-1 (all its loads in flight at
+// once), applies the epilogue and puts the counter back to 0. The
+// order of every sum is fixed by the shape, so two launches, and the
+// host-driven and graph-replayed decode loops, are bit-equal.
+//
+// What is left on the table: kernel 1's 64- and 128-row tiles read x once
+// for every 128 columns and the codes once for every row tile (at (512,
+// 2048, 2048) 64 MB of L2 reads, which bound it on an H100: neither more
+// stages nor wgmma groups left in flight across steps moved it), where
+// larger tiles or TMA multicast across a cluster would read less; it also
+// converts each code tile once per row tile and stores the output from
+// registers. Kernels 2 and 3 pay a fixed cost per launch for the split-K
+// fixup (a fence, an atomic and a read of every split's sums).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_attention_sm90.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 16;                   // codes a thread loads at once
-constexpr int kColLanes = 8;                // threads across a strip
-constexpr int kBlockN = kColLanes * kCols;  // 128 columns a block
-constexpr int kGroups = kThreads / kColLanes;  // 32 rows of K at once
-constexpr int kChunkK = 256;                // rows of K staged per pass
-constexpr int kRowsPerThread = kChunkK / kGroups;  // 8
-constexpr int kMaxSplits = 8;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+// ---- shared by the kernels
 
 // round(round(acc) * round(s)) in x's dtype: the plain version's order
 __device__ __forceinline__ float epilogue(float acc, float s, float*) {
@@ -70,67 +106,754 @@ __device__ __forceinline__ __nv_bfloat16 epilogue(float acc, float s,
   return __float2bfloat16_rn(__fmul_rn(a, b));
 }
 
-// 16 codes of row `row` from column n0: one 16-byte load when every row
-// is 16-byte aligned (kVec), else bytewise with the ragged edge masked.
-// Masked codes are 0.
-template <bool kVec>
-__device__ __forceinline__ int4 load_codes(const int8_t* __restrict__ q,
-                                           long long row, bool row_ok,
-                                           int n0, int N) {
-  if (kVec) {
-    if (!row_ok || n0 >= N) return make_int4(0, 0, 0, 0);
-    return __ldg(reinterpret_cast<const int4*>(q + row * N + n0));
-  }
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-  if (row_ok) {
+// Code b (0..3) of the word w as an exact f32: the byte, offset by 128, is
+// placed under the exponent of 2^23, and 2^23 + 128 is taken off again.
+__device__ __forceinline__ float code_to_float(uint32_t biased, int b) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440u | b))
+         - 8388736.f;
+}
+
+// The four codes of a word as f32, in byte order.
+__device__ __forceinline__ void word_to_floats(uint32_t w, float* f) {
+  const uint32_t biased = w ^ 0x80808080u;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      if (n0 + j < N) {
-        w[j >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(
-                         __ldg(q + row * N + n0 + j)))
-                     << (8 * (j & 3));
+  for (int b = 0; b < 4; ++b) f[b] = code_to_float(biased, b);
+}
+
+// The codes in bytes 0 and 2 of w (bytes 1 and 3 are ignored) as an exact
+// bf16x2, byte 0 in the lower half: 128 plus a code's low 7 bits (under
+// the exponent of 128), less 128 plus 128 times its sign bit. Both terms,
+// and their difference, the code, are exact in bf16: one bf16x2 subtract.
+__device__ __forceinline__ uint32_t code_pair_to_bf16x2(uint32_t w) {
+  const uint32_t top = (w & 0x007F007Fu) | 0x43004300u;
+  const uint32_t sign = (w & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 d =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&top),
+              *reinterpret_cast<const __nv_bfloat162*>(&sign));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// ---- kernel 1: bf16 prefill, wgmma on the tensor cores
+
+namespace wg {
+
+using namespace sm90;
+
+constexpr int kConsumers = sm90::kConsumers;  // two warpgroups
+constexpr int kThreads = sm90::kThreads;      // + the producer warp
+constexpr int kBlockN = 128;  // output columns a block
+constexpr int kBlockK = 64;   // rows of K a step
+constexpr int kStages = 4;    // x and code tiles in flight
+constexpr int kCodeBytes = kBlockK * kBlockN;       // int8 tile, 8 KB
+constexpr int kConvBytes = kBlockK * kBlockN * 2;   // its bf16 copy, 16 KB
+constexpr int kBoxBytes = kBlockK * 128;            // 64 columns of it
+
+__host__ __device__ constexpr int x_bytes(int block_m) {
+  return block_m * kBlockK * 2;
+}
+// x tiles, the two converted tiles, the code tiles, from a 1024-byte
+// boundary (the launch asks for 1024 bytes more)
+__host__ __device__ constexpr int smem_bytes(int block_m) {
+  return 1024 + kStages * (x_bytes(block_m) + kCodeBytes) + 2 * kConvBytes;
+}
+
+// The 16 codes of row `row`, columns [16 seg, 16 seg + 16), of a code tile
+// as bf16 into the converted tile: box seg / 4, 16-byte chunks j0 and
+// j0 + 1 of the 128-byte row, at TMA's 128-byte swizzle (chunk ^ row % 8)
+// as wgmma reads an MN-major tile. Threads of the second box write their
+// second chunk first, so a quarter warp's eight stores take eight banks.
+__device__ __forceinline__ void convert_codes(const uint8_t* codes,
+                                              uint8_t* conv, int row,
+                                              int seg) {
+  const uint4 c = *reinterpret_cast<const uint4*>(codes + row * kBlockN
+                                                  + seg * 16);
+  // columns 0-7 and 8-15 of the 16, as bf16x2 words: bytes 0-1, 2-3 of
+  // each word
+  const auto pair = [](uint32_t w, uint32_t sel) {
+    return code_pair_to_bf16x2(__byte_perm(w, 0u, sel));
+  };
+  const uint4 lo = make_uint4(pair(c.x, 0x1100u), pair(c.x, 0x3322u),
+                              pair(c.y, 0x1100u), pair(c.y, 0x3322u));
+  const uint4 hi = make_uint4(pair(c.z, 0x1100u), pair(c.z, 0x3322u),
+                              pair(c.w, 0x1100u), pair(c.w, 0x3322u));
+  const int box = seg / 4;
+  const int j0 = (seg % 4) * 2;
+  uint8_t* dst = conv + box * kBoxBytes + row * 128;
+  const int sw = row & 7;
+  *reinterpret_cast<uint4*>(dst + (((j0 + box) ^ sw) * 16)) = box ? hi : lo;
+  *reinterpret_cast<uint4*>(dst + (((j0 + 1 - box) ^ sw) * 16)) =
+      box ? lo : hi;
+}
+
+// One block: rows [blockIdx.y * kBM, +kBM) of x, columns [blockIdx.x * 128,
+// +128). x_map: x as (1, M, K) bf16, boxes of 64 columns x kBM rows;
+// q_map: q as (K, N) uint8, boxes of 128 columns x 64 rows. Rows of x past
+// M and of q past K, and columns past N, read as zeros.
+template <int kBM>
+__global__ void __launch_bounds__(kThreads, kBM == 64 ? 2 : 1)
+    int8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                             const __grid_constant__ CUtensorMap q_map,
+                             const float* __restrict__ s,
+                             __nv_bfloat16* __restrict__ out, int M, int K,
+                             int N) {
+  constexpr int kXBytes = x_bytes(kBM);
+  constexpr int kAcc = kBM == 128 ? 64 : 32;  // n128 or n64 a warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* x_s = align_1024(smem_raw);           // [kStages][kXBytes]
+  uint8_t* conv_s = x_s + kStages * kXBytes;     // [2][kConvBytes]
+  uint8_t* codes_s = conv_s + 2 * kConvBytes;    // [kStages][kCodeBytes]
+  __shared__ uint64_t full[kStages], empty[kStages];
+
+  const int n0 = blockIdx.x * kBlockN;
+  const int m0 = blockIdx.y * kBM;
+  const int steps = (K + kBlockK - 1) / kBlockK;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp; lane 0 loads
+    if (threadIdx.x == kConsumers) {
+      for (int t = 0; t < steps; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
+        mbar_expect_tx(&full[st], kXBytes + kCodeBytes);
+        tma_load(x_s + st * kXBytes, &x_map, &full[st], t * kBlockK, m0, 0);
+        tma_load_2d(codes_s + st * kCodeBytes, &q_map, &full[st], n0,
+                    t * kBlockK);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x;
+  const int warpgroup = tid / 128;
+  const int lane = tid % 32;
+  // A: this warpgroup's 64 rows of the x tile; B: its columns of the
+  // converted tile
+  const int a_offset = kBM == 128 ? warpgroup * 64 * 128 : 0;
+  const int b_offset = kBM == 128 ? 0 : warpgroup * kBoxBytes;
+
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+
+  // 64 rows x 8 segments of 16 codes, two a thread
+  auto convert = [&](int t) {
+    const uint8_t* codes = codes_s + (t % kStages) * kCodeBytes;
+    uint8_t* conv = conv_s + (t & 1) * kConvBytes;
+    mbar_wait(&full[t % kStages], (t / kStages) & 1);
+    convert_codes(codes, conv, tid / 8, tid % 8);
+    convert_codes(codes, conv, tid / 8 + 32, tid % 8);
+    fence_proxy_async();
+  };
+  convert(0);
+  named_barrier_sync(1, kConsumers);
+  for (int t = 0; t < steps; ++t) {
+    const int st = t % kStages;
+    const uint8_t* conv = conv_s + (t & 1) * kConvBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+      wgmma_ss_mn(acc,
+                  desc_k_major(x_s + st * kXBytes + a_offset, kBM, kk),
+                  desc_mn_major(conv + b_offset, kBlockK, kk));
+    }
+    wgmma_commit();
+    // the next tile's conversion overlaps this step's products; it
+    // writes the other converted tile, which no product reads any more
+    if (t + 1 < steps) convert(t + 1);
+    wgmma_wait_all();
+    fence_regs(acc);
+    // this stage's x tile and codes are used up; after the barrier every
+    // warpgroup is done with this converted tile and the next one is whole
+    mbar_arrive(&empty[st]);
+    named_barrier_sync(1, kConsumers);
+  }
+
+  const int row0 = m0 + (kBM == 128 ? 64 * warpgroup : 0)
+                   + 16 * (tid % 128 / 32) + lane / 4;
+  const int col0 = n0 + (kBM == 128 ? 0 : 64 * warpgroup);
+#pragma unroll
+  for (int i = 0; i < kAcc; i += 2) {
+    const int row = row0 + 8 * frag_row(i);
+    const int col = col0 + frag_col(i, lane);
+    if (row < M && col < N) {  // N % 16 == 0: col + 1 < N too
+      __nv_bfloat16* tag = nullptr;
+      __nv_bfloat162 v;
+      v.x = epilogue(acc[i], s[col], tag);
+      v.y = epilogue(acc[i + 1], s[col + 1], tag);
+      *reinterpret_cast<__nv_bfloat162*>(
+          out + static_cast<long long>(row) * N + col) = v;
+    }
+  }
+}
+
+// q as a 2-D uint8 map (N columns, K rows), boxes of 128 x 64, no swizzle.
+inline bool encode_codes_map(CUtensorMap* map, const void* q, int K, int N) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(K)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N)};
+  const cuuint32_t box[2] = {kBlockN, kBlockK};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return cuTensorMapEncodeTiled(
+             map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(q),
+             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kBM>
+cudaError_t launch(const void* x, const void* q, const float* s, void* out,
+                   int M, int K, int N, cudaStream_t stream) {
+  CUtensorMap x_map, q_map;
+  // a map cuTensorMapEncodeTiled refuses (a base not 16-byte aligned) is
+  // an invalid value
+  if (!encode_tile_map(&x_map, x, K, M, 1, kBM)
+      || !encode_codes_map(&q_map, q, K, N)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int smem = smem_bytes(kBM);
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_matmul_wgmma_kernel<kBM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kBlockN - 1) / kBlockN, (M + kBM - 1) / kBM);
+  int8_matmul_wgmma_kernel<kBM><<<grid, kThreads, smem, stream>>>(
+      x_map, q_map, s, static_cast<__nv_bfloat16*>(out), M, K, N);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// ---- kernels 2 and 3: one launch, a cp.async ring, split-K with an
+// in-kernel fixup
+
+constexpr int kBlockN = 128;     // output columns a block
+constexpr int kChunkK = 64;      // the plan's unit of K (k_per_split)
+constexpr int kMaxSplits = 16;
+
+// 16 bytes from global to shared memory; src_bytes < 16 fills the rest
+// with zeros (0: no read at all)
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(sm90::smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Rows [kc, kc + kStageK) of K into a ring stage: the codes of the
+// block's 128 columns, 128 bytes a row, 16-byte segment c of row r at
+// segment c ^ swizzle(r); and x's rows [m0, m0 + kRows) at those rows of
+// K, xs[m][r] with rows kXStride elements apart. Rows past k_end, rows of
+// x past M and columns past N are zeros. Codes by 16-byte cp.async where
+// every row is 16-byte aligned (kAligned; thread i stages the same places
+// of every stage), else by bytewise synchronous loads; x by 16-byte
+// cp.async where x_vec, else elementwise.
+template <typename T, int kStageK, int kRows, int kXStride, int kThreadsN,
+          bool kAligned, typename Swizzle>
+__device__ __forceinline__ void stage_chunk(uint8_t* codes, T* xs,
+                                            const T* __restrict__ x,
+                                            const int8_t* __restrict__ q,
+                                            int kc, int k_end, int n_base,
+                                            int m0, int M, int K, int N,
+                                            bool x_vec, Swizzle swizzle) {
+  constexpr int kSegs = kStageK * kBlockN / 16;
+  static_assert(kSegs % kThreadsN == 0, "whole segments a thread");
+#pragma unroll
+  for (int j = 0; j < kSegs / kThreadsN; ++j) {
+    const int i = threadIdx.x + j * kThreadsN;
+    const int r = i / (kBlockN / 16);
+    const int c = i % (kBlockN / 16);
+    const long long row = kc + r;
+    const int col = n_base + c * 16;
+    uint8_t* dst = codes + r * kBlockN + (c ^ swizzle(r)) * 16;
+    if (kAligned) {
+      const bool ok = row < k_end && col < N;
+      cp_async(dst, ok ? q + row * N + col : q, ok ? 16 : 0);
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (row < k_end) {
+#pragma unroll
+        for (int b = 0; b < 16; ++b) {
+          if (col + b < N) {
+            w[b >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(
+                             __ldg(q + row * N + col + b)))
+                         << (8 * (b & 3));
+          }
+        }
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // x a segment
+  for (int i = threadIdx.x; i < kRows * kStageK / kPer; i += kThreadsN) {
+    const int m = i / (kStageK / kPer);
+    const int c = (i % (kStageK / kPer)) * kPer;
+    const long long at = static_cast<long long>(m0 + m) * K + kc + c;
+    T* dst = xs + m * kXStride + c;
+    if (x_vec) {
+      const bool ok = m0 + m < M && kc + c < k_end;
+      cp_async(dst, ok ? x + at : x, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int b = 0; b < kPer; ++b) {
+        dst[b] = (m0 + m < M && kc + c + b < k_end) ? x[at + b] : T(0.f);
       }
     }
   }
-  return make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]),
-                   static_cast<int>(w[2]), static_cast<int>(w[3]));
 }
 
-// The codes of rows [kc, kc + rows) of K that this thread multiplies.
-template <bool kVec>
-__device__ __forceinline__ void load_chunk(int4 (&codes)[kRowsPerThread],
-                                           const int8_t* __restrict__ q,
-                                           int kc, int rows, int group,
-                                           int n0, int N) {
+// Four outputs of a row from their f32 sums and scales, rounded as the
+// plain version rounds them (out 8- or 16-byte aligned).
+__device__ __forceinline__ void store4(float* out, float4 v, float4 s) {
+  *reinterpret_cast<float4*>(out) =
+      make_float4(epilogue(v.x, s.x, out), epilogue(v.y, s.y, out),
+                  epilogue(v.z, s.z, out), epilogue(v.w, s.w, out));
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* out, float4 v,
+                                       float4 s) {
+  __nv_bfloat162 a, b;
+  a.x = epilogue(v.x, s.x, out);
+  a.y = epilogue(v.y, s.y, out);
+  b.x = epilogue(v.z, s.z, out);
+  b.y = epilogue(v.w, s.w, out);
+  uint2 bits;
+  bits.x = *reinterpret_cast<const uint32_t*>(&a);
+  bits.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(out) = bits;
+}
+
+// The block's f32 sums of its tile, element e = m * 128 + c at
+// red[e] (the warps already added in order): written with the epilogue,
+// or, with K split over gridDim.y blocks, to the workspace; then the block
+// that draws the tile's last ticket adds the splits in split order
+// 0..S-1, writes the epilogue and puts the counter back to 0. The fences
+// are thread 0's, after the block's barrier (as CUTLASS's split-K
+// semaphores do); the last block's loads of the splits' sums are all in
+// flight at once (eight splits at a time), from addresses clamped into
+// the workspace so that no branch sits between them.
+template <typename T, int kRows, int kThreadsN>
+__device__ __forceinline__ void finish_tile(
+    const float* red, const float* __restrict__ s, T* __restrict__ out,
+    float* __restrict__ partial, int* __restrict__ counters, int m0,
+    int n_base, int M, int N, int* ticket) {
+  constexpr int kVecs = kRows * kBlockN / 4;  // float4s of the tile
+  constexpr int kPer = (kVecs + kThreadsN - 1) / kThreadsN;
+  const int tid = threadIdx.x;
+  const int split = blockIdx.y;
+  const int splits = gridDim.y;
+  const long long mn = static_cast<long long>(M) * N;
+  // float4s of sums and scales where rows and s are 16-byte aligned
+  const bool vec4 = N % 4 == 0 && reinterpret_cast<uintptr_t>(s) % 16 == 0;
+  if (!vec4) {  // element by element
+    for (int e = tid; e < kRows * kBlockN; e += kThreadsN) {
+      const int row = m0 + e / kBlockN;
+      const int n = n_base + e % kBlockN;
+      if (row >= M || n >= N) continue;
+      const long long at = static_cast<long long>(row) * N + n;
+      if (splits == 1) {
+        out[at] = epilogue(red[e], s[n], out);
+      } else {
+        partial[split * mn + at] = red[e];
+      }
+    }
+  } else {
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = group + i * kGroups;
-    codes[i] = load_codes<kVec>(q, static_cast<long long>(kc) + r, r < rows,
-                                n0, N);
+    for (int j = 0; j < kPer; ++j) {
+      const int v = tid + j * kThreadsN;
+      const int row = m0 + v / (kBlockN / 4);
+      const int n = n_base + (v % (kBlockN / 4)) * 4;
+      if (v >= kVecs || row >= M || n >= N) continue;
+      const long long at = static_cast<long long>(row) * N + n;
+      const float4 sum = *reinterpret_cast<const float4*>(red + 4 * v);
+      if (splits == 1) {
+        store4(out + at, sum, *reinterpret_cast<const float4*>(s + n));
+      } else {
+        *reinterpret_cast<float4*>(partial + split * mn + at) = sum;
+      }
+    }
   }
+  if (splits == 1) return;
+  __syncthreads();
+  const int tile = blockIdx.z * gridDim.x + blockIdx.x;
+  if (tid == 0) {
+    __threadfence();  // release the block's sums
+    *ticket = atomicAdd(&counters[tile], 1);
+    __threadfence();  // acquire the other splits', if last
+  }
+  __syncthreads();
+  if (*ticket != splits - 1) return;
+  if (!vec4) {
+    for (int e = tid; e < kRows * kBlockN; e += kThreadsN) {
+      const int row = m0 + e / kBlockN;
+      const int n = n_base + e % kBlockN;
+      if (row >= M || n >= N) continue;
+      const float* p = partial + static_cast<long long>(row) * N + n;
+      float total = __ldcg(p);
+      for (int i = 1; i < splits; ++i) total += __ldcg(p + i * mn);
+      out[static_cast<long long>(row) * N + n] = epilogue(total, s[n], out);
+    }
+  } else {
+    float4 total[kPer];
+    for (int base = 0; base < splits; base += 8) {
+      float4 v[8][kPer];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int vec = min(tid + j * kThreadsN, kVecs - 1);
+          const int row = min(m0 + vec / (kBlockN / 4), M - 1);
+          const int n = min(n_base + (vec % (kBlockN / 4)) * 4, N - 4);
+          v[i][j] = __ldcg(reinterpret_cast<const float4*>(
+              partial + min(base + i, splits - 1) * mn
+              + static_cast<long long>(row) * N + n));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          if (base + i == 0) {
+            total[j] = v[i][j];
+          } else if (base + i < splits) {
+            total[j].x += v[i][j].x;
+            total[j].y += v[i][j].y;
+            total[j].z += v[i][j].z;
+            total[j].w += v[i][j].w;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int v = tid + j * kThreadsN;
+      const int row = m0 + v / (kBlockN / 4);
+      const int n = n_base + (v % (kBlockN / 4)) * 4;
+      if (v < kVecs && row < M && n < N) {
+        store4(out + static_cast<long long>(row) * N + n, total[j],
+               *reinterpret_cast<const float4*>(s + n));
+      }
+    }
+  }
+  if (tid == 0) counters[tile] = 0;
+}
+
+// Whether every row of the (K, N) int8 codes is 16-byte aligned, for
+// cp.async; else the codes are staged by bytewise loads.
+inline bool rows_aligned(const void* q, int N) {
+  return N % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+}
+
+// ---- kernel 2: the rest of bf16, mma.sync on the tensor cores
+
+namespace mma {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kStageK = 16 * kWarps;  // rows of K a ring stage: 16 a warp
+constexpr int kRing = 4;              // stages
+// bf16 a staged row of x: 288 bytes, so that the lanes' 8-byte loads of a
+// half warp take 16 different bank pairs
+constexpr int kXStride = kStageK + 16;
+constexpr int kCodeBytes = kStageK * kBlockN;  // 16 KB
+
+// A block takes kRows = 8 * kR rows of x: kR mma's n of 8 for every
+// converted A fragment (8 at decode; 32 for more rows, so that a code is
+// converted once for every 32 rows of x, not 8)
+__host__ __device__ constexpr int x_bytes(int kR) {
+  return 8 * kR * kXStride * 2;
+}
+// the ring, or the [kWarps][kRows][128] f32 reduction buffer that reuses
+// it after the loop
+__host__ __device__ constexpr int smem_bytes(int kR) {
+  return kRing * (kCodeBytes + x_bytes(kR)) > kWarps * 8 * kR * kBlockN * 4
+             ? kRing * (kCodeBytes + x_bytes(kR))
+             : kWarps * 8 * kR * kBlockN * 4;
+}
+
+// 16-byte segment c of code row r lies at c ^ 2 * (r / 4 % 4): the four
+// rows a lane group reads (4t .. 4t + 3) and the columns (16 g) of a
+// quarter warp then fall in eight different bank groups.
+struct Swizzle {
+  __device__ __forceinline__ int operator()(int r) const {
+    return 2 * ((r >> 2) & 3);
+  }
+};
+
+// d += a b: m16n8k16, bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One block: columns [blockIdx.x * 128, +128), rows of x [blockIdx.z *
+// kRows, +kRows), rows of K [blockIdx.y * k_per_split, +k_per_split); see
+// finish_tile for the split-K workspace and counters.
+//
+// The product runs transposed, out^T = q^T x^T, so the weight is the mma's
+// A (16 columns of q a tile, as its m) and 8 rows of x its B (n = 8): a
+// decode batch of up to 8 rows fills the instruction. Warp w takes rows
+// [16 w, 16 w + 16) of every 128-row stage. Lane (g, t) = (lane / 4, lane
+// % 4) reads rows 16 w + 4 t .. + 3 at columns [16 g, 16 g + 16) (four
+// 16-byte loads) and x's rows g + 8 r at those four K (one 8-byte load
+// each); both operands are permuted alike along K, so the sums are those
+// of the product. Tile i's A rows g and g + 8 are columns 16 g + 2 i and
+// + 1; its sums land at (rows 8 r + 2 t, + 1) x (those columns).
+template <bool kAligned, int kR>
+__global__ void __launch_bounds__(kThreads)
+    int8_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                           const int8_t* __restrict__ q,
+                           const float* __restrict__ s,
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ partial,
+                           int* __restrict__ counters, int M, int K, int N,
+                           int k_per_split, bool x_vec) {
+  constexpr int kRows = 8 * kR;
+  constexpr int kXElems = x_bytes(kR) / 2;  // a stage's x
+  extern __shared__ float4 smem[];  // 16-byte aligned
+  uint8_t* codes_s = reinterpret_cast<uint8_t*>(smem);  // [kRing][16 KB]
+  __nv_bfloat16* xs_s =
+      reinterpret_cast<__nv_bfloat16*>(codes_s + kRing * kCodeBytes);
+  // after the loop the ring is the [kWarps][kRows][128] f32 reduction
+  // buffer
+  float* red = reinterpret_cast<float*>(smem);
+  __shared__ int ticket;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int n_base = blockIdx.x * kBlockN;
+  const int m0 = blockIdx.z * kRows;
+  const int k_begin = blockIdx.y * k_per_split;
+  const int k_end = min(K, k_begin + k_per_split);
+  const int chunks = (k_end - k_begin + kStageK - 1) / kStageK;
+
+  float acc[kR][8][4];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[r][i][j] = 0.f;
+    }
+  }
+
+  auto stage = [&](int c) {
+    stage_chunk<__nv_bfloat16, kStageK, kRows, kXStride, kThreads, kAligned>(
+        codes_s + (c % kRing) * kCodeBytes, xs_s + (c % kRing) * kXElems, x,
+        q, k_begin + c * kStageK, k_end, n_base, m0, M, K, N, x_vec,
+        Swizzle());
+  };
+  // the first kRing - 1 stages in flight; one commit group a stage (empty
+  // groups past the end keep the count)
+#pragma unroll
+  for (int c = 0; c < kRing - 1; ++c) {
+    if (c < chunks) stage(c);
+    cp_async_commit();
+  }
+  const int row0 = 16 * warp + 4 * t;  // this lane's 4 rows of a stage
+  const int seg = (g ^ Swizzle()(row0)) * 16;
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kRing - 2>();  // stage c has landed (this thread's part)
+    // everyone's part of stage c, and everyone is done with stage c - 1,
+    // whose buffer is refilled next
+    __syncthreads();
+    if (c + kRing - 1 < chunks) stage(c + kRing - 1);
+    cp_async_commit();
+    const uint8_t* codes = codes_s + (c % kRing) * kCodeBytes;
+    uint4 r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      r[j] = *reinterpret_cast<const uint4*>(codes + (row0 + j) * kBlockN
+                                             + seg);
+    }
+    uint2 b[kR];
+#pragma unroll
+    for (int r2 = 0; r2 < kR; ++r2) {
+      b[r2] = *reinterpret_cast<const uint2*>(
+          xs_s + (c % kRing) * kXElems + (g + 8 * r2) * kXStride + row0);
+    }
+    const uint32_t w[4][4] = {{r[0].x, r[0].y, r[0].z, r[0].w},
+                              {r[1].x, r[1].y, r[1].z, r[1].w},
+                              {r[2].x, r[2].y, r[2].z, r[2].w},
+                              {r[3].x, r[3].y, r[3].z, r[3].w}};
+#pragma unroll
+    for (int wi = 0; wi < 4; ++wi) {
+      // byte k of word wi of rows 4t, 4t + 1 (a0, a1) and 4t + 2, 4t + 3
+      // (a2, a3) is column 4 wi + k: tile 2 wi takes bytes 0 (its row g)
+      // and 1 (row g + 8), tile 2 wi + 1 bytes 2 and 3
+      const auto pair = [&](int row, uint32_t sel) {
+        return code_pair_to_bf16x2(
+            __byte_perm(w[row][wi], w[row + 1][wi], sel));
+      };
+      const uint32_t a_even[4] = {pair(0, 0x4400u), pair(0, 0x5511u),
+                                  pair(2, 0x4400u), pair(2, 0x5511u)};
+      const uint32_t a_odd[4] = {pair(0, 0x6622u), pair(0, 0x7733u),
+                                 pair(2, 0x6622u), pair(2, 0x7733u)};
+#pragma unroll
+      for (int r2 = 0; r2 < kR; ++r2) {
+        mma_bf16(acc[r2][2 * wi], a_even, b[r2].x, b[r2].y);
+        mma_bf16(acc[r2][2 * wi + 1], a_odd, b[r2].x, b[r2].y);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it becomes `red`
+
+  // tile i of rows 8r..: (row 8r + 2t, column 16g + 2i) = acc[r][i][0],
+  // (8r + 2t + 1, same) = acc[r][i][1], the next column acc[r][i][2], [3]
+  float* mine = red + warp * kRows * kBlockN;
+#pragma unroll
+  for (int r2 = 0; r2 < kR; ++r2) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = 16 * g + 2 * i;
+      const int row = 8 * r2 + 2 * t;
+      *reinterpret_cast<float2*>(mine + row * kBlockN + col) =
+          make_float2(acc[r2][i][0], acc[r2][i][2]);
+      *reinterpret_cast<float2*>(mine + (row + 1) * kBlockN + col) =
+          make_float2(acc[r2][i][1], acc[r2][i][3]);
+    }
+  }
+  __syncthreads();
+  // the warps in order, into warp 0's place
+  for (int e = tid; e < kRows * kBlockN; e += kThreads) {
+    float v = red[e];
+#pragma unroll
+    for (int w2 = 1; w2 < kWarps; ++w2) v += red[w2 * kRows * kBlockN + e];
+    red[e] = v;
+  }
+  __syncthreads();
+  finish_tile<__nv_bfloat16, kRows, kThreads>(red, s, out, partial, counters,
+                                              m0, n_base, M, N, &ticket);
+}
+
+template <bool kAligned, int kR>
+cudaError_t launch_rows(const void* x, const void* q, const float* s,
+                        void* out, float* partial, int* counters, int M,
+                        int K, int N, int splits, int k_per_split, bool x_vec,
+                        cudaStream_t stream) {
+  constexpr int smem = smem_bytes(kR);
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_matmul_mma_kernel<kAligned, kR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kBlockN - 1) / kBlockN, splits,
+                  (M + 8 * kR - 1) / (8 * kR));
+  int8_matmul_mma_kernel<kAligned, kR><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q), s,
+      static_cast<__nv_bfloat16*>(out), partial, counters, M, K, N,
+      k_per_split, x_vec);
+  return cudaGetLastError();
+}
+
+template <bool kAligned>
+cudaError_t launch_aligned(const void* x, const void* q, const float* s,
+                           void* out, float* partial, int* counters, int M,
+                           int K, int N, int block_m, int splits,
+                           int k_per_split, bool x_vec, cudaStream_t stream) {
+  return block_m == 8
+             ? launch_rows<kAligned, 1>(x, q, s, out, partial, counters, M, K,
+                                        N, splits, k_per_split, x_vec, stream)
+             : launch_rows<kAligned, 4>(x, q, s, out, partial, counters, M, K,
+                                        N, splits, k_per_split, x_vec, stream);
+}
+
+// block_m: 8 or 32 rows of x a block
+cudaError_t launch(const void* x, const void* q, const float* s, void* out,
+                   float* partial, int* counters, int M, int K, int N,
+                   int block_m, int splits, int k_per_split,
+                   cudaStream_t stream) {
+  const bool x_vec = K % 8 == 0
+                     && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  return rows_aligned(q, N)
+             ? launch_aligned<true>(x, q, s, out, partial, counters, M, K, N,
+                                    block_m, splits, k_per_split, x_vec,
+                                    stream)
+             : launch_aligned<false>(x, q, s, out, partial, counters, M, K, N,
+                                     block_m, splits, k_per_split, x_vec,
+                                     stream);
+}
+
+}  // namespace mma
+
+// ---- kernel 3: f32 x, f32 FMAs on the CUDA cores
+
+namespace f32 {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRing = 6;                       // stages of the ring
+constexpr int kChunkBytes = kChunkK * kBlockN;  // 8 KB of codes a stage
+constexpr int kCols = 16;                      // codes a thread multiplies
+constexpr int kColLanes = 8;                   // threads across a strip
+constexpr int kGroups = kThreads / kColLanes;  // 32 thread groups
+constexpr int kRowsPerGroup = kChunkK / kGroups;  // 2
+
+struct NoSwizzle {
+  __device__ __forceinline__ int operator()(int) const { return 0; }
+};
+
+__host__ __device__ constexpr int ring_bytes(int kM) {
+  return kRing * (kChunkBytes + kM * kChunkK * 4);
+}
+// the ring, or the block's reduction buffer that reuses it after the loop
+__host__ __device__ constexpr int smem_bytes(int kM) {
+  return ring_bytes(kM) > kWarps * kM * kBlockN * 4
+             ? ring_bytes(kM) : kWarps * kM * kBlockN * 4;
 }
 
 // One block: columns [blockIdx.x * 128, +128), rows of x [blockIdx.z * kM,
-// +kM), rows of K [blockIdx.y * k_per_split, +k_per_split). Writes the
-// f32 sums to `partial` (split-K) or, with no split, the epilogue to out.
-template <typename T, int kM, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    int8_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
-                       const float* __restrict__ s, T* __restrict__ out,
-                       float* __restrict__ partial, int M, int K, int N,
-                       int k_per_split) {
-  __shared__ __align__(16) float xs[kChunkK][kM];
-  __shared__ __align__(16) float red[kWarps][kM][kBlockN];
+// +kM), rows of K [blockIdx.y * k_per_split, +k_per_split); see
+// finish_tile for the split-K workspace and counters. Each thread
+// multiplies 16 neighbouring columns by kM rows of x, for rows 2 g and
+// 2 g + 1 of every 64-row stage (thread group g of 32).
+template <int kM, bool kAligned>
+__global__ void __launch_bounds__(kThreads, 1)
+    int8_matmul_kernel(const float* __restrict__ x,
+                       const int8_t* __restrict__ q,
+                       const float* __restrict__ s, float* __restrict__ out,
+                       float* __restrict__ partial, int* __restrict__ counters,
+                       int M, int K, int N, int k_per_split, bool x_vec) {
+  extern __shared__ float4 smem[];  // 16-byte aligned
+  uint8_t* codes_s = reinterpret_cast<uint8_t*>(smem);  // [kRing][8 KB]
+  float* xs_s = reinterpret_cast<float*>(codes_s + kRing * kChunkBytes);
+  // [kRing][kM][64] of x; after the loop the ring is the block's
+  // [kWarps][kM][128] f32 reduction buffer
+  float* red = reinterpret_cast<float*>(smem);
+  __shared__ int ticket;
+
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int col_lane = tid % kColLanes;
   const int group = tid / kColLanes;
-  const int n0 = blockIdx.x * kBlockN + col_lane * kCols;
+  const int n_base = blockIdx.x * kBlockN;
   const int m0 = blockIdx.z * kM;
-  const int split = blockIdx.y;
-  const int k_begin = split * k_per_split;
+  const int k_begin = blockIdx.y * k_per_split;
   const int k_end = min(K, k_begin + k_per_split);
+  const int chunks = (k_end - k_begin + kChunkK - 1) / kChunkK;
 
   float acc[kM][kCols];
 #pragma unroll
@@ -139,43 +862,56 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kCols; ++j) acc[m][j] = 0.f;
   }
 
-  for (int kc = k_begin; kc < k_end; kc += kChunkK) {
-    const int rows = min(kChunkK, k_end - kc);
-    // the codes first: x is staged while they are in flight
-    int4 codes[kRowsPerThread];
-    load_chunk<kVec>(codes, q, kc, rows, group, n0, N);
-    // x[m0 + m, kc + r] -> xs[r][m], zero past M and past the chunk;
-    // neighbouring threads read neighbouring r (a row of x)
-    for (int i = tid; i < kChunkK * kM; i += kThreads) {
-      const int m = i / kChunkK;
-      const int r = i % kChunkK;
-      xs[r][m] = (m0 + m < M && r < rows)
-                     ? to_float(x[static_cast<long long>(m0 + m) * K + kc + r])
-                     : 0.f;
-    }
+  auto stage = [&](int c) {
+    stage_chunk<float, kChunkK, kM, kChunkK, kThreads, kAligned>(
+        codes_s + (c % kRing) * kChunkBytes, xs_s + (c % kRing) * kM * kChunkK,
+        x, q, k_begin + c * kChunkK, k_end, n_base, m0, M, K, N, x_vec,
+        NoSwizzle());
+  };
+#pragma unroll
+  for (int c = 0; c < kRing - 1; ++c) {
+    if (c < chunks) stage(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kRing - 2>();
     __syncthreads();
+    if (c + kRing - 1 < chunks) stage(c + kRing - 1);
+    cp_async_commit();
+    const uint8_t* codes = codes_s + (c % kRing) * kChunkBytes
+                           + kRowsPerGroup * group * kBlockN
+                           + col_lane * kCols;
+    const float* xs = xs_s + (c % kRing) * kM * kChunkK
+                      + kRowsPerGroup * group;
+    float xv[2][kM];
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int r = group + i * kGroups;
-      float xv[kM];
+    for (int m = 0; m < kM; ++m) {
+      const float2 v = *reinterpret_cast<const float2*>(xs + m * kChunkK);
+      xv[0][m] = v.x;
+      xv[1][m] = v.y;
+    }
 #pragma unroll
-      for (int m = 0; m < kM; ++m) xv[m] = xs[r][m];
-      const uint32_t w[4] = {static_cast<uint32_t>(codes[i].x),
-                             static_cast<uint32_t>(codes[i].y),
-                             static_cast<uint32_t>(codes[i].z),
-                             static_cast<uint32_t>(codes[i].w)};
+    for (int h = 0; h < kRowsPerGroup; ++h) {
+      const uint4 w4 = *reinterpret_cast<const uint4*>(codes + h * kBlockN);
+      const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float code = static_cast<float>(
-            static_cast<int8_t>((w[j >> 2] >> (8 * (j & 3))) & 0xffu));
+      for (int i = 0; i < 4; ++i) {
+        float f[4];
+        word_to_floats(w[i], f);
 #pragma unroll
-        for (int m = 0; m < kM; ++m) acc[m][j] = fmaf(xv[m], code, acc[m][j]);
+        for (int b = 0; b < 4; ++b) {
+#pragma unroll
+          for (int m = 0; m < kM; ++m) {
+            acc[m][4 * i + b] = fmaf(xv[h][m], f[b], acc[m][4 * i + b]);
+          }
+        }
       }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it becomes `red`
 
-  // the warp's four row groups (lanes 8 apart) by a fixed butterfly
+  // the warp's four thread groups (lanes 8 apart) by a fixed butterfly
 #pragma unroll
   for (int m = 0; m < kM; ++m) {
 #pragma unroll
@@ -190,122 +926,133 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int m = 0; m < kM; ++m) {
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) red[warp][m][lane * kCols + j] = acc[m][j];
+      for (int j = 0; j < kCols; j += 4) {
+        *reinterpret_cast<float4*>(red + (warp * kM + m) * kBlockN
+                                   + lane * kCols + j) =
+            make_float4(acc[m][j], acc[m][j + 1], acc[m][j + 2],
+                        acc[m][j + 3]);
+      }
     }
   }
   __syncthreads();
-  // then the warps in order
-  for (int i = tid; i < kM * kBlockN; i += kThreads) {
-    const int m = i / kBlockN;
-    const int c = i % kBlockN;
-    float sum = red[0][m][c];
+  // then the warps in order, into warp 0's place
+  for (int e = tid; e < kM * kBlockN; e += kThreads) {
+    float v = red[e];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) sum += red[w][m][c];
-    const int row = m0 + m;
-    const int n = blockIdx.x * kBlockN + c;
-    if (row >= M || n >= N) continue;
-    const long long at = static_cast<long long>(row) * N + n;
-    if (partial != nullptr) {
-      partial[static_cast<long long>(split) * M * N + at] = sum;
-    } else {
-      out[at] = epilogue(sum, s[n], static_cast<T*>(nullptr));
-    }
+    for (int w2 = 1; w2 < kWarps; ++w2) v += red[w2 * kM * kBlockN + e];
+    red[e] = v;
   }
-}
-
-// The split-K pass: the splits' sums added in split order, then the
-// epilogue. One thread an output element.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    int8_matmul_reduce_kernel(const float* __restrict__ partial,
-                              const float* __restrict__ s,
-                              T* __restrict__ out, int M, int N, int splits) {
-  const long long elems = static_cast<long long>(M) * N;
-  const long long i =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= elems) return;
-  float sum = partial[i];
-  for (int p = 1; p < splits; ++p) sum += partial[p * elems + i];
-  out[i] = epilogue(sum, s[i % N], static_cast<T*>(nullptr));
+  __syncthreads();
+  finish_tile<float, kM, kThreads>(red, s, out, partial, counters, m0,
+                                   n_base, M, N, &ticket);
 }
 
 // The rows of x a block takes; tpu_operator_libs_torch/kernels/
-// int8_matmul.py::m_tile mirrors it for the split plan.
+// int8_matmul.py::m_tile mirrors it for the plan.
 int m_tile(int M) { return M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : 8; }
 
-template <typename T, int kM>
-void launch_tiles(const T* x, const int8_t* q, const float* s, T* out,
-                  float* partial, int M, int K, int N, int splits,
-                  int k_per_split, bool vec, cudaStream_t stream) {
+template <int kM, bool kAligned>
+cudaError_t launch_tiles(const void* x, const void* q, const float* s,
+                         void* out, float* partial, int* counters, int M,
+                         int K, int N, int splits, int k_per_split,
+                         bool x_vec, cudaStream_t stream) {
+  constexpr int smem = smem_bytes(kM);
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_matmul_kernel<kM, kAligned>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((N + kBlockN - 1) / kBlockN, splits, (M + kM - 1) / kM);
-  if (vec) {
-    int8_matmul_kernel<T, kM, true><<<grid, kThreads, 0, stream>>>(
-        x, q, s, out, partial, M, K, N, k_per_split);
-  } else {
-    int8_matmul_kernel<T, kM, false><<<grid, kThreads, 0, stream>>>(
-        x, q, s, out, partial, M, K, N, k_per_split);
+  int8_matmul_kernel<kM, kAligned><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(q), s,
+      static_cast<float*>(out), partial, counters, M, K, N, k_per_split,
+      x_vec);
+  return cudaGetLastError();
+}
+
+template <int kM>
+cudaError_t launch_m(const void* x, const void* q, const float* s, void* out,
+                     float* partial, int* counters, int M, int K, int N,
+                     int splits, int k_per_split, cudaStream_t stream) {
+  const bool x_vec = K % 4 == 0
+                     && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  return rows_aligned(q, N)
+             ? launch_tiles<kM, true>(x, q, s, out, partial, counters, M, K,
+                                      N, splits, k_per_split, x_vec, stream)
+             : launch_tiles<kM, false>(x, q, s, out, partial, counters, M, K,
+                                       N, splits, k_per_split, x_vec, stream);
+}
+
+cudaError_t launch(const void* x, const void* q, const float* s, void* out,
+                   float* partial, int* counters, int M, int K, int N,
+                   int splits, int k_per_split, cudaStream_t stream) {
+  switch (m_tile(M)) {
+    case 1: return launch_m<1>(x, q, s, out, partial, counters, M, K, N,
+                               splits, k_per_split, stream);
+    case 2: return launch_m<2>(x, q, s, out, partial, counters, M, K, N,
+                               splits, k_per_split, stream);
+    case 4: return launch_m<4>(x, q, s, out, partial, counters, M, K, N,
+                               splits, k_per_split, stream);
+    default: return launch_m<8>(x, q, s, out, partial, counters, M, K, N,
+                                splits, k_per_split, stream);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* q, const void* s, void* out,
-                   void* partial, int M, int K, int N, int splits,
-                   int k_per_split, cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const int8_t* qt = static_cast<const int8_t*>(q);
-  const float* st = static_cast<const float*>(s);
-  T* ot = static_cast<T*>(out);
-  float* pt = splits > 1 ? static_cast<float*>(partial) : nullptr;
-  const bool vec =
-      N % kCols == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  switch (m_tile(M)) {
-    case 1: launch_tiles<T, 1>(xt, qt, st, ot, pt, M, K, N, splits,
-                               k_per_split, vec, stream); break;
-    case 2: launch_tiles<T, 2>(xt, qt, st, ot, pt, M, K, N, splits,
-                               k_per_split, vec, stream); break;
-    case 4: launch_tiles<T, 4>(xt, qt, st, ot, pt, M, K, N, splits,
-                               k_per_split, vec, stream); break;
-    default: launch_tiles<T, 8>(xt, qt, st, ot, pt, M, K, N, splits,
-                                k_per_split, vec, stream); break;
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long elems = static_cast<long long>(M) * N;
-  const long long blocks = (elems + kThreads - 1) / kThreads;
-  int8_matmul_reduce_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                 stream>>>(pt, st, ot, M, N, splits);
-  return cudaGetLastError();
-}
+}  // namespace f32
 
 }  // namespace
 
 // x (M, K) of dtype 0 = float32 or 1 = bfloat16, q (K, N) int8, s (N,)
-// float32, out (M, N) of x's dtype, all contiguous. K is cut into
-// `splits` (1 to 8) slices of `k_per_split` rows, the last possibly
-// shorter and none empty; with splits > 1, `partial` is an f32 workspace
-// of (splits, M, N) elements.
+// float32, out (M, N) of x's dtype, all contiguous, and the plan
+// (tpu_operator_libs_torch/kernels/int8_matmul.py::plan):
+// - design 1, wgmma: bfloat16, M >= 64, N % 16 == 0, K % 8 == 0, block_m
+//   64 or 128, splits 1, x and q 16-byte aligned;
+// - design 2, mma.sync: bfloat16, block_m 8 or 32; design 3, CUDA cores:
+//   float32, block_m == m_tile(M). Both: K cut into `splits` (1 to 16)
+//   slices of `k_per_split` rows (a multiple of 64), the last possibly
+//   shorter and none empty; with splits > 1, `partial` an f32 workspace
+//   of (splits, M, N) elements and `counters` n_counters ints, at least
+//   one a tile, all 0 (the kernel leaves them 0).
 extern "C" int int8_matmul(const void* x, const void* q, const void* s,
-                           void* out, void* partial, int M, int K, int N,
-                           int splits, int k_per_split, int dtype,
-                           void* stream) {
-  if (M < 1 || K < 1 || N < 1 || splits < 1 || splits > kMaxSplits ||
-      k_per_split < 1 ||
-      static_cast<long long>(splits) * k_per_split < K ||
-      static_cast<long long>(splits - 1) * k_per_split >= K ||
-      (splits > 1 && partial == nullptr) ||
-      (M + m_tile(M) - 1) / m_tile(M) > 65535) {
+                           void* out, void* partial, void* counters,
+                           int n_counters, int M, int K, int N, int design,
+                           int block_m, int splits, int k_per_split,
+                           int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sf = static_cast<const float*>(s);
+  if (M < 1 || K < 1 || N < 1) return cudaErrorInvalidValue;
+  if (design == 1) {
+    if (dtype != 1 || M < 64 || N % 16 != 0 || K % 8 != 0 || splits != 1
+        || (M + block_m - 1) / block_m > 65535) {
+      return cudaErrorInvalidValue;
+    }
+    if (block_m == 128) return wg::launch<128>(x, q, sf, out, M, K, N, st);
+    if (block_m == 64) return wg::launch<64>(x, q, sf, out, M, K, N, st);
     return cudaErrorInvalidValue;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch<float>(x, q, s, out, partial, M, K, N, splits, k_per_split,
-                         st);
+  const bool ok_design = (design == 2 && dtype == 1
+                          && (block_m == 8 || block_m == 32))
+                         || (design == 3 && dtype == 0
+                             && block_m == f32::m_tile(M));
+  const long long tiles =
+      static_cast<long long>((N + kBlockN - 1) / kBlockN)
+      * ((M + block_m - 1) / block_m);
+  if (!ok_design || splits < 1 || splits > kMaxSplits || k_per_split < 1
+      || k_per_split % kChunkK != 0
+      || static_cast<long long>(splits) * k_per_split < K
+      || static_cast<long long>(splits - 1) * k_per_split >= K
+      || (M + block_m - 1) / block_m > 65535
+      || (splits > 1 && (partial == nullptr || counters == nullptr
+                         || tiles > n_counters))) {
+    return cudaErrorInvalidValue;
   }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(x, q, s, out, partial, M, K, N, splits,
-                                 k_per_split, st);
+  float* pt = splits > 1 ? static_cast<float*>(partial) : nullptr;
+  int* ct = splits > 1 ? static_cast<int*>(counters) : nullptr;
+  if (design == 2) {
+    return mma::launch(x, q, sf, out, pt, ct, M, K, N, block_m, splits,
+                       k_per_split, st);
   }
-  return cudaErrorInvalidValue;
+  return f32::launch(x, q, sf, out, pt, ct, M, K, N, splits, k_per_split,
+                     st);
 }
 
 // The text of a cudaError_t that int8_matmul returned.

@@ -9,27 +9,47 @@ scale (N,). :func:`int8_matmul` launches ``csrc/int8_matmul.cu`` for CUDA
 tensors (float32 or bfloat16 x) and runs the plain version,
 :func:`int8_matmul_reference`, for CPU ones.
 
-The kernel splits K over blocks when the output has too few column
-strips to fill the card (:func:`split_plan`) and adds the splits' f32
-sums in a fixed order in a second pass, so two launches are bit-equal.
+:func:`plan` picks one of the source's three kernels from the shape, x's
+dtype and the card's SM count alone: bf16 prefill (M at or above
+:data:`WGMMA_MIN_M`, N and K aligned for TMA, output tiles enough for a
+quarter of the card) runs ``wgmma`` over code tiles converted in shared
+memory; the rest of bf16 (decode, short prefill, unaligned shapes) runs
+``mma.sync`` with the weight as the A operand, and f32 runs f32 FMAs on
+the CUDA cores. The last two split K over blocks when the output has too
+few tiles to fill the card and add the splits' f32 sums in split order
+inside the one launch, so two launches are bit-equal.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 #: the CUDA source under ``csrc/``
 SOURCE = "int8_matmul.cu"
-#: columns a block owns, rows of K it stages at a time and the most
-#: splits of K (``kBlockN``, ``kChunkK``, ``kMaxSplits`` in the source)
+#: columns a block owns and the most splits of K of the split-K designs
+#: (``kBlockN``, ``kMaxSplits`` in the source)
 BLOCK_N = 128
-CHUNK_K = 256
-MAX_SPLITS = 8
+MAX_SPLITS = 16
+#: rows of K a ring stage holds, by design: a split is a whole number of
+#: stages (``mma::kStageK``, ``f32::kChunkK``)
+STAGE_K = {"mma_sync": 128, "cuda_cores": 64}
+#: the fewest rows of bf16 x that the wgmma design takes, and the fewest
+#: of its 64-row output tiles per SM: it does not split K, so with fewer
+#: tiles the split-K mma.sync design was the faster of the two on an H100
+#: (PERF.md, the int8 kernel's findings)
+WGMMA_MIN_M = 64
+WGMMA_MIN_TILES_PER_SM = 0.25
+#: the designs, by the code the C entry takes
+DESIGNS = {"wgmma": 1, "mma_sync": 2, "cuda_cores": 3}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+#: split-K tile counters by (device index, stream): one int per SM, 0
+#: between launches
+_counters: "dict[tuple[int, int], torch.Tensor]" = {}
 
 
 def int8_matmul_reference(x, q, s):
@@ -39,21 +59,59 @@ def int8_matmul_reference(x, q, s):
 
 
 def m_tile(m: int) -> int:
-    """Rows of x a block takes (``m_tile`` in the source)."""
+    """Rows of x a block of the CUDA-core design takes (``f32::m_tile``
+    in the source)."""
     return 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
 
 
-def split_plan(m: int, n: int, k: int, sms: int) -> "tuple[int, int]":
-    """(splits, rows of K a split) for an (m, k) x (k, n) product on a
-    card of ``sms`` SMs: as many K splits as keep the blocks within one
-    wave (at least one, at most ``MAX_SPLITS`` and one a staged chunk of
-    K), each a whole number of chunks. A function of the shape and the
-    card alone, so a shape always runs the same sums in the same order."""
-    tiles = -(-n // BLOCK_N) * -(-m // m_tile(m))
-    chunks = -(-k // CHUNK_K)
-    splits = max(1, min(sms // tiles, chunks, MAX_SPLITS))
-    k_per_split = -(-chunks // splits) * CHUNK_K
-    return -(-k // k_per_split), k_per_split
+def mma_rows(m: int) -> int:
+    """Rows of x a block of the mma.sync design takes: one mma's n of 8
+    at decode, else 32, so that each converted code serves 32 rows of x
+    (``mma::launch`` in the source)."""
+    return 8 if m <= 8 else 32
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the kernel runs an (m, k) x (k, n) product."""
+
+    #: "wgmma", "mma_sync" or "cuda_cores"
+    design: str
+    #: rows of x a block takes: 64 or 128 (wgmma), :func:`mma_rows`
+    #: (mma_sync), :func:`m_tile` (cuda_cores)
+    block_m: int
+    #: blocks that K is split over (1 for wgmma) and rows of K each
+    splits: int
+    k_per_split: int
+
+
+def plan(m: int, k: int, n: int, dtype: torch.dtype, sms: int) -> Plan:
+    """The design and tiling of an (m, k) x (k, n) product with x of
+    ``dtype`` on a card of ``sms`` SMs; a function of these alone, so a
+    shape always runs the same sums in the same order.
+
+    bf16 x with m >= :data:`WGMMA_MIN_M`, n % 16 == 0 and k % 8 == 0 (the
+    16-byte row strides TMA needs) and 64-row output tiles for at least
+    :data:`WGMMA_MIN_TILES_PER_SM` of the SMs takes the wgmma design:
+    128-row tiles once they fill the card, else 64-row ones; no split-K.
+    The rest of bf16 takes the mma.sync design (:func:`mma_rows` rows a
+    block), f32 the CUDA cores (:func:`m_tile` rows a block); both with as
+    many K splits as keep the blocks within one wave (at least one, at
+    most ``MAX_SPLITS`` and one a ring stage of K), each a whole number
+    of stages."""
+    if dtype == torch.bfloat16 and m >= WGMMA_MIN_M and n % 16 == 0 \
+            and k % 8 == 0 and -(-m // 64) * -(-n // BLOCK_N) \
+            >= WGMMA_MIN_TILES_PER_SM * sms:
+        tiles_128 = -(-m // 128) * -(-n // BLOCK_N)
+        block_m = 128 if m >= 128 and tiles_128 >= sms else 64
+        return Plan("wgmma", block_m, 1, k)
+    design, block_m = (("mma_sync", mma_rows(m)) if dtype == torch.bfloat16
+                       else ("cuda_cores", m_tile(m)))
+    tiles = -(-n // BLOCK_N) * -(-m // block_m)
+    stages = -(-k // STAGE_K[design])
+    splits = max(1, min(sms // tiles, stages, MAX_SPLITS))
+    k_per_split = -(-stages // splits) * STAGE_K[design]
+    return Plan(design, block_m, -(-k // k_per_split), k_per_split)
 
 
 def _check(x, q, s) -> None:
@@ -78,8 +136,8 @@ def _library():
         from tpu_operator_libs_torch.kernels._build import build_all
 
         lib = build_all([SOURCE])[0].lib
-        lib.int8_matmul.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
+        lib.int8_matmul.argtypes = [ctypes.c_void_p] * 6 \
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         lib.int8_matmul.restype = ctypes.c_int
         lib.int8_matmul_error_string.argtypes = [ctypes.c_int]
         lib.int8_matmul_error_string.restype = ctypes.c_char_p
@@ -90,6 +148,24 @@ def _library():
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tile_counters(device: torch.device, stream, sms: int) -> torch.Tensor:
+    """The split-K tile counters of ``stream``: ``sms`` ints (a product
+    that splits K has at most sms / 2 tiles), zeroed once, outside any
+    graph capture; every launch leaves them 0. A capture records their
+    address, so they live as long as the process."""
+    key = (device.index, stream.cuda_stream)
+    counters = _counters.get(key)
+    if counters is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "int8_matmul: the first split-K call on a stream must not be "
+                "captured (its counters are zeroed then); run one eager call "
+                "on the capturing stream first")
+        counters = torch.zeros(sms, dtype=torch.int32, device=device)
+        _counters[key] = counters
+    return counters
 
 
 def int8_matmul(x, q, s):
@@ -105,23 +181,32 @@ def int8_matmul(x, q, s):
         raise ValueError(f"x has dtype {x.dtype}; the kernel takes "
                          f"{sorted(str(d) for d in _DTYPE_CODES)}")
     (m, k), n = x.shape, q.shape[1]
-    splits, k_per_split = split_plan(m, n, k, _sm_count(x.device.index))
+    sms = _sm_count(x.device.index)
+    p = plan(m, k, n, x.dtype, sms)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    # the split-K workspace; allocated here, so inside a captured graph
-    # it comes from the graph's pool
-    partial = (torch.empty((splits, m, n), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
     lib = _library()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.int8_matmul(x.data_ptr(), q.data_ptr(), s.data_ptr(),
-                              out.data_ptr(),
-                              None if partial is None else partial.data_ptr(),
-                              m, k, n, splits, k_per_split,
-                              _DTYPE_CODES[x.dtype], stream)
+        stream = torch.cuda.current_stream(x.device)
+        partial = counters = None
+        if p.splits > 1:
+            # the split-K workspace; allocated here, so inside a captured
+            # graph it comes from the graph's pool
+            partial = torch.empty((p.splits, m, n), dtype=torch.float32,
+                                  device=x.device)
+            counters = _tile_counters(x.device, stream, sms)
+        err = lib.int8_matmul(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            0 if counters is None else counters.numel(), m, k, n,
+            DESIGNS[p.design], p.block_m, p.splits, p.k_per_split,
+            _DTYPE_CODES[x.dtype], stream.cuda_stream)
     if err != 0:
         message = lib.int8_matmul_error_string(err).decode()
-        raise RuntimeError(f"int8_matmul launch failed: {message} ({err})")
+        hint = ("; the tensor-core design needs x and q 16-byte aligned"
+                if p.design == "wgmma" else "")
+        raise RuntimeError(f"int8_matmul launch failed ({p}): {message} "
+                           f"({err}){hint}")
     int8_matmul.launches += 1
     return out
 
