@@ -60,13 +60,17 @@ exits non-zero without printing a result. Phases:
    over the dp x tp mesh (``parallel.dp_tp_split``) running llama-277M
    (flash at tp=1, xla otherwise): 3 train steps at batch 16 x 1024
    (at one card, the losses held to phase 7's first three), host loop ==
-   device loop decode in bf16 and int8, save -> gate -> restore -> the
-   next loss bit-equal, the fabric battery over every shifted ring, and
-   at two cards or more the bandwidth ring; then, at llama-277M's
-   widths, ring (ring attention against dense; the ring Llama on a 1 x n
-   dp x sp mesh, its forward at 1 x 8192 against the one-card flash
-   forward and 3 train steps at 16 x 1024, held to phase 7's at one
-   card), pipeline (GPipe, f32) and moe (both dispatch modes, f32).
+   device loop decode in bf16 and int8 (the device loop replayed from one
+   CUDA graph a token on every rank, its launches checked on each), then
+   decode at the bench's shape through the graph and the host loop on
+   every rank (at one card, the graph's tokens held to phase 6's), save
+   -> gate -> restore -> the next loss bit-equal, the fabric battery over
+   every shifted ring, and at two cards or more the bandwidth ring; then,
+   at llama-277M's widths, ring (ring attention against dense; the ring
+   Llama on a 1 x n dp x sp mesh, its forward at 1 x 8192 against the
+   one-card flash forward and 3 train steps at 16 x 1024, held to phase
+   7's at one card), pipeline (GPipe, f32) and moe (both dispatch modes,
+   f32); last, the serving pod over NCCL on phase 6's burst.
 10. kernels: one line with every kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``. The model is
@@ -90,6 +94,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -115,6 +121,7 @@ from tpu_operator_libs_torch.examples.llama_decode import (  # noqa: E402
 from tpu_operator_libs_torch.examples.llama_serving_job import (  # noqa: E402
     DecodeServer,
     run_demo,
+    serve_rank,
 )
 from tpu_operator_libs_torch.examples.training_job import (  # noqa: E402
     make_checkpoint_manager,
@@ -1221,29 +1228,52 @@ def sampled_contract(qparams, prompt):
     return out
 
 
-def phase_serving(params, qparams, card):
-    server = DecodeServer(CONFIG_277M, params,
-                          ServingEndpoint("llama-277m-smoke"),
-                          max_new_tokens=64)
-    summary = run_demo(server, n_requests=8, drain_after=4, workers=3,
-                       batch=8, prompt_len=64, seed=SEED + 3)
+#: the serving burst (phase 6, and the pod of phase 9): 8 requests of 8
+#: prompts of 64 tokens, 64 new, a drain after 4, 3 workers
+BURST_NEW_TOKENS = 64
+BURST = {"n_requests": 8, "drain_after": 4, "workers": 3, "batch": 8,
+         "prompt_len": 64, "seed": SEED + 3}
+#: the bench's decode cell: batch 8, prompt 64, 960 new, context 1024
+BENCH_NEW_TOKENS = 960
+
+
+def bench_prompt():
+    """The bench decode cell's prompt, (8, 64), on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    return torch.randint(0, CONFIG_277M.vocab, (8, 64), generator=gen,
+                         device="cuda")
+
+
+def burst_line(summary, card, **extra):
+    """The serving line of a burst's summary; raises unless the drain
+    dropped nothing and parked at least one request."""
     if summary["dropped"] != 0 or summary["parked"] < 1:
         raise RuntimeError(f"drain contract broken: {summary}")
     served = len(summary["served_request_ids"])
     lat = summary["request_seconds"]
-    emit({"phase": "serving", "requests": 8, "batch": 8, "prompt": 64,
-          "new_tokens": 64, "drain_after": 4, "workers": 3,
-          "completed": summary["completed"], "served": served,
-          "parked": summary["parked"], "dropped": summary["dropped"],
-          "decode_tok_per_s": served * 8 * 64 / summary["burst_seconds"],
-          "latency_p50_s": statistics.median(lat),
-          "latency_max_s": max(lat), "card": card})
+    return {"requests": BURST["n_requests"], "batch": BURST["batch"],
+            "prompt": BURST["prompt_len"], "new_tokens": BURST_NEW_TOKENS,
+            "drain_after": BURST["drain_after"], "workers": BURST["workers"],
+            "completed": summary["completed"], "served": served,
+            "parked": summary["parked"], "dropped": summary["dropped"],
+            "decode_tok_per_s": served * BURST["batch"] * BURST_NEW_TOKENS
+            / summary["burst_seconds"],
+            "latency_p50_s": statistics.median(lat),
+            "latency_max_s": max(lat), **extra, "card": card}
+
+
+def phase_serving(params, qparams, card):
+    """The serving burst, then the bench decode cell; returns the graph
+    loop's bench tokens by dtype, on the host."""
+    server = DecodeServer(CONFIG_277M, params,
+                          ServingEndpoint("llama-277m-smoke"),
+                          max_new_tokens=BURST_NEW_TOKENS)
+    summary = run_demo(server, **BURST)
+    emit({"phase": "serving", **burst_line(summary, card)})
 
     # the bench's decode cell: batch 8, prompt 64, 960 new, context 1024
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    prompt = torch.randint(0, CONFIG_277M.vocab, (8, 64), generator=gen,
-                           device="cuda")
-    cells = {}
+    prompt = bench_prompt()
+    cells, graph_tokens = {}, {}
     for label, p, kw in (("bf16", params, {}),
                          ("int8_weights_int8_kv", qparams,
                           {"quantize_kv": True})):
@@ -1253,19 +1283,18 @@ def phase_serving(params, qparams, card):
         for loop, fn in (("graph", generate_on_device), ("host", generate)):
             fn(p, prompt, CONFIG_277M, 8, param_dtype=torch.bfloat16, **kw)
             start = time.perf_counter()
-            out = fn(p, prompt, CONFIG_277M, 960,
+            out = fn(p, prompt, CONFIG_277M, BENCH_NEW_TOKENS,
                      param_dtype=torch.bfloat16, **kw).cpu()
             seconds = time.perf_counter() - start
-            if out.shape != (8, 1024) or not bool(
-                    ((out >= 0) & (out < CONFIG_277M.vocab)).all()):
-                raise RuntimeError(
-                    f"bench-shape decode malformed ({label}, {loop})")
-            cell[loop] = {"seconds": seconds, "tok_per_s": 8 * 960 / seconds}
+            check_bench_tokens(out, f"{label}, {loop}")
+            cell[loop] = {"seconds": seconds,
+                          "tok_per_s": 8 * BENCH_NEW_TOKENS / seconds}
             if loop == "graph":
                 run = dict(generate_on_device.last_call)
-                expect_graph(run, 960, f"bench-shape decode ({label})")
+                expect_graph(run, BENCH_NEW_TOKENS,
+                             f"bench-shape decode ({label})")
                 cell[loop]["device_loop"] = run
-                tokens = out
+                tokens = graph_tokens[label] = out
             elif not torch.equal(out, tokens):
                 raise RuntimeError(f"bench-shape decode: host and graph "
                                    f"loops differ ({label})")
@@ -1275,7 +1304,14 @@ def phase_serving(params, qparams, card):
                                    / cell["host"]["tok_per_s"])
         cells[label] = cell
     emit({"phase": "decode_bench_shape", "batch": 8, "prompt": 64,
-          "new_tokens": 960, "cells": cells, "card": card})
+          "new_tokens": BENCH_NEW_TOKENS, "cells": cells, "card": card})
+    return graph_tokens
+
+
+def check_bench_tokens(out, what):
+    if tuple(out.shape) != (8, 64 + BENCH_NEW_TOKENS) or not bool(
+            ((out >= 0) & (out < CONFIG_277M.vocab)).all()):
+        raise RuntimeError(f"bench-shape decode malformed ({what})")
 
 
 def profile_device(fn, top: int = 6):
@@ -1562,13 +1598,15 @@ def multichip_shapes(n) -> "multichip.ParallelShapes":
         ring_llama=dataclasses.replace(CONFIG_277M, attention_impl="ring"))
 
 
-def phase_multichip(card, train_losses=None):
+def phase_multichip(card, train_losses=None, bench_tokens=None):
     """The multi-device slice on every visible card, one NCCL rank each
-    (``multichip.run_stages`` at llama-277M width): one line per stage.
-    ``train_losses``: phase 7's, which a one-card run's losses (of the
-    dp x tp and of the ring Llama) must match within MULTI_LOSS_TOL.
-    Returns rank 0's kernel launches of stages 1-4 and of the ring
-    stage."""
+    (``multichip.run_stages`` at llama-277M width): one line per stage,
+    then the serving pod over the same cards. ``train_losses``: phase
+    7's, which a one-card run's losses (of the dp x tp and of the ring
+    Llama) must match within MULTI_LOSS_TOL; ``bench_tokens``: phase 6's
+    bench decode tokens by dtype, which a one-card run's graph tokens
+    must equal. Returns rank 0's kernel launches of stages 1-4 and of the
+    ring stage."""
     fn, args = multichip.entry()
     out = fn(*args)
     probe_err = (out - (math.tanh(0.5) + 0.25)).abs().max().item()
@@ -1588,8 +1626,8 @@ def phase_multichip(card, train_losses=None):
         multichip.run_stages, param_dtype=torch.bfloat16,
         batch_per_shard=TRAIN_BATCH // dp, train_steps=MULTI_STEPS,
         prompt_len=64, new_tokens=MULTI_NEW_TOKENS, decode_rows=8,
-        payload_mib=16,
-        rounds=8, shapes=multichip_shapes(n))
+        payload_mib=16, rounds=8, shapes=multichip_shapes(n),
+        decode_bench=(bench_prompt().cpu().numpy(), BENCH_NEW_TOKENS))
     start = time.perf_counter()
     try:
         ranks = run_ranks(stages, n, config, ckpt_dir, device="cuda",
@@ -1616,11 +1654,14 @@ def phase_multichip(card, train_losses=None):
     launches = first["launches"]
     # flash at tp=1: each kernel once a layer a step, the train stage's
     # steps and the checkpoint stage's two; xla otherwise. The int8
-    # decode's two loops: a forward for each new token (prefill and the
-    # steps), seven int8 products a layer and the lm_head's each
+    # decodes' two loops, at the contract's and the bench's lengths: a
+    # forward for each new token (prefill and the steps, replayed ones
+    # counted from the graph), seven int8 products a layer and the
+    # lm_head's each
     per_kernel = (config.n_layers * (MULTI_STEPS + 2)
                   if config.attention_impl == "flash" else 0)
-    int8 = 2 * MULTI_NEW_TOKENS * (7 * config.n_layers + 1)
+    int8 = (2 * (MULTI_NEW_TOKENS + BENCH_NEW_TOKENS)
+            * (7 * config.n_layers + 1))
     for rank in ranks:
         expect_launches(rank["launches"], per_kernel, per_kernel,
                         f"multichip rank path at tp={tp}", int8=int8)
@@ -1642,14 +1683,8 @@ def phase_multichip(card, train_losses=None):
             raise RuntimeError(f"multichip losses {first['losses']} off "
                                f"phase 7's {ref} by {diff}")
     emit(train)
-    emit({"phase": "multichip_decode", **common, "batch": 8, "prompt": 64,
-          "new_tokens": MULTI_NEW_TOKENS,
-          "int8_matmul_launches": launches["int8_matmul"],
-          "bf16_host_equals_device": True,
-          "int8_weights_int8_kv_host_equals_device": True,
-          "tokens_equal_on_every_rank": all(
-              (r["decode_plain"] == first["decode_plain"]).all()
-              for r in ranks)})
+    emit(multichip_decode_line(ranks, common, launches))
+    emit(multichip_bench_line(ranks, common, bench_tokens))
     emit({"phase": "multichip_checkpoint", **common,
           "saved_bytes": first["saved_bytes"], "save_s": first["save_s"],
           "restore_s": first["restore_s"],
@@ -1688,7 +1723,112 @@ def phase_multichip(card, train_losses=None):
           "dtype": "float32"})
     emit({"phase": "multichip_moe", **common, **first["moe"],
           "dtype": "float32"})
+    emit({"phase": "multichip_serving", **common,
+          **multichip_serving(n, card)})
     return launches, first["launches_ring"]
+
+
+#: the decode stage's dtypes: the label the ranks return, the line's name
+DECODE_LABELS = (("plain", "bf16"),
+                 ("int8_weights_int8_kv", "int8_weights_int8_kv"))
+
+
+def expect_graph_on_every_rank(runs, new_tokens, what) -> dict:
+    """expect_graph on each rank's device loop; their graph launches and
+    capture ms, in rank order."""
+    for rank, run in enumerate(runs):
+        expect_graph(run, new_tokens, f"{what} on rank {rank}")
+    return {"graph_launches_by_rank": [r["graph_launches"] for r in runs],
+            "capture_ms_by_rank": [r["capture_ms"] for r in runs]}
+
+
+def multichip_decode_line(ranks, common, launches):
+    """The decode stage's line from what every rank returned: each loop's
+    tokens against the other's and against rank 0's, and each rank's
+    device loop, which must be 1 eager step and the rest graph replays."""
+    line = {"phase": "multichip_decode", **common, "batch": 8,
+            "prompt": 64, "new_tokens": MULTI_NEW_TOKENS,
+            "int8_matmul_launches": launches["int8_matmul"]}
+    equal_ranks = True
+    for label, name in DECODE_LABELS:
+        key = f"decode_{label}"
+        line[f"{name}_host_equals_device"] = all(
+            np.array_equal(r[key], r[f"{key}_host"]) for r in ranks)
+        equal_ranks &= all(np.array_equal(r[key], ranks[0][key])
+                           for r in ranks)
+        runs = expect_graph_on_every_rank(
+            [r[f"{key}_loop"] for r in ranks], MULTI_NEW_TOKENS,
+            f"multichip decode ({name})")
+        line.update({f"{name}_{k}": v for k, v in runs.items()})
+    line["tokens_equal_on_every_rank"] = equal_ranks
+    if not (equal_ranks and all(line[f"{name}_host_equals_device"]
+                                for _, name in DECODE_LABELS)):
+        raise RuntimeError(f"multichip decode: loops or ranks differ: "
+                           f"{line}")
+    return line
+
+
+def multichip_bench_line(ranks, common, bench_tokens):
+    """The bench-shape decode on every rank: rank 0's times of the graph
+    and the host loop, every rank's graph launches, tokens equal on
+    every rank and in both loops, and at one card equal to phase 6's
+    graph tokens (``bench_tokens``; None when phase 6 did not run)."""
+    line = {"phase": "multichip_decode_bench", **common, "batch": 8,
+            "prompt": 64, "new_tokens": BENCH_NEW_TOKENS, "cells": {}}
+    for label, name in DECODE_LABELS:
+        cells = [r["decode_bench"][label] for r in ranks]
+        tokens = cells[0]["graph"]["tokens"]
+        check_bench_tokens(tokens, f"multichip, {name}")
+        cell = {loop: {k: cells[0][loop][k] for k in ("seconds", "tok_per_s")}
+                for loop in ("graph", "host")}
+        cell["graph_over_host"] = (cell["graph"]["tok_per_s"]
+                                   / cell["host"]["tok_per_s"])
+        cell["graph"].update(expect_graph_on_every_rank(
+            [c["graph"]["device_loop"] for c in cells], BENCH_NEW_TOKENS,
+            f"multichip bench decode ({name})"))
+        cell["tokens_equal_on_every_rank"] = all(
+            np.array_equal(c[loop]["tokens"], tokens)
+            for c in cells for loop in ("graph", "host"))
+        if not cell["tokens_equal_on_every_rank"]:
+            raise RuntimeError(f"multichip bench decode ({name}): ranks or "
+                               "loops differ")
+        if bench_tokens is not None and common["n"] == 1:
+            cell["graph_tokens_equal_phase6"] = bool(
+                np.array_equal(tokens, bench_tokens[name].numpy()))
+            if not cell["graph_tokens_equal_phase6"]:
+                raise RuntimeError(f"multichip bench decode ({name}) at one "
+                                   "card differs from phase 6's")
+        else:
+            cell["graph_tokens_equal_phase6"] = None
+        line["cells"][name] = cell
+    return line
+
+
+def multichip_serving(n, card):
+    """The serving pod (``serve_rank``) over NCCL on every visible card:
+    phase 6's burst at llama-277M, bf16, greedy; every rank replays its
+    decode from a graph, max_new_tokens - 2 launches a generation."""
+    start = time.perf_counter()
+    pod = run_ranks(serve_rank, n,
+                    {"config": CONFIG_277M,
+                     "max_new_tokens": BURST_NEW_TOKENS},
+                    BURST, device="cuda", timeout=300.0)
+    wall_s = time.perf_counter() - start
+    summary = pod[0]
+    generations = summary["completed"]
+    per_call = BURST_NEW_TOKENS - 2
+    launches = [summary["graph_launches"]] + [
+        r["graph_launches"] for r in pod[1:]]
+    followers = [r["follower_generations"] for r in pod[1:]]
+    if launches != [per_call * generations] * n \
+            or followers != [generations] * (n - 1):
+        raise RuntimeError(
+            f"the pod's ranks replayed {launches} graph launches over "
+            f"{generations} generations (followers took {followers}), "
+            f"expected {per_call} a generation on every rank")
+    return burst_line(summary, card, graph_launches_by_rank=launches,
+                      follower_generations=followers,
+                      wall_s_with_start_up=wall_s)
 
 
 def kernel_entry(name, source, replaces, launches, rows, shape, card):
@@ -1728,8 +1868,10 @@ def int8_entry(rows, serving, multi, card):
                     "(_mm, fused by XLA; no pallas_call)",
         "launches": serving + multi,
         "launches_by_path": {"serving": serving, "multichip": multi},
-        "launches_counted": "eager calls plus, for a replayed graph, the "
-                            "launches recorded at capture times the replays",
+        "launches_counted": "eager calls plus, for a replayed graph (on "
+                            "one card and on every rank of a mesh), the "
+                            "launches recorded at capture times the "
+                            "replays; multichip: rank 0's",
         "ok": True, "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1780,7 +1922,7 @@ def main(argv) -> int:
     reset_launch_counts()
     phase_forward(params, params32, card)
     qparams = phase_decode(params, params32, card)
-    phase_serving(params, qparams, card)
+    bench_tokens = phase_serving(params, qparams, card)
     serving = launch_counts()
     del params32, qparams
     torch.cuda.empty_cache()
@@ -1792,7 +1934,7 @@ def main(argv) -> int:
     del state, params
     torch.cuda.empty_cache()
     # the multi-device path: its ranks set their counts to 0 before it
-    multi, ring = phase_multichip(card, train_losses)
+    multi, ring = phase_multichip(card, train_losses, bench_tokens)
     for path, counts, names in (
             ("serving", serving, ["flash_attention_fwd", "int8_matmul"]),
             ("training", training, FLASH_KERNELS),

@@ -1,7 +1,8 @@
 """The CUDA kernels (flash attention, the ring-attention fold, the
 int8-weight matmul) against their plain versions, on the card, the
-ring's block chain against the whole-sequence kernels, and the
-graph-replayed decode loop against the host loop.
+ring's block chain against the whole-sequence kernels, the
+graph-replayed decode loop against the host loop on one card and on
+NCCL meshes of one and two ranks, and the serving pod over NCCL.
 
 Run on a machine with an NVIDIA H100:
 
@@ -11,11 +12,16 @@ Without CUDA every test here skips (decided in a fixture, not at import,
 so that every pytest-xdist worker collects the same tests).
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
+import test_torch_rank_workers as workers
 from tpu_operator_libs_torch.examples import llama as tllama
 from tpu_operator_libs_torch.examples import llama_decode as tdecode
+from tpu_operator_libs_torch.examples import llama_serving_job as serving
 from tpu_operator_libs_torch.examples.ring_attention import (
     _block_attention,
     _block_backward,
@@ -39,6 +45,7 @@ from tpu_operator_libs_torch.kernels.flash_attention import (
     flash_forward,
     kernel_design,
 )
+from tpu_operator_libs_torch.parallel import run_ranks
 
 pytestmark = pytest.mark.gpu
 
@@ -389,3 +396,59 @@ def test_graph_decode_equals_host_loop(cuda, case):
         assert torch.equal(host_lp, dev_lp)
         assert (dev[0, 8 + 3:] == kw["eos_id"]).all()
     assert torch.equal(host, dev)
+
+
+def need_cards(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards, {torch.cuda.device_count()} visible")
+
+
+@pytest.mark.parametrize("ranks", [1, 2], ids=["one_rank", "two_ranks"])
+@pytest.mark.parametrize("case", ["greedy_bf16",
+                                  "greedy_int8_weights_int8_kv",
+                                  "sampled_int8_eos_logprobs"])
+def test_mesh_graph_decode_equals_host_loop(cuda, case, ranks):
+    """generate_on_device with a mesh over NCCL (one rank a card, dp x
+    tp: 1 x 1, or 1 x 2 with the step's all-reduces and the vocabulary
+    gather in the graph) replays one captured step per token on every
+    rank; each rank's tokens (and logprobs) equal the host loop's bit for
+    bit and every rank's, and the int8 kernel's launches count every
+    replay."""
+    need_cards(ranks)
+    new = 12
+    results = run_ranks(workers.mesh_graph_decode_rank, ranks, case,
+                        dataclasses.asdict(DECODE_CFG), 4, 8, new,
+                        device="cuda", timeout=300.0)
+    per_forward = 7 * DECODE_CFG.n_layers + 1
+    first = results[0]
+    for rank in results:
+        assert rank["device_loop"]["eager_steps"] == 1
+        assert rank["device_loop"]["graph_launches"] == new - 2
+        assert rank["int8_launches"] == (new * per_forward
+                                         if "int8" in case else 0)
+        np.testing.assert_array_equal(rank["device"], rank["host"])
+        np.testing.assert_array_equal(rank["device"], first["device"])
+        if "device_logprobs" in rank:
+            np.testing.assert_array_equal(rank["device_logprobs"],
+                                          rank["host_logprobs"])
+            assert (rank["device"][0, 8 + 3:] == rank["eos_id"]).all()
+    assert first["device"].shape == (4, 8 + new)
+
+
+@pytest.mark.parametrize("ranks", [1, 2], ids=["one_rank", "two_ranks"])
+def test_mesh_pod_over_nccl_drains_without_drops(cuda, ranks):
+    """The serving pod on NCCL ranks: a mid-burst drain parks requests and
+    drops none, and every rank replays each generation's decode from a
+    graph (max_new_tokens - 2 launches a generation)."""
+    need_cards(ranks)
+    new = 8
+    pod = run_ranks(serving.serve_rank, ranks, {"max_new_tokens": new},
+                    {"n_requests": 8, "drain_after": 4, "workers": 3},
+                    device="cuda", timeout=300.0)
+    summary = pod[0]
+    assert summary["dropped"] == 0 and summary["parked"] >= 1
+    generations = summary["completed"]
+    assert summary["graph_launches"] == (new - 2) * generations
+    for follower in pod[1:]:
+        assert follower["follower_generations"] == generations
+        assert follower["graph_launches"] == (new - 2) * generations

@@ -96,8 +96,10 @@ def tp_train_rank(mesh, params_np, config_kw, tokens_np, variant="plain"):
 def tp_decode_rank(mesh, params_np, config_kw, prompt_np, new_tokens,
                    dtype_name):
     """Greedy tokens of both loops, plain and int8 weights + int8 KV, from
-    JAX's parameters cast to ``dtype_name``; and this rank's int8
-    scales."""
+    JAX's parameters cast to ``dtype_name``, with this rank's device loop
+    (``generate_on_device.last_call``); sampled tokens, and both loops'
+    sampled tokens and logprobs with an eos; this rank's int8 scales; and
+    what the device loop says of this (gloo) mesh on the card."""
     dtype = getattr(torch, dtype_name)
     config = llama.LlamaConfig(**config_kw)
     params = shard_params(_tensors(params_np, dtype), mesh)
@@ -114,10 +116,32 @@ def tp_decode_rank(mesh, params_np, config_kw, prompt_np, new_tokens,
         out[f"device_{label}"] = llama_decode.generate_on_device(
             p, prompt, config, new_tokens, param_dtype=dtype, mesh=mesh,
             **kw)
+        out[f"device_{label}_loop"] = dict(
+            llama_decode.generate_on_device.last_call)
     # sampling: every rank gets an equally seeded generator
     out["sampled"] = llama_decode.generate_on_device(
         params, prompt, config, new_tokens, param_dtype=dtype, mesh=mesh,
         temperature=1.0, top_k=8, generator=torch.Generator().manual_seed(0))
+
+    def sampled(fn, **kw):
+        return fn(qparams, prompt, config, new_tokens, param_dtype=dtype,
+                  mesh=mesh, quantize_kv=True, temperature=1.0, top_k=8,
+                  top_p=0.9, return_logprobs=True,
+                  generator=torch.Generator().manual_seed(1), **kw)
+
+    # the eos: the token row 0 draws at its third step without one
+    eos = int(sampled(llama_decode.generate)[0][0, prompt.shape[1] + 2])
+    host, host_lp = sampled(llama_decode.generate, eos_id=eos)
+    dev, dev_lp = sampled(llama_decode.generate_on_device, eos_id=eos)
+    out["sampled_eos"] = {
+        "eos_id": eos, "host": host, "host_logprobs": host_lp,
+        "device": dev, "device_logprobs": dev_lp,
+        "device_loop": dict(llama_decode.generate_on_device.last_call)}
+    try:
+        llama_decode._captures(torch.device("cuda"), mesh)
+        out["on_the_card"] = "captured"
+    except ValueError as exc:
+        out["on_the_card"] = str(exc)
     return out
 
 
@@ -278,3 +302,51 @@ def serving_pod_rank(mesh, prompts, demo_kw):
     return {"tokens": tokens, "summary": summary,
             "stopped": {"refused": refused is None,
                         **stopped.summary()}}
+
+
+def mesh_graph_decode_rank(mesh, case, config_kw, batch, prompt_len,
+                           new_tokens):
+    """One rank of the device decode against the host loop on the card
+    (``case``: ``greedy_bf16``, ``greedy_int8_weights_int8_kv`` or
+    ``sampled_int8_eos_logprobs``): both loops' tokens (and logprobs),
+    this rank's device loop and its int8 kernel launches over the device
+    loop. Every rank draws the same bf16 weights and prompt."""
+    from tpu_operator_libs_torch.kernels.int8_matmul import int8_matmul
+
+    device = mesh.device
+    config = llama.LlamaConfig(**config_kw)
+    int8 = "int8" in case
+    params = llama.init_llama_params(config, param_dtype=torch.bfloat16,
+                                     seed=1, mesh=mesh)
+    if int8:
+        params = llama_decode.quantize_params_int8(params, mesh)
+    prompt = torch.randint(0, config.vocab, (batch, prompt_len),
+                           device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(2))
+    kw = {"param_dtype": torch.bfloat16, "quantize_kv": int8, "mesh": mesh}
+    if case.startswith("sampled"):
+        kw.update(temperature=1.0, top_k=50, top_p=0.9,
+                  return_logprobs=True)
+        free, _ = llama_decode.generate(
+            params, prompt, config, new_tokens,
+            generator=torch.Generator(device=device).manual_seed(3), **kw)
+        kw["eos_id"] = int(free[0, prompt_len + 3])
+
+    def run(fn):
+        gen = (torch.Generator(device=device).manual_seed(3)
+               if "temperature" in kw else None)
+        return fn(params, prompt, config, new_tokens, generator=gen, **kw)
+
+    host = run(llama_decode.generate)
+    before = int8_matmul.launches
+    dev = run(llama_decode.generate_on_device)
+    torch.cuda.synchronize(device)
+    out = {"device_loop": dict(llama_decode.generate_on_device.last_call),
+           "int8_launches": int8_matmul.launches - before,
+           "eos_id": kw.get("eos_id")}
+    if "return_logprobs" in kw:
+        (host, out["host_logprobs"]), (dev, out["device_logprobs"]) = \
+            host, dev
+    out.update(host=host, device=dev)
+    return out

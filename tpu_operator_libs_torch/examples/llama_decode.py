@@ -24,7 +24,8 @@ Pallas source).
 
 On the card, :func:`generate_on_device` replays one decode step from a
 captured CUDA graph where JAX runs a ``lax.scan``: the step reads and
-writes only preallocated device tensors, its position among them.
+writes only preallocated device tensors, its position among them. With a
+mesh the graph holds the step's tp collectives too, on every NCCL rank.
 
 With a ``mesh`` (dp x tp, as the JAX package shards its cache on the
 batch and KV-head axes) every entry point takes the global prompt and
@@ -456,7 +457,24 @@ def _decode_step(state, params, config, mesh, pick, eos_id, prompt_len):
     state.pos += 1
 
 
-def _replay_steps(step, steps: int, generator, device) -> dict:
+def _captures(device, mesh) -> bool:
+    """Whether :func:`generate_on_device` replays its step from a captured
+    CUDA graph: on the card, with or without a ``mesh``. On the CPU the
+    same step runs in a Python loop, the path its caller asked for. A
+    mesh on the card must talk over NCCL, whose collectives a graph
+    captures; any other backend raises rather than loop on the card."""
+    if device.type != "cuda":
+        return False
+    if mesh is not None:
+        backend = dist.get_backend(mesh.tp_group)
+        if backend != "nccl":
+            raise ValueError(f"a mesh on {device} decodes over NCCL, not "
+                             f"{backend}: its collectives are captured in "
+                             "the decode step's CUDA graph")
+    return True
+
+
+def _replay_steps(step, steps: int, generator, device, mesh=None) -> dict:
     """``steps`` calls of ``step`` on the card: the first runs eagerly on
     the capture's stream, as the warm-up that torch's capture recipe asks
     for (a real step: it writes the cache and draws from the generator
@@ -466,7 +484,19 @@ def _replay_steps(step, steps: int, generator, device) -> dict:
     graph, so every replay draws at the next offsets of the caller's
     generator, as the eager steps would. Capture is thread-local: other
     threads' work on the card does not break it. Returns once the
-    replays have run: the graph and its memory pool die with the call."""
+    replays have run: the graph and its memory pool die with the call.
+
+    With a ``mesh`` every rank makes the same calls. Its tp collectives
+    are NCCL kernels on the process group's stream, joined to the
+    capture's stream by events, so the graph holds them. Their
+    communicators exist before the capture: NCCL creates one at its
+    group's first collective, which prefill and the warm-up step make.
+    The process group's watchdog thread queries its collectives' events;
+    a thread-local capture leaves other threads' calls alone. The ranks
+    agree that every capture succeeded before any replays, and then each
+    replays the same count in the same order, so every replayed
+    collective meets its peers; a rank whose capture failed raises, and
+    so do the others."""
     main = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device=device)
     side.wait_stream(main)
@@ -477,15 +507,21 @@ def _replay_steps(step, steps: int, generator, device) -> dict:
         step()
         captured = {name: w.launches for name, w in WRAPPERS.items()}
         start = time.perf_counter()
-        # not torch.cuda.graph: it would also synchronise the card and
-        # empty the allocator's cache before every capture (0.5 s after
-        # the allocations of a kernel benchmark, on the H100)
-        graph.capture_begin(capture_error_mode="thread_local")
         try:
-            step()
-        finally:
-            graph.capture_end()
+            # not torch.cuda.graph: it would also synchronise the card and
+            # empty the allocator's cache before every capture (0.5 s after
+            # the allocations of a kernel benchmark, on the H100)
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                step()
+            finally:
+                graph.capture_end()
+        except Exception:
+            any_rank(True, mesh)  # the peers must not replay alone
+            raise
         capture_ms = (time.perf_counter() - start) * 1e3
+    if any_rank(False, mesh):
+        raise RuntimeError("a peer rank failed to capture its decode step")
     main.wait_stream(side)
     with torch.cuda.stream(main):
         for _ in range(steps - 1):
@@ -516,13 +552,16 @@ def generate_on_device(params, prompt, config, max_new_tokens: int,
     token-equal to it, and so is sampled output drawn from an equally
     seeded generator.
 
-    On the card without a ``mesh``, prefill, the first pick and one
-    decode step run eagerly and the remaining steps replay one captured
-    CUDA graph, one launch a token (:func:`_replay_steps`); on the CPU
-    and with a ``mesh`` (capture over NCCL is not done) the same step
-    runs in a Python loop, and with a ``mesh`` the rows are gathered once,
-    after it. ``generate_on_device.last_call`` records the eager steps,
-    graph launches and capture milliseconds of the latest call."""
+    On the card, with or without a ``mesh``, prefill, the first pick and
+    one decode step run eagerly and the remaining steps replay one
+    captured CUDA graph, one launch a token (:func:`_replay_steps`); with
+    a ``mesh`` the graph holds the step's NCCL collectives on every rank
+    (a mesh over another backend raises, :func:`_captures`). On the CPU
+    the same step runs in a Python loop. With a ``mesh`` the rows are
+    gathered once, after the loop. ``generate_on_device.last_call``
+    records this rank's eager steps, graph launches and capture
+    milliseconds of the latest call."""
+    capture = _captures(params["embed"].device, mesh)
     prompt, cache = _start(params, prompt, config, max_new_tokens,
                            param_dtype, temperature, generator,
                            quantize_kv, top_p, mesh)
@@ -560,9 +599,10 @@ def generate_on_device(params, prompt, config, max_new_tokens: int,
         _decode_step(state, params, config, mesh, pick, eos_id, prompt_len)
 
     steps = max_new_tokens - 1
-    if device.type == "cuda" and mesh is None and steps > 1:
+    if capture and steps > 1:
         run = _replay_steps(step, steps,
-                            generator if temperature > 0.0 else None, device)
+                            generator if temperature > 0.0 else None, device,
+                            mesh)
     else:
         for _ in range(steps):
             step()
@@ -574,5 +614,6 @@ def generate_on_device(params, prompt, config, max_new_tokens: int,
     return out
 
 
-#: what the latest call ran: eager steps, graph launches, capture ms
+#: what this rank's latest call ran: eager steps, graph launches, capture
+#: ms
 generate_on_device.last_call = {}

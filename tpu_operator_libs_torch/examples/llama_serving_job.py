@@ -18,8 +18,10 @@ broadcasts a header (prompt shape and sampling seed, or stop) and the
 prompt; the ranks agree whether any of them was told to stop
 (``parallel.any_rank``), every rank runs the sharded
 ``generate_on_device(..., mesh=mesh)``, and rank 0 returns the gathered
-tokens. The followers wait for the next header; rank 0 always sends one
-more, stop, before it leaves, so no follower is left in a collective.
+tokens. On the cards each rank replays that decode's step from one
+captured CUDA graph, its NCCL collectives inside, as one card does. The
+followers wait for the next header; rank 0 always sends one more, stop,
+before it leaves, so no follower is left in a collective.
 
 Run the self-contained demo on the card:
 
@@ -86,6 +88,9 @@ class DecodeServer:
         self.stop_event = stop_event
         self.device = params["embed"].device
         self.parked = 0
+        #: this rank's decode steps replayed from a CUDA graph, over every
+        #: generation (``generate_on_device.last_call``)
+        self.graph_launches = 0
         #: wall seconds of each served request, admission to readback
         self.request_seconds: "list[float]" = []
         self._lock = threading.Lock()
@@ -102,10 +107,12 @@ class DecodeServer:
             generate_on_device,
         )
 
-        return generate_on_device(
+        out = generate_on_device(
             self.params, prompt, self.config, self.max_new_tokens,
             temperature=self.temperature, generator=generator,
             quantize_kv=self.quantize_kv, mesh=self.mesh)
+        self.graph_launches += generate_on_device.last_call["graph_launches"]
+        return out
 
     def _round(self, op, prompt=None, seed=None):
         """One round on every rank: rank 0's header (and prompt) reach
@@ -194,17 +201,20 @@ class DecodeServer:
             "dropped": self.endpoint.dropped,
             "parked": self.parked,
             "draining": self.endpoint.draining,
+            "graph_launches": self.graph_launches,
         }
 
 
 def build_server(n_layers: int = 2, d_model: int = 64,
                  quantize: bool = False, quantize_kv: bool = False,
                  max_new_tokens: int = 8, *, device=None, mesh=None,
-                 param_dtype=torch.bfloat16, stop_event=None):
+                 param_dtype=torch.bfloat16, stop_event=None, config=None):
     """A small Llama-style decode server with random weights, bfloat16
-    by default (demo-sized). ``quantize``/``quantize_kv`` switch on the
-    int8 weight / int8 KV-cache serving stack. With a ``mesh`` every rank
-    builds its part of the pod (the same weights, its tp shards)."""
+    by default (demo-sized; ``config``, a ``LlamaConfig``, serves that
+    model instead of ``n_layers`` x ``d_model``). ``quantize``/
+    ``quantize_kv`` switch on the int8 weight / int8 KV-cache serving
+    stack. With a ``mesh`` every rank builds its part of the pod (the
+    same weights, its tp shards)."""
     from tpu_operator_libs_torch.examples.llama import (
         LlamaConfig,
         init_llama_params,
@@ -214,12 +224,12 @@ def build_server(n_layers: int = 2, d_model: int = 64,
     )
     from tpu_operator_libs_torch.health.serving_gate import ServingEndpoint
 
-    config = LlamaConfig(vocab=d_model, d_model=d_model,
-                         n_layers=n_layers,
-                         n_heads=max(4, d_model // 16),
-                         n_kv_heads=max(4, d_model // 16),
-                         d_ff=4 * d_model, seq_len=64,
-                         learning_rate=1e-4)
+    config = config or LlamaConfig(vocab=d_model, d_model=d_model,
+                                   n_layers=n_layers,
+                                   n_heads=max(4, d_model // 16),
+                                   n_kv_heads=max(4, d_model // 16),
+                                   d_ff=4 * d_model, seq_len=64,
+                                   learning_rate=1e-4)
     params = init_llama_params(
         config, param_dtype=param_dtype,
         device=None if mesh is not None else resolve_device(device),
@@ -294,10 +304,12 @@ def run_demo(server, n_requests: int = 12, drain_after: int = 6,
 def serve_rank(mesh, server_kw, demo_kw, stop_event=None):
     """One rank of a pod over the mesh: every rank builds its part of
     the server; rank 0 runs the demo burst and returns its summary, the
-    others serve until it stops them."""
+    others serve until it stops them and return their generations; each
+    rank reports its decode steps replayed from a graph."""
     server = build_server(mesh=mesh, stop_event=stop_event, **server_kw)
     if dist.get_rank() != 0:
-        return {"follower_generations": server.serve()}
+        return {"follower_generations": server.serve(),
+                "graph_launches": server.graph_launches}
     try:
         return run_demo(server, **demo_kw)
     finally:

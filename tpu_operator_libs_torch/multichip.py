@@ -9,8 +9,10 @@ reference's dp x tp mesh, the workload that gate protects and the probe:
 
 1. ``train``: a dp x tp Llama train step (finite loss, ``wq`` still split
    over tp);
-2. ``decode``: the device loop against the host loop, greedy, in the
-   parameters' dtype and in int8 weights + int8 KV cache, token for token;
+2. ``decode``: the device loop (on the cards one CUDA graph of the step
+   replayed a token on every rank) against the host loop, greedy, in the
+   parameters' dtype and in int8 weights + int8 KV cache, token for
+   token, and when asked the two timed at a bench shape;
 3. ``checkpoint``: save through DCP, the durability gate closed before
    and open after the commit, a restore into another seed's state, and
    the next loss equal bit for bit to the uninterrupted run's;
@@ -189,13 +191,17 @@ def run_stages(mesh, config, ckpt_dir, *, param_dtype=None,
                batch_per_shard: int = 2, train_steps: int = 1,
                prompt_len: int = 4, new_tokens: int = 4,
                decode_rows=None, payload_mib: int = 1,
-               rounds: int = 2, shapes: ParallelShapes = ParallelShapes()
-               ) -> dict:
+               rounds: int = 2, shapes: ParallelShapes = ParallelShapes(),
+               decode_bench=None) -> dict:
     """:data:`STAGES` on this rank (``run_ranks`` runs it on every rank,
     all with one ``ckpt_dir``). Every check raises on failure. Returns
     the numbers each stage measured; ``launches`` counts this rank's
     kernel launches over stages 1-4 (set to 0 just before the first),
-    ``launches_ring`` those of the ring stage (likewise)."""
+    ``launches_ring`` those of the ring stage (likewise). The decode
+    stage returns both loops' tokens and this rank's
+    ``generate_on_device.last_call`` for each; ``decode_bench``, a
+    (global prompt, new tokens) pair, also times the two loops there
+    from the untrained parameters (:func:`_decode_bench`)."""
     device = mesh.device
     out = {"dp": mesh.dp, "tp": mesh.tp}
 
@@ -239,7 +245,12 @@ def run_stages(mesh, config, ckpt_dir, *, param_dtype=None,
             raise RuntimeError(f"device decode diverged from the host loop "
                                f"({label})")
         out[f"decode_{label}"] = dev
+        out[f"decode_{label}_host"] = host
+        out[f"decode_{label}_loop"] = dict(generate_on_device.last_call)
     del qparams
+    if decode_bench is not None:
+        out["decode_bench"] = _decode_bench(params, decode_config,
+                                            param_dtype, mesh, *decode_bench)
 
     # 3. checkpoint -> gate -> resume, bit for bit
     gate = CheckpointDurabilityGate(ckpt_dir)
@@ -290,6 +301,38 @@ def run_stages(mesh, config, ckpt_dir, *, param_dtype=None,
     out["launches"] = _launches()
     out.update(_parallel_stages(mesh, shapes, param_dtype))
     return out
+
+
+def _decode_bench(params, config, param_dtype, mesh, prompt,
+                  new_tokens) -> dict:
+    """The device loop timed against the host loop on one global
+    ``prompt``, in the parameters' dtype (``plain``) and in int8 weights +
+    int8 KV: for each loop its wall seconds up to the tokens on the host,
+    tokens per second over the global batch's new tokens and its tokens,
+    which must be equal; for the device loop, this rank's
+    ``generate_on_device.last_call``."""
+    prompt = torch.as_tensor(prompt, device=mesh.device)
+    cells = {}
+    for label, p, kw in (("plain", params, {}),
+                         ("int8_weights_int8_kv",
+                          quantize_params_int8(params, mesh),
+                          {"quantize_kv": True})):
+        cell = {}
+        for loop, fn in (("graph", generate_on_device), ("host", generate)):
+            _sync(mesh.device)
+            start = time.perf_counter()
+            tokens = fn(p, prompt, config, new_tokens,
+                        param_dtype=param_dtype, mesh=mesh, **kw).cpu()
+            seconds = time.perf_counter() - start
+            cell[loop] = {"seconds": seconds, "tokens": tokens,
+                          "tok_per_s": prompt.shape[0] * new_tokens / seconds}
+            if loop == "graph":
+                cell[loop]["device_loop"] = dict(generate_on_device.last_call)
+        if not torch.equal(cell["graph"]["tokens"], cell["host"]["tokens"]):
+            raise RuntimeError(f"bench decode: the graph and the host loop "
+                               f"differ ({label})")
+        cells[label] = cell
+    return cells
 
 
 def _launches() -> "dict[str, int]":
