@@ -43,13 +43,25 @@ exits non-zero without printing a result. Phases:
    over copies of the weight that overflow L2 (so read from device
    memory), beside ``torch._weight_int8pack_mm`` and cuBLAS on a bf16
    copy.
+3e. decode_kernels: the cached step's attention kernel and cache-write
+   kernel against their plain versions at the shapes the decode paths give
+   them (the bench decode at the last and a middle position, its prefill
+   block, phase 9's tp shard, each over a bf16 and an int8 cache; GQA in
+   f32, bf16 queries over an f32 cache, head_dims 64, 16 and 8, a ragged
+   S), each row naming its design and its CUDA launches a call (1); the
+   attention within ``KERNEL_TOL`` of the plain version in float32, the
+   cache write bit-equal to its plain version and touching no other row;
+   two launches and a graph-replayed one bit-equal; timed in CUDA graphs
+   over cache copies that overflow L2, the attention beside SDPA with the
+   boolean mask where the cache is float and of q's dtype.
 4-6. the serving path, with the launch counts set to 0 just before it:
    ``forward`` of llama-277M with ``attention_impl="flash"`` against
    ``"xla"``; the decode contract (stepwise cache == batch forward, host
    loop == graph-replayed device loop in bf16, int8 weights + int8 KV
    and a sampled case with eos and logprobs; each call's graph launches
-   and capture ms); a ``DecodeServer`` burst with a mid-burst drain, then
-   decode at the bench's shape through the graph and the host loop.
+   and capture ms; both decode kernels launched once a layer a forward);
+   a ``DecodeServer`` burst with a mid-burst drain, then decode at the
+   bench's shape through the graph and the host loop.
 7-8. the training path, with the launch counts set to 0 just before it:
    6 steps of ``make_train_step`` (flash, batch 16, seq 1024, bf16), its
    gradients against ``"xla"`` and against ``remat=True``; then save ->
@@ -147,6 +159,17 @@ from tpu_operator_libs_torch.kernels import (  # noqa: E402
 from tpu_operator_libs_torch.kernels.attention_fold import (  # noqa: E402
     attention_fold,
     attention_fold_reference,
+)
+from tpu_operator_libs_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention,
+    decode_attention_reference,
+    output_dtype as decode_output_dtype,
+    plan as decode_plan,
+)
+from tpu_operator_libs_torch.kernels.kv_append import (  # noqa: E402
+    _quantize_kv_block,
+    kv_append,
+    kv_append_reference,
 )
 from tpu_operator_libs_torch.kernels.int8_matmul import (  # noqa: E402
     int8_matmul,
@@ -360,6 +383,26 @@ def phase_build():
                     {"design": f"wgmma: {block_m} x 128 tiles, TMA ring, "
                                "codes converted in shared memory",
                      "dynamic_smem_bytes": smem}, serialized))
+                continue
+            da = re.search(r"\d(decode_attention_kernel)I(f|13__nv_bfloat16|a)"
+                           r"Lb([01])E", block)
+            if da is not None:
+                cache = {"f": torch.float32, "a": torch.int8}.get(
+                    da.group(2), torch.bfloat16)
+                entries.append(ptxas_entry(
+                    block, da.group(1), cache, None,
+                    {"design": "cuda cores: one block a (b, kv head, 16 "
+                               "query rows), key tiles double-buffered by "
+                               + ("16-byte cp.async" if da.group(3) == "1"
+                                  else "element loads"),
+                     # it depends on head_dim and the key tile
+                     "dynamic_smem_bytes": None}, serialized))
+                continue
+            if re.search(r"\dkv_append_kernelE", block) is not None:
+                entries.append(ptxas_entry(
+                    block, "kv_append_kernel", "any", None,
+                    {"design": "one warp a (b, t, kv head) row of K or V",
+                     "dynamic_smem_bytes": 0}))
                 continue
             fold = re.search(r"\dattention_fold_kernelI(13__nv_bfloat16|f)E",
                              block)
@@ -1067,6 +1110,265 @@ def phase_int8_matmul(card):
     return [check_int8_shape(*shape, card) for shape in INT8_SHAPES]
 
 
+#: (label, B, T, n_heads, n_kv_heads, S, start_pos, head_dim, q dtype,
+#: cache dtype) of phase 3e, at llama-277M's widths: the bench decode (8
+#: rows, context 1024) at its last position and mid-sequence, its prefill
+#: block of 64, phase 9's tp = 2 shard (4 rows a rank over 8 heads), each
+#: over a bf16 and an int8 cache; GQA with an f32 cache under f32 q;
+#: bf16 q over an f32 cache (param_dtype None under bf16 params); the
+#: card tests' head_dim 64, the serving job's 16 and the dry run's 8; a
+#: ragged S. The first row is the serving path's most launched call.
+DECODE_SHAPES = [
+    (label, b, t, h, kv, s, pos, d, q, cache)
+    for label, b, t, h, kv, s, pos, d, q, caches in [
+        ("bench_decode", 8, 1, 16, 16, 1024, 1023, 128, torch.bfloat16,
+         (torch.bfloat16, torch.int8)),
+        ("bench_decode_mid", 8, 1, 16, 16, 1024, 544, 128, torch.bfloat16,
+         (torch.bfloat16, torch.int8)),
+        ("bench_prefill", 8, 64, 16, 16, 1024, 0, 128, torch.bfloat16,
+         (torch.bfloat16, torch.int8)),
+        ("tp2_shard", 4, 1, 8, 8, 1024, 1023, 128, torch.bfloat16,
+         (torch.bfloat16, torch.int8)),
+        ("gqa_f32", 2, 1, 16, 4, 1000, 999, 128, torch.float32,
+         (torch.float32,)),
+        ("mixed_bf16_q_f32_cache", 8, 1, 16, 16, 1024, 1023, 128,
+         torch.bfloat16, (torch.float32,)),
+        ("head_dim_64", 8, 1, 16, 16, 1024, 1023, 64, torch.bfloat16,
+         (torch.bfloat16, torch.int8)),
+        ("head_dim_16", 8, 1, 16, 16, 1024, 1023, 16, torch.bfloat16,
+         (torch.bfloat16, torch.int8)),
+        ("head_dim_8", 8, 1, 16, 16, 1024, 1023, 8, torch.bfloat16,
+         (torch.bfloat16, torch.int8)),
+        ("ragged_s", 8, 1, 16, 16, 997, 996, 128, torch.bfloat16,
+         (torch.bfloat16, torch.int8)),
+    ]
+    for cache in caches
+]
+#: the most cache copies a timed call turns through (small caches)
+MAX_CACHE_COPIES = 64
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def random_cache(gen, batch, seq, kv_heads, dim, cache):
+    """One layer's cache, full of values: float (normal) or the int8
+    codes and scales of normal values as the cache write makes them."""
+    def randn():
+        return torch.randn((batch, seq, kv_heads, dim), generator=gen,
+                           device="cuda")
+
+    if cache == torch.int8:
+        (kq, ks), (vq, vs) = (_quantize_kv_block(randn()) for _ in range(2))
+        return {"k": kq, "k_s": ks, "v": vq, "v_s": vs}
+    return {"k": randn().to(cache), "v": randn().to(cache)}
+
+
+def cache_bytes(entry) -> int:
+    return sum(t.numel() * t.element_size() for t in entry.values())
+
+
+def decode_attention_bound_ms(batch, t_new, heads, kv_heads, seq, dim,
+                              q_dtype, cache):
+    """Least time of one call, the whole cache counted as the reference
+    reads it: K, V (and their scales) read once, q read and the output
+    written once, over the memory rate, against 4*B*nh*T*S*hd FLOPs over
+    the peak of the compute dtype (q's for an int8 cache, else the
+    promoted one)."""
+    out = decode_output_dtype(q_dtype, cache)
+    nbytes = (2 * batch * seq * kv_heads * dim * cache.itemsize
+              + (2 * batch * seq * kv_heads * 4 if cache == torch.int8
+                 else 0)
+              + batch * t_new * heads * dim
+              * (q_dtype.itemsize + out.itemsize))
+    t_bytes = nbytes / PEAK_BYTES
+    t_flops = 4 * batch * heads * t_new * seq * dim / PEAK_FLOPS[out]
+    if t_flops >= t_bytes:
+        return t_flops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def kv_append_bound_ms(batch, t_new, kv_heads, dim, x_dtype, cache):
+    """Least time of one cache write: K and V read and their rows (and
+    scales) written once, over the memory rate."""
+    rows = 2 * batch * t_new * kv_heads
+    nbytes = rows * dim * (x_dtype.itemsize + cache.itemsize) \
+        + (rows * 4 if cache == torch.int8 else 0)
+    return nbytes / PEAK_BYTES * 1e3, "bytes"
+
+
+def check_decode_shape(label, batch, t_new, heads, kv_heads, seq, start,
+                       dim, q_dtype, cache, card):
+    """decode_attention against its plain version at one shape: the error
+    against the plain version computed in float32 from the same inputs
+    (the limit), and against the plain version at its own dtypes; two
+    launches and a graph replay bit-equal; one CUDA launch a call; times
+    in CUDA graphs over cache copies that overflow L2."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    q = torch.randn((batch, t_new, heads, dim), generator=gen,
+                    device="cuda").to(q_dtype)
+    entry = random_cache(gen, batch, seq, kv_heads, dim, cache)
+    pos = torch.tensor(start, device="cuda")
+    got = decode_attention(q, entry, pos)
+    again = decode_attention(q, entry, pos)
+    torch.cuda.synchronize()
+    oracle = decode_attention_reference(
+        q.float(), {n: t if t.dtype == torch.int8 else t.float()
+                    for n, t in entry.items()}, pos)
+    plain = decode_attention_reference(q, entry, pos)
+    rtol, atol = KERNEL_TOL[got.dtype]
+    err = (got.float() - oracle).abs()
+    use = limit_use(err, oracle, rtol, atol)
+    bit_equal = bool(torch.equal(got, again))
+    graph_equal = graph_replay_equal(lambda: decode_attention(q, entry, pos),
+                                     got)
+    launches = cuda_launches(lambda: decode_attention(q, entry, pos))
+    if not (use <= 1 and bit_equal and graph_equal and launches == 1
+            and got.shape == q.shape and got.dtype == plain.dtype
+            and torch.isfinite(got.float()).all()):
+        raise RuntimeError(
+            f"decode_attention off its plain version at {label} "
+            f"({dtype_name(cache)} cache): limit_use {use}, max|err| "
+            f"{err.max().item()}, bit-equal launches {bit_equal}, graph "
+            f"replay bit-equal {graph_equal}, CUDA launches a call "
+            f"{launches}, dtype {got.dtype} (plain {plain.dtype})")
+    p = decode_plan(batch, t_new, heads, kv_heads, dim, cache)
+    row = {"phase": "decode_kernels", "name": "decode_attention",
+           "shape": label, "B": batch, "T": t_new, "H": heads,
+           "H_kv": kv_heads, "S": seq, "D": dim, "start_pos": start,
+           "dtype": dtype_name(q_dtype), "cache": dtype_name(cache),
+           "out_dtype": dtype_name(got.dtype),
+           "design": f"cuda cores, {p.grid[0] * p.grid[1] * p.grid[2]} "
+                     f"blocks of (b, kv head, 16 query rows), "
+                     f"{p.key_tile}-key tiles double-buffered by "
+                     + ("16-byte cp.async" if p.vec else "element loads"),
+           "cuda_launches_per_call": launches,
+           "max_abs_err": err.max().item(),
+           "oracle": "the plain version in float32 on the same inputs",
+           "rtol": rtol, "atol": atol, "limit_use": use,
+           "max_abs_err_vs_plain_own_dtype":
+               (got.float() - plain.float()).abs().max().item(),
+           "bit_equal_launches": bit_equal,
+           "graph_replay_bit_equal": graph_equal}
+    del again, oracle, plain, err
+    # timed inside CUDA graphs, each call on another copy of the cache
+    # (ROTATE_BYTES of them): the cache comes from device memory, as in
+    # the decode step, not from L2
+    copies = min(MAX_CACHE_COPIES, -(-ROTATE_BYTES // cache_bytes(entry)))
+    pool = [(entry,)] + [({n: t.clone() for n, t in entry.items()},)
+                         for _ in range(copies - 1)]
+    row["cache_copies"] = len(pool)
+    row["kernel_ms"] = rotated_ms(lambda e: decode_attention(q, e, pos),
+                                  pool, 30)
+    row["plain_ms"] = rotated_ms(
+        lambda e: decode_attention_reference(q, e, pos), pool, 10)
+    if cache != torch.int8 and cache == q_dtype:
+        # the library's attention with the reference's boolean mask on
+        # transposed views of the cache, GQA by the library
+        mask = torch.arange(seq, device="cuda")[None, :] \
+            <= (start + torch.arange(t_new, device="cuda"))[:, None]
+        qt = q.transpose(1, 2)
+        row["library"] = "sdpa(attn_mask=(T, S) bool, enable_gqa=True)"
+        try:
+            row["library_ms"] = rotated_ms(
+                lambda e: torch.nn.functional.scaled_dot_product_attention(
+                    qt, e["k"].transpose(1, 2), e["v"].transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True), pool, 10)
+        except RuntimeError as exc:  # a yardstick, not a check of the port
+            row["library"] += f": failed ({str(exc)[:200]})"
+            row["library_ms"] = None
+    else:
+        row["library"] = ("none: no PyTorch call reads an int8 cache with "
+                          "scales" if cache == torch.int8 else
+                          "none: sdpa takes no mixed dtypes")
+        row["library_ms"] = None
+    row["bound_ms"], row["bound_by"] = decode_attention_bound_ms(
+        batch, t_new, heads, kv_heads, seq, dim, q_dtype, cache)
+    row["card"] = card
+    emit(row)
+    del pool, entry, q, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_append_shape(label, batch, t_new, heads, kv_heads, seq, start,
+                       dim, q_dtype, cache, card):
+    """kv_append against its plain version at one shape: every cache leaf
+    bit-equal after the write, the rows outside [start, start + T)
+    untouched; two launches and a graph replay bit-equal; one CUDA launch
+    a call; timed in a CUDA graph."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    k, v = (torch.randn((batch, t_new, kv_heads, dim), generator=gen,
+                        device="cuda").to(q_dtype) for _ in range(2))
+    base = random_cache(gen, batch, seq, kv_heads, dim, cache)
+    pos = torch.tensor(start, device="cuda")
+
+    def fresh():
+        return {n: t.clone() for n, t in base.items()}
+
+    got, again, want = fresh(), fresh(), fresh()
+    kv_append(got, k, v, pos)
+    kv_append(again, k, v, pos)
+    kv_append_reference(want, k, v, pos)
+    torch.cuda.synchronize()
+    bit_equal_plain = all(torch.equal(got[n], want[n]) for n in got)
+    bit_equal = all(torch.equal(got[n], again[n]) for n in got)
+    untouched = all(
+        torch.equal(got[n][:, :start], base[n][:, :start])
+        and torch.equal(got[n][:, start + t_new:], base[n][:, start + t_new:])
+        for n in got)
+    written = all(not torch.equal(got[n][:, start:start + t_new],
+                                  base[n][:, start:start + t_new])
+                  for n in got)
+
+    def leaves_bytes(entry):
+        return torch.cat([t.view(torch.uint8).flatten()
+                          for t in entry.values()])
+
+    target = fresh()
+    graph_equal = graph_replay_equal(
+        lambda: leaves_bytes(kv_append(target, k, v, pos)),
+        leaves_bytes(got))
+    launches = cuda_launches(lambda: kv_append(target, k, v, pos))
+    if not (bit_equal_plain and bit_equal and untouched and written
+            and graph_equal and launches == 1):
+        raise RuntimeError(
+            f"kv_append off its plain version at {label} "
+            f"({dtype_name(cache)} cache): bit-equal to plain "
+            f"{bit_equal_plain}, two launches {bit_equal}, other rows "
+            f"untouched {untouched}, rows written {written}, graph replay "
+            f"{graph_equal}, CUDA launches a call {launches}")
+    row = {"phase": "decode_kernels", "name": "kv_append", "shape": label,
+           "B": batch, "T": t_new, "H_kv": kv_heads, "S": seq, "D": dim,
+           "start_pos": start, "dtype": dtype_name(q_dtype),
+           "cache": dtype_name(cache),
+           "design": "one warp a (b, t, kv head) row of K or V",
+           "cuda_launches_per_call": launches, "max_abs_err": 0.0,
+           "bit_equal_to_plain": bit_equal_plain,
+           "other_rows_untouched": untouched, "bit_equal_launches": bit_equal,
+           "graph_replay_bit_equal": graph_equal,
+           "kernel_ms": graph_ms(lambda: kv_append(target, k, v, pos), 50),
+           "plain_ms": graph_ms(
+               lambda: kv_append_reference(target, k, v, pos), 20),
+           "library": "none: no single PyTorch call quantizes and writes",
+           "library_ms": None}
+    row["bound_ms"], row["bound_by"] = kv_append_bound_ms(
+        batch, t_new, kv_heads, dim, q_dtype, cache)
+    row["card"] = card
+    emit(row)
+    del got, again, want, target, base
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_decode_kernels(card):
+    """Phase 3e: (attention rows, cache-write rows), in DECODE_SHAPES'
+    order."""
+    return ([check_decode_shape(*shape, card) for shape in DECODE_SHAPES],
+            [check_append_shape(*shape, card) for shape in DECODE_SHAPES])
+
+
 def cast_params(params, dtype):
     if isinstance(params, dict):
         return {k: cast_params(v, dtype) for k, v in params.items()}
@@ -1148,7 +1450,10 @@ def phase_decode(params, params32, card):
               "card": card}
     with torch.no_grad():
         full = forward(params, tokens, CONFIG_277M)
+        before = launch_counts()
         step = stepwise_logits(params, tokens, torch.bfloat16)
+        result["decode_kernel_launches_stepwise"] = expect_decode_launches(
+            before, tokens.shape[1], "the stepwise bf16 decode")
         rel = rel_err(step, full)
         full32 = forward(params32, tokens, CONFIG_277M)
         step32 = stepwise_logits(params32, tokens, torch.float32)
@@ -1166,10 +1471,15 @@ def phase_decode(params, params32, card):
     for label, p, kw in (("bf16", params, {}),
                          ("int8_weights_int8_kv", qparams,
                           {"quantize_kv": True})):
+        before = launch_counts()
         host = generate(p, prompt, CONFIG_277M, 32,
                         param_dtype=torch.bfloat16, **kw)
+        expect_decode_launches(before, 32, f"the host loop ({label})")
+        before = launch_counts()
         dev = generate_on_device(p, prompt, CONFIG_277M, 32,
                                  param_dtype=torch.bfloat16, **kw)
+        result[f"decode_kernel_launches_{label}"] = expect_decode_launches(
+            before, 32, f"the graph loop ({label})")
         equal = bool(torch.equal(host, dev))
         valid = bool(((dev >= 0) & (dev < CONFIG_277M.vocab)).all())
         result[f"host_equals_device_{label}"] = equal
@@ -1211,7 +1521,10 @@ def sampled_contract(qparams, prompt):
     free, _ = run(generate)
     eos = int(free[0, 64 + 4])
     host, host_lp = run(generate, eos_id=eos)
+    before = launch_counts()
     dev, dev_lp = run(generate_on_device, eos_id=eos)
+    # every step runs on the device, eos or not
+    expect_decode_launches(before, 32, "the sampled graph loop")
     graph = dict(generate_on_device.last_call)
     out = {**SAMPLING, "eos_id": eos,
            "tokens_equal": bool(torch.equal(host, dev)),
@@ -1282,13 +1595,17 @@ def phase_serving(params, qparams, card):
         # yardstick, each warmed by a short call
         for loop, fn in (("graph", generate_on_device), ("host", generate)):
             fn(p, prompt, CONFIG_277M, 8, param_dtype=torch.bfloat16, **kw)
+            before = launch_counts()
             start = time.perf_counter()
             out = fn(p, prompt, CONFIG_277M, BENCH_NEW_TOKENS,
                      param_dtype=torch.bfloat16, **kw).cpu()
             seconds = time.perf_counter() - start
             check_bench_tokens(out, f"{label}, {loop}")
             cell[loop] = {"seconds": seconds,
-                          "tok_per_s": 8 * BENCH_NEW_TOKENS / seconds}
+                          "tok_per_s": 8 * BENCH_NEW_TOKENS / seconds,
+                          "decode_kernel_launches": expect_decode_launches(
+                              before, BENCH_NEW_TOKENS,
+                              f"bench-shape decode ({label}, {loop})")}
             if loop == "graph":
                 run = dict(generate_on_device.last_call)
                 expect_graph(run, BENCH_NEW_TOKENS,
@@ -1345,10 +1662,21 @@ def profile_device(fn, top: int = 6):
             "device_busy_share": busy_us / wall_us,
             "top": [{"name": e.key[:60], "calls": e.count,
                      "device_ms": device_us(e) / 1e3} for e in rows],
-            # the int8 kernel's instances, in or out of the top rows
-            "int8_matmul": [{"name": e.key[:100], "calls": e.count,
-                             "device_ms": device_us(e) / 1e3}
-                            for e in events if "int8_matmul" in e.key]}
+            # kernels, copies and sets the device ran, and the copies'
+            # share (clones, casts and memcpys: "copy" in the name)
+            "device_events": sum(e.count for e in events),
+            "copies": {
+                "calls": sum(e.count for e in events
+                             if "copy" in e.key.lower()),
+                "device_ms": sum(device_us(e) for e in events
+                                 if "copy" in e.key.lower()) / 1e3},
+            # the port's decode kernels' instances, in or out of the top
+            # rows
+            **{name: [{"name": e.key[:100], "calls": e.count,
+                       "device_ms": device_us(e) / 1e3}
+                      for e in events if name in e.key]
+               for name in ("int8_matmul", "decode_attention",
+                            "kv_append")}}
 
 
 def profile_decode(fn, params, prompt, kw):
@@ -1385,12 +1713,33 @@ TRAIN_STEPS = 6
 REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-6
 
 
-def expect_launches(delta, fwd, bwd, what, fold=0, int8=0):
+def expect_launches(delta, fwd, bwd, what, fold=0, int8=0, decode=0):
+    """``decode``: the launches of each decode kernel (decode_attention
+    and kv_append run once a layer a forward_with_cache call)."""
     want = {"flash_attention_fwd": fwd, "flash_attention_bwd_dkv": bwd,
             "flash_attention_bwd_dq": bwd, "attention_fold": fold,
-            "int8_matmul": int8}
+            "int8_matmul": int8, "decode_attention": decode,
+            "kv_append": decode}
     if delta != want:
         raise RuntimeError(f"{what} launched {delta}, expected {want}")
+
+
+#: the decode path's kernels that run once a layer a forward_with_cache
+DECODE_KERNELS = ["decode_attention", "kv_append"]
+
+
+def expect_decode_launches(before, forwards, what) -> int:
+    """Each decode kernel launched once a layer for each of ``forwards``
+    forward_with_cache calls since the counts ``before`` (a replayed
+    graph's launches counted); returns the count."""
+    after = launch_counts()
+    want = forwards * CONFIG_277M.n_layers
+    got = {name: after[name] - before[name] for name in DECODE_KERNELS}
+    if got != dict.fromkeys(DECODE_KERNELS, want):
+        raise RuntimeError(f"{what} launched {got}, expected {want} each "
+                           f"({forwards} forwards of "
+                           f"{CONFIG_277M.n_layers} layers)")
+    return want
 
 
 def grads_with_launches(params, tokens, config):
@@ -1662,9 +2011,13 @@ def phase_multichip(card, train_losses=None, bench_tokens=None):
                   if config.attention_impl == "flash" else 0)
     int8 = (2 * (MULTI_NEW_TOKENS + BENCH_NEW_TOKENS)
             * (7 * config.n_layers + 1))
+    # both dtypes' loops: the decode kernels once a layer a forward
+    decode = (2 * 2 * (MULTI_NEW_TOKENS + BENCH_NEW_TOKENS)
+              * config.n_layers)
     for rank in ranks:
         expect_launches(rank["launches"], per_kernel, per_kernel,
-                        f"multichip rank path at tp={tp}", int8=int8)
+                        f"multichip rank path at tp={tp}", int8=int8,
+                        decode=decode)
         if rank["losses"] != first["losses"]:
             raise RuntimeError("ranks disagree on the losses")
     train = {"phase": "multichip_train", **common,
@@ -1748,7 +2101,9 @@ def multichip_decode_line(ranks, common, launches):
     device loop, which must be 1 eager step and the rest graph replays."""
     line = {"phase": "multichip_decode", **common, "batch": 8,
             "prompt": 64, "new_tokens": MULTI_NEW_TOKENS,
-            "int8_matmul_launches": launches["int8_matmul"]}
+            "int8_matmul_launches": launches["int8_matmul"],
+            **{f"{name}_launches": launches[name]
+               for name in DECODE_KERNELS}}
     equal_ranks = True
     for label, name in DECODE_LABELS:
         key = f"decode_{label}"
@@ -1897,6 +2252,36 @@ def int8_entry(rows, serving, multi, card):
         "card": card}
 
 
+def decode_entry(name, rows, serving, multi, replaces, card):
+    """The kernels line's entry of a decode kernel; its times and bound
+    are phase 3e's first row, the bench decode over a bf16 cache, the call
+    most launched on the serving path."""
+    main_row = rows[0]
+    keys = ("shape", "B", "T", "H", "H_kv", "S", "D", "start_pos", "dtype",
+            "cache", "design", "cuda_launches_per_call", "max_abs_err",
+            "limit_use", "bit_equal_to_plain", "bit_equal_launches",
+            "graph_replay_bit_equal", "kernel_ms", "plain_ms", "library",
+            "library_ms", "bound_ms", "bound_by")
+    return {
+        "name": name, "route": "cuda",
+        "source": f"tpu_operator_libs_torch/csrc/{name}.cu",
+        "replaces": replaces, "launches": serving[name] + multi[name],
+        "launches_by_path": {"serving": serving[name],
+                             "multichip": multi[name]},
+        "launches_counted": "eager calls plus, for a replayed graph, the "
+                            "launches recorded at capture times the "
+                            "replays; multichip: rank 0's",
+        "ok": True, "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "library": main_row["library"], "design": main_row["design"],
+        "shape": "B=8 T=1 H=16 S=1024 D=128 bf16 q over a bf16 cache at "
+                 "position 1023 (the bench decode's step)",
+        "shapes": [{k: r[k] for k in keys if k in r} for r in rows],
+        "card": card}
+
+
 def main(argv) -> int:
     card = phase_device()
     phase_build()
@@ -1914,6 +2299,7 @@ def main(argv) -> int:
     fwd_rows += ring_fwd
     bwd_rows += ring_bwd
     int8_rows = phase_int8_matmul(card)
+    attention_rows, append_rows = phase_decode_kernels(card)
 
     params = init_llama_params(CONFIG_277M, param_dtype=torch.bfloat16,
                                seed=SEED, device="cuda")
@@ -1936,10 +2322,11 @@ def main(argv) -> int:
     # the multi-device path: its ranks set their counts to 0 before it
     multi, ring = phase_multichip(card, train_losses, bench_tokens)
     for path, counts, names in (
-            ("serving", serving, ["flash_attention_fwd", "int8_matmul"]),
+            ("serving", serving,
+             ["flash_attention_fwd", "int8_matmul"] + DECODE_KERNELS),
             ("training", training, FLASH_KERNELS),
             ("ring chain", chain, ["flash_attention_fwd", "attention_fold"]),
-            ("multichip", multi, ["int8_matmul"]),
+            ("multichip", multi, ["int8_matmul"] + DECODE_KERNELS),
             ("multichip ring", ring, RING_KERNELS)):
         missing = [name for name in names if counts[name] < 1]
         if missing:
@@ -1995,6 +2382,16 @@ def main(argv) -> int:
          "card": card},
         int8_entry(int8_rows, serving["int8_matmul"],
                    multi["int8_matmul"], card),
+        decode_entry(
+            "decode_attention", attention_rows, serving, multi,
+            "tpu_operator_libs/examples/llama_decode.py:216-246 "
+            "(forward_with_cache's attention over the cache, mask :181-182; "
+            "fused by XLA, no pallas_call)", card),
+        decode_entry(
+            "kv_append", append_rows, serving, multi,
+            "tpu_operator_libs/examples/llama_decode.py:192-214 "
+            "(forward_with_cache's quantize after RoPE and "
+            "dynamic_update_slice; fused by XLA, no pallas_call)", card),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
                                  "count": torch.cuda.device_count()}})

@@ -1,5 +1,6 @@
 """The CUDA kernels (flash attention, the ring-attention fold, the
-int8-weight matmul) against their plain versions, on the card, the
+int8-weight matmul, the decode step's attention and cache write) against
+their plain versions, on the card, the
 ring's block chain against the whole-sequence kernels, the
 graph-replayed decode loop against the host loop on one card and on
 NCCL meshes of one and two ranks, and the serving pod over NCCL.
@@ -27,9 +28,20 @@ from tpu_operator_libs_torch.examples.ring_attention import (
     _block_backward,
     _schedule,
 )
+from tpu_operator_libs_torch.kernels import decode_attention as dmod
+from tpu_operator_libs_torch.kernels import int8_matmul as imod
+from tpu_operator_libs_torch.kernels import kv_append as kmod
 from tpu_operator_libs_torch.kernels.attention_fold import (
     attention_fold,
     attention_fold_reference,
+)
+from tpu_operator_libs_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_reference,
+)
+from tpu_operator_libs_torch.kernels.kv_append import (
+    kv_append,
+    kv_append_reference,
 )
 from tpu_operator_libs_torch.kernels.int8_matmul import (
     int8_matmul,
@@ -344,6 +356,194 @@ def test_int8_matmul_graph_replay_equals_eager(cuda, m, k, n, dtype):
     assert torch.equal(int8_matmul(x, q, s), eager)
 
 
+#: (B, T, n_heads, n_kv_heads, S, start_pos, head_dim, q dtype, cache
+#: dtype) of the decode kernels: chip_smoke.py phase 3e's dtype pairs and
+#: shapes at B 2: decode at the last and a middle position, a prefill
+#: block, the tp shard, GQA in f32, bf16 q over an f32 cache, head_dims
+#: 64, 16 and 8, a ragged S; and an int8 cache under f32 q
+DECODE_CASES = [
+    (2, 1, 16, 16, 1024, 1023, 128, torch.bfloat16, torch.bfloat16),
+    (2, 1, 16, 16, 1024, 1023, 128, torch.bfloat16, torch.int8),
+    (2, 1, 16, 16, 1024, 544, 128, torch.bfloat16, torch.bfloat16),
+    (2, 1, 16, 16, 1024, 544, 128, torch.bfloat16, torch.int8),
+    (2, 64, 16, 16, 1024, 0, 128, torch.bfloat16, torch.bfloat16),
+    (2, 64, 16, 16, 1024, 0, 128, torch.bfloat16, torch.int8),
+    (2, 1, 8, 8, 1024, 1023, 128, torch.bfloat16, torch.int8),
+    (2, 1, 16, 4, 1000, 999, 128, torch.float32, torch.float32),
+    (2, 1, 16, 16, 1024, 1023, 128, torch.bfloat16, torch.float32),
+    (2, 1, 16, 16, 1024, 1023, 64, torch.bfloat16, torch.bfloat16),
+    (2, 1, 16, 16, 1024, 1023, 16, torch.bfloat16, torch.int8),
+    (2, 1, 16, 16, 1024, 1023, 8, torch.bfloat16, torch.bfloat16),
+    (2, 1, 16, 16, 1024, 1023, 8, torch.bfloat16, torch.int8),
+    (2, 1, 16, 16, 997, 996, 128, torch.bfloat16, torch.bfloat16),
+    (2, 3, 16, 4, 997, 500, 128, torch.float32, torch.int8),
+]
+DECODE_IDS = ["decode_bf16", "decode_int8", "mid_bf16", "mid_int8",
+              "prefill_bf16", "prefill_int8", "tp2_int8", "gqa_f32",
+              "bf16_q_f32_cache", "d64_bf16", "d16_int8", "d8_bf16",
+              "d8_int8", "ragged_bf16", "f32_q_int8_gqa"]
+
+
+def decode_operands(cuda, batch, t_new, heads, kv_heads, seq, dim, q_dtype,
+                    cache, seed=6):
+    """q and one layer's full cache on the card (int8: the codes and
+    scales of normal values, as the cache write makes them)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    q = randn(batch, t_new, heads, dim).to(q_dtype)
+    k, v = (randn(batch, seq, kv_heads, dim) for _ in range(2))
+    if cache == torch.int8:
+        (kq, ks), (vq, vs) = (kmod._quantize_kv_block(x) for x in (k, v))
+        return q, {"k": kq, "k_s": ks, "v": vq, "v_s": vs}
+    return q, {"k": k.to(cache), "v": v.to(cache)}
+
+
+@pytest.mark.parametrize("batch,t_new,heads,kv_heads,seq,start,dim,q_dtype,"
+                         "cache", DECODE_CASES, ids=DECODE_IDS)
+def test_decode_attention_matches_plain_version(cuda, batch, t_new, heads,
+                                                kv_heads, seq, start, dim,
+                                                q_dtype, cache):
+    """The kernel against the plain version computed in float32 from the
+    same inputs, within the output dtype's tolerance (one rounding to
+    bf16, or float32 sums in another order); the plain version's dtype;
+    two launches bit-equal (no atomics); an int and a device position the
+    same bits."""
+    q, entry = decode_operands(cuda, batch, t_new, heads, kv_heads, seq,
+                               dim, q_dtype, cache)
+    pos = torch.tensor(start, device=cuda)
+    before = decode_attention.launches
+    got = decode_attention(q, entry, pos)
+    again = decode_attention(q, entry, start)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    assert torch.equal(got, again)
+    assert got.dtype == decode_attention_reference(q, entry, pos).dtype
+    want = decode_attention_reference(
+        q.float(), {n: t if t.dtype == torch.int8 else t.float()
+                    for n, t in entry.items()}, pos)
+    rtol, atol = TOL[got.dtype]
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("batch,t_new,heads,kv_heads,seq,start,dim,q_dtype,"
+                         "cache", DECODE_CASES, ids=DECODE_IDS)
+def test_kv_append_bit_equal_to_plain_version(cuda, batch, t_new, heads,
+                                              kv_heads, seq, start, dim,
+                                              q_dtype, cache):
+    """The cache write against the plain version on the same cache: every
+    leaf bit-equal (codes, scales, float rows), the rows outside [start,
+    start + T) untouched."""
+    _, base = decode_operands(cuda, batch, 1, heads, kv_heads, seq, dim,
+                              q_dtype, cache)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    k, v = (torch.randn((batch, t_new, kv_heads, dim), generator=gen,
+                        device=cuda).to(q_dtype) for _ in range(2))
+    got = {n: t.clone() for n, t in base.items()}
+    want = {n: t.clone() for n, t in base.items()}
+    pos = torch.tensor(start, device=cuda)
+    before = kv_append.launches
+    assert kv_append(got, k, v, pos) is got
+    kv_append_reference(want, k, v, pos)
+    torch.cuda.synchronize()
+    assert kv_append.launches == before + 1
+    for name in got:
+        assert torch.equal(got[name], want[name]), name
+        assert torch.equal(got[name][:, :start], base[name][:, :start])
+        assert torch.equal(got[name][:, start + t_new:],
+                           base[name][:, start + t_new:])
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.int8])
+def test_decode_attention_graph_replay_equals_eager(cuda, cache):
+    """Both kernels captured in a CUDA graph with the position on the
+    device, as the decode step is, then replayed at later positions: the
+    cache and the attention equal eager launches at the same positions
+    bit for bit."""
+    q, entry = decode_operands(cuda, 2, 1, 16, 4, 300, 64, torch.bfloat16,
+                               cache)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    ks, vs = (torch.randn((2, 1, 4, 64), generator=gen, device=cuda)
+              .bfloat16() for _ in range(2))
+    eager_cache = {n: t.clone() for n, t in entry.items()}
+    eager = []
+    for start in (100, 101, 102, 103):
+        kv_append(eager_cache, ks, vs, start)
+        eager.append(decode_attention(q, eager_cache, start))
+    pos = torch.tensor(100, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kv_append(entry, ks, vs, pos)  # the stream's first call is eager
+        first = decode_attention(q, entry, pos)
+        pos += 1
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            kv_append(entry, ks, vs, pos)
+            out = decode_attention(q, entry, pos)
+            pos += 1
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(first, eager[0])
+    for want in eager[1:]:
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert int(pos) == 104
+    for name in entry:
+        assert torch.equal(entry[name], eager_cache[name]), name
+
+
+def test_int8_recipe_on_the_card_equals_the_cpu(cuda):
+    """``_sym_int8`` (the cache write's plain version and the weight
+    quantizer) gives the CPU's codes and scales bit for bit on the card:
+    both divide IEEE, as the JAX package does (a Python-number divisor
+    would take its reciprocal on CUDA)."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((4096, 128), generator=gen, device=cuda) * 3
+    for axis in (0, -1):
+        codes, scales = kmod._sym_int8(x, axis)
+        want_codes, want_scales = kmod._sym_int8(x.cpu(), axis)
+        assert torch.equal(codes.cpu(), want_codes)
+        assert torch.equal(scales.cpu(), want_scales)
+
+
+@pytest.mark.parametrize("module", ["decode_attention", "kv_append",
+                                    "int8_matmul"])
+def test_kernel_build_failure_raises(cuda, monkeypatch, module):
+    """A kernel whose build fails raises on CUDA tensors: the wrapper
+    never returns its plain version's result instead."""
+    def broken():
+        raise RuntimeError("nvcc failed (test)")
+
+    mod = {"decode_attention": dmod, "kv_append": kmod,
+           "int8_matmul": imod}[module]
+    monkeypatch.setattr(mod, "_lib", None)
+    monkeypatch.setattr(mod, "_library", broken)
+    q, entry = decode_operands(cuda, 2, 1, 4, 2, 16, 8, torch.bfloat16,
+                               torch.int8)
+    before = {w.__name__: w.launches
+              for w in (decode_attention, kv_append, imod.int8_matmul)}
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        if module == "decode_attention":
+            decode_attention(q, entry, 3)
+        elif module == "kv_append":
+            kv_append(entry, q[:, :, :2].contiguous(),
+                      q[:, :, :2].contiguous(), 3)
+        else:
+            imod.int8_matmul(q.reshape(2, 32), entry["k"].reshape(32, -1)
+                             .contiguous(), torch.ones(
+                                 entry["k"].numel() // 32, device=cuda))
+    assert before == {w.__name__: w.launches
+                      for w in (decode_attention, kv_append,
+                                imod.int8_matmul)}
+
+
 #: a narrow Llama for the decode loops on the card (the kernels' shapes
 #: at full width are in test_int8_matmul_matches_plain_version)
 DECODE_CFG = tllama.LlamaConfig(vocab=512, d_model=256, n_layers=2,
@@ -384,6 +584,7 @@ def test_graph_decode_equals_host_loop(cuda, case):
 
     host = run(tdecode.generate)
     before = int8_matmul.launches
+    before_decode = (decode_attention.launches, kv_append.launches)
     dev = run(tdecode.generate_on_device)
     torch.cuda.synchronize()
     assert tdecode.generate_on_device.last_call["eager_steps"] == 1
@@ -391,6 +592,10 @@ def test_graph_decode_equals_host_loop(cuda, case):
     per_forward = 7 * DECODE_CFG.n_layers + 1
     assert int8_matmul.launches - before == (new * per_forward if int8
                                              else 0)
+    # the cache write and the attention, once a layer a forward
+    assert (decode_attention.launches - before_decode[0],
+            kv_append.launches - before_decode[1]) == (
+                (new * DECODE_CFG.n_layers,) * 2)
     if "return_logprobs" in kw:
         (host, host_lp), (dev, dev_lp) = host, dev
         assert torch.equal(host_lp, dev_lp)
@@ -426,6 +631,9 @@ def test_mesh_graph_decode_equals_host_loop(cuda, case, ranks):
         assert rank["device_loop"]["graph_launches"] == new - 2
         assert rank["int8_launches"] == (new * per_forward
                                          if "int8" in case else 0)
+        assert rank["decode_launches"] == {
+            "decode_attention": new * DECODE_CFG.n_layers,
+            "kv_append": new * DECODE_CFG.n_layers}
         np.testing.assert_array_equal(rank["device"], rank["host"])
         np.testing.assert_array_equal(rank["device"], first["device"])
         if "device_logprobs" in rank:

@@ -309,8 +309,10 @@ def mesh_graph_decode_rank(mesh, case, config_kw, batch, prompt_len,
     """One rank of the device decode against the host loop on the card
     (``case``: ``greedy_bf16``, ``greedy_int8_weights_int8_kv`` or
     ``sampled_int8_eos_logprobs``): both loops' tokens (and logprobs),
-    this rank's device loop and its int8 kernel launches over the device
-    loop. Every rank draws the same bf16 weights and prompt."""
+    this rank's device loop and its int8 kernel launches (and the decode
+    kernels') over the device loop. Every rank draws the same bf16
+    weights and prompt."""
+    from tpu_operator_libs_torch.kernels import WRAPPERS
     from tpu_operator_libs_torch.kernels.int8_matmul import int8_matmul
 
     device = mesh.device
@@ -340,10 +342,15 @@ def mesh_graph_decode_rank(mesh, case, config_kw, batch, prompt_len,
 
     host = run(llama_decode.generate)
     before = int8_matmul.launches
+    decode_kernels = ("decode_attention", "kv_append")
+    before_decode = {name: WRAPPERS[name].launches for name in decode_kernels}
     dev = run(llama_decode.generate_on_device)
     torch.cuda.synchronize(device)
     out = {"device_loop": dict(llama_decode.generate_on_device.last_call),
            "int8_launches": int8_matmul.launches - before,
+           "decode_launches": {name: WRAPPERS[name].launches
+                               - before_decode[name]
+                               for name in decode_kernels},
            "eos_id": kw.get("eos_id")}
     if "return_logprobs" in kw:
         (host, out["host_logprobs"]), (dev, out["device_logprobs"]) = \

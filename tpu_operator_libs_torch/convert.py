@@ -1,11 +1,13 @@
-"""Carry JAX parameter pytrees and training states across to the port.
+"""Carry JAX parameter pytrees, training states and KV caches across to
+the port.
 
 The port keeps the JAX package's parameter layout (weights ``(in, out)``,
 applied as ``x @ W``), so conversion is a copy leaf by leaf. The
 pipeline's and the experts' stacked weights split over their ``pp`` or
 ``ep`` axis by layer or expert (:func:`axis_block`). The tests
 use it so that both packages compute from the same weights, and
-:func:`state_from_jax` lets the port continue a JAX training run. With a
+:func:`state_from_jax` lets the port continue a JAX training run, as
+:func:`kv_cache_from_jax` lets it continue a JAX decode. With a
 ``mesh`` each rank keeps its tp shards (:func:`shard_params`), the blocks
 that the JAX package's ``NamedSharding``s give the device at its place in
 the grid.
@@ -161,3 +163,28 @@ def state_from_jax(state, *, device=None, mesh=None):
             "opt": {"count": _leaf_to_tensor(adam.count).to(device),
                     "mu": tree(adam.mu), "nu": tree(adam.nu)},
             "step": _leaf_to_tensor(state["step"]).to(device)}
+
+
+def kv_cache_from_jax(cache, *, device=None, mesh=None):
+    """The port's KV cache (``llama_decode.init_kv_cache``'s list of
+    per-layer ``{"k", "v"}`` or ``{"k", "k_s", "v", "v_s"}`` dicts) for
+    the JAX package's, so that the port decodes on from a cache that JAX
+    wrote: the state counterpart of :func:`params_from_jax`. With a
+    ``mesh``, on its device, the rank's block: its dp block of the batch
+    rows and its tp block of the KV heads (dims 0 and 2 of every leaf, as
+    the JAX package shards its cache)."""
+    device = mesh.device if mesh is not None else resolve_device(device)
+
+    def block(x):
+        if mesh is None:
+            return x
+        for dim, size, index in ((0, mesh.dp, mesh.dp_rank),
+                                 (2, mesh.tp, mesh.tp_rank)):
+            if x.shape[dim] % size:
+                raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                                 f"split over {size}")
+            x = x.chunk(size, dim=dim)[index]
+        return x.contiguous()
+
+    return [{name: block(_leaf_to_tensor(value)).to(device)
+             for name, value in entry.items()} for entry in cache]

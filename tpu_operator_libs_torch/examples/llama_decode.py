@@ -17,10 +17,13 @@ of preallocated buffers written in place, and :func:`forward_with_cache`
 returns the same list. Sampling draws Gumbel noise from an explicit
 ``torch.Generator`` instead of splitting a ``jax.random`` key; the host
 and device loops consume it in the same order, so they draw the same
-tokens. The int8-weight matmul is a hand-written kernel
-(``kernels/int8_matmul.py``) that reads the codes as int8; the decode
-attention stays plain PyTorch (XLA fuses both on the TPU; neither has a
-Pallas source).
+tokens. Three hand-written kernels do what XLA fuses on the TPU (none
+has a Pallas source): the int8-weight matmul (``kernels/int8_matmul.py``)
+reads the codes as int8; the cache write (``kernels/kv_append.py``)
+quantizes the new keys and values and writes them at the step's
+position; the cached attention (``kernels/decode_attention.py``) reads
+the float or int8 cache in place and folds its scales. On the CPU each
+runs its plain PyTorch version.
 
 On the card, :func:`generate_on_device` replays one decode step from a
 captured CUDA graph where JAX runs a ``lax.scan``: the step reads and
@@ -49,7 +52,16 @@ import torch.nn.functional as F
 from tpu_operator_libs_torch import resolve_device
 from tpu_operator_libs_torch.examples.llama import _rms_norm, _rope
 from tpu_operator_libs_torch.kernels import WRAPPERS
+from tpu_operator_libs_torch.kernels.decode_attention import (
+    _promoted,
+    decode_attention,
+)
 from tpu_operator_libs_torch.kernels.int8_matmul import int8_matmul
+from tpu_operator_libs_torch.kernels.kv_append import (  # noqa: F401
+    _quantize_kv_block,  # the int8 recipe, under the reference's names
+    _sym_int8,
+    kv_append,
+)
 from tpu_operator_libs_torch.parallel import (
     TP_SPLIT_DIM,
     any_rank,
@@ -97,30 +109,6 @@ def init_kv_cache(config, batch: int, max_seq: int, param_dtype=None,
             for _ in range(config.n_layers)]
 
 
-def _sym_int8(x, axis, group=None):
-    """Symmetric int8 quantization along ``axis``: ``s = max|x| / 127``
-    (floored at 1e-8 so all-zero slices don't divide by zero), ``q =
-    clip(round(x / s))`` with round-half-to-even, as ``jnp.round``.
-    With a ``group``, ``x`` is one shard of a tensor split along ``axis``
-    and the max is taken over the whole of it (all-reduce max), so the
-    scales are those of the unsplit tensor.
-    Returns (int8 codes, float32 scales with ``axis`` removed)."""
-    xf = x.float()
-    amax = torch.amax(torch.abs(xf), dim=axis)
-    if group is not None:
-        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
-    s = torch.clamp_min(amax, 1e-8) / 127.0
-    q = torch.clamp(torch.round(xf / s.unsqueeze(axis)), -127, 127) \
-        .to(torch.int8)
-    return q, s
-
-
-def _quantize_kv_block(x):
-    """(B, T, n_kv, head_dim) activations -> (int8 codes, (B, T, n_kv)
-    float32 scales), symmetric per-(token, kv-head) over head_dim."""
-    return _sym_int8(x, axis=-1)
-
-
 def quantize_params_int8(params, mesh=None):
     """Weight-only int8 quantization of every matmul weight: each 2-D
     weight becomes ``{"q": int8 (in, out), "s": f32 (out,)}`` with a
@@ -153,14 +141,6 @@ def quantize_params_int8(params, mesh=None):
     return out
 
 
-def _promoted(a, b):
-    """Both operands in their promoted dtype: JAX promotes mixed-dtype
-    matmuls and einsums (a float32 cache under bfloat16 activations),
-    where PyTorch's refuse them."""
-    dtype = torch.promote_types(a.dtype, b.dtype)
-    return a.to(dtype), b.to(dtype)
-
-
 def _mm(x, w):
     """x @ w for a plain weight or an int8-quantized {"q", "s"} one:
     ``(x @ cast(q)) * s``, exact for a per-output-channel scale, by
@@ -184,10 +164,10 @@ def forward_with_cache(params, tokens, cache, start_pos, config,
     whole on every tp rank.
 
     ``start_pos`` is a Python int or a 0-d int64 tensor on the cache's
-    device, as JAX's may be traced: both take the same ops (positions,
-    RoPE angles, mask and cache writes from one positions tensor), and
-    nothing reads it back to the host, so a captured step can advance it
-    in place."""
+    device, as JAX's may be traced: both take the same ops (RoPE angles
+    from one positions tensor; the cache write and the attention's mask
+    from the position where it lies), and nothing reads it back to the
+    host, so a captured step can advance it in place."""
     if config.attention_impl != "xla":
         raise ValueError(
             "forward_with_cache implements the einsum path; decode "
@@ -197,61 +177,20 @@ def forward_with_cache(params, tokens, cache, start_pos, config,
     tp = tp_of(mesh)
     hd = config.head_dim
     nh, nkv = config.n_heads // tp, config.n_kv_heads // tp
-    group = nh // nkv
-    max_seq = cache[0]["k"].shape[1]
-    device = cache[0]["k"].device
-    positions = torch.arange(t_new, device=device) + start_pos
+    positions = torch.arange(t_new, device=cache[0]["k"].device) + start_pos
 
     h = params["embed"][tokens.long()]
-    # key validity: cached positions < start_pos+T, and causality
-    # within the new block
-    kv_pos = torch.arange(max_seq, device=device)
-    mask = kv_pos[None, :] <= positions[:, None]  # (T, max_seq)
-
     for layer, entry in zip(params["layers"], cache):
-        quant_kv = "k_s" in entry
         a = _rms_norm(h, layer["attn_norm"])
         q = _mm(a, layer["wq"]).reshape(batch, t_new, nh, hd)
         k = _mm(a, layer["wk"]).reshape(batch, t_new, nkv, hd)
         v = _mm(a, layer["wv"]).reshape(batch, t_new, nkv, hd)
         q = _rope(q, config.rope_theta, positions)
         k = _rope(k, config.rope_theta, positions)
-        if quant_kv:
-            # quantize AFTER RoPE — the cache holds exactly what dense
-            # attention would read, coded int8 + per-token scale
-            k_q, k_s = _quantize_kv_block(k)
-            v_q, v_s = _quantize_kv_block(v)
-            new = {"k": k_q, "k_s": k_s, "v": v_q, "v_s": v_s}
-        else:
-            new = {"k": k.to(entry["k"].dtype), "v": v.to(entry["v"].dtype)}
-        # written at the positions tensor along the sequence axis, the
-        # counterpart of JAX's dynamic_update_slice at a traced start
-        for name, block in new.items():
-            entry[name].index_copy_(1, positions, block)
-
-        # grouped einsum over (kv-head, group) — never materializes a
-        # group-times-repeated copy of the cache
-        q_g = q.reshape(batch, t_new, nkv, group, hd)
-        # int8 codes are widened to the compute dtype; a float cache is
-        # left as it is and the einsum promotes
-        k_op = entry["k"].to(h.dtype) if quant_kv else entry["k"]
-        scores = torch.einsum("bqkgd,bskd->bkgqs",
-                              *_promoted(q_g, k_op)) * (hd ** -0.5)
-        scores = scores.float()
-        if quant_kv:
-            # K dequant: one rank-1 rescale of the score matrix
-            scores = scores \
-                * entry["k_s"].permute(0, 2, 1)[:, :, None, None, :]
-        scores = scores.masked_fill(~mask, -1e30)
-        attn = torch.softmax(scores, dim=-1)
-        if quant_kv:
-            # V dequant: fold the per-(s, k) scale into the attention
-            # weights BEFORE the value einsum (s is the contraction)
-            attn = attn \
-                * entry["v_s"].permute(0, 2, 1)[:, :, None, None, :]
-        attn = attn.to(h.dtype)
-        v_op = entry["v"].to(h.dtype) if quant_kv else entry["v"]
-        ctx = torch.einsum("bkgqs,bskd->bqkgd", *_promoted(attn, v_op))
+        # the new keys and values into the cache (quantized after RoPE
+        # for an int8 one), then the queries against the whole cache
+        kv_append(entry, k, v, start_pos)
+        ctx = decode_attention(q, entry, start_pos)
         h = h + reduce_from_tp(
             _mm(ctx.reshape(batch, t_new, nh * hd), layer["wo"]), mesh)
 
