@@ -51,9 +51,12 @@ exits non-zero without printing a result. Phases:
    S), each row naming its design and its CUDA launches a call (1); the
    attention within ``KERNEL_TOL`` of the plain version in float32, the
    cache write bit-equal to its plain version and touching no other row;
-   two launches and a graph-replayed one bit-equal; timed in CUDA graphs
-   over cache copies that overflow L2, the attention beside SDPA with the
-   boolean mask where the cache is float and of q's dtype.
+   two launches and a graph-replayed one bit-equal; the attention's output
+   unchanged by NaN planted past the position and its split counters back
+   at 0; timed in CUDA graphs over cache copies that overflow L2, the
+   attention beside SDPA with the boolean mask where the cache is float
+   and of q's dtype, its bound over the visible keys and over the whole
+   cache.
 4-6. the serving path, with the launch counts set to 0 just before it:
    ``forward`` of llama-277M with ``attention_impl="flash"`` against
    ``"xla"``; the decode contract (stepwise cache == batch forward, host
@@ -161,6 +164,8 @@ from tpu_operator_libs_torch.kernels.attention_fold import (  # noqa: E402
     attention_fold_reference,
 )
 from tpu_operator_libs_torch.kernels.decode_attention import (  # noqa: E402
+    _counters as decode_counters,
+    blocks_that_fit as decode_blocks_that_fit,
     decode_attention,
     decode_attention_reference,
     output_dtype as decode_output_dtype,
@@ -391,11 +396,21 @@ def phase_build():
                     da.group(2), torch.bfloat16)
                 entries.append(ptxas_entry(
                     block, da.group(1), cache, None,
-                    {"design": "cuda cores: one block a (b, kv head, 16 "
-                               "query rows), key tiles double-buffered by "
+                    {"design": "cuda cores: a ring of key tiles by "
                                + ("16-byte cp.async" if da.group(3) == "1"
                                   else "element loads"),
-                     # it depends on head_dim and the key tile
+                     # it depends on head_dim, the key tile and the stages
+                     "dynamic_smem_bytes": None}, serialized))
+                continue
+            dm = re.search(r"\d(decode_attention_mma_kernel)I"
+                           r"(13__nv_bfloat16|a)Li(\d+)E", block)
+            if dm is not None:
+                entries.append(ptxas_entry(
+                    block, dm.group(1),
+                    torch.int8 if dm.group(2) == "a" else torch.bfloat16,
+                    int(dm.group(3)),
+                    {"design": "tensor cores: mma.sync m16n8k16, head_dim "
+                               f"up to {dm.group(3)}",
                      "dynamic_smem_bytes": None}, serialized))
                 continue
             if re.search(r"\dkv_append_kernelE", block) is not None:
@@ -1170,20 +1185,26 @@ def cache_bytes(entry) -> int:
 
 
 def decode_attention_bound_ms(batch, t_new, heads, kv_heads, seq, dim,
-                              q_dtype, cache):
-    """Least time of one call, the whole cache counted as the reference
-    reads it: K, V (and their scales) read once, q read and the output
-    written once, over the memory rate, against 4*B*nh*T*S*hd FLOPs over
-    the peak of the compute dtype (q's for an int8 cache, else the
-    promoted one)."""
+                              q_dtype, cache, start=None):
+    """Least time of one call: K, V (and their scales) read once, q read
+    and the output written once, over the memory rate, against 4*B*nh*hd
+    FLOPs a (query, key) pair over the peak of the compute dtype (q's for
+    an int8 cache, else the promoted one). With ``start`` only the keys
+    that the output depends on count, positions 0 .. start + T - 1, and
+    each query's visible ones, start + t + 1; without it the whole cache
+    and every pair, as the reference reads it."""
     out = decode_output_dtype(q_dtype, cache)
-    nbytes = (2 * batch * seq * kv_heads * dim * cache.itemsize
-              + (2 * batch * seq * kv_heads * 4 if cache == torch.int8
+    keys, pairs = seq, t_new * seq
+    if start is not None:
+        keys = min(seq, start + t_new)
+        pairs = sum(min(seq, start + t + 1) for t in range(t_new))
+    nbytes = (2 * batch * keys * kv_heads * dim * cache.itemsize
+              + (2 * batch * keys * kv_heads * 4 if cache == torch.int8
                  else 0)
               + batch * t_new * heads * dim
               * (q_dtype.itemsize + out.itemsize))
     t_bytes = nbytes / PEAK_BYTES
-    t_flops = 4 * batch * heads * t_new * seq * dim / PEAK_FLOPS[out]
+    t_flops = 4 * batch * heads * pairs * dim / PEAK_FLOPS[out]
     if t_flops >= t_bytes:
         return t_flops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
@@ -1224,7 +1245,16 @@ def check_decode_shape(label, batch, t_new, heads, kv_heads, seq, start,
     graph_equal = graph_replay_equal(lambda: decode_attention(q, entry, pos),
                                      got)
     launches = cuda_launches(lambda: decode_attention(q, entry, pos))
+    # NaN planted past the step's last key (in the scales of an int8
+    # cache) must not reach the output: the kernel never reads there
+    planted = {n: t.clone() for n, t in entry.items()}
+    for name in ("k_s", "v_s") if cache == torch.int8 else ("k", "v"):
+        planted[name][:, start + t_new:] = float("nan")
+    tail_unread = bool(torch.equal(decode_attention(q, planted, pos), got))
+    counters_zero = all(not c.any() for c in decode_counters.values())
+    del planted
     if not (use <= 1 and bit_equal and graph_equal and launches == 1
+            and tail_unread and counters_zero
             and got.shape == q.shape and got.dtype == plain.dtype
             and torch.isfinite(got.float()).all()):
         raise RuntimeError(
@@ -1232,17 +1262,20 @@ def check_decode_shape(label, batch, t_new, heads, kv_heads, seq, start,
             f"({dtype_name(cache)} cache): limit_use {use}, max|err| "
             f"{err.max().item()}, bit-equal launches {bit_equal}, graph "
             f"replay bit-equal {graph_equal}, CUDA launches a call "
-            f"{launches}, dtype {got.dtype} (plain {plain.dtype})")
-    p = decode_plan(batch, t_new, heads, kv_heads, dim, cache)
+            f"{launches}, NaN past the position unread {tail_unread}, "
+            f"ticket counters back at 0 {counters_zero}, dtype "
+            f"{got.dtype} (plain {plain.dtype})")
+    p = decode_plan(batch, t_new, heads, kv_heads, seq, dim, q_dtype, cache)
     row = {"phase": "decode_kernels", "name": "decode_attention",
            "shape": label, "B": batch, "T": t_new, "H": heads,
            "H_kv": kv_heads, "S": seq, "D": dim, "start_pos": start,
            "dtype": dtype_name(q_dtype), "cache": dtype_name(cache),
-           "out_dtype": dtype_name(got.dtype),
-           "design": f"cuda cores, {p.grid[0] * p.grid[1] * p.grid[2]} "
-                     f"blocks of (b, kv head, 16 query rows), "
-                     f"{p.key_tile}-key tiles double-buffered by "
-                     + ("16-byte cp.async" if p.vec else "element loads"),
+           "out_dtype": dtype_name(got.dtype), "design": p.design,
+           "plan": {"route": p.route, "blocks": p.blocks,
+                    "splits": p.splits,
+                    "stages": p.stages, "key_tile": p.key_tile,
+                    "smem_bytes": p.smem_bytes,
+                    "blocks_per_sm": decode_blocks_that_fit(p.smem_bytes)},
            "cuda_launches_per_call": launches,
            "max_abs_err": err.max().item(),
            "oracle": "the plain version in float32 on the same inputs",
@@ -1250,7 +1283,9 @@ def check_decode_shape(label, batch, t_new, heads, kv_heads, seq, start,
            "max_abs_err_vs_plain_own_dtype":
                (got.float() - plain.float()).abs().max().item(),
            "bit_equal_launches": bit_equal,
-           "graph_replay_bit_equal": graph_equal}
+           "graph_replay_bit_equal": graph_equal,
+           "nan_past_the_position_unread": tail_unread,
+           "ticket_counters_zero": counters_zero}
     del again, oracle, plain, err
     # timed inside CUDA graphs, each call on another copy of the cache
     # (ROTATE_BYTES of them): the cache comes from device memory, as in
@@ -1284,7 +1319,10 @@ def check_decode_shape(label, batch, t_new, heads, kv_heads, seq, start,
                           "none: sdpa takes no mixed dtypes")
         row["library_ms"] = None
     row["bound_ms"], row["bound_by"] = decode_attention_bound_ms(
-        batch, t_new, heads, kv_heads, seq, dim, q_dtype, cache)
+        batch, t_new, heads, kv_heads, seq, dim, q_dtype, cache, start)
+    row["bound_ms_whole_cache"], row["bound_by_whole_cache"] = \
+        decode_attention_bound_ms(batch, t_new, heads, kv_heads, seq, dim,
+                                  q_dtype, cache)
     row["card"] = card
     emit(row)
     del pool, entry, q, got
@@ -2261,7 +2299,8 @@ def decode_entry(name, rows, serving, multi, replaces, card):
             "cache", "design", "cuda_launches_per_call", "max_abs_err",
             "limit_use", "bit_equal_to_plain", "bit_equal_launches",
             "graph_replay_bit_equal", "kernel_ms", "plain_ms", "library",
-            "library_ms", "bound_ms", "bound_by")
+            "library_ms", "bound_ms", "bound_by", "bound_ms_whole_cache",
+            "plan")
     return {
         "name": name, "route": "cuda",
         "source": f"tpu_operator_libs_torch/csrc/{name}.cu",

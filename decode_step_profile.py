@@ -37,6 +37,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 #: the ops that copy a tensor's bytes, by overload packet
 COPY_OPS = ("aten.clone", "aten._to_copy", "aten.copy_", "aten.index_copy_")
 BATCH, CONTEXT, PROMPT, NEW_TOKENS = 8, 1024, 64, 960
+#: the port's kernels that a cached step launches
+PORT_KERNELS = ("decode_attention", "kv_append", "int8_matmul")
 
 
 class CopyBytes(TorchDispatchMode):
@@ -95,6 +97,12 @@ def step_profile(forward_with_cache, params, cache, config) -> dict:
     copy_events = [e for e in events if "copy" in e.key.lower()]
     top = sorted(events, key=device_us, reverse=True)[:8]
     return {
+        # the port's own kernels, by the name their instances share
+        "port_kernels": {
+            name: {"calls": sum(e.count for e in events if name in e.key),
+                   "device_ms": sum(device_us(e) for e in events
+                                    if name in e.key) / 1e3}
+            for name in PORT_KERNELS},
         "device_events": sum(e.count for e in events),
         "device_ms": sum(device_us(e) for e in events) / 1e3,
         "copy_kernels": {"calls": sum(e.count for e in copy_events),

@@ -6,6 +6,7 @@ attention kernel's tiled online softmax emulated in float32 against the
 plain version. The kernels themselves run in ``tests/test_torch_gpu.py``.
 """
 
+import dataclasses
 import math
 
 import jax
@@ -15,6 +16,7 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
+import chip_smoke
 from tpu_operator_libs.examples import llama as jllama
 from tpu_operator_libs.examples import llama_decode as jdecode
 from tpu_operator_libs_torch import parallel
@@ -242,46 +244,109 @@ def upcast(entry):
             for n, t in entry.items()}
 
 
-def emulate_kernel(q, entry, start_pos):
+def in_order(x, dim):
+    """The sum of ``x`` over ``dim`` taken term by term in index order
+    (a scan's last prefix), so that terms of exactly 0 appended to it
+    change no bit; a reduction may group the terms by their count."""
+    return x.cumsum(dim=dim).select(dim, -1)
+
+
+def combine(states):
+    """(m, l, acc) states of the same rows combined in their order: m =
+    max m_i, l = sum l_i e^(m_i - m), acc = sum acc_i e^(m_i - m), an
+    empty state (m = -inf) weighing 0."""
+    ms = torch.stack([s[0] for s in states])
+    m = ms.amax(dim=0)
+    w = torch.where(ms == -math.inf, 0.0, torch.exp(ms - m))
+    l = in_order(torch.stack([s[1] for s in states]) * w, 0)
+    acc = in_order(torch.stack([s[2] for s in states]) * w[..., None], 0)
+    return m, l, acc
+
+
+def emulate_kernel(q, entry, start_pos, walk_all=False):
     """The kernel's schedule (``csrc/decode_attention.cu``) in float32:
     per (batch row, kv head, tile of MAX_ROWS query rows, row r being the
-    (t, g) pair divmod(r, group)), the keys in ``plan``'s tiles, each with
-    its scores (times the K scale), the visible keys s <= start_pos + t,
-    the running max and sum rescaled once a tile, the weights times the V
-    scale before the values, and one division at the end."""
+    (t, g) pair divmod(r, group)), ``plan``'s splits, which share the
+    keys up to the last one visible to the tile's last row in equal runs
+    of whole tiles (``split_ranges``; ``walk_all``: every split walks its
+    whole run, past that key, to show that the early stop changes no
+    bit), the splits past the last run skipped. Each part (the
+    tensor cores' four warps, keys 16w .. 16w + 15 of every 64-key tile;
+    the CUDA cores' whole block) keeps an online softmax: its scores (times
+    the K scale), the visible keys s <= start_pos + t, the running max and
+    sum rescaled once a tile, the weights times the V scale (on the tensor
+    cores then split into hi + lo bf16, two products) before the values.
+    The parts combine in order into the split's (m, l, acc), the splits in
+    split order (one nonempty split stands alone), and one division ends
+    it."""
     batch, t_new, heads, dim = q.shape
     seq, kv_heads = entry["k"].shape[1:3]
     group = heads // kv_heads
-    p = plan(batch, t_new, heads, kv_heads, dim, entry["k"].dtype)
+    p = plan(batch, t_new, heads, kv_heads, seq, dim, q.dtype,
+             entry["k"].dtype)
+    tensor = p.route == "tensor_cores"
+    part_keys = 16 if tensor else p.key_tile
     k, v = entry["k"].float(), entry["v"].float()
     quant = "k_s" in entry
+    pos = int(start_pos)
     out = torch.empty(q.shape)
     for b in range(batch):
         for kvh in range(kv_heads):
-            for row_tile in range(p.grid[0]):
+            for row_tile in range(p.grid[0] // p.splits):
                 rows = torch.arange(row_tile * dmod.MAX_ROWS,
                                     min((row_tile + 1) * dmod.MAX_ROWS,
                                         t_new * group))
                 ts, hs = rows // group, kvh * group + rows % group
-                qr = q[b, ts, hs].float()
-                m = torch.full((len(rows),), -math.inf)
-                l = torch.zeros(len(rows))
-                acc = torch.zeros(len(rows), dim)
-                for s0 in range(0, seq, p.key_tile):
-                    keys = torch.arange(s0, min(s0 + p.key_tile, seq))
-                    sc = qr @ k[b, keys, kvh].T * dim ** -0.5
-                    if quant:
-                        sc = sc * entry["k_s"][b, keys, kvh]
-                    seen = keys[None, :] <= (start_pos + ts)[:, None]
-                    m_new = torch.maximum(m, torch.where(
-                        seen, sc, -math.inf).amax(dim=1))
-                    w = torch.where(seen, torch.exp(sc - m_new[:, None]), 0.0)
-                    corr = torch.exp(m - m_new)
-                    l = l * corr + w.sum(dim=1)
-                    if quant:
-                        w = w * entry["v_s"][b, keys, kvh]
-                    acc = acc * corr[:, None] + w @ v[b, keys, kvh]
-                    m = m_new
+                # every key's score at once: a tile's slice of it does not
+                # depend on how far the walk goes
+                sc_all = q[b, ts, hs].float() @ k[b, :, kvh].T * dim ** -0.5
+                if quant:
+                    sc_all = sc_all * entry["k_s"][b, :, kvh]
+                vis_end = min(seq, pos + int(ts[-1]) + 1)
+                ranges = dmod.split_ranges(p, vis_end)
+                if walk_all:  # every split to its run's end, past vis_end
+                    tiles = -(-vis_end // p.key_tile)
+                    run = max(1, -(-tiles // p.splits)) * p.key_tile
+                    ranges = [(i * run, min(seq, (i + 1) * run))
+                              for i in range(p.splits)]
+                states = []
+                for k_begin, k_end in ranges:
+                    parts = []
+                    for part in range(p.key_tile // part_keys):
+                        m = torch.full((len(rows),), -math.inf)
+                        l = torch.zeros(len(rows))
+                        acc = torch.zeros(len(rows), dim)
+                        for s0 in range(k_begin, k_end, p.key_tile):
+                            lo = s0 + part * part_keys
+                            hi = min(lo + part_keys, k_end)
+                            if lo >= hi:
+                                continue
+                            keys = torch.arange(lo, hi)
+                            sc = sc_all[:, keys]
+                            seen = keys[None, :] <= (pos + ts)[:, None]
+                            m_new = torch.maximum(m, torch.where(
+                                seen, sc, -math.inf).amax(dim=1))
+                            w = torch.where(seen,
+                                            torch.exp(sc - m_new[:, None]),
+                                            0.0)
+                            corr = torch.where(m_new == -math.inf, 1.0,
+                                               torch.exp(m - m_new))
+                            l = l * corr + in_order(w, 1)
+                            if quant:
+                                w = w * entry["v_s"][b, keys, kvh]
+                            terms = (w,)
+                            if tensor:  # hi + lo bf16, two products
+                                w_hi = w.bfloat16().float()
+                                terms = (w_hi, (w - w_hi).bfloat16().float())
+                            acc = acc * corr[:, None]
+                            for term in terms:
+                                acc = acc + in_order(
+                                    term[:, :, None] * v[b, keys, kvh], 1)
+                            m = m_new
+                        parts.append((m, l, acc))
+                    states.append(combine(parts))
+                _, l, acc = states[0] if len(states) == 1 \
+                    else combine(states)
                 out[b, ts, hs] = acc / l[:, None]
     return out
 
@@ -289,38 +354,120 @@ def emulate_kernel(q, entry, start_pos):
 #: (B, T, n_heads, n_kv_heads, S, head_dim, start_pos) of the emulation:
 #: decode, GQA, a prefill block of 3 row tiles (40 rows of 2 heads a kv
 #: head), a start mid-sequence, a ragged last key tile, a long f32 row
-#: (32-key tiles)
+#: (32-key tiles); the last visible key at the end and at the start of a
+#: key tile (4 splits of one tile: three, or two, wholly past it), and
+#: where two splits' runs grow from one tile to two (8 x 16 groups: runs
+#: [0, 64) and [64, 128), then [0, 128) and [128, 129))
 EMULATED = [
     (2, 1, 4, 4, 70, 16, 69),
     (2, 1, 8, 2, 70, 16, 41),
     (1, 20, 4, 2, 100, 8, 0),
     (1, 5, 4, 4, 130, 16, 60),
     (1, 2, 2, 1, 67, 256, 30),
+    (2, 1, 4, 4, 200, 16, 63),
+    (2, 1, 4, 4, 200, 16, 64),
+    (8, 1, 16, 16, 300, 16, 127),
+    (8, 1, 16, 16, 300, 16, 128),
 ]
+EMULATED_IDS = ["decode", "gqa", "prefill_row_tiles", "mid_sequence",
+                "long_rows", "tile_end", "tile_start", "run_end",
+                "run_grows"]
+#: a bf16 output against the plain version in float32: one rounding of
+#: the output and of each weight (chip_smoke.KERNEL_TOL's bf16 limit)
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-3
+
+
+def emulation_case(shape, cache, q_dtype):
+    batch, t_new, heads, kv_heads, seq, dim, start = shape
+    gen = torch.Generator().manual_seed(34)
+    entry = random_entry(gen, batch, seq, kv_heads, dim, cache)
+    q = torch.randn((batch, t_new, heads, dim), generator=gen).to(q_dtype)
+    return q, entry, start
 
 
 class TestKernelSchedule:
     @pytest.mark.parametrize("cache", ["float32", "bfloat16", "int8"])
-    @pytest.mark.parametrize("shape", EMULATED,
-                             ids=["decode", "gqa", "prefill_row_tiles",
-                                  "mid_sequence", "long_rows"])
+    @pytest.mark.parametrize("shape", EMULATED, ids=EMULATED_IDS)
     def test_emulated_schedule_matches_plain_version(self, shape, cache):
-        batch, t_new, heads, kv_heads, seq, dim, start = shape
-        gen = torch.Generator().manual_seed(34)
-        entry = random_entry(gen, batch, seq, kv_heads, dim, cache)
-        q = torch.randn((batch, t_new, heads, dim), generator=gen)
+        """float32 q (the CUDA cores) against the plain version in
+        float32: the same terms summed in another order."""
+        q, entry, start = emulation_case(shape, cache, torch.float32)
+        assert plan(*q.shape[:3], entry["k"].shape[2], entry["k"].shape[1],
+                    q.shape[3], q.dtype, entry["k"].dtype).route \
+            == "cuda_cores"
         want = decode_attention_reference(q, upcast(entry), start)
         got = emulate_kernel(q, entry, torch.tensor(start))
         torch.testing.assert_close(got, want, rtol=F32_RTOL, atol=F32_ATOL)
 
+    @pytest.mark.parametrize("cache", ["bfloat16", "int8"])
+    @pytest.mark.parametrize("shape", EMULATED, ids=EMULATED_IDS)
+    def test_tensor_core_schedule_matches_plain_version(self, shape, cache):
+        """bf16 q over a bf16 or int8 cache (the tensor cores where
+        head_dim is a multiple of 16): the weights as hi + lo bf16 in the
+        value product, the output rounded once, against the plain version
+        in float32 on the same inputs."""
+        q, entry, start = emulation_case(shape, cache, torch.bfloat16)
+        p = plan(*q.shape[:3], entry["k"].shape[2], entry["k"].shape[1],
+                 q.shape[3], q.dtype, entry["k"].dtype)
+        assert (p.route == "tensor_cores") == (q.shape[3] % 16 == 0)
+        want = decode_attention_reference(q.float(), upcast(entry), start)
+        got = emulate_kernel(q, entry, start).bfloat16().float()
+        torch.testing.assert_close(got, want, rtol=BF16_RTOL,
+                                   atol=BF16_ATOL)
+
+    @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                             ids=["cuda_cores", "tensor_cores"])
+    @pytest.mark.parametrize("cache", ["float32", "bfloat16", "int8"])
+    @pytest.mark.parametrize("shape", EMULATED, ids=EMULATED_IDS)
+    def test_early_stop_equals_walking_every_tile(self, shape, cache,
+                                                  q_dtype):
+        """Stopping at the last visible key and skipping the splits past
+        it changes no bit: a masked key weighs exactly 0, a tile of them
+        rescales by exactly 1, an empty split weighs 0."""
+        q, entry, start = emulation_case(shape, cache, q_dtype)
+        assert torch.equal(emulate_kernel(q, entry, start),
+                           emulate_kernel(q, entry, start, walk_all=True))
+
+    @pytest.mark.parametrize("vis_end,ranges", [
+        (0, [(0, 0)]), (1, [(0, 1)]), (64, [(0, 64)]),
+        (65, [(0, 64), (64, 65)]), (128, [(0, 64), (64, 128)]),
+        (129, [(0, 128), (128, 129)]), (300, [(0, 192), (192, 300)])])
+    def test_splits_share_the_visible_keys(self, vis_end, ranges):
+        """The two splits of the split shapes deal the visible key tiles
+        in equal runs; a split past the last run reads nothing."""
+        p = plan(8, 1, 16, 16, 300, 16, torch.bfloat16, torch.int8)
+        assert p.splits == 2
+        assert dmod.split_ranges(p, vis_end) == ranges
+
+    @pytest.mark.parametrize("splits", [1, 2, 3, 4, 16, 32])
+    def test_split_ranges_cover_the_visible_keys(self, splits):
+        p = dataclasses.replace(plan(1, 1, 1, 1, 2048, 128, torch.bfloat16,
+                                     torch.bfloat16), splits=splits)
+        for vis_end in range(1, 2049, 7):
+            ranges = dmod.split_ranges(p, vis_end)
+            assert 1 <= len(ranges) <= splits
+            assert ranges[0][0] == 0 and ranges[-1][1] == vis_end
+            assert all(a % p.key_tile == 0 and a < b for a, b in ranges)
+            assert all(b == c for (_, b), (c, _) in zip(ranges, ranges[1:]))
+
 
 class TestPlan:
     def test_bench_decode_and_prefill(self):
-        decode = plan(8, 1, 16, 16, 128, torch.bfloat16)
-        assert decode.vec and decode.key_tile == 64
-        assert decode.grid == (1, 16, 8)  # 128 blocks on 132 SMs
-        assert plan(8, 64, 16, 16, 128, torch.int8).grid == (4, 16, 8)
-        assert plan(2, 1, 16, 4, 128, torch.float32).grid == (1, 4, 2)
+        decode = plan(8, 1, 16, 16, 1024, 128, torch.bfloat16,
+                      torch.bfloat16)
+        assert decode.route == "tensor_cores" and decode.vec
+        # 128 groups, 2 splits: 256 blocks on 132 SMs, three fit an SM
+        assert decode.splits == 2 and decode.grid == (2, 16, 8)
+        assert (decode.key_tile, decode.stages) == (64, 2)
+        assert dmod.blocks_that_fit(decode.smem_bytes) == 3
+        prefill = plan(8, 64, 16, 16, 1024, 128, torch.bfloat16, torch.int8)
+        assert prefill.route == "tensor_cores" and prefill.splits == 1
+        assert prefill.grid == (4, 16, 8)
+        tp2 = plan(4, 1, 8, 8, 1024, 128, torch.bfloat16, torch.bfloat16)
+        assert (tp2.splits, tp2.blocks) == (8, 256)
+        gqa = plan(2, 1, 16, 4, 1000, 128, torch.float32, torch.float32)
+        assert gqa.route == "cuda_cores" and gqa.grid == (16, 4, 2)
+        assert gqa.splits == 16  # one key tile each
 
     @pytest.mark.parametrize("dim,cache,vec", [
         (128, torch.bfloat16, True), (64, torch.bfloat16, True),
@@ -329,18 +476,69 @@ class TestPlan:
         (6, torch.bfloat16, False), (2, torch.float32, False),
         (4, torch.float32, True), (100, torch.int8, False)])
     def test_sixteen_byte_loads_where_a_row_allows(self, dim, cache, vec):
-        assert plan(1, 1, 2, 2, dim, cache).vec is vec
-        assert not plan(1, 1, 2, 2, dim, cache, aligned=False).vec
+        assert plan(1, 1, 2, 2, 64, dim, torch.bfloat16, cache).vec is vec
+        assert not plan(1, 1, 2, 2, 64, dim, torch.bfloat16, cache,
+                        aligned=False).vec
 
+    @pytest.mark.parametrize("q_dtype,cache,dim,route", [
+        (torch.bfloat16, torch.bfloat16, 128, "tensor_cores"),
+        (torch.bfloat16, torch.int8, 16, "tensor_cores"),
+        (torch.bfloat16, torch.int8, 256, "tensor_cores"),
+        (torch.bfloat16, torch.bfloat16, 8, "cuda_cores"),
+        (torch.bfloat16, torch.int8, 8, "cuda_cores"),
+        (torch.bfloat16, torch.float32, 128, "cuda_cores"),
+        (torch.float32, torch.bfloat16, 128, "cuda_cores"),
+        (torch.float32, torch.int8, 128, "cuda_cores")])
+    def test_route(self, q_dtype, cache, dim, route):
+        assert plan(2, 1, 4, 4, 100, dim, q_dtype, cache).route == route
+        if route == "tensor_cores":
+            p = plan(2, 1, 4, 4, 100, dim, q_dtype, cache, aligned=False)
+            assert p.route == "cuda_cores"
+
+    @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16,
                                        torch.int8])
-    def test_every_even_head_dim_fits_shared_memory(self, cache):
+    def test_every_even_head_dim_fits_shared_memory(self, cache, q_dtype):
         for dim in range(2, dmod.MAX_HEAD_DIM + 1, 2):
-            p = plan(1, 64, 16, 4, dim, cache)
+            p = plan(1, 64, 16, 4, 1024, dim, q_dtype, cache)
             assert p.smem_bytes <= dmod.MAX_SMEM, dim
             assert p.key_tile >= dmod.MIN_KEY_TILE and p.key_tile % 2 == 0
+            assert dmod.MIN_STAGES <= p.stages <= dmod.MAX_STAGES
             assert p.row_stride % 16 == 0
             assert p.row_stride >= dim * cache.itemsize
+            assert p.smem_bytes == dmod.smem_bytes(
+                p.route, dim, cache, p.key_tile, p.row_stride, p.stages)
+            if p.route == "tensor_cores":
+                assert p.key_tile == 64 and dim % 16 == 0
+                assert p.row_stride == dim * cache.itemsize + (
+                    16 if cache == torch.bfloat16 else 0)
+
+    @pytest.mark.parametrize("seq", [1, 63, 64, 65, 300, 997, 1024, 8192])
+    @pytest.mark.parametrize("batch,heads", [(1, 1), (2, 4), (4, 8),
+                                             (8, 16), (64, 16)])
+    def test_splits_fit_the_cache_and_the_counters(self, seq, batch, heads):
+        p = plan(batch, 1, heads, heads, seq, 128, torch.bfloat16,
+                 torch.bfloat16)
+        assert 1 <= p.splits <= min(dmod.MAX_SPLITS, -(-seq // p.key_tile))
+        if p.splits > 1:
+            assert p.groups <= dmod.COUNTERS
+        assert p.blocks <= max(dmod.TARGET_BLOCKS, p.groups)
+
+    @pytest.mark.parametrize("shape", chip_smoke.DECODE_SHAPES,
+                             ids=lambda s: f"{s[0]}-{s[-1]}")
+    def test_chip_smoke_shapes_fill_the_card(self, shape):
+        """Every phase-3e shape runs at least a wave of blocks on an
+        H100's 132 SMs, or one block for each of its key tiles, within
+        shared memory; bf16 q over a bf16 or int8 cache on the tensor
+        cores where head_dim allows."""
+        _, batch, t_new, heads, kv_heads, seq, _, dim, q_dtype, cache = shape
+        p = plan(batch, t_new, heads, kv_heads, seq, dim, q_dtype, cache)
+        assert p.blocks >= 132 or p.splits == -(-seq // p.key_tile)
+        assert dmod.blocks_that_fit(p.smem_bytes) >= 1
+        assert p.smem_bytes <= dmod.MAX_SMEM
+        assert (p.route == "tensor_cores") == (
+            q_dtype == torch.bfloat16 and cache != torch.float32
+            and dim % 16 == 0)
 
 
 def small_case(q_dtype=torch.float32, cache="float32", seq=10, t_new=2):

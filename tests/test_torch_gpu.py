@@ -420,6 +420,7 @@ def test_decode_attention_matches_plain_version(cuda, batch, t_new, heads,
     torch.cuda.synchronize()
     assert decode_attention.launches == before + 2
     assert torch.equal(got, again)
+    assert counters_at_zero()
     assert got.dtype == decode_attention_reference(q, entry, pos).dtype
     want = decode_attention_reference(
         q.float(), {n: t if t.dtype == torch.int8 else t.float()
@@ -456,23 +457,38 @@ def test_kv_append_bit_equal_to_plain_version(cuda, batch, t_new, heads,
                            base[name][:, start + t_new:])
 
 
+def counters_at_zero() -> bool:
+    """Whether every stream's split-combine ticket counters are 0."""
+    return all(not c.any() for c in dmod._counters.values())
+
+
 @pytest.mark.parametrize("cache", [torch.bfloat16, torch.int8])
 def test_decode_attention_graph_replay_equals_eager(cuda, cache):
     """Both kernels captured in a CUDA graph with the position on the
-    device, as the decode step is, then replayed at later positions: the
+    device, as the decode step is, then replayed at later positions that
+    cross a key tile's edge (64: a second split takes keys) and the edge
+    where the splits' runs grow from one tile to two (64 x splits): the
     cache and the attention equal eager launches at the same positions
-    bit for bit."""
-    q, entry = decode_operands(cuda, 2, 1, 16, 4, 300, 64, torch.bfloat16,
-                               cache)
+    bit for bit, and every launch leaves the split counters at 0."""
+    batch, heads, seq, dim = 4, 16, 1024, 64
+    p = dmod.plan(batch, 1, heads, heads, seq, dim, torch.bfloat16, cache)
+    assert p.splits > 1 and p.key_tile == 64
+    edge = p.splits * p.key_tile
+    assert dmod.split_ranges(p, edge + 1)[0] == (0, 2 * p.key_tile)
+    positions = [60, *range(61, 67), *range(edge - 2, edge + 3)]
+    q, entry = decode_operands(cuda, batch, 1, heads, heads, seq, dim,
+                               torch.bfloat16, cache)
     gen = torch.Generator(device=cuda).manual_seed(8)
-    ks, vs = (torch.randn((2, 1, 4, 64), generator=gen, device=cuda)
-              .bfloat16() for _ in range(2))
+    ks, vs = (torch.randn((batch, 1, heads, dim), generator=gen,
+                          device=cuda).bfloat16() for _ in range(2))
     eager_cache = {n: t.clone() for n, t in entry.items()}
     eager = []
-    for start in (100, 101, 102, 103):
+    for start in positions:
         kv_append(eager_cache, ks, vs, start)
         eager.append(decode_attention(q, eager_cache, start))
-    pos = torch.tensor(100, device=cuda)
+    torch.cuda.synchronize()
+    assert counters_at_zero()
+    pos = torch.tensor(positions[0], device=cuda)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -490,13 +506,33 @@ def test_decode_attention_graph_replay_equals_eager(cuda, cache):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     assert torch.equal(first, eager[0])
-    for want in eager[1:]:
+    for start, want in zip(positions[1:], eager[1:]):
+        pos.fill_(start)
         graph.replay()
         torch.cuda.synchronize()
-        assert torch.equal(out, want)
-    assert int(pos) == 104
+        assert torch.equal(out, want), start
+        assert counters_at_zero(), start
     for name in entry:
         assert torch.equal(entry[name], eager_cache[name]), name
+
+
+@pytest.mark.parametrize("batch,t_new,heads,kv_heads,seq,start,dim,q_dtype,"
+                         "cache", DECODE_CASES, ids=DECODE_IDS)
+def test_decode_attention_reads_nothing_past_the_position(
+        cuda, batch, t_new, heads, kv_heads, seq, start, dim, q_dtype,
+        cache):
+    """NaN planted in the cache past the step's last key (in the scales
+    of an int8 cache) leaves the output bit-equal: the kernel stops at
+    the last visible key and skips the splits past it."""
+    q, entry = decode_operands(cuda, batch, t_new, heads, kv_heads, seq,
+                               dim, q_dtype, cache)
+    want = decode_attention(q, entry, start)
+    for name in ("k_s", "v_s") if cache == torch.int8 else ("k", "v"):
+        entry[name][:, start + t_new:] = float("nan")
+    got = decode_attention(q, entry, torch.tensor(start, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert counters_at_zero()
 
 
 def test_int8_recipe_on_the_card_equals_the_cpu(cuda):
