@@ -43,15 +43,18 @@ exits non-zero without printing a result. Phases:
    over copies of the weight that overflow L2 (so read from device
    memory), beside ``torch._weight_int8pack_mm`` and cuBLAS on a bf16
    copy.
-3e. decode_kernels: the cached step's attention kernel and cache-write
-   kernel against their plain versions at the shapes the decode paths give
-   them (the bench decode at the last and a middle position, its prefill
-   block, phase 9's tp shard, each over a bf16 and an int8 cache; GQA in
-   f32, bf16 queries over an f32 cache, head_dims 64, 16 and 8, a ragged
-   S), each row naming its design and its CUDA launches a call (1); the
-   attention within ``KERNEL_TOL`` of the plain version in float32, the
-   cache write bit-equal to its plain version and touching no other row;
-   two launches and a graph-replayed one bit-equal; the attention's output
+3e. decode_kernels: the cached step's attention kernel and the two
+   entries of its cache-write kernel (``rope_kv_append``, which rotates q
+   and k and writes the cache in one launch, and the rotation-free
+   ``kv_append``) against their plain versions at the shapes the decode
+   paths give them (the bench decode at the last and a middle position,
+   its prefill block, phase 9's tp shard, each over a bf16 and an int8
+   cache; GQA in f32, bf16 queries over an f32 cache, head_dims 64, 16
+   and 8, a ragged S), each row naming its design and its CUDA launches
+   a call (1); the attention within ``KERNEL_TOL`` of the plain version
+   in float32, the cache writes (and the rotated q) bit-equal to their
+   plain versions and touching no other row; two launches and a
+   graph-replayed one bit-equal; the attention's output
    unchanged by NaN planted past the position and its split counters back
    at 0; timed in CUDA graphs over cache copies that overflow L2, the
    attention beside SDPA with the boolean mask where the cache is float
@@ -62,7 +65,8 @@ exits non-zero without printing a result. Phases:
    ``"xla"``; the decode contract (stepwise cache == batch forward, host
    loop == graph-replayed device loop in bf16, int8 weights + int8 KV
    and a sampled case with eos and logprobs; each call's graph launches
-   and capture ms; both decode kernels launched once a layer a forward);
+   and capture ms; decode_attention and rope_kv_append launched once a
+   layer a forward, kv_append never);
    a ``DecodeServer`` burst with a mid-burst drain, then decode at the
    bench's shape through the graph and the host loop.
 7-8. the training path, with the launch counts set to 0 just before it:
@@ -173,8 +177,12 @@ from tpu_operator_libs_torch.kernels.decode_attention import (  # noqa: E402
 )
 from tpu_operator_libs_torch.kernels.kv_append import (  # noqa: E402
     _quantize_kv_block,
+    _rope,
     kv_append,
     kv_append_reference,
+    rope_kv_append,
+    rope_kv_append_reference,
+    vector_width,
 )
 from tpu_operator_libs_torch.kernels.int8_matmul import (  # noqa: E402
     int8_matmul,
@@ -199,6 +207,7 @@ from tpu_operator_libs_torch.parallel import (  # noqa: E402
     dp_tp_split,
     run_ranks,
 )
+from decode_step_profile import PORT_KERNELS, port_kernel  # noqa: E402
 
 #: H100 SXM published dense peaks (NVIDIA data sheet, no sparsity)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -413,10 +422,12 @@ def phase_build():
                                f"up to {dm.group(3)}",
                      "dynamic_smem_bytes": None}, serialized))
                 continue
-            if re.search(r"\dkv_append_kernelE", block) is not None:
+            ka = re.search(r"\d((?:rope_)?kv_append_kernel)ILi([12])E", block)
+            if ka is not None:
                 entries.append(ptxas_entry(
-                    block, "kv_append_kernel", "any", None,
-                    {"design": "one warp a (b, t, kv head) row of K or V",
+                    block, ka.group(1), "any", None,
+                    {"design": append_design(ka.group(1) != "kv_append_kernel",
+                                             int(ka.group(2))),
                      "dynamic_smem_bytes": 0}))
                 continue
             fold = re.search(r"\dattention_fold_kernelI(13__nv_bfloat16|f)E",
@@ -1009,17 +1020,26 @@ INT8_SHAPES = [
 
 def cuda_launches(fn) -> int:
     """Kernels (and memsets or copies) that one call of ``fn`` puts on
-    the card, from torch.profiler's device events."""
+    the card, from torch.profiler's device events: the larger count of
+    two sessions of one call each. A session can lose a kernel's record
+    (on an H100 with torch 2.11 the first profiled launch of a kernel
+    from ``csrc/kv_append.cu`` came back with no device event once in
+    each of three runs, beside an "Activity Buffer Request", while the
+    next session of the same call showed it); it never adds one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    counts = []
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == DeviceType.CUDA))
+    return max(counts)
 
 
 def graph_replay_equal(fn, eager) -> bool:
@@ -1219,6 +1239,44 @@ def kv_append_bound_ms(batch, t_new, kv_heads, dim, x_dtype, cache):
     return nbytes / PEAK_BYTES * 1e3, "bytes"
 
 
+def rope_kv_append_bound_ms(batch, t_new, heads, kv_heads, dim, x_dtype,
+                            cache):
+    """Least time of one rotation and cache write: q, k, v and the
+    (dim / 2,) float32 frequencies read once, the rotated q and the cache
+    rows (and scales) written once, over the memory rate. Its operations
+    (a rotation is a few FLOPs and two trig calls an element) are far
+    below the float32 peak's share of these bytes."""
+    kv_rows = 2 * batch * t_new * kv_heads
+    nbytes = (2 * batch * t_new * heads * dim * x_dtype.itemsize
+              + kv_rows * dim * (x_dtype.itemsize + cache.itemsize)
+              + (kv_rows * 4 if cache == torch.int8 else 0) + dim // 2 * 4)
+    return nbytes / PEAK_BYTES * 1e3, "bytes"
+
+
+def append_design(rotate: bool, vec: int) -> str:
+    """The cache-write kernel's design at a vector width."""
+    rows = "q, k or v" if rotate else "k or v"
+    loads = ("two pairs a lane (8- or 4-byte loads)" if vec == 2
+             else "one pair a lane (element loads)")
+    return f"one warp a (b, t, head) row of {rows}, {loads}"
+
+
+def max_ulp(got, want) -> int:
+    """The largest distance in units in the last place between two
+    float32 or bfloat16 tensors of one dtype (0: bit-equal)."""
+    bits = torch.finfo(got.dtype).bits
+    ints = {32: torch.int32, 16: torch.int16}[bits]
+
+    def line(x):  # sign and magnitude onto one monotone integer line
+        x = x.contiguous().view(ints).long()
+        mag = x & ((1 << (bits - 1)) - 1)
+        return torch.where(x < 0, -mag, mag)
+
+    if got.numel() == 0:
+        return 0
+    return int((line(got) - line(want)).abs().max().item())
+
+
 def check_decode_shape(label, batch, t_new, heads, kv_heads, seq, start,
                        dim, q_dtype, cache, card):
     """decode_attention against its plain version at one shape: the error
@@ -1381,7 +1439,8 @@ def check_append_shape(label, batch, t_new, heads, kv_heads, seq, start,
            "B": batch, "T": t_new, "H_kv": kv_heads, "S": seq, "D": dim,
            "start_pos": start, "dtype": dtype_name(q_dtype),
            "cache": dtype_name(cache),
-           "design": "one warp a (b, t, kv head) row of K or V",
+           "design": append_design(False, vector_width(
+               k, v, got["k"], got["v"])),
            "cuda_launches_per_call": launches, "max_abs_err": 0.0,
            "bit_equal_to_plain": bit_equal_plain,
            "other_rows_untouched": untouched, "bit_equal_launches": bit_equal,
@@ -1400,11 +1459,117 @@ def check_append_shape(label, batch, t_new, heads, kv_heads, seq, start,
     return row
 
 
+#: RoPE's theta at every phase 3e row: llama-277M's
+ROPE_THETA = CONFIG_277M.rope_theta
+
+
+def check_rope_append_shape(label, batch, t_new, heads, kv_heads, seq,
+                            start, dim, q_dtype, cache, card):
+    """rope_kv_append against its plain version at one shape: the rotated
+    q and every cache leaf bit-equal after the write (else the largest
+    ulp and code distances in the error), the rows outside [start, start
+    + T) untouched; two launches and a graph replay bit-equal; one CUDA
+    launch a call; timed in a CUDA graph beside the plain version and
+    beside what the path ran before (``_rope`` of q and k, then the
+    kv_append kernel)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    q = torch.randn((batch, t_new, heads, dim), generator=gen,
+                    device="cuda").to(q_dtype)
+    k, v = (torch.randn((batch, t_new, kv_heads, dim), generator=gen,
+                        device="cuda").to(q_dtype) for _ in range(2))
+    base = random_cache(gen, batch, seq, kv_heads, dim, cache)
+    pos = torch.tensor(start, device="cuda")
+
+    def fresh():
+        return {n: t.clone() for n, t in base.items()}
+
+    def call(entry):
+        return rope_kv_append(entry, q, k, v, pos, ROPE_THETA)
+
+    got, again, want = fresh(), fresh(), fresh()
+    q_got = call(got)
+    q_again = call(again)
+    q_want = rope_kv_append_reference(want, q, k, v, pos, ROPE_THETA)
+    torch.cuda.synchronize()
+    bit_equal_plain = torch.equal(q_got, q_want) and all(
+        torch.equal(got[n], want[n]) for n in got)
+    bit_equal = torch.equal(q_got, q_again) and all(
+        torch.equal(got[n], again[n]) for n in got)
+    untouched = all(
+        torch.equal(got[n][:, :start], base[n][:, :start])
+        and torch.equal(got[n][:, start + t_new:], base[n][:, start + t_new:])
+        for n in got)
+    written = all(not torch.equal(got[n][:, start:start + t_new],
+                                  base[n][:, start:start + t_new])
+                  for n in got)
+    distances = {"q_max_ulp": max_ulp(q_got, q_want)}
+    for n in got:
+        if got[n].dtype == torch.int8:
+            distances[f"{n}_max_code_diff"] = int(
+                (got[n].int() - want[n].int()).abs().max().item())
+        else:
+            distances[f"{n}_max_ulp"] = max_ulp(got[n], want[n])
+    err = max([(q_got.float() - q_want.float()).abs().max().item()]
+              + [(got[n].float() - want[n].float()).abs().max().item()
+                 for n in got])
+
+    def result_bytes(q_rot, entry):
+        return torch.cat([q_rot.view(torch.uint8).flatten()]
+                         + [t.view(torch.uint8).flatten()
+                            for t in entry.values()])
+
+    target = fresh()
+    graph_equal = graph_replay_equal(
+        lambda: result_bytes(call(target), target),
+        result_bytes(q_got, got))
+    launches = cuda_launches(lambda: call(target))
+    if not (bit_equal_plain and bit_equal and untouched and written
+            and graph_equal and launches == 1):
+        raise RuntimeError(
+            f"rope_kv_append off its plain version at {label} "
+            f"({dtype_name(cache)} cache): bit-equal to plain "
+            f"{bit_equal_plain} {distances}, two launches {bit_equal}, "
+            f"other rows untouched {untouched}, rows written {written}, "
+            f"graph replay {graph_equal}, CUDA launches a call {launches}")
+
+    def parent_path():  # RoPE and the rotation-free write, unfused
+        positions = torch.arange(t_new, device="cuda") + pos
+        kv_append(target, _rope(k, ROPE_THETA, positions), v, pos)
+        return _rope(q, ROPE_THETA, positions)
+
+    vec = vector_width(q, q_got, k, v, got["k"], got["v"])
+    row = {"phase": "decode_kernels", "name": "rope_kv_append",
+           "shape": label, "B": batch, "T": t_new, "H": heads,
+           "H_kv": kv_heads, "S": seq, "D": dim, "start_pos": start,
+           "dtype": dtype_name(q_dtype), "cache": dtype_name(cache),
+           "design": append_design(True, vec),
+           "cuda_launches_per_call": launches, "max_abs_err": err,
+           **distances, "bit_equal_to_plain": bit_equal_plain,
+           "other_rows_untouched": untouched, "bit_equal_launches": bit_equal,
+           "graph_replay_bit_equal": graph_equal,
+           "kernel_ms": graph_ms(lambda: call(target), 50),
+           "plain_ms": graph_ms(lambda: rope_kv_append_reference(
+               target, q, k, v, pos, ROPE_THETA), 20),
+           "rope_then_kv_append_kernel_ms": graph_ms(parent_path, 20),
+           "library": "none: no single PyTorch call rotates, quantizes and "
+                      "writes",
+           "library_ms": None}
+    row["bound_ms"], row["bound_by"] = rope_kv_append_bound_ms(
+        batch, t_new, heads, kv_heads, dim, q_dtype, cache)
+    row["card"] = card
+    emit(row)
+    del got, again, want, target, base
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_decode_kernels(card):
-    """Phase 3e: (attention rows, cache-write rows), in DECODE_SHAPES'
-    order."""
+    """Phase 3e: (attention rows, rotation-free cache-write rows, rotating
+    cache-write rows), in DECODE_SHAPES' order."""
     return ([check_decode_shape(*shape, card) for shape in DECODE_SHAPES],
-            [check_append_shape(*shape, card) for shape in DECODE_SHAPES])
+            [check_append_shape(*shape, card) for shape in DECODE_SHAPES],
+            [check_rope_append_shape(*shape, card)
+             for shape in DECODE_SHAPES])
 
 
 def cast_params(params, dtype):
@@ -1709,12 +1874,12 @@ def profile_device(fn, top: int = 6):
                 "device_ms": sum(device_us(e) for e in events
                                  if "copy" in e.key.lower()) / 1e3},
             # the port's decode kernels' instances, in or out of the top
-            # rows
+            # rows, matched by whole kernel name
             **{name: [{"name": e.key[:100], "calls": e.count,
                        "device_ms": device_us(e) / 1e3}
-                      for e in events if name in e.key]
-               for name in ("int8_matmul", "decode_attention",
-                            "kv_append")}}
+                      for e in events if port_kernel(e.key) == name]
+               for name in PORT_KERNELS}}
+
 
 
 def profile_decode(fn, params, prompt, kw):
@@ -1753,30 +1918,34 @@ REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-6
 
 def expect_launches(delta, fwd, bwd, what, fold=0, int8=0, decode=0):
     """``decode``: the launches of each decode kernel (decode_attention
-    and kv_append run once a layer a forward_with_cache call)."""
+    and rope_kv_append run once a layer a forward_with_cache call; the
+    rotation-free kv_append never)."""
     want = {"flash_attention_fwd": fwd, "flash_attention_bwd_dkv": bwd,
             "flash_attention_bwd_dq": bwd, "attention_fold": fold,
             "int8_matmul": int8, "decode_attention": decode,
-            "kv_append": decode}
+            "rope_kv_append": decode, "kv_append": 0}
     if delta != want:
         raise RuntimeError(f"{what} launched {delta}, expected {want}")
 
 
 #: the decode path's kernels that run once a layer a forward_with_cache
-DECODE_KERNELS = ["decode_attention", "kv_append"]
+DECODE_KERNELS = ["decode_attention", "rope_kv_append"]
 
 
 def expect_decode_launches(before, forwards, what) -> int:
     """Each decode kernel launched once a layer for each of ``forwards``
     forward_with_cache calls since the counts ``before`` (a replayed
-    graph's launches counted); returns the count."""
+    graph's launches counted), the rotation-free kv_append never;
+    returns the count."""
     after = launch_counts()
     want = forwards * CONFIG_277M.n_layers
-    got = {name: after[name] - before[name] for name in DECODE_KERNELS}
-    if got != dict.fromkeys(DECODE_KERNELS, want):
+    got = {name: after[name] - before[name]
+           for name in DECODE_KERNELS + ["kv_append"]}
+    if got != {**dict.fromkeys(DECODE_KERNELS, want), "kv_append": 0}:
         raise RuntimeError(f"{what} launched {got}, expected {want} each "
                            f"({forwards} forwards of "
-                           f"{CONFIG_277M.n_layers} layers)")
+                           f"{CONFIG_277M.n_layers} layers) and no "
+                           "kv_append")
     return want
 
 
@@ -2290,7 +2459,8 @@ def int8_entry(rows, serving, multi, card):
         "card": card}
 
 
-def decode_entry(name, rows, serving, multi, replaces, card):
+def decode_entry(name, source, rows, serving, multi, replaces, card,
+                 **extra):
     """The kernels line's entry of a decode kernel; its times and bound
     are phase 3e's first row, the bench decode over a bf16 cache, the call
     most launched on the serving path."""
@@ -2298,12 +2468,12 @@ def decode_entry(name, rows, serving, multi, replaces, card):
     keys = ("shape", "B", "T", "H", "H_kv", "S", "D", "start_pos", "dtype",
             "cache", "design", "cuda_launches_per_call", "max_abs_err",
             "limit_use", "bit_equal_to_plain", "bit_equal_launches",
-            "graph_replay_bit_equal", "kernel_ms", "plain_ms", "library",
-            "library_ms", "bound_ms", "bound_by", "bound_ms_whole_cache",
-            "plan")
+            "graph_replay_bit_equal", "kernel_ms", "plain_ms",
+            "rope_then_kv_append_kernel_ms", "library", "library_ms",
+            "bound_ms", "bound_by", "bound_ms_whole_cache", "plan")
     return {
         "name": name, "route": "cuda",
-        "source": f"tpu_operator_libs_torch/csrc/{name}.cu",
+        "source": f"tpu_operator_libs_torch/csrc/{source}",
         "replaces": replaces, "launches": serving[name] + multi[name],
         "launches_by_path": {"serving": serving[name],
                              "multichip": multi[name]},
@@ -2318,7 +2488,7 @@ def decode_entry(name, rows, serving, multi, replaces, card):
         "shape": "B=8 T=1 H=16 S=1024 D=128 bf16 q over a bf16 cache at "
                  "position 1023 (the bench decode's step)",
         "shapes": [{k: r[k] for k in keys if k in r} for r in rows],
-        "card": card}
+        **extra, "card": card}
 
 
 def main(argv) -> int:
@@ -2338,7 +2508,7 @@ def main(argv) -> int:
     fwd_rows += ring_fwd
     bwd_rows += ring_bwd
     int8_rows = phase_int8_matmul(card)
-    attention_rows, append_rows = phase_decode_kernels(card)
+    attention_rows, append_rows, rope_rows = phase_decode_kernels(card)
 
     params = init_llama_params(CONFIG_277M, param_dtype=torch.bfloat16,
                                seed=SEED, device="cuda")
@@ -2422,15 +2592,26 @@ def main(argv) -> int:
         int8_entry(int8_rows, serving["int8_matmul"],
                    multi["int8_matmul"], card),
         decode_entry(
-            "decode_attention", attention_rows, serving, multi,
+            "decode_attention", "decode_attention.cu", attention_rows,
+            serving, multi,
             "tpu_operator_libs/examples/llama_decode.py:216-246 "
             "(forward_with_cache's attention over the cache, mask :181-182; "
             "fused by XLA, no pallas_call)", card),
         decode_entry(
-            "kv_append", append_rows, serving, multi,
+            "rope_kv_append", "kv_append.cu", rope_rows, serving, multi,
+            "tpu_operator_libs/examples/llama_decode.py:174, 190-214 "
+            "(forward_with_cache's positions, _rope of q and k "
+            "(llama.py:117-136), quantize after RoPE and "
+            "dynamic_update_slice; fused by XLA, no pallas_call)", card),
+        decode_entry(
+            "kv_append", "kv_append.cu", append_rows, serving, multi,
             "tpu_operator_libs/examples/llama_decode.py:192-214 "
             "(forward_with_cache's quantize after RoPE and "
-            "dynamic_update_slice; fused by XLA, no pallas_call)", card),
+            "dynamic_update_slice; fused by XLA, no pallas_call)", card,
+            main_paths="none: rope_kv_append, the same kernel body with "
+                       "the rotation, writes the cache on every path; this "
+                       "rotation-free entry fills caches in the card tests "
+                       "and is held to its plain version in phase 3e"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
                                  "count": torch.cuda.device_count()}})

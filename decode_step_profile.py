@@ -6,11 +6,13 @@ int8 weights + int8 KV.
 
 For one eager ``forward_with_cache`` step it reports the device
 kernels (and copies and sets) the step runs and their device time, from
-``torch.profiler``; the copy kernels' share; and the bytes that the
-step's copy ops (``clone``, ``_to_copy``, ``copy_``, ``index_copy_``)
-move, counted from their tensors' sizes by a dispatch mode. It then
-times ``generate_on_device`` through its CUDA graph at the bench cell
-(prompt 64, 960 new tokens).
+``torch.profiler``: every kernel by name with its calls, and the port's
+own kernels matched by their whole names; the copy kernels' share; and
+the bytes that the step's copy ops (``clone``, ``_to_copy``, ``copy_``,
+``index_copy_``) move, counted from their tensors' sizes by a dispatch
+mode. It then times ``generate_on_device`` through its CUDA graph at the
+bench cell (prompt 64, 960 new tokens) and prints a SHA-256 digest of
+its tokens, which two trees that decode the same bits share.
 
 Run from the root of a checkout on a machine with a card:
 
@@ -25,8 +27,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -37,8 +41,20 @@ from torch.utils._python_dispatch import TorchDispatchMode
 #: the ops that copy a tensor's bytes, by overload packet
 COPY_OPS = ("aten.clone", "aten._to_copy", "aten.copy_", "aten.index_copy_")
 BATCH, CONTEXT, PROMPT, NEW_TOKENS = 8, 1024, 64, 960
-#: the port's kernels that a cached step launches
-PORT_KERNELS = ("decode_attention", "kv_append", "int8_matmul")
+#: the port's kernels that a cached step may launch
+PORT_KERNELS = ("int8_matmul", "decode_attention", "rope_kv_append",
+                "kv_append")
+
+
+def port_kernel(key: str):
+    """The port's kernel (of PORT_KERNELS) whose instance a profiler row
+    names, by the kernel's whole name, demangled or mangled: a
+    ``rope_kv_append_kernel<2>`` row is rope_kv_append's and not
+    kv_append's, an ``int8_matmul_mma_kernel<..>`` row int8_matmul's;
+    None for any other kernel."""
+    found = re.search(r"(?:^|\W|\d)(" + "|".join(PORT_KERNELS)
+                      + r")(?:_[a-z]+)?_kernel(?![a-z_])", key)
+    return found.group(1) if found else None
 
 
 class CopyBytes(TorchDispatchMode):
@@ -92,16 +108,17 @@ def step_profile(forward_with_cache, params, cache, config) -> dict:
         return getattr(event, "device_time_total",
                        getattr(event, "cuda_time_total", 0.0))
 
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=device_us, reverse=True)
     copy_events = [e for e in events if "copy" in e.key.lower()]
-    top = sorted(events, key=device_us, reverse=True)[:8]
     return {
-        # the port's own kernels, by the name their instances share
+        # the port's own kernels, by their instances' whole names
         "port_kernels": {
-            name: {"calls": sum(e.count for e in events if name in e.key),
+            name: {"calls": sum(e.count for e in events
+                                if port_kernel(e.key) == name),
                    "device_ms": sum(device_us(e) for e in events
-                                    if name in e.key) / 1e3}
+                                    if port_kernel(e.key) == name) / 1e3}
             for name in PORT_KERNELS},
         "device_events": sum(e.count for e in events),
         "device_ms": sum(device_us(e) for e in events) / 1e3,
@@ -111,8 +128,9 @@ def step_profile(forward_with_cache, params, cache, config) -> dict:
         "copy_ops": {"calls": dict(copies.calls),
                      "bytes": dict(copies.bytes),
                      "total_bytes": sum(copies.bytes.values())},
-        "top": [{"name": e.key[:80], "calls": e.count,
-                 "device_ms": device_us(e) / 1e3} for e in top]}
+        # every kernel, copy and set the step ran, by device time
+        "kernels": [{"name": e.key[:120], "calls": e.count,
+                     "device_ms": device_us(e) / 1e3} for e in events]}
 
 
 def main(argv=None) -> int:
@@ -161,9 +179,12 @@ def main(argv=None) -> int:
         generate_on_device(p, prompt, config, 8, **kw)
         torch.cuda.synchronize()
         start = time.perf_counter()
-        generate_on_device(p, prompt, config, NEW_TOKENS, **kw).cpu()
+        tokens = generate_on_device(p, prompt, config, NEW_TOKENS,
+                                    **kw).cpu()
         seconds = time.perf_counter() - start
         cell["graph_tok_per_s"] = BATCH * NEW_TOKENS / seconds
+        cell["graph_tokens_sha256"] = hashlib.sha256(
+            tokens.numpy().tobytes()).hexdigest()
         cells[label] = cell
     print(json.dumps({"label": args.label or args.tree,
                       "tree": os.path.abspath(args.tree),

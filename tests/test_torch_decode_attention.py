@@ -719,27 +719,33 @@ class TestForwardWithCacheThroughTheWrappers:
     @pytest.mark.parametrize("quantize_kv", [False, True])
     def test_each_layer_calls_both_wrappers_once(self, weights, monkeypatch,
                                                  quantize_kv):
-        """forward_with_cache writes each layer's cache with kv_append and
-        reads it with decode_attention, once a layer, at the position it
-        was given (the plain versions on the CPU)."""
+        """forward_with_cache rotates q and k and writes each layer's cache
+        with rope_kv_append and reads it with decode_attention, once a
+        layer, at the position it was given (the plain versions on the
+        CPU), with the config's theta; the rotation-free kv_append is not
+        called."""
         _, tp = weights
         calls = []
 
-        def spy(name, fn):
+        def spy(name, fn, pos_arg):
             def wrapped(*args):
-                calls.append((name, args[-1]))
+                calls.append((name, args[pos_arg], args[pos_arg + 1:]))
                 return fn(*args)
             return wrapped
 
-        monkeypatch.setattr(tdecode, "kv_append",
-                            spy("kv_append", tdecode.kv_append))
+        monkeypatch.setattr(tdecode, "rope_kv_append",
+                            spy("rope_kv_append", tdecode.rope_kv_append, 4))
         monkeypatch.setattr(tdecode, "decode_attention",
-                            spy("decode_attention", tdecode.decode_attention))
+                            spy("decode_attention", tdecode.decode_attention,
+                                2))
+        monkeypatch.setattr(kmod, "kv_append",
+                            spy("kv_append", kmod.kv_append, 3))
         cache = tdecode.init_kv_cache(TCFG, 2, 8, quantize_kv=quantize_kv,
                                       device="cpu")
         pos = torch.tensor(2)
         tdecode.forward_with_cache(tp, torch.zeros((2, 3), dtype=torch.long),
                                    cache, pos, TCFG)
-        assert [c[0] for c in calls] == ["kv_append", "decode_attention"] \
-            * TCFG.n_layers
+        assert [c[0] for c in calls] == ["rope_kv_append",
+                                         "decode_attention"] * TCFG.n_layers
         assert all(c[1] is pos for c in calls)
+        assert all(c[2] == (TCFG.rope_theta,) for c in calls[::2])

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import test_torch_rank_workers as workers
 from tpu_operator_libs_torch.examples import llama as tllama
 from tpu_operator_libs_torch.examples import llama_decode as tdecode
@@ -40,8 +41,11 @@ from tpu_operator_libs_torch.kernels.decode_attention import (
     decode_attention_reference,
 )
 from tpu_operator_libs_torch.kernels.kv_append import (
+    _rope,
     kv_append,
     kv_append_reference,
+    rope_kv_append,
+    rope_kv_append_reference,
 )
 from tpu_operator_libs_torch.kernels.int8_matmul import (
     int8_matmul,
@@ -457,6 +461,146 @@ def test_kv_append_bit_equal_to_plain_version(cuda, batch, t_new, heads,
                            base[name][:, start + t_new:])
 
 
+#: rope_kv_append's cases: chip_smoke.py phase 3e's rows, then element
+#: loads (head_dim 10: an odd half), f32 q and k into an int8 cache
+#: with GQA and T 3, and bf16 into an f32 cache at a prefill block
+ROPE_CASES = [shape[1:] for shape in chip_smoke.DECODE_SHAPES] + [
+    (2, 1, 8, 2, 64, 63, 10, torch.bfloat16, torch.int8),
+    (2, 3, 16, 4, 997, 500, 128, torch.float32, torch.int8),
+    (2, 64, 16, 16, 1024, 0, 64, torch.bfloat16, torch.float32),
+]
+ROPE_IDS = [f"{shape[0]}_{chip_smoke.dtype_name(shape[-1])}"
+            for shape in chip_smoke.DECODE_SHAPES] + [
+    "d10_element_loads_int8", "f32_gqa_t3_int8", "prefill_bf16_f32_cache"]
+
+
+def rope_operands(cuda, batch, t_new, heads, kv_heads, dim, dtype, seed=10):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn((batch, t_new, h, dim), generator=gen,
+                             device=cuda).to(dtype)
+                 for h in (heads, kv_heads, kv_heads))
+
+
+@pytest.mark.parametrize("batch,t_new,heads,kv_heads,seq,start,dim,q_dtype,"
+                         "cache", ROPE_CASES, ids=ROPE_IDS)
+def test_rope_kv_append_bit_equal_to_plain_version(cuda, batch, t_new, heads,
+                                                   kv_heads, seq, start, dim,
+                                                   q_dtype, cache):
+    """The rotation and cache write against the plain version (``_rope``
+    of q and k, then the write) on the same cache: the rotated q and
+    every leaf bit-equal (codes, scales, float rows), the rows outside
+    [start, start + T) untouched, one launch counted; an int position
+    gives the same bits as a device one."""
+    _, base = decode_operands(cuda, batch, 1, heads, kv_heads, seq, dim,
+                              q_dtype, cache)
+    q, k, v = rope_operands(cuda, batch, t_new, heads, kv_heads, dim,
+                            q_dtype)
+    got, at_int, want = ({n: t.clone() for n, t in base.items()}
+                         for _ in range(3))
+    pos = torch.tensor(start, device=cuda)
+    before = rope_kv_append.launches
+    q_got = rope_kv_append(got, q, k, v, pos, 10000.0)
+    q_int = rope_kv_append(at_int, q, k, v, start, 10000.0)
+    q_want = rope_kv_append_reference(want, q, k, v, pos, 10000.0)
+    torch.cuda.synchronize()
+    assert rope_kv_append.launches == before + 2
+    assert q_got.dtype == q.dtype and q_got.shape == q.shape
+    assert torch.equal(q_got, q_want)
+    assert torch.equal(q_int, q_want)
+    for name in got:
+        assert torch.equal(got[name], want[name]), name
+        assert torch.equal(at_int[name], want[name]), name
+        assert torch.equal(got[name][:, :start], base[name][:, :start])
+        assert torch.equal(got[name][:, start + t_new:],
+                           base[name][:, start + t_new:])
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.int8])
+def test_rope_kv_append_graph_replay_across_positions(cuda, cache):
+    """rope_kv_append captured in a CUDA graph with the position on the
+    device, as the decode step is, then replayed at later positions: the
+    rotated q of each replay and the cache after all of them equal eager
+    launches at the same positions bit for bit."""
+    batch, heads, kv_heads, seq, dim = 4, 16, 4, 256, 128
+    _, entry = decode_operands(cuda, batch, 1, heads, kv_heads, seq, dim,
+                               torch.bfloat16, cache)
+    q, k, v = rope_operands(cuda, batch, 1, heads, kv_heads, dim,
+                            torch.bfloat16)
+    positions = [3, 4, 5, 100, 200, 255]
+    eager_cache = {n: t.clone() for n, t in entry.items()}
+    eager = [rope_kv_append(eager_cache, q, k, v, start, 10000.0)
+             for start in positions]
+    pos = torch.tensor(positions[0], device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        first = rope_kv_append(entry, q, k, v, pos, 10000.0)  # eager
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            out = rope_kv_append(entry, q, k, v, pos, 10000.0)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(first, eager[0])
+    for start, want in zip(positions[1:], eager[1:]):
+        pos.fill_(start)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), start
+    for name in entry:
+        assert torch.equal(entry[name], eager_cache[name]), name
+
+
+def test_rope_kv_append_capture_needs_an_eager_call_first(cuda):
+    """The frequencies are made by an eager call and kept (a replayed
+    graph reads them in place): a capture before any eager call at that
+    (theta, head_dim) raises, and one after it succeeds."""
+    _, entry = decode_operands(cuda, 2, 1, 4, 2, 16, 64, torch.bfloat16,
+                               torch.int8)
+    q, k, v = rope_operands(cuda, 2, 1, 4, 2, 64, torch.bfloat16)
+    theta = 12345.0
+    assert not any(key[0] == theta for key in kmod._freqs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="eager call"):
+            with torch.cuda.graph(graph, stream=side):
+                rope_kv_append(entry, q, k, v, 3, theta)
+        want = rope_kv_append(entry, q, k, v, 3, theta)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = rope_kv_append(entry, q, k, v, 3, theta)
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def test_rope_kv_append_skips_rows_past_the_cache(cuda):
+    """A device position whose block runs past the cache: the rows inside
+    it are written as the plain version writes them, those past it
+    nowhere, and the rotated q is returned for every row."""
+    batch, t_new, heads, kv_heads, seq, dim = 2, 4, 8, 2, 16, 64
+    _, base = decode_operands(cuda, batch, 1, heads, kv_heads, seq, dim,
+                              torch.bfloat16, torch.int8)
+    q, k, v = rope_operands(cuda, batch, t_new, heads, kv_heads, dim,
+                            torch.bfloat16)
+    got, want = ({n: t.clone() for n, t in base.items()} for _ in range(2))
+    q_got = rope_kv_append(got, q, k, v, torch.tensor(14, device=cuda),
+                           10000.0)
+    rope_kv_append_reference(want, q[:, :2].contiguous(), k[:, :2]
+                             .contiguous(), v[:, :2].contiguous(), 14,
+                             10000.0)
+    positions = torch.arange(t_new, device=cuda) + 14
+    torch.cuda.synchronize()
+    assert torch.equal(q_got, _rope(q, 10000.0, positions))
+    for name in got:
+        assert torch.equal(got[name], want[name]), name
+
+
 def counters_at_zero() -> bool:
     """Whether every stream's split-combine ticket counters are 0."""
     return all(not c.any() for c in dmod._counters.values())
@@ -550,7 +694,7 @@ def test_int8_recipe_on_the_card_equals_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("module", ["decode_attention", "kv_append",
-                                    "int8_matmul"])
+                                    "rope_kv_append", "int8_matmul"])
 def test_kernel_build_failure_raises(cuda, monkeypatch, module):
     """A kernel whose build fails raises on CUDA tensors: the wrapper
     never returns its plain version's result instead."""
@@ -558,26 +702,28 @@ def test_kernel_build_failure_raises(cuda, monkeypatch, module):
         raise RuntimeError("nvcc failed (test)")
 
     mod = {"decode_attention": dmod, "kv_append": kmod,
-           "int8_matmul": imod}[module]
+           "rope_kv_append": kmod, "int8_matmul": imod}[module]
     monkeypatch.setattr(mod, "_lib", None)
     monkeypatch.setattr(mod, "_library", broken)
     q, entry = decode_operands(cuda, 2, 1, 4, 2, 16, 8, torch.bfloat16,
                                torch.int8)
-    before = {w.__name__: w.launches
-              for w in (decode_attention, kv_append, imod.int8_matmul)}
+    wrappers = (decode_attention, kv_append, rope_kv_append,
+                imod.int8_matmul)
+    before = {w.__name__: w.launches for w in wrappers}
     with pytest.raises(RuntimeError, match="nvcc failed"):
         if module == "decode_attention":
             decode_attention(q, entry, 3)
         elif module == "kv_append":
             kv_append(entry, q[:, :, :2].contiguous(),
                       q[:, :, :2].contiguous(), 3)
+        elif module == "rope_kv_append":
+            rope_kv_append(entry, q, q[:, :, :2].contiguous(),
+                           q[:, :, :2].contiguous(), 3, 10000.0)
         else:
             imod.int8_matmul(q.reshape(2, 32), entry["k"].reshape(32, -1)
                              .contiguous(), torch.ones(
                                  entry["k"].numel() // 32, device=cuda))
-    assert before == {w.__name__: w.launches
-                      for w in (decode_attention, kv_append,
-                                imod.int8_matmul)}
+    assert before == {w.__name__: w.launches for w in wrappers}
 
 
 #: a narrow Llama for the decode loops on the card (the kernels' shapes
@@ -620,7 +766,8 @@ def test_graph_decode_equals_host_loop(cuda, case):
 
     host = run(tdecode.generate)
     before = int8_matmul.launches
-    before_decode = (decode_attention.launches, kv_append.launches)
+    before_decode = (decode_attention.launches, rope_kv_append.launches,
+                     kv_append.launches)
     dev = run(tdecode.generate_on_device)
     torch.cuda.synchronize()
     assert tdecode.generate_on_device.last_call["eager_steps"] == 1
@@ -628,10 +775,12 @@ def test_graph_decode_equals_host_loop(cuda, case):
     per_forward = 7 * DECODE_CFG.n_layers + 1
     assert int8_matmul.launches - before == (new * per_forward if int8
                                              else 0)
-    # the cache write and the attention, once a layer a forward
+    # the rotation and cache write and the attention, once a layer a
+    # forward; the rotation-free cache write never
     assert (decode_attention.launches - before_decode[0],
-            kv_append.launches - before_decode[1]) == (
-                (new * DECODE_CFG.n_layers,) * 2)
+            rope_kv_append.launches - before_decode[1],
+            kv_append.launches - before_decode[2]) == (
+                new * DECODE_CFG.n_layers, new * DECODE_CFG.n_layers, 0)
     if "return_logprobs" in kw:
         (host, host_lp), (dev, dev_lp) = host, dev
         assert torch.equal(host_lp, dev_lp)
@@ -669,7 +818,7 @@ def test_mesh_graph_decode_equals_host_loop(cuda, case, ranks):
                                          if "int8" in case else 0)
         assert rank["decode_launches"] == {
             "decode_attention": new * DECODE_CFG.n_layers,
-            "kv_append": new * DECODE_CFG.n_layers}
+            "rope_kv_append": new * DECODE_CFG.n_layers, "kv_append": 0}
         np.testing.assert_array_equal(rank["device"], rank["host"])
         np.testing.assert_array_equal(rank["device"], first["device"])
         if "device_logprobs" in rank:

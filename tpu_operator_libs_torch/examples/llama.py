@@ -4,8 +4,9 @@ training step.
 Mirrors ``tpu_operator_libs/examples/llama.py``: ``ATTENTION_IMPLS`` and
 ``LlamaConfig`` (copied), ``_rms_norm``, ``_rope``,
 ``init_llama_params``, ``forward`` (with ``remat``), ``next_token_loss``,
-``config_for_mesh``, ``make_train_step`` and ``make_token_batch``.
-RMSNorm -> causal self-attention with rotary embeddings and grouped-query
+``config_for_mesh``, ``make_train_step`` and ``make_token_batch``
+(``_rope`` lives beside the decode step's rotating cache write, in
+``kernels/kv_append.py``). RMSNorm -> causal self-attention with rotary embeddings and grouped-query
 KV heads -> SwiGLU MLP, the Llama-3 block structure.
 
 Parameters are a nested dict of tensors in the JAX package's layout:
@@ -45,6 +46,7 @@ from tpu_operator_libs_torch import resolve_device
 from tpu_operator_libs_torch.convert import shard_params
 from tpu_operator_libs_torch.examples.ring_attention import ring_attention
 from tpu_operator_libs_torch.kernels.flash_attention import flash_attention
+from tpu_operator_libs_torch.kernels.kv_append import _rope
 from tpu_operator_libs_torch.optim import AdamW, tree_map, value_and_grad
 from tpu_operator_libs_torch.parallel import (
     copy_to_tp,
@@ -131,27 +133,6 @@ def _rms_norm(x, weight, eps: float = 1e-5):
     var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
     return (x * torch.reciprocal(torch.sqrt(var + eps))).to(x.dtype) \
         * weight
-
-
-def _rope(x, theta: float, positions=None):
-    """Rotary position embedding over the last axis of (B, S, H, D):
-    a half-split rotation (not interleaved) with f32 frequencies.
-
-    ``positions`` (S,) overrides the default 0..S-1 — decode steps pass
-    the absolute position so a cached token rotates identically whether
-    it arrived via prefill or one step at a time."""
-    _, seq, _, head_dim = x.shape
-    half = head_dim // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
-    if positions is None:
-        positions = torch.arange(seq, dtype=torch.float32, device=x.device)
-    angles = positions.to(torch.float32)[:, None] * freqs[None, :]
-    cos = torch.cos(angles)[None, :, None, :]
-    sin = torch.sin(angles)[None, :, None, :]
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
-                     dim=-1).to(x.dtype)
 
 
 def init_llama_params(config: "LlamaConfig | None" = None,

@@ -19,11 +19,12 @@ returns the same list. Sampling draws Gumbel noise from an explicit
 and device loops consume it in the same order, so they draw the same
 tokens. Three hand-written kernels do what XLA fuses on the TPU (none
 has a Pallas source): the int8-weight matmul (``kernels/int8_matmul.py``)
-reads the codes as int8; the cache write (``kernels/kv_append.py``)
-quantizes the new keys and values and writes them at the step's
-position; the cached attention (``kernels/decode_attention.py``) reads
-the float or int8 cache in place and folds its scales. On the CPU each
-runs its plain PyTorch version.
+reads the codes as int8; the cache write (``kernels/kv_append.py``'s
+``rope_kv_append``) rotates the step's queries and keys and quantizes
+and writes the new keys and values at the step's position; the cached
+attention (``kernels/decode_attention.py``) reads the float or int8
+cache in place and folds its scales. On the CPU each runs its plain
+PyTorch version.
 
 On the card, :func:`generate_on_device` replays one decode step from a
 captured CUDA graph where JAX runs a ``lax.scan``: the step reads and
@@ -50,7 +51,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from tpu_operator_libs_torch import resolve_device
-from tpu_operator_libs_torch.examples.llama import _rms_norm, _rope
+from tpu_operator_libs_torch.examples.llama import _rms_norm
 from tpu_operator_libs_torch.kernels import WRAPPERS
 from tpu_operator_libs_torch.kernels.decode_attention import (
     _promoted,
@@ -60,7 +61,7 @@ from tpu_operator_libs_torch.kernels.int8_matmul import int8_matmul
 from tpu_operator_libs_torch.kernels.kv_append import (  # noqa: F401
     _quantize_kv_block,  # the int8 recipe, under the reference's names
     _sym_int8,
-    kv_append,
+    rope_kv_append,
 )
 from tpu_operator_libs_torch.parallel import (
     TP_SPLIT_DIM,
@@ -164,10 +165,10 @@ def forward_with_cache(params, tokens, cache, start_pos, config,
     whole on every tp rank.
 
     ``start_pos`` is a Python int or a 0-d int64 tensor on the cache's
-    device, as JAX's may be traced: both take the same ops (RoPE angles
-    from one positions tensor; the cache write and the attention's mask
-    from the position where it lies), and nothing reads it back to the
-    host, so a captured step can advance it in place."""
+    device, as JAX's may be traced: both take the same ops (RoPE, the
+    cache write and the attention's mask from the position where it
+    lies), and nothing reads it back to the host, so a captured step can
+    advance it in place."""
     if config.attention_impl != "xla":
         raise ValueError(
             "forward_with_cache implements the einsum path; decode "
@@ -177,7 +178,6 @@ def forward_with_cache(params, tokens, cache, start_pos, config,
     tp = tp_of(mesh)
     hd = config.head_dim
     nh, nkv = config.n_heads // tp, config.n_kv_heads // tp
-    positions = torch.arange(t_new, device=cache[0]["k"].device) + start_pos
 
     h = params["embed"][tokens.long()]
     for layer, entry in zip(params["layers"], cache):
@@ -185,11 +185,10 @@ def forward_with_cache(params, tokens, cache, start_pos, config,
         q = _mm(a, layer["wq"]).reshape(batch, t_new, nh, hd)
         k = _mm(a, layer["wk"]).reshape(batch, t_new, nkv, hd)
         v = _mm(a, layer["wv"]).reshape(batch, t_new, nkv, hd)
-        q = _rope(q, config.rope_theta, positions)
-        k = _rope(k, config.rope_theta, positions)
-        # the new keys and values into the cache (quantized after RoPE
-        # for an int8 one), then the queries against the whole cache
-        kv_append(entry, k, v, start_pos)
+        # RoPE of q and k and the new keys and values into the cache
+        # (quantized after RoPE for an int8 one), one launch on the card;
+        # then the queries against the whole cache
+        q = rope_kv_append(entry, q, k, v, start_pos, config.rope_theta)
         ctx = decode_attention(q, entry, start_pos)
         h = h + reduce_from_tp(
             _mm(ctx.reshape(batch, t_new, nh * hd), layer["wo"]), mesh)

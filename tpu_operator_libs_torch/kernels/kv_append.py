@@ -1,23 +1,30 @@
-"""The cached step's cache write: one block of new keys and values,
-quantized for an int8 cache, written at the step's position.
+"""The cached step's cache write: RoPE of the step's queries and keys,
+and the new keys and values quantized for an int8 cache, written at the
+step's position.
 
 Mirrors ``tpu_operator_libs/examples/llama_decode.py::forward_with_cache``
-``:192-214``, which XLA fuses on the TPU (no Pallas source): for an int8
-cache ``_quantize_kv_block`` after RoPE, then ``dynamic_update_slice`` of
-the codes and the scales at ``start_pos``; for a float cache the cast to
-the cache's dtype and the same update. :func:`kv_append` launches
-``csrc/kv_append.cu`` for CUDA tensors, K and V in one launch, and runs
-the plain version, :func:`kv_append_reference`, for CPU ones. The two
-write the same bits: the kernel's quantization uses only exact float32
+``:174, 190-214``, which XLA fuses on the TPU (no Pallas source): the
+positions ``start_pos + arange(T)``, ``_rope`` of q and k, then for an
+int8 cache ``_quantize_kv_block`` after RoPE and ``dynamic_update_slice``
+of the codes and the scales at ``start_pos``; for a float cache the cast
+to the cache's dtype and the same update. :func:`rope_kv_append` launches
+``csrc/kv_append.cu`` for CUDA tensors, all of a layer's rows in one
+launch, and runs the plain version, :func:`rope_kv_append_reference`, for
+CPU ones. :func:`kv_append` is the same write without the rotation (the
+same kernel body). Kernel and plain version write the same bits: the
+rotation rounds each product, sum and difference on its own with the
+same ``cosf`` / ``sinf``, and the quantization uses only exact float32
 operations (a max, IEEE divisions, round half to even).
 
-The port's int8 recipe itself, :func:`_sym_int8`, lives here too: the
-weight quantizer (``examples/llama_decode.py``) shares it.
+The port's ``_rope`` and its int8 recipe, :func:`_sym_int8`, live here
+too: the batch forward (``examples/llama.py``) and the weight quantizer
+(``examples/llama_decode.py``) share them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 import torch.distributed as dist
@@ -28,6 +35,40 @@ SOURCE = "kv_append.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
+#: the rotation's frequencies on the card by (theta, head_dim, device),
+#: made at a call's first eager launch and kept (a captured launch reads
+#: them in place)
+_freqs = {}
+_freqs_lock = threading.Lock()
+
+
+def rope_freqs(theta: float, head_dim: int, device):
+    """RoPE's (head_dim // 2,) float32 frequencies, ``theta ** (-i /
+    half)``: the expression of the reference's ``_rope``
+    (``tpu_operator_libs/examples/llama.py:128``)."""
+    half = head_dim // 2
+    return theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=device) / half)
+
+
+def _rope(x, theta: float, positions=None):
+    """Rotary position embedding over the last axis of (B, S, H, D):
+    a half-split rotation (not interleaved) with f32 frequencies.
+
+    ``positions`` (S,) overrides the default 0..S-1 — decode steps pass
+    the absolute position so a cached token rotates identically whether
+    it arrived via prefill or one step at a time."""
+    _, seq, _, head_dim = x.shape
+    half = head_dim // 2
+    freqs = rope_freqs(theta, head_dim, x.device)
+    if positions is None:
+        positions = torch.arange(seq, dtype=torch.float32, device=x.device)
+    angles = positions.to(torch.float32)[:, None] * freqs[None, :]
+    cos = torch.cos(angles)[None, :, None, :]
+    sin = torch.sin(angles)[None, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
 
 
 def _sym_int8(x, axis, group=None):
@@ -76,6 +117,18 @@ def kv_append_reference(entry, k, v, start_pos):
     for name, block in new.items():
         entry[name].index_copy_(1, positions, block)
     return entry
+
+
+def rope_kv_append_reference(entry, q, k, v, start_pos, theta):
+    """Plain PyTorch version of :func:`rope_kv_append`: ``_rope`` of ``q``
+    and ``k`` at positions ``start_pos .. start_pos + T - 1``, then
+    :func:`kv_append_reference` of the rotated ``k`` and ``v``. Returns
+    the rotated ``q``."""
+    positions = torch.arange(q.shape[1], device=q.device) + start_pos
+    q = _rope(q, theta, positions)
+    k = _rope(k, theta, positions)
+    kv_append_reference(entry, k, v, start_pos)
+    return q
 
 
 def check_cache_entry(entry) -> None:
@@ -158,6 +211,54 @@ def _check(entry, k, v, start_pos) -> None:
                          f" run past the cache's {seq}")
 
 
+def _check_rope(entry, q, k, v, start_pos, theta) -> None:
+    _check(entry, k, v, start_pos)
+    if not isinstance(q, torch.Tensor) or not q.is_contiguous():
+        raise ValueError("q must be a contiguous tensor")
+    if q.device != k.device:
+        raise ValueError(f"q is on {q.device}, the cache on {k.device}")
+    if q.dtype not in _FLOAT_DTYPES:
+        raise ValueError(f"q has dtype {q.dtype}; float32 or bfloat16 "
+                         "expected")
+    if q.dim() != 4 or q.shape[:2] != k.shape[:2] \
+            or q.shape[3] != k.shape[3] or q.shape[2] < 1 \
+            or q.shape[2] % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} must be (B, T, H, head_dim) "
+                         f"with H a multiple of k's {tuple(k.shape)} n_kv")
+    if isinstance(theta, bool) or not isinstance(theta, (int, float)) \
+            or not theta > 0:
+        raise ValueError(f"theta must be a number > 0, got {theta!r}")
+
+
+def vector_width(*tensors) -> int:
+    """Pairs a lane takes at once: 2 where every row's halves split into
+    aligned pairs (head_dim % 4 == 0, every buffer 8-byte aligned), else
+    1. The C entry checks it."""
+    dim = tensors[0].shape[-1]
+    if dim % 4 == 0 and all(t.data_ptr() % 8 == 0 for t in tensors):
+        return 2
+    return 1
+
+
+def _freqs_on(theta, head_dim, device):
+    """``rope_freqs`` on ``device``, made once (eagerly) and kept: a
+    captured launch holds its address."""
+    key = (theta, head_dim, device)
+    with _freqs_lock:
+        freqs = _freqs.get(key)
+        if freqs is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"rope_kv_append's frequencies for theta={theta}, "
+                    f"head_dim={head_dim} on {device} are made by an eager "
+                    "call: launch it once before capturing")
+            freqs = rope_freqs(theta, head_dim, device)
+            # ready for launches on every stream of the device
+            torch.cuda.synchronize(device)
+            _freqs[key] = freqs
+    return freqs
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -165,9 +266,12 @@ def _library():
 
         lib = build_all([SOURCE])[0].lib
         lib.kv_append.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         lib.kv_append.restype = ctypes.c_int
+        lib.rope_kv_append.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int] * 2 + lib.kv_append.argtypes
+        lib.rope_kv_append.restype = ctypes.c_int
         lib.kv_append_error_string.argtypes = [ctypes.c_int]
         lib.kv_append_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -189,31 +293,73 @@ def kv_append(entry, k, v, start_pos):
         return kv_append_reference(entry, k, v, start_pos)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
+    lib = _library()
+    with torch.cuda.device(device):
+        err = lib.kv_append(*_cache_args(entry, k, v, start_pos),
+                            vector_width(k, v, entry["k"], entry["v"]),
+                            torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, err, "kv_append")
+    kv_append.launches += 1
+    return entry
+
+
+def _cache_args(entry, k, v, start_pos):
+    """The C entries' arguments from k to cache_dtype."""
     batch, seq, kv_heads, dim = entry["k"].shape
     quant = "k_s" in entry
     on_device = isinstance(start_pos, torch.Tensor)
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.kv_append(
-            k.data_ptr(), v.data_ptr(), entry["k"].data_ptr(),
+    return (k.data_ptr(), v.data_ptr(), entry["k"].data_ptr(),
             entry["v"].data_ptr(),
             entry["k_s"].data_ptr() if quant else None,
             entry["v_s"].data_ptr() if quant else None,
             start_pos.data_ptr() if on_device else None,
             0 if on_device else start_pos, batch, k.shape[1], seq,
             kv_heads, dim, _DTYPE_CODES[k.dtype], _DTYPE_CODES[v.dtype],
-            _DTYPE_CODES[entry["k"].dtype], stream)
+            _DTYPE_CODES[entry["k"].dtype])
+
+
+def _raise_on(lib, err, name) -> None:
     if err != 0:
         message = lib.kv_append_error_string(err).decode()
-        raise RuntimeError(f"kv_append launch failed: {message} ({err})")
-    kv_append.launches += 1
-    return entry
+        raise RuntimeError(f"{name} launch failed: {message} ({err})")
+
+
+def rope_kv_append(entry, q, k, v, start_pos, theta):
+    """RoPE of ``q`` (B, T, H, head_dim) and ``k`` (B, T, n_kv, head_dim)
+    at positions ``start_pos .. start_pos + T - 1``, and the rotated
+    ``k`` and ``v`` written into one layer's cache there (quantized for an
+    int8 cache); returns the rotated ``q`` in q's dtype. All three are
+    float32 or bfloat16, H a multiple of n_kv. The kernel for CUDA
+    tensors, one launch for all of it, the plain version for CPU ones.
+    ``start_pos`` is an int or a 0-d int64 tensor on the cache's device,
+    which the kernel reads there (a captured step advances it in place).
+    Rows of k and v whose position lies outside the cache are not
+    written; rotated q is returned for every row. The frequencies are
+    made on the device at the first eager call for a (theta, head_dim)."""
+    _check_rope(entry, q, k, v, start_pos, theta)
+    device = entry["k"].device
+    if device.type == "cpu":
+        return rope_kv_append_reference(entry, q, k, v, start_pos, theta)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    lib = _library()
+    q_out = torch.empty_like(q)
+    with torch.cuda.device(device):
+        err = lib.rope_kv_append(
+            q.data_ptr(), q_out.data_ptr(),
+            _freqs_on(theta, q.shape[-1], device).data_ptr(), q.shape[2],
+            _DTYPE_CODES[q.dtype], *_cache_args(entry, k, v, start_pos),
+            vector_width(q, q_out, k, v, entry["k"], entry["v"]),
+            torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, err, "rope_kv_append")
+    rope_kv_append.launches += 1
+    return q_out
 
 
 #: Kernel launches since the last reset (the plain CPU path adds none).
-#: Inside a captured CUDA graph the wrapper runs once, at capture; the
+#: Inside a captured CUDA graph a wrapper runs once, at capture; the
 #: graph's caller adds its replays (``llama_decode.generate_on_device``).
 kv_append.launches = 0
-#: the kernel's wrapper, by the name its launch count reports under
-WRAPPERS = {"kv_append": kv_append}
+rope_kv_append.launches = 0
+#: the kernels' wrappers, by the name each launch count reports under
+WRAPPERS = {"kv_append": kv_append, "rope_kv_append": rope_kv_append}
