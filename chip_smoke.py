@@ -60,13 +60,24 @@ exits non-zero without printing a result. Phases:
    attention beside SDPA with the boolean mask where the cache is float
    and of q's dtype, its bound over the visible keys and over the whole
    cache.
+3f. norm_gate_kernels: the norm kernel (the residual add folded in, with
+   and without it) and its backward (with and without the residual
+   output's gradient), and the gate kernel and its backward, against
+   their plain versions at the shapes the paths give them (the bench
+   decode, the prefill block, the train step's, f32 and an odd width;
+   the gate at the tp = 2 shard too): one CUDA launch a call, two
+   launches and a graph-replayed one bit-equal (the backward's dw summed
+   over every row in order), timed in CUDA graphs beside the plain
+   version, the autograd of the plain version (the backward rows) and
+   ``torch.nn.functional.rms_norm`` (the norm rows).
 4-6. the serving path, with the launch counts set to 0 just before it:
    ``forward`` of llama-277M with ``attention_impl="flash"`` against
    ``"xla"``; the decode contract (stepwise cache == batch forward, host
    loop == graph-replayed device loop in bf16, int8 weights + int8 KV
    and a sampled case with eos and logprobs; each call's graph launches
    and capture ms; decode_attention and rope_kv_append launched once a
-   layer a forward, kv_append never);
+   layer a forward, the norm 2L + 1 times and the gate L times,
+   kv_append never);
    a ``DecodeServer`` burst with a mid-burst drain, then decode at the
    bench's shape through the graph and the host loop.
 7-8. the training path, with the launch counts set to 0 just before it:
@@ -184,6 +195,21 @@ from tpu_operator_libs_torch.kernels.kv_append import (  # noqa: E402
     rope_kv_append_reference,
     vector_width,
 )
+from tpu_operator_libs_torch.kernels import rms_norm as norm_mod  # noqa: E402
+from tpu_operator_libs_torch.kernels.rms_norm import (  # noqa: E402
+    _rms_parts,
+    add_rms_norm_reference,
+    rms_norm_backward_reference,
+    rms_norm_bwd,
+    rms_norm_reference,
+)
+from tpu_operator_libs_torch.kernels.swiglu import (  # noqa: E402
+    swiglu,
+    swiglu_backward_reference,
+    swiglu_bwd,
+    swiglu_reference,
+    vector_width as gate_vector_width,
+)
 from tpu_operator_libs_torch.kernels.int8_matmul import (  # noqa: E402
     int8_matmul,
     int8_matmul_reference,
@@ -217,6 +243,9 @@ PEAK_BYTES = 3.35e12
 CONFIG_277M = LlamaConfig(vocab=2048, d_model=2048, n_layers=4,
                           n_heads=16, n_kv_heads=16, d_ff=8192,
                           seq_len=1024, learning_rate=1e-4)
+#: the train step's shape (bench.py:530-533): batch 16, seq 1024
+TRAIN_BATCH = 16
+TRAIN_ROWS = TRAIN_BATCH * CONFIG_277M.seq_len
 
 #: Kernel against plain version: (rtol, atol) on the output.
 #: bf16: both sides accumulate in f32 and round once to bf16, so they may
@@ -429,6 +458,16 @@ def phase_build():
                     {"design": append_design(ka.group(1) != "kv_append_kernel",
                                              int(ka.group(2))),
                      "dynamic_smem_bytes": 0}))
+                continue
+            nk = re.search(r"\d((?:rms_norm|swiglu)_(?:fwd|bwd)_kernel)"
+                           r"ILi(\d)E", block)
+            if nk is not None:
+                # the backward's partial dw: rows_per_block x dim floats
+                entries.append(ptxas_entry(
+                    block, nk.group(1), "any", None,
+                    {"design": f"{nk.group(2)} elements a load",
+                     "dynamic_smem_bytes": None if nk.group(1)
+                     == "rms_norm_bwd_kernel" else 0}))
                 continue
             fold = re.search(r"\dattention_fold_kernelI(13__nv_bfloat16|f)E",
                              block)
@@ -1018,21 +1057,28 @@ INT8_SHAPES = [
 ]
 
 
+#: the most profiler sessions ``cuda_launches`` takes of one call
+MAX_PROFILE_SESSIONS = 5
+
+
 def cuda_launches(fn) -> int:
     """Kernels (and memsets or copies) that one call of ``fn`` puts on
-    the card, from torch.profiler's device events: the larger count of
-    two sessions of one call each. A session can lose a kernel's record
-    (on an H100 with torch 2.11 the first profiled launch of a kernel
-    from ``csrc/kv_append.cu`` came back with no device event once in
-    each of three runs, beside an "Activity Buffer Request", while the
-    next session of the same call showed it); it never adds one."""
+    the card, from torch.profiler's device events: the largest count of
+    two sessions of one call each, or of up to MAX_PROFILE_SESSIONS while
+    every session counted none. A session can lose a kernel's record (on
+    an H100 with torch 2.11 the first profiled launch of a kernel from
+    ``csrc/kv_append.cu`` came back with no device event once in each of
+    three runs, beside an "Activity Buffer Request", while the next
+    session of the same call showed it; both sessions of one int8_matmul
+    call once came back empty); it never adds one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     counts = []
-    for _ in range(2):
+    while len(counts) < 2 or (max(counts) == 0
+                              and len(counts) < MAX_PROFILE_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
@@ -1572,6 +1618,354 @@ def phase_decode_kernels(card):
              for shape in DECODE_SHAPES])
 
 
+#: (label, rows, dim, dtype, iters) of phase 3f's norm rows, at
+#: llama-277M's d_model: the bench decode's step (8 rows), its prefill
+#: block (8 x 64), the train step's 16 x 1024, an f32 step and an odd
+#: width (element loads). The first row is the decode paths' most
+#: launched call, the third the train step's.
+NORM_SHAPES = [
+    ("bench_decode", 8, 2048, torch.bfloat16, 200),
+    ("prefill_block", 512, 2048, torch.bfloat16, 100),
+    ("train", TRAIN_ROWS, 2048, torch.bfloat16, 10),
+    ("decode_f32", 8, 2048, torch.float32, 200),
+    ("odd_width", 64, 1001, torch.bfloat16, 100),
+]
+#: (label, rows, d_ff, dtype, iters) of phase 3f's gate rows: the bench
+#: decode, phase 9's tp = 2 shard (4 rows a rank over half of d_ff), the
+#: prefill block, the train step's and an f32 step
+GATE_SHAPES = [
+    ("bench_decode", 8, 8192, torch.bfloat16, 200),
+    ("tp2_shard", 4, 4096, torch.bfloat16, 200),
+    ("prefill_block", 512, 8192, torch.bfloat16, 100),
+    ("train", TRAIN_ROWS, 8192, torch.bfloat16, 10),
+    ("decode_f32", 8, 8192, torch.float32, 200),
+]
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bytes_bound_ms(nbytes):
+    """The least time to move ``nbytes`` once at the memory rate: the
+    norm and the gate do a few FLOPs an element, far below the float32
+    peak's share of their bytes."""
+    return nbytes / PEAK_BYTES * 1e3, "bytes"
+
+
+def flat_bytes(*tensors):
+    return torch.cat([t.contiguous().view(torch.uint8).flatten()
+                      for t in tensors if t is not None])
+
+
+def check_launch_contract(name, label, fn, outputs, again):
+    """Two launches bit-equal, one CUDA graph replay bit-equal to the
+    eager call, one CUDA launch a call; raises otherwise."""
+    bit_equal = all(torch.equal(a, b) for a, b in zip(outputs, again)
+                    if a is not None)
+    graph_equal = graph_replay_equal(lambda: flat_bytes(*fn()),
+                                     flat_bytes(*outputs))
+    launches = cuda_launches(fn)
+    if not (bit_equal and graph_equal and launches == 1):
+        raise RuntimeError(
+            f"{name} at {label}: bit-equal launches {bit_equal}, graph "
+            f"replay bit-equal {graph_equal}, CUDA launches a call "
+            f"{launches}")
+    return {"cuda_launches_per_call": launches, "bit_equal_launches": True,
+            "graph_replay_bit_equal": True}
+
+
+def norm_inputs(gen, dim, dtype):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    # a weight near the model's init (ones)
+    weight = (1 + 0.1 * torch.randn((dim,), generator=gen, device="cuda")) \
+        .to(dtype)
+    return randn, weight
+
+
+def check_norm_shape(label, rows, dim, dtype, iters, add, card):
+    """The norm kernel against its plain version at one shape, with the
+    residual add or without: the sum bit-equal, the norm within
+    ``KERNEL_TOL`` taken once for each of its two roundings (the variance
+    sums in another order, so ``x * rstd`` may round one ulp apart before
+    the weight multiply), rstd (the train shape writes it) within 1e-6;
+    the launch contract; times in CUDA graphs beside the plain version
+    and ``F.rms_norm``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    randn, w = norm_inputs(gen, dim, dtype)
+    h = randn(rows, dim)
+    d = randn(rows, dim) if add else None
+    # the train step's forward writes rstd for its backward
+    want_rstd = label == "train"
+
+    def call():
+        return norm_mod._launch_forward(h, d, w, norm_mod.EPS, want_rstd)
+
+    s, y, rstd = call()
+    again = call()
+    torch.cuda.synchronize()
+    ref_s, ref_y = add_rms_norm_reference(h, d, w)
+    _, ref_rstd = _rms_parts(ref_s, w, norm_mod.EPS)
+    pre = (ref_s * ref_rstd[:, None]).to(dtype).float().abs() * \
+        w.float().abs()
+    rtol, atol = KERNEL_TOL[dtype]
+    err = (y.float() - ref_y.float()).abs()
+    use = (err / (atol + rtol * (ref_y.float().abs() + pre))).max().item()
+    sum_equal = d is None or torch.equal(s, ref_s)
+    rstd_err = None if rstd is None else \
+        ((rstd - ref_rstd).abs() / ref_rstd).max().item()
+    if not (use <= 1 and sum_equal and (rstd_err is None or rstd_err <= 1e-6)
+            and y.dtype == ref_y.dtype and torch.isfinite(y.float()).all()):
+        raise RuntimeError(
+            f"rms_norm off its plain version at {label} (add {add}): "
+            f"limit_use {use}, max|err| {err.max().item()}, sum bit-equal "
+            f"{sum_equal}, rstd relative error {rstd_err}")
+    row = {"phase": "norm_gate_kernels", "name": "rms_norm", "shape": label,
+           "rows": rows, "dim": dim, "dtype": dtype_name(dtype), "add": add,
+           "writes_rstd": want_rstd,
+           **check_launch_contract("rms_norm", label, call,
+                                   (s, y, rstd), again),
+           "design": norm_design(rows, dim, norm_mod.vector_width(
+               dim, h, d, w, s, y), backward=False),
+           "max_abs_err": err.max().item(),
+           "limit": "atol + rtol * (|ref| + |round(s * rstd) * w|)",
+           "rtol": rtol, "atol": atol, "limit_use": use,
+           "bit_equal_to_plain_share": (y == ref_y).float().mean().item(),
+           "max_ulp_vs_plain": max_ulp(y, ref_y),
+           "sum_bit_equal": sum_equal, "rstd_max_rel_err": rstd_err,
+           "kernel_ms": graph_ms(call, iters),
+           "plain_ms": graph_ms(
+               lambda: add_rms_norm_reference(h, d, w), max(2, iters // 4))}
+    dims = (dim,)
+    if add:
+        row["library"] = ("torch.add + torch.nn.functional.rms_norm (one "
+                          "rounding, not the reference's two)")
+        row["library_ms"] = graph_ms(lambda: torch.nn.functional.rms_norm(
+            h + d, dims, w, norm_mod.EPS), iters)
+    else:
+        row["library"] = ("torch.nn.functional.rms_norm (one rounding, not "
+                          "the reference's two)")
+        row["library_ms"] = graph_ms(lambda: torch.nn.functional.rms_norm(
+            h, dims, w, norm_mod.EPS), iters)
+    row["bound_ms"], row["bound_by"] = bytes_bound_ms(
+        tensor_bytes(h, d, w, s, y, rstd))
+    row["card"] = card
+    emit(row)
+    del h, d, s, y, rstd, again, ref_s, ref_y, pre, err
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_norm_bwd_shape(label, rows, dim, dtype, iters, fused, card):
+    """The norm's backward kernel against its plain formula at one shape,
+    with the residual output's gradient ``ds`` or without: dx and dw
+    within ``KERNEL_TOL`` (the row sums and dw's sum over the rows in
+    another order); the launch contract (dw's ordered combine: launches
+    and a replay bit-equal); times in CUDA graphs beside the plain
+    formula, and eagerly beside the autograd of the plain norm (what the
+    train step ran before) and of ``F.rms_norm``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    randn, w = norm_inputs(gen, dim, dtype)
+    x, dy = randn(rows, dim), randn(rows, dim)
+    ds = randn(rows, dim) if fused else None
+    _, rstd = _rms_parts(x, w, norm_mod.EPS)
+
+    def call():
+        return rms_norm_bwd(dy, x, w, rstd, ds)
+
+    dx, dw = call()
+    again = call()
+    torch.cuda.synchronize()
+    ref_dx, ref_dw = rms_norm_backward_reference(dy, x, w, rstd, ds)
+    rtol, atol = KERNEL_TOL[dtype]
+    use = max(limit_use((dx.float() - ref_dx.float()).abs(), ref_dx, rtol,
+                        atol),
+              limit_use((dw.float() - ref_dw.float()).abs(), ref_dw, rtol,
+                        atol))
+    err = max((dx.float() - ref_dx.float()).abs().max().item(),
+              (dw.float() - ref_dw.float()).abs().max().item())
+    if not (use <= 1 and torch.isfinite(dx.float()).all()
+            and torch.isfinite(dw.float()).all()):
+        raise RuntimeError(
+            f"rms_norm_bwd off its plain formula at {label} (ds {fused}): "
+            f"limit_use {use}, max|err| {err}")
+    p = norm_mod.plan(rows, dim, norm_mod.vector_width(dim, dy, x, w, ds, dx),
+                      torch.cuda.get_device_properties(0)
+                      .multi_processor_count, backward=True)
+    row = {"phase": "norm_gate_kernels", "name": "rms_norm_bwd",
+           "shape": label, "rows": rows, "dim": dim,
+           "dtype": dtype_name(dtype), "add": fused,
+           **check_launch_contract("rms_norm_bwd", label, call, (dx, dw),
+                                   again),
+           "design": norm_design(rows, dim, norm_mod.vector_width(
+               dim, dy, x, w, ds, dx), backward=True),
+           "plan": dataclasses.asdict(p),
+           "max_abs_err": err, "rtol": rtol, "atol": atol, "limit_use": use,
+           "dw_bit_equal_to_plain": bool(torch.equal(dw, ref_dw)),
+           "kernel_ms": graph_ms(call, iters),
+           "plain_ms": graph_ms(lambda: rms_norm_backward_reference(
+               dy, x, w, rstd, ds), max(2, iters // 4))}
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = rms_norm_reference(xr, wr)
+    row["plain_autograd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        y, [xr, wr], dy, retain_graph=True), eager_iters(iters))
+    y = torch.nn.functional.rms_norm(xr, (dim,), wr, norm_mod.EPS)
+    row["library"] = ("the autograd backward of torch.nn.functional.rms_norm"
+                      " (no ds added; one rounding)")
+    row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        y, [xr, wr], dy, retain_graph=True), eager_iters(iters))
+    del y, xr, wr
+    row["bound_ms"], row["bound_by"] = bytes_bound_ms(
+        tensor_bytes(dy, x, w, rstd, ds, dx, dw))
+    row["card"] = card
+    emit(row)
+    del x, dy, ds, dx, dw, again, ref_dx, ref_dw
+    torch.cuda.empty_cache()
+    return row
+
+
+def eager_iters(iters) -> int:
+    """Calls of an eagerly timed backward (the plain autograd, the
+    library's): at least 10, so that one slow host turn does not make the
+    mean (the train shape's 2 calls read 0.18 to 2.36 ms between runs)."""
+    return max(10, iters // 4)
+
+
+def norm_design(rows, dim, vec, backward) -> str:
+    p = norm_mod.plan(rows, dim, vec, torch.cuda.get_device_properties(0)
+                      .multi_processor_count, backward=backward)
+    loads = {8: "8-element vector loads", 4: "4-element vector loads",
+             1: "element loads"}[vec]
+    what = (f"{p.splits} blocks of {p.rows_per_block} rows at a time, dw "
+            "combined in block order by the last" if backward
+            else f"{p.rows_per_block} rows a block")
+    return f"{p.threads_per_row} threads a row, {loads}; {what}"
+
+
+def check_gate_shape(label, rows, dim, dtype, iters, card):
+    """The gate kernel against ``F.silu(g) * u`` at one shape: bit-equal
+    (else the largest ulp distance, held to ``KERNEL_TOL``); the launch
+    contract; times in CUDA graphs beside the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    g, u = ((2 * torch.randn((rows, dim), generator=gen, device="cuda"))
+            .to(dtype) for _ in range(2))
+
+    def call():
+        return (swiglu(g, u),)
+
+    (y,) = call()
+    again = call()
+    torch.cuda.synchronize()
+    ref = swiglu_reference(g, u)
+    rtol, atol = KERNEL_TOL[dtype]
+    err = (y.float() - ref.float()).abs()
+    use = limit_use(err, ref, rtol, atol)
+    if not (use <= 1 and torch.isfinite(y.float()).all()):
+        raise RuntimeError(f"swiglu off its plain version at {label}: "
+                           f"limit_use {use}, max ulp {max_ulp(y, ref)}")
+    row = {"phase": "norm_gate_kernels", "name": "swiglu", "shape": label,
+           "rows": rows, "dim": dim, "dtype": dtype_name(dtype),
+           **check_launch_contract("swiglu", label, call, (y,), again),
+           "design": gate_design(gate_vector_width(g, u, y)),
+           "max_abs_err": err.max().item(), "rtol": rtol, "atol": atol,
+           "limit_use": use, "bit_equal_to_plain": bool(torch.equal(y, ref)),
+           "max_ulp_vs_plain": max_ulp(y, ref),
+           "kernel_ms": graph_ms(lambda: swiglu(g, u), iters),
+           "plain_ms": graph_ms(lambda: swiglu_reference(g, u),
+                                max(2, iters // 4)),
+           "library": "none: no single PyTorch call gates", "library_ms": None}
+    row["bound_ms"], row["bound_by"] = bytes_bound_ms(tensor_bytes(g, u, y))
+    row["card"] = card
+    emit(row)
+    del g, u, y, again, ref, err
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_gate_bwd_shape(label, rows, dim, dtype, iters, card):
+    """The gate's backward kernel against its plain formula at one shape:
+    dg and du bit-equal (else the largest ulp distances, held to
+    ``KERNEL_TOL``); the launch contract; times in CUDA graphs beside the
+    plain formula and eagerly beside autograd through ``F.silu(g) * u``
+    (what the train step ran before)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    dy, g, u = ((2 * torch.randn((rows, dim), generator=gen, device="cuda"))
+                .to(dtype) for _ in range(3))
+
+    def call():
+        return swiglu_bwd(dy, g, u)
+
+    dg, du = call()
+    again = call()
+    torch.cuda.synchronize()
+    ref_dg, ref_du = swiglu_backward_reference(dy, g, u)
+    rtol, atol = KERNEL_TOL[dtype]
+    use = max(limit_use((dg.float() - ref_dg.float()).abs(), ref_dg, rtol,
+                        atol),
+              limit_use((du.float() - ref_du.float()).abs(), ref_du, rtol,
+                        atol))
+    ulps = {"dg_max_ulp_vs_plain": max_ulp(dg, ref_dg),
+            "du_max_ulp_vs_plain": max_ulp(du, ref_du)}
+    if not (use <= 1 and torch.isfinite(dg.float()).all()
+            and torch.isfinite(du.float()).all()):
+        raise RuntimeError(f"swiglu_bwd off its plain formula at {label}: "
+                           f"limit_use {use}, {ulps}")
+    gr, ur = g.clone().requires_grad_(), u.clone().requires_grad_()
+    y = swiglu_reference(gr, ur)
+    row = {"phase": "norm_gate_kernels", "name": "swiglu_bwd",
+           "shape": label, "rows": rows, "dim": dim,
+           "dtype": dtype_name(dtype),
+           **check_launch_contract("swiglu_bwd", label, call, (dg, du),
+                                   again),
+           "design": gate_design(gate_vector_width(dy, g, u, dg, du)),
+           "max_abs_err": max(
+               (dg.float() - ref_dg.float()).abs().max().item(),
+               (du.float() - ref_du.float()).abs().max().item()),
+           "rtol": rtol, "atol": atol, "limit_use": use,
+           "bit_equal_to_plain": bool(torch.equal(dg, ref_dg)
+                                      and torch.equal(du, ref_du)),
+           **ulps,
+           "kernel_ms": graph_ms(call, iters),
+           "plain_ms": graph_ms(lambda: swiglu_backward_reference(dy, g, u),
+                                max(2, iters // 4)),
+           "plain_autograd_ms": cuda_ms(lambda: torch.autograd.grad(
+               y, [gr, ur], dy, retain_graph=True), eager_iters(iters)),
+           "library": "none: no single PyTorch call gates", "library_ms": None}
+    row["bound_ms"], row["bound_by"] = bytes_bound_ms(
+        tensor_bytes(dy, g, u, dg, du))
+    row["card"] = card
+    emit(row)
+    del dy, g, u, dg, du, again, ref_dg, ref_du, y, gr, ur
+    torch.cuda.empty_cache()
+    return row
+
+
+def gate_design(vec) -> str:
+    loads = {8: "8-element vector loads", 4: "4-element vector loads",
+             1: "element loads"}[vec]
+    return f"a thread a vector ({loads}), the grid striding, a scalar tail"
+
+
+def phase_norm_gate_kernels(card):
+    """Phase 3f: (norm rows, norm backward rows, gate rows, gate backward
+    rows); the first of each is its kernel's line entry's: the bench
+    decode with the add (the decode step's 2L of its 2L + 1 norms), the
+    train shape with ds, the bench decode's gate and the train shape's
+    gate backward."""
+    norm = [check_norm_shape(*shape, add, card) for add in (True, False)
+            for shape in NORM_SHAPES]
+    norm_bwd = [check_norm_bwd_shape(*shape, fused, card)
+                for fused in (True, False) for shape in NORM_SHAPES]
+    norm_bwd.sort(key=lambda r: (r["shape"] != "train", not r["add"]))
+    gate = [check_gate_shape(*shape, card) for shape in GATE_SHAPES]
+    gate_bwd = [check_gate_bwd_shape(*shape, card) for shape in GATE_SHAPES]
+    gate_bwd.sort(key=lambda r: r["shape"] != "train")
+    return norm, norm_bwd, gate, gate_bwd
+
+
 def cast_params(params, dtype):
     if isinstance(params, dict):
         return {k: cast_params(v, dtype) for k, v in params.items()}
@@ -1907,8 +2301,6 @@ def launch_counts() -> "dict[str, int]":
     return {name: wrapper.launches for name, wrapper in KERNELS.items()}
 
 
-#: the train step's shape (bench.py:530-533): batch 16, seq 1024
-TRAIN_BATCH = 16
 TRAIN_STEPS = 6
 #: f32 gradients against the xla path: rtol = atol = 1e-4, as the f32
 #: logits; remat against no remat in f32: tests/test_llama.py:148's
@@ -1916,16 +2308,36 @@ TRAIN_STEPS = 6
 REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-6
 
 
-def expect_launches(delta, fwd, bwd, what, fold=0, int8=0, decode=0):
+def expect_launches(delta, fwd, bwd, what, fold=0, int8=0, decode=0,
+                    blocks=None):
     """``decode``: the launches of each decode kernel (decode_attention
     and rope_kv_append run once a layer a forward_with_cache call; the
-    rotation-free kv_append never)."""
+    rotation-free kv_append never); ``blocks``: the norm's and the gate's
+    (:func:`block_launches`; none by default)."""
     want = {"flash_attention_fwd": fwd, "flash_attention_bwd_dkv": bwd,
             "flash_attention_bwd_dq": bwd, "attention_fold": fold,
             "int8_matmul": int8, "decode_attention": decode,
-            "rope_kv_append": decode, "kv_append": 0}
+            "rope_kv_append": decode, "kv_append": 0,
+            **(blocks or block_launches(0))}
     if delta != want:
         raise RuntimeError(f"{what} launched {delta}, expected {want}")
+
+
+#: the norm's and the gate's kernels, forward and backward
+BLOCK_KERNELS = ["rms_norm", "rms_norm_bwd", "swiglu", "swiglu_bwd"]
+
+
+def block_launches(forwards, backwards=0, remat=False) -> dict:
+    """The norm's and the gate's launches for ``forwards`` forwards of
+    llama-277M (batch forward or cached step: 2L + 1 norms, L gates each)
+    and ``backwards`` backwards (as many of each backward kernel); with
+    ``remat`` each backward recomputes the layers' forwards (the final
+    norm stays outside them)."""
+    n = CONFIG_277M.n_layers
+    again = backwards if remat else 0
+    return {"rms_norm": forwards * (2 * n + 1) + again * 2 * n,
+            "rms_norm_bwd": backwards * (2 * n + 1),
+            "swiglu": (forwards + again) * n, "swiglu_bwd": backwards * n}
 
 
 #: the decode path's kernels that run once a layer a forward_with_cache
@@ -1935,17 +2347,18 @@ DECODE_KERNELS = ["decode_attention", "rope_kv_append"]
 def expect_decode_launches(before, forwards, what) -> int:
     """Each decode kernel launched once a layer for each of ``forwards``
     forward_with_cache calls since the counts ``before`` (a replayed
-    graph's launches counted), the rotation-free kv_append never;
-    returns the count."""
+    graph's launches counted), the norm 2L + 1 times and the gate L times
+    a call, their backward kernels and the rotation-free kv_append never;
+    returns the decode kernels' count."""
     after = launch_counts()
     want = forwards * CONFIG_277M.n_layers
-    got = {name: after[name] - before[name]
-           for name in DECODE_KERNELS + ["kv_append"]}
-    if got != {**dict.fromkeys(DECODE_KERNELS, want), "kv_append": 0}:
-        raise RuntimeError(f"{what} launched {got}, expected {want} each "
+    expected = {**dict.fromkeys(DECODE_KERNELS, want), "kv_append": 0,
+                **block_launches(forwards)}
+    got = {name: after[name] - before[name] for name in expected}
+    if got != expected:
+        raise RuntimeError(f"{what} launched {got}, expected {expected} "
                            f"({forwards} forwards of "
-                           f"{CONFIG_277M.n_layers} layers) and no "
-                           "kv_append")
+                           f"{CONFIG_277M.n_layers} layers)")
     return want
 
 
@@ -2004,7 +2417,7 @@ def phase_train(params, card):
     first_ms = (time.perf_counter() - start) * 1e3
     one = launch_counts()
     expect_launches({k: one[k] - before[k] for k in one}, n_layers,
-                    n_layers, "one train step")
+                    n_layers, "one train step", blocks=block_launches(1, 1))
     losses = [first]
     start = time.perf_counter()
     for tokens in batches[1:]:
@@ -2016,7 +2429,8 @@ def phase_train(params, card):
     after = launch_counts()
     expect_launches({k: after[k] - before[k] for k in after},
                     n_layers * TRAIN_STEPS, n_layers * TRAIN_STEPS,
-                    f"{TRAIN_STEPS} train steps")
+                    f"{TRAIN_STEPS} train steps",
+                    blocks=block_launches(TRAIN_STEPS, TRAIN_STEPS))
     losses = [float(x) for x in losses]
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise RuntimeError(f"train losses not finite and falling: {losses}")
@@ -2039,9 +2453,11 @@ def phase_train(params, card):
                            ("f32", cast_params(params, torch.float32),
                             tokens[:2])):
         flash_loss, flash_g, flash_n = grads_with_launches(p, toks, config)
-        expect_launches(flash_n, n_layers, n_layers, f"{label} flash grads")
+        expect_launches(flash_n, n_layers, n_layers, f"{label} flash grads",
+                        blocks=block_launches(1, 1))
         xla_loss, xla_g, xla_n = grads_with_launches(p, toks, CONFIG_277M)
-        expect_launches(xla_n, 0, 0, f"{label} xla grads")
+        expect_launches(xla_n, 0, 0, f"{label} xla grads",
+                        blocks=block_launches(1, 1))
         if label == "bf16":
             vs_xla = compare_grads("bf16 flash vs xla grads", flash_g, xla_g,
                                    flash_loss, xla_loss,
@@ -2056,7 +2472,8 @@ def phase_train(params, card):
         remat = dataclasses.replace(config, remat=True)
         remat_loss, remat_g, remat_n = grads_with_launches(p, toks, remat)
         expect_launches(remat_n, 2 * n_layers, n_layers,
-                        f"{label} remat grads")
+                        f"{label} remat grads",
+                        blocks=block_launches(1, 1, remat=True))
         bit_equal = bool(torch.equal(remat_loss, flash_loss) and all(
             torch.equal(a, b) for a, b in zip(tree_leaves(remat_g),
                                               tree_leaves(flash_g))))
@@ -2219,12 +2636,16 @@ def phase_multichip(card, train_losses=None, bench_tokens=None):
     int8 = (2 * (MULTI_NEW_TOKENS + BENCH_NEW_TOKENS)
             * (7 * config.n_layers + 1))
     # both dtypes' loops: the decode kernels once a layer a forward
-    decode = (2 * 2 * (MULTI_NEW_TOKENS + BENCH_NEW_TOKENS)
-              * config.n_layers)
+    forwards = 2 * 2 * (MULTI_NEW_TOKENS + BENCH_NEW_TOKENS)
+    decode = forwards * config.n_layers
+    # the norm and the gate in every train step (the train stage's and
+    # the checkpoint stage's two) and every decode forward
+    steps = MULTI_STEPS + 2
     for rank in ranks:
         expect_launches(rank["launches"], per_kernel, per_kernel,
                         f"multichip rank path at tp={tp}", int8=int8,
-                        decode=decode)
+                        decode=decode,
+                        blocks=block_launches(steps + forwards, steps))
         if rank["losses"] != first["losses"]:
             raise RuntimeError("ranks disagree on the losses")
     train = {"phase": "multichip_train", **common,
@@ -2257,7 +2678,8 @@ def phase_multichip(card, train_losses=None, bench_tokens=None):
     ring = first["ring"]
     llama = ring["llama"]
     for rank in ranks:
-        idle = [k for k in RING_KERNELS if rank["launches_ring"][k] < 1]
+        idle = [k for k in RING_KERNELS + BLOCK_KERNELS
+                if rank["launches_ring"][k] < 1]
         if idle:
             raise RuntimeError(f"the ring stage never launched {idle}")
         if rank["ring"]["llama"]["losses"] != llama["losses"]:
@@ -2310,7 +2732,7 @@ def multichip_decode_line(ranks, common, launches):
             "prompt": 64, "new_tokens": MULTI_NEW_TOKENS,
             "int8_matmul_launches": launches["int8_matmul"],
             **{f"{name}_launches": launches[name]
-               for name in DECODE_KERNELS}}
+               for name in DECODE_KERNELS + BLOCK_KERNELS}}
     equal_ranks = True
     for label, name in DECODE_LABELS:
         key = f"decode_{label}"
@@ -2491,6 +2913,35 @@ def decode_entry(name, source, rows, serving, multi, replaces, card,
         **extra, "card": card}
 
 
+def block_entry(name, source, replaces, rows, launches, shape, card):
+    """The kernels line's entry of a norm or gate kernel; its times and
+    bound are its first phase 3f row's (``phase_norm_gate_kernels``)."""
+    main_row = rows[0]
+    keys = ("shape", "rows", "dim", "dtype", "add", "design",
+            "cuda_launches_per_call", "max_abs_err", "limit_use",
+            "max_ulp_vs_plain", "dg_max_ulp_vs_plain", "du_max_ulp_vs_plain",
+            "bit_equal_to_plain", "bit_equal_launches",
+            "graph_replay_bit_equal", "kernel_ms", "plain_ms",
+            "plain_autograd_ms", "library", "library_ms", "bound_ms",
+            "bound_by")
+    return {
+        "name": name, "route": "cuda",
+        "source": f"tpu_operator_libs_torch/csrc/{source}",
+        "replaces": replaces, "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "launches_counted": "eager calls plus, for a replayed graph, the "
+                            "launches recorded at capture times the "
+                            "replays; multichip: rank 0's",
+        "ok": True, "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "library": main_row["library"], "design": main_row["design"],
+        "shape": shape,
+        "shapes": [{k: r[k] for k in keys if k in r} for r in rows],
+        "card": card}
+
+
 def main(argv) -> int:
     card = phase_device()
     phase_build()
@@ -2509,6 +2960,8 @@ def main(argv) -> int:
     bwd_rows += ring_bwd
     int8_rows = phase_int8_matmul(card)
     attention_rows, append_rows, rope_rows = phase_decode_kernels(card)
+    norm_rows, norm_bwd_rows, gate_rows, gate_bwd_rows = \
+        phase_norm_gate_kernels(card)
 
     params = init_llama_params(CONFIG_277M, param_dtype=torch.bfloat16,
                                seed=SEED, device="cuda")
@@ -2532,15 +2985,20 @@ def main(argv) -> int:
     multi, ring = phase_multichip(card, train_losses, bench_tokens)
     for path, counts, names in (
             ("serving", serving,
-             ["flash_attention_fwd", "int8_matmul"] + DECODE_KERNELS),
-            ("training", training, FLASH_KERNELS),
+             ["flash_attention_fwd", "int8_matmul", "rms_norm", "swiglu"]
+             + DECODE_KERNELS),
+            ("training", training, FLASH_KERNELS + BLOCK_KERNELS),
             ("ring chain", chain, ["flash_attention_fwd", "attention_fold"]),
-            ("multichip", multi, ["int8_matmul"] + DECODE_KERNELS),
-            ("multichip ring", ring, RING_KERNELS)):
+            ("multichip", multi,
+             ["int8_matmul"] + DECODE_KERNELS + BLOCK_KERNELS),
+            ("multichip ring", ring, RING_KERNELS + BLOCK_KERNELS)):
         missing = [name for name in names if counts[name] < 1]
         if missing:
             raise RuntimeError(f"the {path} path never launched {missing}")
 
+    # the paths that run the norm and the gate
+    paths = {"serving": serving, "training": training, "multichip": multi,
+             "ring": ring}
     pallas = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     emit({"kernels": [
         kernel_entry(
@@ -2612,6 +3070,33 @@ def main(argv) -> int:
                        "the rotation, writes the cache on every path; this "
                        "rotation-free entry fills caches in the card tests "
                        "and is held to its plain version in phase 3e"),
+        block_entry(
+            "rms_norm", "rms_norm.cu",
+            "tpu_operator_libs/examples/llama.py:108-114 (_rms_norm) with "
+            "the residual adds llama.py:307, 312 and llama_decode.py:247, "
+            "253 (fused by XLA; no pallas_call)", norm_rows,
+            {path: counts["rms_norm"] for path, counts in paths.items()},
+            "rows=8 dim=2048 bf16 with the residual add (the bench "
+            "decode's step)", card),
+        block_entry(
+            "rms_norm_bwd", "rms_norm.cu",
+            "the gradient of tpu_operator_libs/examples/llama.py:108-114 "
+            "and of the residual adds (jax.grad through XLA; no "
+            "pallas_call)", norm_bwd_rows,
+            {path: counts["rms_norm_bwd"] for path, counts in paths.items()},
+            "rows=16384 dim=2048 bf16 with ds (the train step's)", card),
+        block_entry(
+            "swiglu", "swiglu.cu",
+            "tpu_operator_libs/examples/llama.py:311 and llama_decode.py:"
+            "251-252 (silu(g) * u, fused by XLA; no pallas_call)", gate_rows,
+            {path: counts["swiglu"] for path, counts in paths.items()},
+            "rows=8 d_ff=8192 bf16 (the bench decode's step)", card),
+        block_entry(
+            "swiglu_bwd", "swiglu.cu",
+            "the gradient of tpu_operator_libs/examples/llama.py:311 "
+            "(jax.grad through XLA; no pallas_call)", gate_bwd_rows,
+            {path: counts["swiglu_bwd"] for path, counts in paths.items()},
+            "rows=16384 d_ff=8192 bf16 (the train step's)", card),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
                                  "count": torch.cuda.device_count()}})

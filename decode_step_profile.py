@@ -43,15 +43,16 @@ COPY_OPS = ("aten.clone", "aten._to_copy", "aten.copy_", "aten.index_copy_")
 BATCH, CONTEXT, PROMPT, NEW_TOKENS = 8, 1024, 64, 960
 #: the port's kernels that a cached step may launch
 PORT_KERNELS = ("int8_matmul", "decode_attention", "rope_kv_append",
-                "kv_append")
+                "kv_append", "rms_norm", "swiglu")
 
 
 def port_kernel(key: str):
     """The port's kernel (of PORT_KERNELS) whose instance a profiler row
     names, by the kernel's whole name, demangled or mangled: a
     ``rope_kv_append_kernel<2>`` row is rope_kv_append's and not
-    kv_append's, an ``int8_matmul_mma_kernel<..>`` row int8_matmul's;
-    None for any other kernel."""
+    kv_append's, an ``int8_matmul_mma_kernel<..>`` row int8_matmul's, a
+    ``rms_norm_fwd_kernel<8>`` row rms_norm's; None for any other
+    kernel."""
     found = re.search(r"(?:^|\W|\d)(" + "|".join(PORT_KERNELS)
                       + r")(?:_[a-z]+)?_kernel(?![a-z_])", key)
     return found.group(1) if found else None

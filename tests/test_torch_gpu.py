@@ -1,5 +1,6 @@
 """The CUDA kernels (flash attention, the ring-attention fold, the
-int8-weight matmul, the decode step's attention and cache write) against
+int8-weight matmul, the decode step's attention and cache write, the
+norm with its residual add and the gate, forward and backward) against
 their plain versions, on the card, the
 ring's block chain against the whole-sequence kernels, the
 graph-replayed decode loop against the host loop on one card and on
@@ -29,9 +30,12 @@ from tpu_operator_libs_torch.examples.ring_attention import (
     _block_backward,
     _schedule,
 )
+from tpu_operator_libs_torch.kernels import WRAPPERS
 from tpu_operator_libs_torch.kernels import decode_attention as dmod
 from tpu_operator_libs_torch.kernels import int8_matmul as imod
 from tpu_operator_libs_torch.kernels import kv_append as kmod
+from tpu_operator_libs_torch.kernels import rms_norm as rmod
+from tpu_operator_libs_torch.kernels import swiglu as smod
 from tpu_operator_libs_torch.kernels.attention_fold import (
     attention_fold,
     attention_fold_reference,
@@ -693,8 +697,239 @@ def test_int8_recipe_on_the_card_equals_the_cpu(cuda):
         assert torch.equal(scales.cpu(), want_scales)
 
 
+#: the norm's cases: chip_smoke.py phase 3f's rows (rows, dim, dtype),
+#: each with and without the residual add, and a mix of dtypes (bf16 h
+#: under an f32 delta, as a bf16 model over an f32 cache gives)
+NORM_CASES = [(rows, dim, dtype, add)
+              for _, rows, dim, dtype, _ in chip_smoke.NORM_SHAPES
+              for add in (True, False)]
+NORM_IDS = [f"{label}_{'add' if add else 'no_add'}"
+            for label, *_ in chip_smoke.NORM_SHAPES
+            for add in (True, False)]
+
+
+def norm_operands(cuda, rows, dim, dtype, seed=20):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    h, d, dy, ds = (torch.randn((rows, dim), generator=gen, device=cuda)
+                    .to(dtype) for _ in range(4))
+    w = (1 + 0.1 * torch.randn((dim,), generator=gen, device=cuda)).to(dtype)
+    return h, d, w, dy, ds
+
+
+def norm_limit(ref_s, ref_y, w, rstd):
+    """KERNEL_TOL taken once for each of the norm's two roundings (the
+    variance sums in another order, so s * rstd may round one ulp apart
+    before the weight multiply)."""
+    rtol, atol = TOL[ref_y.dtype]
+    pre = (ref_s * rstd[..., None]).to(ref_s.dtype).float().abs() \
+        * w.float().abs()
+    return atol + rtol * (ref_y.float().abs() + pre)
+
+
+@pytest.mark.parametrize("rows,dim,dtype,add", NORM_CASES, ids=NORM_IDS)
+def test_rms_norm_matches_plain_version(cuda, rows, dim, dtype, add):
+    """The forward kernel against the plain version: the sum bit-equal,
+    the norm within the limit of its two roundings, rstd within 1e-6; two
+    launches and a graph replay bit-equal; one CUDA launch a call."""
+    h, d, w, _, _ = norm_operands(cuda, rows, dim, dtype)
+    d = d if add else None
+    before = rmod.add_rms_norm.launches
+
+    def call():
+        return rmod._launch_forward(h, d, w, rmod.EPS, True)
+
+    s, y, rstd = call()
+    again = call()
+    torch.cuda.synchronize()
+    assert rmod.add_rms_norm.launches == before + 2
+    ref_s, ref_y = rmod.add_rms_norm_reference(h, d, w)
+    _, ref_rstd = rmod._rms_parts(ref_s, w, rmod.EPS)
+    if add:
+        assert torch.equal(s, ref_s)
+    assert y.dtype == ref_y.dtype
+    err = (y.float() - ref_y.float()).abs()
+    assert (err <= norm_limit(ref_s, ref_y, w, ref_rstd)).all()
+    assert ((rstd - ref_rstd).abs() <= 1e-6 * ref_rstd).all()
+    for a, b in zip((s, y, rstd), again):
+        assert a is None or torch.equal(a, b)
+    outputs = chip_smoke.flat_bytes(s, y, rstd)
+    assert chip_smoke.graph_replay_equal(
+        lambda: chip_smoke.flat_bytes(*call()), outputs)
+    assert chip_smoke.cuda_launches(call) == 1
+
+
+def test_rms_norm_promotes_mixed_dtypes_as_the_plain_version(cuda):
+    """bf16 h under an f32 delta and a bf16 weight (the decode step of a
+    bf16 model over an f32 cache): the sum and the norm in f32, the sum
+    bit-equal to ``h + delta``, the norm within f32's limit."""
+    h, _, w, _, _ = norm_operands(cuda, 8, 256, torch.bfloat16)
+    d = torch.randn(8, 256, device=cuda)
+    s, y = rmod.add_rms_norm(h, d, w)
+    ref_s, ref_y = rmod.add_rms_norm_reference(h, d, w)
+    assert s.dtype == y.dtype == torch.float32
+    assert torch.equal(s, ref_s)
+    _, rstd = rmod._rms_parts(ref_s, w, rmod.EPS)
+    assert ((y - ref_y).abs() <= norm_limit(ref_s, ref_y, w, rstd)).all()
+
+
+@pytest.mark.parametrize("rows,dim,dtype,fused", NORM_CASES, ids=NORM_IDS)
+def test_rms_norm_bwd_matches_plain_formula(cuda, rows, dim, dtype, fused):
+    """The backward kernel against its plain formula within the dtype's
+    tolerance (the row sums and dw's sum over the rows in another order),
+    ds added into dx; two launches and a graph replay bit-equal (dw's
+    partials combined in block order by the last block, no atomics), the
+    ticket counter back at 0; one CUDA launch a call."""
+    _, _, w, dy, ds = norm_operands(cuda, rows, dim, dtype)
+    x = norm_operands(cuda, rows, dim, dtype, seed=21)[0]
+    ds = ds if fused else None
+    _, rstd = rmod._rms_parts(x, w, rmod.EPS)
+    before = rmod.rms_norm_bwd.launches
+
+    def call():
+        return rmod.rms_norm_bwd(dy, x, w, rstd, ds)
+
+    dx, dw = call()
+    again = call()
+    torch.cuda.synchronize()
+    assert rmod.rms_norm_bwd.launches == before + 2
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+    assert all(not c.any() for c in rmod._counters.values())
+    ref_dx, ref_dw = rmod.rms_norm_backward_reference(dy, x, w, rstd, ds)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(dx.float(), ref_dx.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(dw.float(), ref_dw.float(), rtol=rtol,
+                               atol=atol)
+    assert chip_smoke.graph_replay_equal(
+        lambda: chip_smoke.flat_bytes(*call()),
+        chip_smoke.flat_bytes(dx, dw))
+    assert chip_smoke.cuda_launches(call) == 1
+
+
+def test_rms_norm_bwd_dw_deterministic_at_the_train_shape(cuda):
+    """dw sums 16,384 rows in 132 blocks' partials: five launches, each
+    on a fresh workspace, give the same bits."""
+    _, _, w, dy, ds = norm_operands(cuda, chip_smoke.TRAIN_ROWS, 2048,
+                                    torch.bfloat16)
+    x = norm_operands(cuda, chip_smoke.TRAIN_ROWS, 2048, torch.bfloat16,
+                      seed=22)[0]
+    _, rstd = rmod._rms_parts(x, w, rmod.EPS)
+    first = rmod.rms_norm_bwd(dy, x, w, rstd, ds)
+    for _ in range(4):
+        dx, dw = rmod.rms_norm_bwd(dy, x, w, rstd, ds)
+        assert torch.equal(dx, first[0]) and torch.equal(dw, first[1])
+
+
+#: the gate's cases: chip_smoke.py phase 3f's rows (rows, d_ff, dtype),
+#: then a ragged count (a scalar tail after the vectors)
+GATE_CASES = [(rows, dim, dtype)
+              for _, rows, dim, dtype, _ in chip_smoke.GATE_SHAPES] + [
+    (3, 1001, torch.bfloat16)]
+GATE_IDS = [label for label, *_ in chip_smoke.GATE_SHAPES] + ["ragged"]
+
+
+@pytest.mark.parametrize("rows,dim,dtype", GATE_CASES, ids=GATE_IDS)
+def test_swiglu_matches_plain_version(cuda, rows, dim, dtype):
+    """The gate and its backward against ``F.silu(g) * u`` and the plain
+    backward formula: bit-equal where the card's expf is PyTorch's (the
+    ulps are reported otherwise, held to the dtype's tolerance); two
+    launches and a graph replay bit-equal; one CUDA launch a call each."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    dy, g, u = ((2 * torch.randn((rows, dim), generator=gen, device=cuda))
+                .to(dtype) for _ in range(3))
+    before = (smod.swiglu.launches, smod.swiglu_bwd.launches)
+    y = smod.swiglu(g, u)
+    dg, du = smod.swiglu_bwd(dy, g, u)
+    torch.cuda.synchronize()
+    assert (smod.swiglu.launches, smod.swiglu_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    rtol, atol = TOL[dtype]
+    for got, want in ((y, smod.swiglu_reference(g, u)),
+                      *zip((dg, du), smod.swiglu_backward_reference(
+                          dy, g, u))):
+        if not torch.equal(got, want):
+            print(f"ulps off the plain version: "
+                  f"{chip_smoke.max_ulp(got, want)}")
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+    assert torch.equal(smod.swiglu(g, u), y)
+    assert all(torch.equal(a, b)
+               for a, b in zip(smod.swiglu_bwd(dy, g, u), (dg, du)))
+    assert chip_smoke.graph_replay_equal(lambda: smod.swiglu(g, u), y)
+    assert chip_smoke.graph_replay_equal(
+        lambda: chip_smoke.flat_bytes(*smod.swiglu_bwd(dy, g, u)),
+        chip_smoke.flat_bytes(dg, du))
+    assert chip_smoke.cuda_launches(lambda: smod.swiglu(g, u)) == 1
+    assert chip_smoke.cuda_launches(lambda: smod.swiglu_bwd(dy, g, u)) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_and_gate_gradients_on_the_card(cuda, dtype):
+    """A block of both Functions on the card: its gradients against the
+    same block on the CPU (the plain forwards and backward formulas)
+    within the dtype's tolerance, and under ``checkpoint`` bit-equal to
+    those without it; each backward kernel once, each forward once (twice
+    under checkpoint)."""
+    from torch.utils.checkpoint import checkpoint
+
+    gen = torch.Generator().manual_seed(24)
+    leaves = [torch.randn(4, 16, 256, generator=gen).to(dtype),
+              torch.randn(4, 16, 256, generator=gen).to(dtype),
+              (1 + 0.1 * torch.randn(256, generator=gen)).to(dtype),
+              (0.06 * torch.randn(256, 512, generator=gen)).to(dtype),
+              (0.06 * torch.randn(256, 512, generator=gen)).to(dtype),
+              (0.04 * torch.randn(512, 256, generator=gen)).to(dtype)]
+
+    def block(h, d, w, wg, wu, wd):
+        s, m = rmod.add_rms_norm(h, d, w)
+        return s + smod.swiglu(m @ wg, m @ wu) @ wd
+
+    def grads(device, remat):
+        inputs = [t.to(device).requires_grad_() for t in leaves]
+        out = checkpoint(block, *inputs, use_reentrant=False) if remat \
+            else block(*inputs)
+        return torch.autograd.grad(out.float().square().sum(), inputs)
+
+    before = {n: WRAPPERS[n].launches for n in chip_smoke.BLOCK_KERNELS}
+    plain = grads(cuda, False)
+    after = {n: WRAPPERS[n].launches - before[n]
+             for n in chip_smoke.BLOCK_KERNELS}
+    assert after == dict.fromkeys(chip_smoke.BLOCK_KERNELS, 1)
+    remat = grads(cuda, True)
+    for a, b in zip(plain, remat):
+        assert torch.equal(a, b)
+    rtol, atol = TOL[dtype]
+    for got, want in zip(plain, grads("cpu", False)):
+        scale = want.float().abs().max().item()
+        err = (got.float().cpu() - want.float()).abs().max().item()
+        # products of the block in another order on the card: held as a
+        # share of the leaf's scale
+        assert err <= (8 * rtol if dtype == torch.bfloat16 else 1e-4) \
+            * scale, (err, scale)
+
+
+def test_decode_step_launches_the_norm_and_the_gate(cuda):
+    """One ``forward_with_cache`` call on the card launches the norm 2L +
+    1 times and the gate L times, their backward kernels never."""
+    params = tllama.init_llama_params(DECODE_CFG, param_dtype=torch.bfloat16,
+                                      seed=1, device=cuda)
+    cache = tdecode.init_kv_cache(DECODE_CFG, 2, 16, torch.bfloat16,
+                                  device=cuda)
+    before = {n: WRAPPERS[n].launches for n in chip_smoke.BLOCK_KERNELS}
+    with torch.no_grad():
+        tdecode.forward_with_cache(params, torch.zeros(2, 3, dtype=torch.long,
+                                                       device=cuda),
+                                   cache, 0, DECODE_CFG)
+    n = DECODE_CFG.n_layers
+    assert {k: WRAPPERS[k].launches - v for k, v in before.items()} == {
+        "rms_norm": 2 * n + 1, "swiglu": n, "rms_norm_bwd": 0,
+        "swiglu_bwd": 0}
+
+
 @pytest.mark.parametrize("module", ["decode_attention", "kv_append",
-                                    "rope_kv_append", "int8_matmul"])
+                                    "rope_kv_append", "int8_matmul",
+                                    "rms_norm", "rms_norm_bwd", "swiglu",
+                                    "swiglu_bwd"])
 def test_kernel_build_failure_raises(cuda, monkeypatch, module):
     """A kernel whose build fails raises on CUDA tensors: the wrapper
     never returns its plain version's result instead."""
@@ -702,16 +937,27 @@ def test_kernel_build_failure_raises(cuda, monkeypatch, module):
         raise RuntimeError("nvcc failed (test)")
 
     mod = {"decode_attention": dmod, "kv_append": kmod,
-           "rope_kv_append": kmod, "int8_matmul": imod}[module]
+           "rope_kv_append": kmod, "int8_matmul": imod, "rms_norm": rmod,
+           "rms_norm_bwd": rmod, "swiglu": smod, "swiglu_bwd": smod}[module]
     monkeypatch.setattr(mod, "_lib", None)
     monkeypatch.setattr(mod, "_library", broken)
     q, entry = decode_operands(cuda, 2, 1, 4, 2, 16, 8, torch.bfloat16,
                                torch.int8)
+    x = q.reshape(2, 32)
+    weight = torch.ones(32, device=cuda, dtype=torch.bfloat16)
     wrappers = (decode_attention, kv_append, rope_kv_append,
-                imod.int8_matmul)
+                imod.int8_matmul, *WRAPPERS.values())
     before = {w.__name__: w.launches for w in wrappers}
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        if module == "decode_attention":
+        if module == "rms_norm":
+            rmod.add_rms_norm(x, x, weight)
+        elif module == "rms_norm_bwd":
+            rmod.rms_norm_bwd(x, x, weight, torch.ones(2, device=cuda))
+        elif module == "swiglu":
+            smod.swiglu(x, x)
+        elif module == "swiglu_bwd":
+            smod.swiglu_bwd(x, x, x)
+        elif module == "decode_attention":
             decode_attention(q, entry, 3)
         elif module == "kv_append":
             kv_append(entry, q[:, :, :2].contiguous(),
@@ -768,6 +1014,7 @@ def test_graph_decode_equals_host_loop(cuda, case):
     before = int8_matmul.launches
     before_decode = (decode_attention.launches, rope_kv_append.launches,
                      kv_append.launches)
+    before_blocks = (rmod.add_rms_norm.launches, smod.swiglu.launches)
     dev = run(tdecode.generate_on_device)
     torch.cuda.synchronize()
     assert tdecode.generate_on_device.last_call["eager_steps"] == 1
@@ -781,6 +1028,11 @@ def test_graph_decode_equals_host_loop(cuda, case):
             rope_kv_append.launches - before_decode[1],
             kv_append.launches - before_decode[2]) == (
                 new * DECODE_CFG.n_layers, new * DECODE_CFG.n_layers, 0)
+    # the norm 2L + 1 times and the gate L times a forward
+    assert (rmod.add_rms_norm.launches - before_blocks[0],
+            smod.swiglu.launches - before_blocks[1]) == (
+                new * (2 * DECODE_CFG.n_layers + 1),
+                new * DECODE_CFG.n_layers)
     if "return_logprobs" in kw:
         (host, host_lp), (dev, dev_lp) = host, dev
         assert torch.equal(host_lp, dev_lp)
@@ -818,7 +1070,9 @@ def test_mesh_graph_decode_equals_host_loop(cuda, case, ranks):
                                          if "int8" in case else 0)
         assert rank["decode_launches"] == {
             "decode_attention": new * DECODE_CFG.n_layers,
-            "rope_kv_append": new * DECODE_CFG.n_layers, "kv_append": 0}
+            "rope_kv_append": new * DECODE_CFG.n_layers, "kv_append": 0,
+            "rms_norm": new * (2 * DECODE_CFG.n_layers + 1),
+            "swiglu": new * DECODE_CFG.n_layers}
         np.testing.assert_array_equal(rank["device"], rank["host"])
         np.testing.assert_array_equal(rank["device"], first["device"])
         if "device_logprobs" in rank:

@@ -1,0 +1,558 @@
+"""The Llama block's norm (with the residual add folded in) and SwiGLU
+gate on the CPU: ``kernels/rms_norm.py`` and ``kernels/swiglu.py`` (the
+plain versions here, the kernels in ``tests/test_torch_gpu.py``) against
+the JAX package's ``_rms_norm``, ``h + delta`` and ``jax.nn.silu(g) * u``,
+their explicit backward formulas against ``jax.vjp`` of the same
+expressions, the autograd Functions (with and without ``checkpoint``),
+the launch plan, and the call sites: the cached step against JAX's
+``forward_with_cache`` and the count of norms and gates a forward runs.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh
+from torch.utils.checkpoint import checkpoint
+
+import chip_smoke
+from tpu_operator_libs.examples import llama as jllama
+from tpu_operator_libs.examples import llama_decode as jdecode
+from tpu_operator_libs_torch.convert import params_from_jax
+from tpu_operator_libs_torch.examples import llama as tllama
+from tpu_operator_libs_torch.examples import llama_decode as tdecode
+from tpu_operator_libs_torch.kernels import WRAPPERS
+from tpu_operator_libs_torch.kernels import rms_norm as rmod
+from tpu_operator_libs_torch.kernels import swiglu as smod
+from tpu_operator_libs_torch.kernels.rms_norm import (
+    add_rms_norm,
+    add_rms_norm_reference,
+    rms_norm_backward_reference,
+    rms_norm_bwd,
+    rms_norm_reference,
+)
+from tpu_operator_libs_torch.kernels.swiglu import (
+    swiglu,
+    swiglu_backward_reference,
+    swiglu_bwd,
+    swiglu_reference,
+)
+
+#: f32 forwards against JAX: tests/test_torch_llama.py:47-54's tolerance
+F32_TOL = 1e-6
+#: f32 gradients against jax.vjp: assert_grads_match's
+#: (tests/test_torch_train.py:23)
+GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-6
+#: bf16 gradients against jax.vjp, as a share of the leaf's largest
+#: element: JAX rounds the gradient to bf16 at each op of the chain (dn =
+#: dy * w, each of the two paths into x, their sum), the plain formula
+#: once at the end, so the two differ by about two bf16 ulps of the
+#: leaf's scale (0.0035-0.0069 of it at these inputs); the norm's
+#: backward without its variance term is 0.049-0.118 off, without ds 0.70
+BF16_GRAD_REL = 2.0 ** -6
+WIDTHS = (32, 33)
+DTYPES = ("float32", "bfloat16")
+EPS = 1e-5
+
+
+def arrays(seed, *shapes, dtype="float32", scale=1.0):
+    """Seeded numpy arrays cast as JAX casts (bfloat16 round to nearest
+    even), which JAX and the port both take."""
+    rng = np.random.default_rng(seed)
+    return [np.asarray(jnp.asarray(
+        (rng.standard_normal(shape) * scale).astype(np.float32))
+        .astype(dtype)) for shape in shapes]
+
+
+def to_torch(x):
+    return params_from_jax({"x": x}, device="cpu")["x"]
+
+
+def assert_close_as(got, want, what, ulps=1):
+    """f32 within F32_TOL, bf16 within ``ulps`` ulps."""
+    assert got.dtype == want.dtype, what
+    if got.dtype == torch.bfloat16:
+        assert chip_smoke.max_ulp(got, want) <= ulps, what
+    else:
+        torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL,
+                                   msg=what)
+
+
+def assert_grad_close(got, want, what):
+    assert got.dtype == want.dtype, what
+    if got.dtype == torch.bfloat16:
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= BF16_GRAD_REL * scale, (what, err, scale)
+    else:
+        torch.testing.assert_close(got, want, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, msg=what)
+
+
+def jax_add_norm(h, d, w):
+    s = h if d is None else h + d
+    return s, jllama._rms_norm(s, w)
+
+
+class TestForwardAgainstJax:
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("dim", WIDTHS)
+    @pytest.mark.parametrize("fused", [True, False], ids=["add", "no_add"])
+    def test_add_rms_norm(self, fused, dim, dtype):
+        """``(h + delta, _rms_norm(h + delta, w))`` with and without the
+        add: the sum bit-equal, the norm within 1e-6 (f32) or one bf16
+        ulp (the variance's sum in another order)."""
+        h, d, w = arrays(1 + dim, (2, 5, dim), (2, 5, dim), (dim,),
+                         dtype=dtype, scale=3.0)
+        want_s, want_y = jax_add_norm(jnp.asarray(h),
+                                      jnp.asarray(d) if fused else None,
+                                      jnp.asarray(w))
+        s, y = add_rms_norm(to_torch(h), to_torch(d) if fused else None,
+                            to_torch(w))
+        assert torch.equal(s, to_torch(want_s))
+        assert_close_as(y, to_torch(want_y), "y")
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("dim", WIDTHS)
+    def test_swiglu(self, dim, dtype):
+        """``F.silu(g) * u`` against ``jax.nn.silu(g) * u``: 1e-6 in f32,
+        two bf16 ulps: JAX's silu is ``x * sigmoid(x)`` with the sigmoid
+        rounded to bf16 before its product (one rounding more than
+        ``F.silu``'s ``x / (1 + exp(-x))``), and both round silu again
+        before the product with u."""
+        g, u = arrays(2 + dim, (3, 4, dim), (3, 4, dim), dtype=dtype,
+                      scale=3.0)
+        want = jax.nn.silu(jnp.asarray(g)) * jnp.asarray(u)
+        got = swiglu(to_torch(g), to_torch(u))
+        assert torch.equal(got, swiglu_reference(to_torch(g), to_torch(u)))
+        assert_close_as(got, to_torch(want), "swiglu", ulps=2)
+
+
+class TestBackwardAgainstJax:
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("dim", WIDTHS)
+    @pytest.mark.parametrize("fused", [True, False], ids=["add", "no_add"])
+    def test_rms_norm_backward_reference(self, fused, dim, dtype):
+        """``rms_norm_backward_reference`` against ``jax.vjp`` of ``(h +
+        delta, _rms_norm(h + delta, w))`` with cotangents (ds, dy): dx
+        (the same for h and delta) and dw."""
+        h, d, w, dy, ds = arrays(3 + dim, *[(2, 5, dim)] * 2, (dim,),
+                                 *[(2, 5, dim)] * 2, dtype=dtype,
+                                 scale=2.0)
+        if fused:
+            (_, _), vjp = jax.vjp(jax_add_norm, *map(jnp.asarray, (h, d, w)))
+            jdh, jdd, jdw = vjp((jnp.asarray(ds), jnp.asarray(dy)))
+            assert np.array_equal(np.asarray(jdh), np.asarray(jdd))
+        else:
+            _, vjp = jax.vjp(lambda x, w_: jllama._rms_norm(x, w_),
+                             jnp.asarray(h), jnp.asarray(w))
+            jdh, jdw = vjp(jnp.asarray(dy))
+        x = to_torch(h) + to_torch(d) if fused else to_torch(h)
+        _, rstd = rmod._rms_parts(x, to_torch(w), EPS)
+        dx, dw = rms_norm_backward_reference(
+            to_torch(dy), x, to_torch(w), rstd,
+            to_torch(ds) if fused else None)
+        assert_grad_close(dx, to_torch(jdh), "dx")
+        assert_grad_close(dw, to_torch(jdw), "dw")
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("dim", WIDTHS)
+    def test_swiglu_backward_reference(self, dim, dtype):
+        """``swiglu_backward_reference`` against ``jax.vjp`` of
+        ``jax.nn.silu(g) * u``."""
+        g, u, dy = arrays(4 + dim, *[(3, 4, dim)] * 3, dtype=dtype,
+                          scale=3.0)
+        _, vjp = jax.vjp(lambda a, b: jax.nn.silu(a) * b,
+                         jnp.asarray(g), jnp.asarray(u))
+        jdg, jdu = vjp(jnp.asarray(dy))
+        dg, du = swiglu_backward_reference(to_torch(dy), to_torch(g),
+                                           to_torch(u))
+        assert_grad_close(dg, to_torch(jdg), "dg")
+        assert_grad_close(du, to_torch(jdu), "du")
+
+
+def plain_norm_loss(h, d, w, fused):
+    """The autograd of the plain expressions, as the yardstick."""
+    s = h + d if fused else h
+    y = rms_norm_reference(s, w)
+    return (y.float() * torch.linspace(-1, 1, y.shape[-1])).sum() \
+        + (0.1 * (s.float() ** 2).sum() if fused else 0.0)
+
+
+class TestAutogradFunctions:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("fused", [True, False], ids=["add", "no_add"])
+    def test_norm_gradients(self, fused, dtype):
+        """The Function's gradients are the plain backward formula's (the
+        residual output's gradient added into dx for both h and delta),
+        and in f32 autograd's through the plain expressions within the
+        gradient tolerance; no launch is counted on the CPU."""
+        torch.manual_seed(5)
+        h, d = (torch.randn(3, 4, 33).to(dtype).requires_grad_()
+                for _ in range(2))
+        w = torch.randn(33).to(dtype).requires_grad_()
+        before = (add_rms_norm.launches, rms_norm_bwd.launches)
+        s, y = add_rms_norm(h, d if fused else None, w)
+        if not fused:
+            assert s is h
+        loss = (y.float() * torch.linspace(-1, 1, 33)).sum() \
+            + (0.1 * (s.float() ** 2).sum() if fused else 0.0)
+        # the gradients that reach the Function's outputs
+        upstream = torch.autograd.grad(loss, [s, y] if fused else [y],
+                                       retain_graph=True)
+        inputs = [h, w] + ([d] if fused else [])
+        got = torch.autograd.grad(loss, inputs)
+        assert (add_rms_norm.launches, rms_norm_bwd.launches) == before
+        x = (h + d if fused else h).detach()
+        _, rstd = rmod._rms_parts(x, w.detach(), EPS)
+        dx, dw = rms_norm_backward_reference(
+            upstream[-1], x, w.detach(), rstd,
+            upstream[0] if fused else None)
+        assert torch.equal(got[0], dx) and torch.equal(got[1], dw)
+        if fused:
+            assert torch.equal(got[2], dx)
+        if dtype == torch.float32:
+            refs = [t.detach().clone().requires_grad_() for t in (h, d, w)]
+            want = torch.autograd.grad(
+                plain_norm_loss(*refs, fused),
+                [refs[0], refs[2]] + ([refs[1]] if fused else []))
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=GRAD_RTOL,
+                                           atol=GRAD_ATOL)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_swiglu_gradients(self, dtype):
+        """The Function's gradients are the plain backward formula's, and
+        autograd's through ``F.silu(g) * u``: bit-equal in bf16 (both
+        round dy * u first), within the gradient tolerance in f32."""
+        torch.manual_seed(6)
+        g, u = (torch.randn(4, 33).mul(3).to(dtype).requires_grad_()
+                for _ in range(2))
+        dy = torch.randn(4, 33).to(dtype)
+        before = (swiglu.launches, swiglu_bwd.launches)
+        got = torch.autograd.grad(swiglu(g, u), [g, u], dy)
+        assert (swiglu.launches, swiglu_bwd.launches) == before
+        want = swiglu_backward_reference(dy, g.detach(), u.detach())
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        g2, u2 = (t.detach().clone().requires_grad_() for t in (g, u))
+        auto = torch.autograd.grad(swiglu_reference(g2, u2), [g2, u2], dy)
+        for a, b in zip(got, auto):
+            torch.testing.assert_close(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+    def test_mixed_dtypes_promote_as_the_plain_version(self):
+        """bf16 h under an f32 delta (a bf16 model over an f32 cache):
+        the sum and the norm in f32, as ``h + delta`` and ``_rms_norm``."""
+        h, w = torch.randn(2, 33).bfloat16(), torch.randn(33).bfloat16()
+        d = torch.randn(2, 33)
+        s, y = add_rms_norm(h, d, w)
+        assert s.dtype == y.dtype == torch.float32
+        assert torch.equal(s, h + d)
+        assert torch.equal(y, tllama._rms_norm(h + d, w))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_checkpoint_gives_the_same_gradients(self, dtype):
+        """A block of both Functions under ``checkpoint(...,
+        use_reentrant=False)`` against the same block without it: the
+        recompute gives the Functions what they saved, so the gradients
+        are bit-equal."""
+        torch.manual_seed(7)
+        leaves = [torch.randn(2, 3, 32).to(dtype), torch.randn(2, 3, 32)
+                  .to(dtype), torch.randn(32).to(dtype),
+                  (torch.randn(32, 64) * 0.2).to(dtype),
+                  (torch.randn(32, 64) * 0.2).to(dtype),
+                  (torch.randn(64, 32) * 0.2).to(dtype)]
+
+        def block(h, d, w, wg, wu, wd):
+            s, m = add_rms_norm(h, d, w)
+            return s + swiglu(m @ wg, m @ wu) @ wd
+
+        grads = []
+        for remat in (False, True):
+            inputs = [t.clone().requires_grad_() for t in leaves]
+            out = checkpoint(block, *inputs, use_reentrant=False) \
+                if remat else block(*inputs)
+            grads.append(torch.autograd.grad(out.float().sum(), inputs))
+        for a, b in zip(*grads):
+            assert torch.equal(a, b)
+
+
+class TestWrappers:
+    def test_listed_with_their_launch_counts(self):
+        assert WRAPPERS["rms_norm"] is add_rms_norm
+        assert WRAPPERS["rms_norm_bwd"] is rms_norm_bwd
+        assert WRAPPERS["swiglu"] is swiglu
+        assert WRAPPERS["swiglu_bwd"] is swiglu_bwd
+        assert rmod.SOURCE == "rms_norm.cu" and smod.SOURCE == "swiglu.cu"
+
+    def test_the_batch_forward_keeps_the_plain_norm_by_its_name(self):
+        assert tllama._rms_norm is rms_norm_reference
+
+    @pytest.mark.parametrize("bad", ["delta_shape", "weight_shape",
+                                     "weight_2d", "scalar"])
+    def test_bad_shapes_raise(self, bad):
+        h, d, w = torch.randn(2, 8), torch.randn(2, 8), torch.randn(8)
+        if bad == "delta_shape":
+            d = torch.randn(2, 4)
+        elif bad == "weight_shape":
+            w = torch.randn(4)
+        elif bad == "weight_2d":
+            w = torch.randn(1, 8)
+        else:
+            h = torch.tensor(1.0)
+        with pytest.raises(ValueError):
+            add_rms_norm(h, d, w)
+
+    @pytest.mark.parametrize("fn", ["add_rms_norm", "rms_norm_bwd",
+                                    "swiglu", "swiglu_bwd"])
+    def test_another_device_raises_rather_than_running_the_plain_version(
+            self, fn):
+        """Tensors on a device that is neither the CPU nor CUDA (``meta``)
+        raise, counting no launch."""
+        x = torch.randn(2, 8, device="meta")
+        w = torch.randn(8, device="meta")
+        before = {name: f.launches for name, f in WRAPPERS.items()}
+        with pytest.raises(ValueError, match="unsupported device"):
+            if fn == "add_rms_norm":
+                add_rms_norm(x, x, w)
+            elif fn == "rms_norm_bwd":
+                rms_norm_bwd(x, x, w, torch.ones(2, device="meta"))
+            elif fn == "swiglu":
+                swiglu(x, x)
+            else:
+                swiglu_bwd(x, x, x)
+        assert before == {name: f.launches for name, f in WRAPPERS.items()}
+
+    def test_mixed_devices_raise(self):
+        with pytest.raises(ValueError, match="meta"):
+            add_rms_norm(torch.randn(2, 8), torch.randn(2, 8, device="meta"),
+                         torch.randn(8))
+        with pytest.raises(ValueError, match="meta"):
+            swiglu(torch.randn(2, 8), torch.randn(2, 8, device="meta"))
+
+    def test_gate_shapes_must_match(self):
+        with pytest.raises(ValueError, match="differ"):
+            swiglu(torch.randn(2, 8), torch.randn(2, 4))
+
+
+class TestPlan:
+    @pytest.mark.parametrize("rows,dim,vec,want", [
+        (8, 2048, 8, (256, 1)),      # the bench decode, bf16
+        (16384, 2048, 8, (256, 1)),  # the train shape
+        (8, 2048, 4, (256, 1)),      # f32
+        (8, 33, 1, (64, 4)),         # an odd width
+        (8, 32, 8, (32, 8)),
+    ])
+    def test_forward(self, rows, dim, vec, want):
+        p = rmod.plan(rows, dim, vec, 132)
+        assert (p.threads_per_row, p.rows_per_block) == want
+
+    @pytest.mark.parametrize("rows,dim,vec,want", [
+        # the train shape: a block an SM, 4 rows at a time
+        (16384, 2048, 8, (256, 4, 132, 125)),
+        (8, 2048, 8, (256, 4, 2, 4)),
+        (512, 2048, 4, (256, 4, 128, 4)),
+        (10, 33, 1, (64, 16, 1, 10)),
+        (7, 70000, 8, (256, 0, 0, 0)),
+    ])
+    def test_backward(self, rows, dim, vec, want):
+        if want[1] == 0:
+            with pytest.raises(ValueError, match="shared memory"):
+                rmod.plan(rows, dim, vec, 132, backward=True)
+            return
+        p = rmod.plan(rows, dim, vec, 132, backward=True)
+        assert (p.threads_per_row, p.rows_per_block, p.splits,
+                p.rows_per_split) == want
+        # every block has a row and the blocks cover every row
+        assert (p.splits - 1) * p.rows_per_split < rows \
+            <= p.splits * p.rows_per_split
+        assert p.rows_per_block * dim * 4 <= rmod.MAX_SMEM_BYTES
+
+    @pytest.mark.parametrize("dim,width", [(2048, 8), (36, 4), (33, 1),
+                                           (6, 1)])
+    def test_vector_width_by_width(self, dim, width):
+        x = torch.zeros(2, dim, dtype=torch.bfloat16)
+        assert rmod.vector_width(dim, x, x.clone()) == width
+
+    def test_misaligned_buffer_takes_element_loads(self):
+        flat = torch.zeros(2 * 16 + 1, dtype=torch.bfloat16)
+        shifted = flat[1:].view(2, 16)
+        assert rmod.vector_width(16, shifted) == 1
+        assert smod.vector_width(shifted) == 1
+        assert smod.vector_width(torch.zeros(8, 33)) == 8
+
+
+def one_device_mesh():
+    return Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("dp", "tp"))
+
+
+#: bf16 logits against JAX's: chip_smoke's BF16_LOGITS_REL_TOL (the
+#: two sides round to bf16 at other points through the layers)
+BF16_LOGITS_REL = chip_smoke.BF16_LOGITS_REL_TOL
+
+
+class TestCachedStep:
+    @pytest.mark.parametrize("quantize_kv", [False, True],
+                             ids=["bf16_cache", "int8_cache"])
+    def test_prefill_and_steps_match_jax_in_bf16(self, quantize_kv):
+        """bf16 weights, a prefill of 5 and three steps (at a device
+        position) through ``forward_with_cache`` with every residual add
+        folded into the next norm, against JAX's ``forward_with_cache``
+        from the same weights: the logits within the bf16 tolerance of the
+        card's decode contract, max-normalised."""
+        jcfg, tcfg = jllama.LlamaConfig(), tllama.LlamaConfig()
+        jp = jllama.init_llama_params(one_device_mesh(), jcfg,
+                                      param_dtype=jnp.bfloat16)
+        tp = params_from_jax(jp, device="cpu")
+        assert tp["final_norm"].dtype == torch.bfloat16
+        toks = np.random.default_rng(63).integers(
+            0, jcfg.vocab, (2, 8)).astype(np.int32)
+        jc = jdecode.init_kv_cache(one_device_mesh(), jcfg, 2, 16,
+                                   param_dtype=jnp.bfloat16,
+                                   quantize_kv=quantize_kv)
+        tc = tdecode.init_kv_cache(tcfg, 2, 16, torch.bfloat16,
+                                   quantize_kv=quantize_kv, device="cpu")
+        for a, b in ((0, 5), (5, 6), (6, 7), (7, 8)):
+            want, jc = jdecode.forward_with_cache(
+                jp, jnp.asarray(toks[:, a:b]), jc, a, jcfg)
+            got, tc = tdecode.forward_with_cache(
+                tp, torch.from_numpy(toks[:, a:b]), tc,
+                a if a == 0 else torch.tensor(a), tcfg)
+            want = to_torch(want)
+            assert got.dtype == want.dtype == torch.bfloat16
+            assert torch.isfinite(got.float()).all()
+            assert chip_smoke.rel_err(got, want) <= BF16_LOGITS_REL
+
+    def test_f32_steps_match_jax(self):
+        """f32 weights: each call's logits within the decode tests'
+        1e-4."""
+        jcfg, tcfg = jllama.LlamaConfig(), tllama.LlamaConfig()
+        jp = jllama.init_llama_params(one_device_mesh(), jcfg, seed=3)
+        tp = params_from_jax(jp, device="cpu")
+        toks = np.random.default_rng(64).integers(
+            0, jcfg.vocab, (2, 7)).astype(np.int32)
+        jc = jdecode.init_kv_cache(one_device_mesh(), jcfg, 2, 16)
+        tc = tdecode.init_kv_cache(tcfg, 2, 16, device="cpu")
+        for a, b in ((0, 5), (5, 6), (6, 7)):
+            want, jc = jdecode.forward_with_cache(
+                jp, jnp.asarray(toks[:, a:b]), jc, a, jcfg)
+            got, tc = tdecode.forward_with_cache(
+                tp, torch.from_numpy(toks[:, a:b]), tc, a, tcfg)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-4, atol=1e-4)
+
+
+class Spy:
+    """Counts a function's calls (and whether each had a delta)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args, **kwargs):
+        self.calls.append(args)
+        return self.fn(*args, **kwargs)
+
+
+class TestCallSites:
+    def test_cached_step_runs_2l_plus_1_norms_and_l_gates(self, monkeypatch):
+        """A ``forward_with_cache`` call runs the norm 2L + 1 times, the
+        first (on the embedding) without an add and every other with the
+        residual add before it, and the gate L times."""
+        cfg = tllama.LlamaConfig(n_layers=3)
+        params = tllama.init_llama_params(cfg, device="cpu")
+        norm, gate = Spy(tdecode.add_rms_norm), Spy(tdecode.swiglu)
+        monkeypatch.setattr(tdecode, "add_rms_norm", norm)
+        monkeypatch.setattr(tdecode, "swiglu", gate)
+        cache = tdecode.init_kv_cache(cfg, 2, 8, device="cpu")
+        tdecode.forward_with_cache(params, torch.zeros(2, 3, dtype=torch.long),
+                                   cache, 0, cfg)
+        deltas = [args[1] is not None for args in norm.calls]
+        assert deltas == [False] + [True] * (2 * cfg.n_layers)
+        assert len(gate.calls) == cfg.n_layers
+
+    @pytest.mark.parametrize("remat", [False, True])
+    def test_batch_forward_and_backward(self, monkeypatch, remat):
+        """The batch forward runs L + 1 norms without an add (each layer's
+        attention norm and the final norm), L with the attention's add
+        (the MLP norms) and L gates, each with its backward once in a
+        gradient; under remat the layers' forwards run twice."""
+        cfg = tllama.LlamaConfig(n_layers=3, remat=remat)
+        params = tllama.init_llama_params(cfg, device="cpu")
+        spies = {name: Spy(getattr(tllama, name))
+                 for name in ("add_rms_norm", "swiglu")}
+        for name, spy in spies.items():
+            monkeypatch.setattr(tllama, name, spy)
+        bwd = {name: Spy(getattr(mod, name)) for mod, name in
+               ((rmod, "rms_norm_bwd"), (smod, "swiglu_bwd"))}
+        monkeypatch.setattr(rmod, "rms_norm_bwd", bwd["rms_norm_bwd"])
+        monkeypatch.setattr(smod, "swiglu_bwd", bwd["swiglu_bwd"])
+        toks = tllama.make_token_batch(0, cfg, device="cpu")
+        tllama.value_and_grad(tllama.next_token_loss, params, toks, cfg)
+        layers = cfg.n_layers * (2 if remat else 1)
+        adds = [args[1] is not None for args in spies["add_rms_norm"].calls]
+        assert adds.count(False) == layers + 1
+        assert adds.count(True) == layers
+        assert len(spies["swiglu"].calls) == layers
+        assert len(bwd["rms_norm_bwd"].calls) == 2 * cfg.n_layers + 1
+        assert len(bwd["swiglu_bwd"].calls) == cfg.n_layers
+
+    def test_batch_forward_equals_the_plain_expressions(self, monkeypatch):
+        """The batch forward's logits are those of the unfused plain
+        block (``h + attn``, ``_rms_norm``, ``F.silu(g) * u``), bit for
+        bit on the CPU."""
+        cfg = tllama.LlamaConfig(n_layers=2)
+        params = tllama.init_llama_params(cfg, param_dtype=torch.bfloat16,
+                                          device="cpu")
+        toks = tllama.make_token_batch(1, cfg, device="cpu")
+        got = tllama.forward(params, toks, cfg)
+        monkeypatch.setattr(tllama, "add_rms_norm", add_rms_norm_reference)
+        monkeypatch.setattr(tllama, "swiglu", swiglu_reference)
+        assert torch.equal(got, tllama.forward(params, toks, cfg))
+
+
+class TestChipSmokeCounts:
+    def test_block_launches_count_the_batch_forward_and_backward(
+            self, monkeypatch):
+        """``chip_smoke.block_launches`` (the counts phases 7 and 9 hold
+        the card to) against the calls a gradient of a llama-277M-deep
+        model makes, with and without remat."""
+        for remat in (False, True):
+            cfg = tllama.LlamaConfig(n_layers=chip_smoke.CONFIG_277M.n_layers,
+                                     remat=remat)
+            params = tllama.init_llama_params(cfg, device="cpu")
+            sites = ((tllama, "add_rms_norm"), (tllama, "swiglu"),
+                     (rmod, "rms_norm_bwd"), (smod, "swiglu_bwd"))
+            spies = {name: Spy(getattr(mod, name)) for mod, name in sites}
+            for mod, name in sites:
+                monkeypatch.setattr(mod, name, spies[name])
+            tllama.value_and_grad(tllama.next_token_loss, params,
+                                  tllama.make_token_batch(0, cfg,
+                                                          device="cpu"), cfg)
+            got = {"rms_norm": len(spies["add_rms_norm"].calls),
+                   "rms_norm_bwd": len(spies["rms_norm_bwd"].calls),
+                   "swiglu": len(spies["swiglu"].calls),
+                   "swiglu_bwd": len(spies["swiglu_bwd"].calls)}
+            assert got == chip_smoke.block_launches(1, 1, remat=remat)
+            monkeypatch.undo()
+
+    def test_cached_step_counts(self):
+        n = chip_smoke.CONFIG_277M.n_layers
+        assert chip_smoke.block_launches(3) == {
+            "rms_norm": 3 * (2 * n + 1), "rms_norm_bwd": 0,
+            "swiglu": 3 * n, "swiglu_bwd": 0}
+
+    @pytest.mark.parametrize("key,want", [
+        ("void (anonymous namespace)::rms_norm_fwd_kernel<8>(FwdParams)",
+         "rms_norm"),
+        ("_ZN12_GLOBAL__N_119rms_norm_bwd_kernelILi4EEEvNS_9BwdParamsE",
+         "rms_norm"),
+        ("void (anonymous namespace)::swiglu_fwd_kernel<8>(void const*)",
+         "swiglu"),
+        ("rope_kv_append_kernel<2>", "rope_kv_append"),
+        ("void at::native::vectorized_elementwise_kernel<4, "
+         "at::native::silu_kernel>", None),
+    ])
+    def test_profile_names_the_new_kernels(self, key, want):
+        import decode_step_profile
+
+        assert decode_step_profile.port_kernel(key) == want

@@ -6,8 +6,14 @@ Mirrors ``tpu_operator_libs/examples/llama.py``: ``ATTENTION_IMPLS`` and
 ``init_llama_params``, ``forward`` (with ``remat``), ``next_token_loss``,
 ``config_for_mesh``, ``make_train_step`` and ``make_token_batch``
 (``_rope`` lives beside the decode step's rotating cache write, in
-``kernels/kv_append.py``). RMSNorm -> causal self-attention with rotary embeddings and grouped-query
-KV heads -> SwiGLU MLP, the Llama-3 block structure.
+``kernels/kv_append.py``; ``_rms_norm``, the plain norm, in
+``kernels/rms_norm.py``). RMSNorm -> causal self-attention with rotary
+embeddings and grouped-query KV heads -> SwiGLU MLP, the Llama-3 block
+structure. The norms (the attention's residual add folded into the MLP's
+norm) and the gate run the hand-written kernels of
+``kernels/rms_norm.py`` and ``kernels/swiglu.py``, forward and backward;
+the layer's output add stays a plain add, the boundary that ``remat``
+saves.
 
 Parameters are a nested dict of tensors in the JAX package's layout:
 weights are ``(in, out)`` and applied as ``x @ W``, so
@@ -39,7 +45,6 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tpu_operator_libs_torch import resolve_device
@@ -47,6 +52,11 @@ from tpu_operator_libs_torch.convert import shard_params
 from tpu_operator_libs_torch.examples.ring_attention import ring_attention
 from tpu_operator_libs_torch.kernels.flash_attention import flash_attention
 from tpu_operator_libs_torch.kernels.kv_append import _rope
+from tpu_operator_libs_torch.kernels.rms_norm import (  # noqa: F401
+    add_rms_norm,
+    rms_norm_reference as _rms_norm,  # the plain norm, the reference's name
+)
+from tpu_operator_libs_torch.kernels.swiglu import swiglu
 from tpu_operator_libs_torch.optim import AdamW, tree_map, value_and_grad
 from tpu_operator_libs_torch.parallel import (
     copy_to_tp,
@@ -125,14 +135,6 @@ class LlamaConfig:
             raise ValueError(
                 "attention_impl='ring' shards the sequence (sp), not "
                 "heads; use tp=1 with a dp x sp mesh")
-
-
-def _rms_norm(x, weight, eps: float = 1e-5):
-    # variance in f32; x * rsqrt is cast back to x's dtype BEFORE the
-    # weight multiply, in the JAX package's order
-    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
-    return (x * torch.reciprocal(torch.sqrt(var + eps))).to(x.dtype) \
-        * weight
 
 
 def init_llama_params(config: "LlamaConfig | None" = None,
@@ -214,7 +216,7 @@ def forward(params, tokens, config: LlamaConfig, mesh=None):
         else:
             h = _layer(h, layer, config, causal, mesh, positions)
 
-    h = copy_to_tp(_rms_norm(h, params["final_norm"]), mesh)
+    h = copy_to_tp(add_rms_norm(h, None, params["final_norm"])[1], mesh)
     # ring: the logits stay sharded over the sequence
     return gather_from_tp(h @ params["lm_head"], mesh)
 
@@ -229,7 +231,7 @@ def _layer(h, layer, config: LlamaConfig, causal, mesh=None,
     tp = tp_of(mesh)
     hd = config.head_dim
     nh, nkv = config.n_heads // tp, config.n_kv_heads // tp
-    a = copy_to_tp(_rms_norm(h, layer["attn_norm"]), mesh)
+    a = copy_to_tp(add_rms_norm(h, None, layer["attn_norm"])[1], mesh)
     q = (a @ layer["wq"]).reshape(batch, seq, nh, hd)
     k = (a @ layer["wk"]).reshape(batch, seq, nkv, hd)
     v = (a @ layer["wv"]).reshape(batch, seq, nkv, hd)
@@ -254,11 +256,13 @@ def _layer(h, layer, config: LlamaConfig, causal, mesh=None,
         scores = scores.float().masked_fill(~causal, -1e30)
         attn = torch.softmax(scores, dim=-1).to(h.dtype)
         ctx = torch.einsum("bhqk,bkhd->bqhd", attn, v)
-    h = h + reduce_from_tp(ctx.reshape(batch, seq, nh * hd) @ layer["wo"],
-                           mesh)
-
-    m = copy_to_tp(_rms_norm(h, layer["mlp_norm"]), mesh)
-    gated = F.silu(m @ layer["w_gate"]) * (m @ layer["w_up"])
+    # the attention's residual add folded into the MLP's norm
+    h, m = add_rms_norm(
+        h, reduce_from_tp(ctx.reshape(batch, seq, nh * hd) @ layer["wo"],
+                          mesh), layer["mlp_norm"])
+    m = copy_to_tp(m, mesh)
+    gated = swiglu(m @ layer["w_gate"], m @ layer["w_up"])
+    # a plain add: the layer's output is the boundary remat saves
     return h + reduce_from_tp(gated @ layer["w_down"], mesh)
 
 

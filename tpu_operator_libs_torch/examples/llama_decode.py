@@ -17,14 +17,15 @@ of preallocated buffers written in place, and :func:`forward_with_cache`
 returns the same list. Sampling draws Gumbel noise from an explicit
 ``torch.Generator`` instead of splitting a ``jax.random`` key; the host
 and device loops consume it in the same order, so they draw the same
-tokens. Three hand-written kernels do what XLA fuses on the TPU (none
+tokens. Five hand-written kernels do what XLA fuses on the TPU (none
 has a Pallas source): the int8-weight matmul (``kernels/int8_matmul.py``)
 reads the codes as int8; the cache write (``kernels/kv_append.py``'s
 ``rope_kv_append``) rotates the step's queries and keys and quantizes
 and writes the new keys and values at the step's position; the cached
 attention (``kernels/decode_attention.py``) reads the float or int8
-cache in place and folds its scales. On the CPU each runs its plain
-PyTorch version.
+cache in place and folds its scales; the norm (``kernels/rms_norm.py``)
+takes every residual add with it, and the gate (``kernels/swiglu.py``)
+is one launch. On the CPU each runs its plain PyTorch version.
 
 On the card, :func:`generate_on_device` replays one decode step from a
 captured CUDA graph where JAX runs a ``lax.scan``: the step reads and
@@ -48,10 +49,8 @@ import time
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 
 from tpu_operator_libs_torch import resolve_device
-from tpu_operator_libs_torch.examples.llama import _rms_norm
 from tpu_operator_libs_torch.kernels import WRAPPERS
 from tpu_operator_libs_torch.kernels.decode_attention import (
     _promoted,
@@ -63,6 +62,8 @@ from tpu_operator_libs_torch.kernels.kv_append import (  # noqa: F401
     _sym_int8,
     rope_kv_append,
 )
+from tpu_operator_libs_torch.kernels.rms_norm import add_rms_norm
+from tpu_operator_libs_torch.kernels.swiglu import swiglu
 from tpu_operator_libs_torch.parallel import (
     TP_SPLIT_DIM,
     any_rank,
@@ -180,8 +181,12 @@ def forward_with_cache(params, tokens, cache, start_pos, config,
     nh, nkv = config.n_heads // tp, config.n_kv_heads // tp
 
     h = params["embed"][tokens.long()]
+    # each residual add goes into the next norm: the layer's attention add
+    # into its MLP norm, its MLP add into the next layer's attention norm
+    # or the final norm; the first norm, on the embedding, has none
+    delta = None
     for layer, entry in zip(params["layers"], cache):
-        a = _rms_norm(h, layer["attn_norm"])
+        h, a = add_rms_norm(h, delta, layer["attn_norm"])
         q = _mm(a, layer["wq"]).reshape(batch, t_new, nh, hd)
         k = _mm(a, layer["wk"]).reshape(batch, t_new, nkv, hd)
         v = _mm(a, layer["wv"]).reshape(batch, t_new, nkv, hd)
@@ -190,14 +195,13 @@ def forward_with_cache(params, tokens, cache, start_pos, config,
         # then the queries against the whole cache
         q = rope_kv_append(entry, q, k, v, start_pos, config.rope_theta)
         ctx = decode_attention(q, entry, start_pos)
-        h = h + reduce_from_tp(
-            _mm(ctx.reshape(batch, t_new, nh * hd), layer["wo"]), mesh)
+        h, m = add_rms_norm(h, reduce_from_tp(
+            _mm(ctx.reshape(batch, t_new, nh * hd), layer["wo"]), mesh),
+            layer["mlp_norm"])
+        gated = swiglu(_mm(m, layer["w_gate"]), _mm(m, layer["w_up"]))
+        delta = reduce_from_tp(_mm(gated, layer["w_down"]), mesh)
 
-        m = _rms_norm(h, layer["mlp_norm"])
-        gated = F.silu(_mm(m, layer["w_gate"])) * _mm(m, layer["w_up"])
-        h = h + reduce_from_tp(_mm(gated, layer["w_down"]), mesh)
-
-    h = _rms_norm(h, params["final_norm"])
+    _, h = add_rms_norm(h, delta, params["final_norm"])
     return gather_from_tp(_mm(h, params["lm_head"]), mesh), cache
 
 

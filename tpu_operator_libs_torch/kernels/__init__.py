@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels, each beside its plain PyTorch
 version: flash attention (forward, dK/dV, dQ), the ring-attention block
-fold, and the decode path's int8-weight matmul, cache write and cached
-attention."""
+fold, the decode path's int8-weight matmul, cache write and cached
+attention, and the Llama block's RMSNorm (with the residual add) and
+SwiGLU gate, forward and backward."""
 
 from tpu_operator_libs_torch.kernels import (
     attention_fold,
@@ -9,14 +10,17 @@ from tpu_operator_libs_torch.kernels import (
     flash_attention,
     int8_matmul,
     kv_append,
+    rms_norm,
+    swiglu,
 )
 
 #: every CUDA source under ``csrc/`` that a kernel of the port is built from
 SOURCES = flash_attention.SOURCES + (attention_fold.SOURCE,
                                      int8_matmul.SOURCE,
                                      decode_attention.SOURCE,
-                                     kv_append.SOURCE)
+                                     kv_append.SOURCE, rms_norm.SOURCE,
+                                     swiglu.SOURCE)
 #: every kernel's wrapper, by the name its launch count reports under
 WRAPPERS = {**flash_attention.WRAPPERS, **attention_fold.WRAPPERS,
             **int8_matmul.WRAPPERS, **decode_attention.WRAPPERS,
-            **kv_append.WRAPPERS}
+            **kv_append.WRAPPERS, **rms_norm.WRAPPERS, **swiglu.WRAPPERS}

@@ -1,0 +1,350 @@
+"""RMSNorm with the residual add folded in, forward and backward.
+
+Mirrors ``tpu_operator_libs/examples/llama.py::_rms_norm`` (``:108-114``)
+and the residual adds before it (``llama.py:307, 312``,
+``llama_decode.py:247, 253``), which XLA fuses on the TPU (no Pallas
+source): ``s = h + delta`` rounded to the residual stream's dtype, the
+float32 variance of ``s``, ``s * (1 / sqrt(var + eps))`` rounded to s's
+dtype, then the weight multiply, rounded again.
+
+:func:`add_rms_norm` returns ``(h + delta, rms_norm(h + delta))``
+(``delta=None``: ``(h, rms_norm(h))``). For CUDA tensors it launches
+``csrc/rms_norm.cu``'s forward kernel, one launch a call; for CPU ones it
+runs the plain version, :func:`add_rms_norm_reference`. When a gradient
+is wanted it goes through an autograd Function that saves the normalised
+input, the weight and ``rstd`` (float32, one a row) and whose backward is
+:func:`rms_norm_bwd`: the backward kernel on the card, the explicit plain
+formula :func:`rms_norm_backward_reference` on the CPU. The backward
+kernel adds the incoming gradient of the residual output into ``dx`` and
+sums ``dw`` over every row in a fixed order inside its one launch, so
+repeated launches and graph replays give the same bits. The row sums
+differ in order from PyTorch's, so the kernels are held to their plain
+versions within a tolerance, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+
+#: the CUDA source under ``csrc/``
+SOURCE = "rms_norm.cu"
+EPS = 1e-5
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: threads a block of the forward and of the backward kernel at most
+#: (``kMaxThreads`` in the source bounds both)
+FORWARD_THREADS = 256
+BACKWARD_THREADS = 1024
+#: the most threads a row takes, and an H100's shared memory a block
+MAX_THREADS_PER_ROW = 256
+MAX_SMEM_BYTES = 227 * 1024
+_lib = None
+#: the backward's ticket counter by (device index, stream): one int, 0
+#: between launches
+_counters: "dict[tuple[int, int], torch.Tensor]" = {}
+
+
+def _rms_parts(x, weight, eps):
+    """The plain norm and its float32 ``rstd`` (x's leading shape)."""
+    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    rstd = torch.reciprocal(torch.sqrt(var + eps))
+    return (x * rstd).to(x.dtype) * weight, rstd[..., 0]
+
+
+def rms_norm_reference(x, weight, eps: float = EPS):
+    """Plain PyTorch version of the norm: the variance in float32,
+    ``x * rsqrt`` cast back to x's dtype BEFORE the weight multiply, in
+    the JAX package's order."""
+    return _rms_parts(x, weight, eps)[0]
+
+
+def add_rms_norm_reference(h, delta, weight, eps: float = EPS):
+    """Plain PyTorch version of :func:`add_rms_norm`."""
+    s = h if delta is None else h + delta
+    return s, rms_norm_reference(s, weight, eps)
+
+
+def rms_norm_backward_reference(dy, x, weight, rstd, ds=None):
+    """Plain PyTorch version of :func:`rms_norm_bwd`, in float32: with
+    ``g = dy * w`` and ``c`` the row sum of ``g * x``,
+    ``dx = rstd * (g - x * (rstd^2 * c / dim)) (+ ds)`` in x's dtype and
+    ``dw`` the sum over every row of ``dy * round(x * rstd)`` in w's
+    dtype."""
+    dim = x.shape[-1]
+    xf = x.float()
+    r = rstd.float()[..., None]
+    g = dy.float() * weight.float()
+    c = torch.sum(g * xf, dim=-1, keepdim=True)
+    dx = r * (g - xf * (r * r * c / dim))
+    if ds is not None:
+        dx = dx + ds.float()
+    n = (xf * r).to(x.dtype).float()
+    dw = torch.sum((dy.float() * n).reshape(-1, dim), dim=0)
+    return dx.to(x.dtype), dw.to(weight.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How a kernel runs: a group of ``threads_per_row`` threads a row,
+    ``rows_per_block`` groups a block; the backward's ``splits`` blocks
+    each take ``rows_per_split`` rows (the C entry checks it)."""
+
+    threads_per_row: int
+    rows_per_block: int
+    splits: int = 0
+    rows_per_split: int = 0
+
+
+def plan(rows: int, dim: int, vec: int, sms: int,
+         backward: bool = False) -> Plan:
+    """The launch for ``rows`` rows of ``dim`` at ``vec`` elements a load
+    on a card of ``sms`` SMs, from these alone: a thread a vector up to
+    256 threads a row; the forward puts rows in 256-thread blocks, the
+    backward in blocks of up to 1024 threads (their partial dw in shared
+    memory, rows_per_block x dim floats), one block an SM at most."""
+    vectors = -(-dim // vec)
+    per_row = min(MAX_THREADS_PER_ROW, max(32, -(-vectors // 32) * 32))
+    if not backward:
+        return Plan(per_row, max(1, FORWARD_THREADS // per_row))
+    groups = min(max(1, BACKWARD_THREADS // per_row),
+                 MAX_SMEM_BYTES // (4 * dim))
+    if groups < 1:
+        raise ValueError(f"width {dim} needs more shared memory than a "
+                         "block has for its partial dw")
+    splits = max(1, min(sms, -(-rows // groups)))
+    per_split = -(-rows // splits)
+    return Plan(per_row, groups, -(-rows // per_split), per_split)
+
+
+def vector_width(dim: int, *tensors) -> int:
+    """Elements a load: 8, else 4, where ``dim`` divides into them and
+    every buffer is aligned to them (16 bytes at most), else 1."""
+    for vec in (8, 4):
+        if dim % vec == 0 and all(
+                t.data_ptr() % min(16, vec * t.element_size()) == 0
+                for t in tensors if t is not None):
+            return vec
+    return 1
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check(h, delta, weight) -> None:
+    named = {"h": h, "delta": delta, "weight": weight}
+    for name, t in named.items():
+        if t is None and name == "delta":
+            continue
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"{name} must be a tensor")
+        if t.device != h.device:
+            raise ValueError(f"{name} is on {t.device}, h on {h.device}")
+    if h.dim() < 1 or h.shape[-1] < 1:
+        raise ValueError(f"h {tuple(h.shape)} must be (..., dim)")
+    if delta is not None and delta.shape != h.shape:
+        raise ValueError(f"delta {tuple(delta.shape)} and h "
+                         f"{tuple(h.shape)} differ")
+    if weight.shape != h.shape[-1:]:
+        raise ValueError(f"weight {tuple(weight.shape)} must be "
+                         f"({h.shape[-1]},)")
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {h.device}")
+    if h.device.type == "cuda":
+        _check_kernel_operands(named)
+
+
+def _check_kernel_operands(named) -> None:
+    """The kernels take contiguous float32 or bfloat16 tensors."""
+    for name, t in named.items():
+        if t is None:
+            continue
+        if t.dtype not in _DTYPE_CODES:
+            raise ValueError(f"{name} has dtype {t.dtype}; the kernel takes "
+                             "float32 or bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from tpu_operator_libs_torch.kernels._build import build_all
+
+        lib = build_all([SOURCE])[0].lib
+        lib.rms_norm_fwd.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.rms_norm_fwd.restype = ctypes.c_int
+        lib.rms_norm_bwd.argtypes = [ctypes.c_void_p] * 9 + [
+            ctypes.c_int] * 11 + [ctypes.c_void_p]
+        lib.rms_norm_bwd.restype = ctypes.c_int
+        lib.rms_norm_error_string.argtypes = [ctypes.c_int]
+        lib.rms_norm_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _raise_on(lib, err, name, p) -> None:
+    if err != 0:
+        message = lib.rms_norm_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed ({p}): {message} ({err})")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_forward(h, delta, weight, eps, want_rstd):
+    """(s or None, y, rstd or None) from one launch of the forward
+    kernel."""
+    dim = h.shape[-1]
+    rows = h.numel() // dim
+    s_dtype = h.dtype if delta is None \
+        else torch.promote_types(h.dtype, delta.dtype)
+    s = None if delta is None else torch.empty(h.shape, dtype=s_dtype,
+                                               device=h.device)
+    y = torch.empty(h.shape, dtype=torch.promote_types(s_dtype, weight.dtype),
+                    device=h.device)
+    rstd = torch.empty(h.shape[:-1], dtype=torch.float32,
+                       device=h.device) if want_rstd else None
+    if rows == 0:
+        return s, y, rstd
+    vec = vector_width(dim, h, delta, weight, s, y)
+    p = plan(rows, dim, vec, _sm_count(h.device.index))
+    lib = _library()
+    with torch.cuda.device(h.device):
+        err = lib.rms_norm_fwd(
+            h.data_ptr(), _ptr(delta), weight.data_ptr(), _ptr(s),
+            y.data_ptr(), _ptr(rstd), rows, dim, eps, _DTYPE_CODES[h.dtype],
+            _DTYPE_CODES[delta.dtype] if delta is not None else 0,
+            _DTYPE_CODES[weight.dtype], vec, p.threads_per_row,
+            p.rows_per_block,
+            torch.cuda.current_stream(h.device).cuda_stream)
+    _raise_on(lib, err, "rms_norm", p)
+    add_rms_norm.launches += 1
+    return s, y, rstd
+
+
+def _ticket_counter(device: torch.device, stream) -> torch.Tensor:
+    """The backward's ticket counter on ``stream``: one int, zeroed once,
+    outside any graph capture; every launch leaves it 0. A capture records
+    its address, so it lives as long as the process."""
+    key = (device.index, stream.cuda_stream)
+    counter = _counters.get(key)
+    if counter is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "rms_norm_bwd: the first call on a stream must not be "
+                "captured (its counter is zeroed then); run one eager call "
+                "on the capturing stream first")
+        counter = torch.zeros(1, dtype=torch.int32, device=device)
+        _counters[key] = counter
+    return counter
+
+
+def rms_norm_bwd(dy, x, weight, rstd, ds=None):
+    """``(dx, dw)`` of the norm from the gradient ``dy`` of its output,
+    the normalised input ``x`` (..., dim), the weight (dim,), ``rstd``
+    (x's leading shape, float32) and ``ds``, the incoming gradient of the
+    residual output when the add was fused (added into ``dx``): the
+    backward kernel for CUDA tensors, one launch, the plain version
+    (:func:`rms_norm_backward_reference`) for CPU ones. ``dx`` in x's
+    dtype, ``dw`` in the weight's."""
+    _check(x, ds, weight)
+    for name, t in (("dy", dy), ("rstd", rstd)):
+        if not isinstance(t, torch.Tensor) or t.device != x.device:
+            raise ValueError(f"{name} must be a tensor on {x.device}")
+    if dy.shape != x.shape or rstd.shape != x.shape[:-1] \
+            or rstd.dtype != torch.float32:
+        raise ValueError(f"dy {tuple(dy.shape)} must be x's "
+                         f"{tuple(x.shape)} and rstd {tuple(rstd.shape)} "
+                         "float32 of its leading shape")
+    if x.device.type == "cpu":
+        return rms_norm_backward_reference(dy, x, weight, rstd, ds)
+    _check_kernel_operands({"dy": dy, "rstd": rstd})
+    dim = x.shape[-1]
+    rows = x.numel() // dim
+    dx = torch.empty_like(x)
+    if rows == 0:
+        return dx, torch.zeros_like(weight)
+    dw = torch.empty_like(weight)
+    vec = vector_width(dim, dy, x, weight, ds, dx)
+    p = plan(rows, dim, vec, _sm_count(x.device.index), backward=True)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device)
+        counter = _ticket_counter(x.device, stream)
+        # the blocks' partial dw; allocated here, so inside a captured
+        # graph it comes from the graph's pool
+        ws = torch.empty((p.splits, dim), dtype=torch.float32,
+                         device=x.device)
+        err = lib.rms_norm_bwd(
+            dy.data_ptr(), x.data_ptr(), weight.data_ptr(), rstd.data_ptr(),
+            _ptr(ds), dx.data_ptr(), dw.data_ptr(), ws.data_ptr(),
+            counter.data_ptr(), rows, dim, p.splits, p.rows_per_split,
+            _DTYPE_CODES[dy.dtype], _DTYPE_CODES[x.dtype],
+            _DTYPE_CODES[weight.dtype],
+            _DTYPE_CODES[ds.dtype] if ds is not None else 0, vec,
+            p.threads_per_row, p.rows_per_block, stream.cuda_stream)
+    _raise_on(lib, err, "rms_norm_bwd", p)
+    rms_norm_bwd.launches += 1
+    return dx, dw
+
+
+class _AddRMSNorm(torch.autograd.Function):
+    """``(s, y)`` (``y`` alone without delta) with the norm's backward.
+    It saves the normalised input, the weight and rstd: under
+    ``checkpoint`` the recompute gives all three again."""
+
+    @staticmethod
+    def forward(ctx, h, delta, weight, eps):
+        if h.device.type == "cpu":
+            s = h if delta is None else h + delta
+            y, rstd = _rms_parts(s, weight, eps)
+        else:
+            s, y, rstd = _launch_forward(h, delta, weight, eps, True)
+            if delta is None:
+                s = h
+        ctx.fused = delta is not None
+        ctx.save_for_backward(s, weight, rstd)
+        return (s, y) if ctx.fused else y
+
+    @staticmethod
+    def backward(ctx, *grads):
+        s, weight, rstd = ctx.saved_tensors
+        ds, dy = grads if ctx.fused else (None, grads[0])
+        dx, dw = rms_norm_bwd(dy.contiguous(), s, weight, rstd,
+                              None if ds is None else ds.contiguous())
+        return dx, dx if ctx.fused else None, dw, None
+
+
+def add_rms_norm(h, delta, weight, eps: float = EPS):
+    """``(h + delta, rms_norm(h + delta))`` over the last axis of ``h``
+    (..., dim), ``delta`` like ``h`` or None (then ``(h, rms_norm(h))``),
+    ``weight`` (dim,): the kernel for CUDA tensors (float32 or bfloat16,
+    contiguous; the outputs in PyTorch's promoted dtypes, as the plain
+    version's), one launch a call, the plain version for CPU ones; with
+    the norm's backward when a gradient is wanted."""
+    _check(h, delta, weight)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (h, delta, weight)):
+        out = _AddRMSNorm.apply(h, delta, weight, eps)
+        return (h, out) if delta is None else out
+    if h.device.type == "cpu":
+        return add_rms_norm_reference(h, delta, weight, eps)
+    s, y, _ = _launch_forward(h, delta, weight, eps, False)
+    return (h if delta is None else s), y
+
+
+#: Kernel launches since the last reset (the plain CPU path adds none).
+#: Inside a captured CUDA graph a wrapper runs once, at capture; the
+#: graph's caller adds its replays (``llama_decode.generate_on_device``).
+add_rms_norm.launches = 0
+rms_norm_bwd.launches = 0
+#: the kernels' wrappers, by the name each launch count reports under
+WRAPPERS = {"rms_norm": add_rms_norm, "rms_norm_bwd": rms_norm_bwd}
