@@ -69,7 +69,12 @@ exits non-zero without printing a result. Phases:
    launches and a graph-replayed one bit-equal (the backward's dw summed
    over every row in order), timed in CUDA graphs beside the plain
    version, the autograd of the plain version (the backward rows) and
-   ``torch.nn.functional.rms_norm`` (the norm rows).
+   ``torch.nn.functional.rms_norm`` (the norm rows); the two forwards
+   (launched with programmatic dependent launch) report their plan's
+   layout and their instance's registers and spills, and at the bench
+   decode are timed also after the product before them on the step (the
+   O projection, the up projection): graph(product + kernel) less
+   graph(product).
 4-6. the serving path, with the launch counts set to 0 just before it:
    ``forward`` of llama-277M with ``attention_impl="flash"`` against
    ``"xla"``; the decode contract (stepwise cache == batch forward, host
@@ -198,11 +203,13 @@ from tpu_operator_libs_torch.kernels.kv_append import (  # noqa: E402
 from tpu_operator_libs_torch.kernels import rms_norm as norm_mod  # noqa: E402
 from tpu_operator_libs_torch.kernels.rms_norm import (  # noqa: E402
     _rms_parts,
+    add_rms_norm,
     add_rms_norm_reference,
     rms_norm_backward_reference,
     rms_norm_bwd,
     rms_norm_reference,
 )
+from tpu_operator_libs_torch.kernels import swiglu as gate_mod  # noqa: E402
 from tpu_operator_libs_torch.kernels.swiglu import (  # noqa: E402
     swiglu,
     swiglu_backward_reference,
@@ -370,6 +377,22 @@ def ptxas_entry(block, kernel, dtype, head_dim, design, serialized=()):
                 name is not None and name.group(1) in serialized)}
 
 
+#: the build phase's ptxas entries by source (empty for a reused build)
+BUILT_INSTANCES: "dict[str, list]" = {}
+
+
+def instance_ptxas(source, kernel, **template):
+    """Registers, spills and stack of the built instance of ``kernel``
+    with these template arguments, from the build phase's ptxas report;
+    "not reported" where the build was reused (ptxas did not run)."""
+    for entry in BUILT_INSTANCES.get(source, []):
+        if entry["kernel"] == kernel and all(
+                entry.get(k) == v for k, v in template.items()):
+            return {k: entry[k] for k in ("registers", "spill_store_bytes",
+                                          "stack_bytes")}
+    return "not reported (a reused build: ptxas did not run)"
+
+
 def phase_build():
     """Build every kernel source at once (one nvcc each, in parallel)
     and report, per kernel instance, ptxas' registers, static shared
@@ -459,8 +482,30 @@ def phase_build():
                                              int(ka.group(2))),
                      "dynamic_smem_bytes": 0}))
                 continue
-            nk = re.search(r"\d((?:rms_norm|swiglu)_(?:fwd|bwd)_kernel)"
-                           r"ILi(\d)E", block)
+            nf = re.search(r"\d(rms_norm_fwd_kernel)ILi(\d)ELi(\d)ELb([01])E",
+                           block)
+            if nf is not None:
+                vec, loads = int(nf.group(2)), int(nf.group(3))
+                packed = nf.group(4) == "1"
+                entries.append({**ptxas_entry(
+                    block, nf.group(1), "bfloat16" if packed else "any", None,
+                    {"design": norm_instance_design(vec, loads, packed),
+                     "dynamic_smem_bytes": 0}), "vec": vec, "loads": loads,
+                    "packed": packed})
+                continue
+            sf = re.search(r"\d(swiglu_fwd_kernel)I(f|13__nv_bfloat16)Li(\d)E"
+                           r"Li(\d)E", block)
+            if sf is not None:
+                vec, unroll = int(sf.group(3)), int(sf.group(4))
+                entries.append({**ptxas_entry(
+                    block, sf.group(1), torch.float32 if sf.group(2) == "f"
+                    else torch.bfloat16, None,
+                    {"design": f"{unroll} vectors of {vec} a thread",
+                     "dynamic_smem_bytes": 0}), "vec": vec,
+                    "unroll": unroll})
+                continue
+            nk = re.search(r"\d((?:rms_norm|swiglu)_bwd_kernel)ILi(\d)E",
+                           block)
             if nk is not None:
                 # the backward's partial dw: rows_per_block x dim floats
                 entries.append(ptxas_entry(
@@ -490,6 +535,7 @@ def phase_build():
             entries.append(ptxas_entry(block, name.group(1), dtype, head_dim,
                                        kernel_design(wrapper, dtype,
                                                      head_dim), serialized))
+        BUILT_INSTANCES[source] = entries
         emit({"phase": "build", "source": source,
               "build_seconds": lib.build_seconds, "wall_seconds_all": wall,
               "ptxas": entries})
@@ -1692,8 +1738,10 @@ def check_norm_shape(label, rows, dim, dtype, iters, add, card):
     ``KERNEL_TOL`` taken once for each of its two roundings (the variance
     sums in another order, so ``x * rstd`` may round one ulp apart before
     the weight multiply), rstd (the train shape writes it) within 1e-6;
-    the launch contract; times in CUDA graphs beside the plain version
-    and ``F.rms_norm``."""
+    the launch contract; the plan's layout and the instance's registers
+    and spills; times in CUDA graphs beside the plain version and
+    ``F.rms_norm``, and at the bench decode after the O projection
+    (``after_product_ms``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
     randn, w = norm_inputs(gen, dim, dtype)
     h = randn(rows, dim)
@@ -1723,13 +1771,18 @@ def check_norm_shape(label, rows, dim, dtype, iters, add, card):
             f"rms_norm off its plain version at {label} (add {add}): "
             f"limit_use {use}, max|err| {err.max().item()}, sum bit-equal "
             f"{sum_equal}, rstd relative error {rstd_err}")
+    vec = norm_mod.vector_width(dim, h, d, w, s, y)
+    p = norm_mod.forward_plan(rows, dim, vec, 0, add, (dtype,) * 3)
     row = {"phase": "norm_gate_kernels", "name": "rms_norm", "shape": label,
            "rows": rows, "dim": dim, "dtype": dtype_name(dtype), "add": add,
            "writes_rstd": want_rstd,
            **check_launch_contract("rms_norm", label, call,
                                    (s, y, rstd), again),
-           "design": norm_design(rows, dim, norm_mod.vector_width(
-               dim, h, d, w, s, y), backward=False),
+           "design": norm_design(rows, dim, vec, False, dtype, add),
+           "plan": dataclasses.asdict(p),
+           "ptxas": instance_ptxas(
+               "rms_norm.cu", "rms_norm_fwd_kernel", vec=vec, loads=p.loads,
+               packed=norm_mod.packed(vec, p.loads, (dtype,) * 3)),
            "max_abs_err": err.max().item(),
            "limit": "atol + rtol * (|ref| + |round(s * rstd) * w|)",
            "rtol": rtol, "atol": atol, "limit_use": use,
@@ -1752,6 +1805,14 @@ def check_norm_shape(label, rows, dim, dtype, iters, add, card):
             h, dims, w, norm_mod.EPS), iters)
     row["bound_ms"], row["bound_by"] = bytes_bound_ms(
         tensor_bytes(h, d, w, s, y, rstd))
+    if label == "bench_decode":
+        # after the O projection that gives it delta (or h), as in the
+        # decode step: the time the launch adds to the product's
+        out = randn(rows, dim)
+        row["after_product"] = after_product_ms(
+            (lambda o: add_rms_norm(h, o, w)) if add
+            else (lambda o: add_rms_norm(o, None, w)), out, dim, iters)
+        del out
     row["card"] = card
     emit(row)
     del h, d, s, y, rstd, again, ref_s, ref_y, pre, err
@@ -1834,21 +1895,81 @@ def eager_iters(iters) -> int:
     return max(10, iters // 4)
 
 
-def norm_design(rows, dim, vec, backward) -> str:
-    p = norm_mod.plan(rows, dim, vec, torch.cuda.get_device_properties(0)
-                      .multi_processor_count, backward=backward)
+def norm_instance_design(vec, loads, packed) -> str:
+    return f"{vec} elements a load, " + (
+        "two passes (the row read twice)" if loads == 0
+        else f"{loads} vectors a thread held in registers"
+        + (" as packed bfloat16" if packed else ""))
+
+
+def norm_design(rows, dim, vec, backward, dtype=torch.bfloat16,
+                add=True) -> str:
     loads = {8: "8-element vector loads", 4: "4-element vector loads",
              1: "element loads"}[vec]
-    what = (f"{p.splits} blocks of {p.rows_per_block} rows at a time, dw "
-            "combined in block order by the last" if backward
-            else f"{p.rows_per_block} rows a block")
-    return f"{p.threads_per_row} threads a row, {loads}; {what}"
+    if backward:
+        p = norm_mod.plan(rows, dim, vec, torch.cuda.get_device_properties(0)
+                          .multi_processor_count, backward=True)
+        return (f"{p.threads_per_row} threads a row, {loads}; {p.splits} "
+                f"blocks of {p.rows_per_block} rows at a time, dw combined "
+                "in block order by the last")
+    p = norm_mod.forward_plan(rows, dim, vec, 0, add, (dtype,) * 3)
+    held = ("the row read twice" if p.loads == 0 else
+            f"{p.loads} vectors a thread held in registers"
+            + (" as packed bfloat16" if norm_mod.packed(
+                vec, p.loads, (dtype,) * 3) else ""))
+    barrier = "no barrier" if p.threads_per_row == 32 else "one barrier a row"
+    groups = -(-rows // p.rows_per_block)
+    grid = ("a block for each" if p.blocks == groups
+            else f"{p.blocks} blocks striding")
+    return (f"{p.threads_per_row} threads a row, {loads}, {held}, "
+            f"{barrier}; {p.rows_per_block} rows a block, {grid}; "
+            "programmatic dependent launch")
+
+
+def after_product_ms(kernel, m, out_features, iters):
+    """The time a forward kernel adds after the bf16 product that gives
+    it its input, as on the decode step: ``graph_ms`` of ``kernel(m @
+    W)`` less that of ``m @ W`` alone, in turns (product, both, both,
+    product), each call on another of ``weight_copies`` copies of W that
+    overflow L2, so that the product reads its weight from device memory
+    as the step's does. With programmatic dependent launch the kernel may
+    start before the product ends, which the repeated kernel alone
+    (``kernel_ms``) does not show."""
+    k = m.shape[-1]
+    copies = max(2, ROTATE_BYTES // (k * out_features * m.element_size()))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 54)
+    weights = [(torch.randn((k, out_features), generator=gen, device="cuda")
+                * k ** -0.5).to(m.dtype) for _ in range(copies)]
+    turn = itertools.cycle(weights)
+
+    def product():
+        return torch.matmul(m, next(turn))
+
+    def both():
+        return kernel(product())
+
+    times = {"product": [], "both": []}
+    for name in ("product", "both", "both", "product"):
+        times[name].append(graph_ms(both if name == "both" else product,
+                                    iters))
+    product_ms = statistics.mean(times["product"])
+    both_ms = statistics.mean(times["both"])
+    del weights
+    torch.cuda.empty_cache()
+    return {"product": f"({m.shape[0]}, {k}) x ({k}, {out_features}) "
+                       f"{dtype_name(m.dtype)}, torch.matmul",
+            "weight_copies": copies, "product_ms": product_ms,
+            "product_and_kernel_ms": both_ms,
+            "kernel_after_product_ms": both_ms - product_ms,
+            "turns_ms": times}
 
 
 def check_gate_shape(label, rows, dim, dtype, iters, card):
     """The gate kernel against ``F.silu(g) * u`` at one shape: bit-equal
     (else the largest ulp distance, held to ``KERNEL_TOL``); the launch
-    contract; times in CUDA graphs beside the plain version."""
+    contract; the plan's layout and the instance's registers and spills;
+    times in CUDA graphs beside the plain version, and at the bench
+    decode after the up projection (``after_product_ms``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 52)
     g, u = ((2 * torch.randn((rows, dim), generator=gen, device="cuda"))
             .to(dtype) for _ in range(2))
@@ -1866,10 +1987,16 @@ def check_gate_shape(label, rows, dim, dtype, iters, card):
     if not (use <= 1 and torch.isfinite(y.float()).all()):
         raise RuntimeError(f"swiglu off its plain version at {label}: "
                            f"limit_use {use}, max ulp {max_ulp(y, ref)}")
+    vec = gate_vector_width(g, u, y)
+    p = gate_mod.forward_plan(g.numel(), vec, dtype, 0)
     row = {"phase": "norm_gate_kernels", "name": "swiglu", "shape": label,
            "rows": rows, "dim": dim, "dtype": dtype_name(dtype),
            **check_launch_contract("swiglu", label, call, (y,), again),
-           "design": gate_design(gate_vector_width(g, u, y)),
+           "design": gate_design(p, vec),
+           "plan": dataclasses.asdict(p),
+           "ptxas": instance_ptxas("swiglu.cu", "swiglu_fwd_kernel",
+                                   dtype=dtype_name(dtype), vec=vec,
+                                   unroll=p.unroll),
            "max_abs_err": err.max().item(), "rtol": rtol, "atol": atol,
            "limit_use": use, "bit_equal_to_plain": bool(torch.equal(y, ref)),
            "max_ulp_vs_plain": max_ulp(y, ref),
@@ -1878,6 +2005,13 @@ def check_gate_shape(label, rows, dim, dtype, iters, card):
                                 max(2, iters // 4)),
            "library": "none: no single PyTorch call gates", "library_ms": None}
     row["bound_ms"], row["bound_by"] = bytes_bound_ms(tensor_bytes(g, u, y))
+    if label == "bench_decode":
+        # after the up projection that gives it u, as in the decode step
+        m = torch.randn((rows, CONFIG_277M.d_model), generator=gen,
+                        device="cuda").to(dtype)
+        row["after_product"] = after_product_ms(lambda o: swiglu(g, o), m,
+                                                dim, iters)
+        del m
     row["card"] = card
     emit(row)
     del g, u, y, again, ref, err
@@ -1920,7 +2054,7 @@ def check_gate_bwd_shape(label, rows, dim, dtype, iters, card):
            "dtype": dtype_name(dtype),
            **check_launch_contract("swiglu_bwd", label, call, (dg, du),
                                    again),
-           "design": gate_design(gate_vector_width(dy, g, u, dg, du)),
+           "design": gate_bwd_design(gate_vector_width(dy, g, u, dg, du)),
            "max_abs_err": max(
                (dg.float() - ref_dg.float()).abs().max().item(),
                (du.float() - ref_du.float()).abs().max().item()),
@@ -1943,7 +2077,15 @@ def check_gate_bwd_shape(label, rows, dim, dtype, iters, card):
     return row
 
 
-def gate_design(vec) -> str:
+def gate_design(p, vec) -> str:
+    loads = {8: "8-element vector loads", 4: "4-element vector loads",
+             1: "element loads"}[vec]
+    return (f"{p.unroll} vectors a thread ({loads}), every load first; "
+            f"{p.blocks} blocks of 256 striding, a scalar tail; "
+            "programmatic dependent launch")
+
+
+def gate_bwd_design(vec) -> str:
     loads = {8: "8-element vector loads", 4: "4-element vector loads",
              1: "element loads"}[vec]
     return f"a thread a vector ({loads}), the grid striding, a scalar tail"

@@ -11,8 +11,9 @@ own kernels matched by their whole names; the copy kernels' share; and
 the bytes that the step's copy ops (``clone``, ``_to_copy``, ``copy_``,
 ``index_copy_``) move, counted from their tensors' sizes by a dispatch
 mode. It then times ``generate_on_device`` through its CUDA graph at the
-bench cell (prompt 64, 960 new tokens) and prints a SHA-256 digest of
-its tokens, which two trees that decode the same bits share.
+bench cell (prompt 64, 960 new tokens): tok/s and the call's wall ms a
+step, and prints a SHA-256 digest of its tokens, which two trees that
+decode the same bits share.
 
 Run from the root of a checkout on a machine with a card:
 
@@ -184,6 +185,8 @@ def main(argv=None) -> int:
                                     **kw).cpu()
         seconds = time.perf_counter() - start
         cell["graph_tok_per_s"] = BATCH * NEW_TOKENS / seconds
+        # the call's wall time a token step (prefill and readback in it)
+        cell["graph_ms_per_step"] = seconds / NEW_TOKENS * 1e3
         cell["graph_tokens_sha256"] = hashlib.sha256(
             tokens.numpy().tobytes()).hexdigest()
         cells[label] = cell

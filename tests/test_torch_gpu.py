@@ -820,6 +820,61 @@ def test_rms_norm_bwd_dw_deterministic_at_the_train_shape(cuda):
         assert torch.equal(dx, first[0]) and torch.equal(dw, first[1])
 
 
+def test_rms_norm_without_the_add_deterministic_at_the_train_shape(cuda):
+    """The norm alone at the train shape (its rows a block, the grid
+    striding over them, rstd written): two launches give the same bits."""
+    h, _, w, _, _ = norm_operands(cuda, chip_smoke.TRAIN_ROWS, 2048,
+                                  torch.bfloat16)
+    _, y, rstd = rmod._launch_forward(h, None, w, rmod.EPS, True)
+    _, y2, rstd2 = rmod._launch_forward(h, None, w, rmod.EPS, True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(rstd, rstd2)
+
+
+@pytest.mark.parametrize("captured", [False, True], ids=["eager", "graph"])
+def test_dependent_launches_wait_for_the_product_before_them(cuda, captured):
+    """The norm (with the add, and alone) and then the gate, each launched
+    with programmatic dependent launch right after the ``torch.matmul``
+    whose output it reads, as on the decode step, eagerly or replayed
+    from a captured graph: the same bits as each launched after a
+    ``torch.cuda.synchronize()``, so that the kernels' wait guards every
+    read of the product."""
+    gen = torch.Generator(device=cuda).manual_seed(25)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=cuda)) \
+            .to(torch.bfloat16)
+
+    m, h, g = randn(8, 2048), randn(8, 2048), randn(8, 8192)
+    w = (1 + 0.1 * torch.randn(2048, generator=gen, device=cuda)) \
+        .to(torch.bfloat16)
+    wo, wu = randn(2048, 2048, scale=2048 ** -0.5), \
+        randn(2048, 8192, scale=2048 ** -0.5)
+
+    def chain(sync):
+        def product(a, b):
+            out = a @ b
+            if sync:
+                torch.cuda.synchronize()
+            return out
+
+        s, y = rmod.add_rms_norm(h, product(m, wo), w)
+        _, alone = rmod.add_rms_norm(product(m, wo), None, w)
+        return s, y, alone, smod.swiglu(g, product(y, wu))
+
+    want = chain(sync=True)
+    before = (rmod.add_rms_norm.launches, smod.swiglu.launches)
+    if captured:
+        assert chip_smoke.graph_replay_equal(
+            lambda: chip_smoke.flat_bytes(*chain(sync=False)),
+            chip_smoke.flat_bytes(*want))
+    else:
+        for got, ref in zip(chain(sync=False), want):
+            assert torch.equal(got, ref)
+    assert rmod.add_rms_norm.launches > before[0]
+    assert smod.swiglu.launches > before[1]
+
+
 #: the gate's cases: chip_smoke.py phase 3f's rows (rows, d_ff, dtype),
 #: then a ragged count (a scalar tail after the vectors)
 GATE_CASES = [(rows, dim, dtype)

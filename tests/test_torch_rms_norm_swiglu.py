@@ -17,6 +17,7 @@ from jax.sharding import Mesh
 from torch.utils.checkpoint import checkpoint
 
 import chip_smoke
+import norm_gate_variants as ngv
 from tpu_operator_libs.examples import llama as jllama
 from tpu_operator_libs.examples import llama_decode as jdecode
 from tpu_operator_libs_torch.convert import params_from_jax
@@ -335,17 +336,107 @@ class TestWrappers:
             swiglu(torch.randn(2, 8), torch.randn(2, 4))
 
 
+def resident(blocks):
+    """A resident-block count for ``plan``: ``blocks`` an SM whatever the
+    instance (on the card the wrapper asks the driver)."""
+    return lambda *instance: blocks
+
+
 class TestPlan:
     @pytest.mark.parametrize("rows,dim,vec,want", [
-        (8, 2048, 8, (256, 1)),      # the bench decode, bf16
-        (16384, 2048, 8, (256, 1)),  # the train shape
-        (8, 2048, 4, (256, 1)),      # f32
-        (8, 33, 1, (64, 4)),         # an odd width
-        (8, 32, 8, (32, 8)),
+        # the bench decode, bf16: a thread a vector, a row a block, one
+        # block a row on 8 SMs
+        (8, 2048, 8, (256, 1, 1, 8)),
+        # the prefill block: one wave of a row a block (5 an SM)
+        (512, 2048, 8, (256, 1, 1, 512)),
+        # the train shape: past one wave, two vectors a thread at 128
+        # threads, two rows a block, a grid of the resident blocks
+        (16384, 2048, 8, (128, 2, 2, 660)),
+        # f32 at 4 a load (a misaligned buffer): two vectors a thread
+        (8, 2048, 4, (256, 1, 2, 8)),
+        # an odd width at element loads: 4 a thread at 256 threads
+        (64, 1001, 1, (256, 1, 4, 64)),
+        (8, 33, 1, (64, 1, 1, 8)),
+        # a row of one warp: no barrier
+        (8, 32, 8, (32, 1, 1, 8)),
     ])
     def test_forward(self, rows, dim, vec, want):
-        p = rmod.plan(rows, dim, vec, 132)
-        assert (p.threads_per_row, p.rows_per_block) == want
+        p = rmod.plan(rows, dim, vec, 132, resident=resident(5))
+        assert (p.threads_per_row, p.rows_per_block, p.loads,
+                p.blocks) == want
+        # the register path covers the row; a block's groups fit
+        assert p.loads == 0 or p.loads * p.threads_per_row * vec >= dim
+        assert p.threads_per_row * p.rows_per_block <= rmod.FORWARD_THREADS
+
+    @pytest.mark.parametrize("rows,want", [
+        # within one wave the add changes nothing
+        (8, (256, 1, 1, 8)), (512, (256, 1, 1, 512)),
+        # past it, a block for every pair of rows
+        (16384, (128, 2, 2, 8192)),
+    ])
+    def test_forward_with_the_add(self, rows, want):
+        p = rmod.plan(rows, 2048, 8, 132, resident=resident(5), add=True)
+        assert (p.threads_per_row, p.rows_per_block, p.loads,
+                p.blocks) == want
+
+    @pytest.mark.parametrize("dim,vec,register_path", [
+        # the budget: 4 vectors a thread at 256 threads a row
+        (8192, 8, True), (8200, 8, False),
+        (4096, 4, True), (4100, 4, False),
+        (1024, 1, True), (1025, 1, False),
+    ])
+    def test_register_budget_edge(self, dim, vec, register_path):
+        """A width at the budget holds its row in registers (4 vectors a
+        thread); one vector past it takes the two-pass loop at 256
+        threads."""
+        p = rmod.plan(7, dim, vec, 132)
+        assert p.threads_per_row == rmod.MAX_THREADS_PER_ROW
+        assert p.loads == (rmod.MAX_LOADS if register_path else 0)
+        assert rmod.MAX_LOADS * rmod.MAX_THREADS_PER_ROW * 8 == 8192
+
+    @pytest.mark.parametrize("per_sm,blocks", [(1, 132), (5, 660),
+                                               (50, 6600)])
+    def test_train_shape_strides_over_its_rows(self, per_sm, blocks):
+        """(16384, 2048) without the add: two rows a block, a grid of the
+        SMs times the resident blocks, each block taking its pairs of
+        rows a turn at a time, every row once."""
+        p = rmod.plan(16384, 2048, 8, 132, resident=resident(per_sm))
+        assert (p.threads_per_row, p.rows_per_block, p.loads) == (128, 2, 2)
+        assert p.blocks == blocks
+        groups = -(-16384 // p.rows_per_block)
+        turns = [len(range(b, groups, p.blocks)) for b in range(p.blocks)]
+        assert sum(turns) * p.rows_per_block == 16384
+        assert max(turns) - min(turns) <= 1
+
+    @pytest.mark.parametrize("rows,one_wave", [(660, True), (661, False)])
+    def test_one_wave_edge(self, rows, one_wave):
+        """One vector a thread while the rows fit one wave of a row a
+        block (5 blocks an SM on 132 SMs), two past it."""
+        p = rmod.plan(rows, 2048, 8, 132, resident=resident(5))
+        assert (p.threads_per_row, p.loads) == (
+            (256, 1) if one_wave else (128, 2))
+
+    @pytest.mark.parametrize("rows,dim,want", [
+        # narrow rows share a block: a warp a row, 8 rows a block
+        (16384, 256, (32, 8, 1, 660)),
+        # fewer rows than SMs: a row a block
+        (100, 256, (32, 1, 1, 100)),
+        (512, 1024, (128, 2, 1, 256)),
+    ])
+    def test_rows_a_block(self, rows, dim, want):
+        p = rmod.plan(rows, dim, 8, 132, resident=resident(5))
+        assert (p.threads_per_row, p.rows_per_block, p.loads,
+                p.blocks) == want
+
+    def test_forward_plan_takes_the_resident_count_of_its_instance(self):
+        asked = []
+
+        def count(loads, threads):
+            asked.append((loads, threads))
+            return 3
+
+        p = rmod.plan(16384, 2048, 8, 132, resident=count)
+        assert asked == [(1, 256), (2, 256)] and p.blocks == 396
 
     @pytest.mark.parametrize("rows,dim,vec,want", [
         # the train shape: a block an SM, 4 rows at a time
@@ -367,6 +458,34 @@ class TestPlan:
         assert (p.splits - 1) * p.rows_per_split < rows \
             <= p.splits * p.rows_per_split
         assert p.rows_per_block * dim * 4 <= rmod.MAX_SMEM_BYTES
+
+    @pytest.mark.parametrize("n,vec,per_sm,want", [
+        # the bench decode's gate (8, 8192): a vector a thread, 32 blocks
+        (8 * 8192, 8, 2, (1, 32)),
+        # the tp = 2 shard (4, 4096): 8 blocks
+        (4 * 4096, 8, 2, (1, 8)),
+        # the prefill block and the train shape: 4 vectors a thread, the
+        # grid the SMs times the resident blocks
+        (512 * 8192, 8, 2, (4, 264)),
+        (512 * 8192, 8, 5, (4, 512)),
+        (16384 * 8192, 8, 4, (4, 528)),
+        # between: 2 vectors a thread still give every SM a tile
+        (100000 * 8, 8, 2, (2, 196)),
+        # a ragged count at element loads, and one below a vector
+        (3003, 1, 8, (1, 12)),
+        (5, 8, 8, (1, 1)),
+    ])
+    def test_gate(self, n, vec, per_sm, want):
+        p = smod.plan(n, vec, 132, resident=lambda unroll: per_sm)
+        assert (p.unroll, p.blocks) == want
+        tiles = -(-(n // vec) // (smod.THREADS * p.unroll))
+        assert 1 <= p.blocks <= max(1, tiles)
+
+    def test_gate_asks_the_resident_count_of_its_unroll(self):
+        asked = []
+        p = smod.plan(16384 * 8192, 8, 132,
+                      resident=lambda unroll: asked.append(unroll) or 3)
+        assert asked == [4] and p == smod.Plan(4, 396)
 
     @pytest.mark.parametrize("dim,width", [(2048, 8), (36, 4), (33, 1),
                                            (6, 1)])
@@ -548,6 +667,11 @@ class TestChipSmokeCounts:
          "rms_norm"),
         ("void (anonymous namespace)::swiglu_fwd_kernel<8>(void const*)",
          "swiglu"),
+        ("void (anonymous namespace)::rms_norm_fwd_kernel<8, 1, true>("
+         "FwdParams)", "rms_norm"),
+        ("void (anonymous namespace)::swiglu_fwd_kernel<__nv_bfloat16, 8, "
+         "4>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, "
+         "long long)", "swiglu"),
         ("rope_kv_append_kernel<2>", "rope_kv_append"),
         ("void at::native::vectorized_elementwise_kernel<4, "
          "at::native::silu_kernel>", None),
@@ -556,3 +680,98 @@ class TestChipSmokeCounts:
         import decode_step_profile
 
         assert decode_step_profile.port_kernel(key) == want
+
+
+#: ptxas -v's lines for one kernel instance, as the build phase reads them
+PTXAS_BLOCK = """ '{name}' for 'sm_90a'
+ptxas info    : Function properties for {name}
+    {stack} bytes stack frame, {spill} bytes spill stores, 0 bytes spill loads
+ptxas info    : Used {regs} registers, used 1 barriers, 64 bytes smem
+"""
+
+
+class TestBuildReport:
+    def test_build_phase_reads_the_forward_instances(self, monkeypatch,
+                                                     capsys):
+        """The build phase names each forward instance by its template
+        arguments (the norm's vec and loads, the gate's dtype, vec and
+        unroll), and phase 3f finds its registers and spills by them."""
+        prefix = "_ZN36_INTERNAL_3f2c1e0a_11_rms_norm_cu_7e7f3a2a"
+        norm = "".join("Compiling entry function" + PTXAS_BLOCK.format(
+            name=f"{prefix}19rms_norm_fwd_kernelILi{vec}ELi{loads}ELb"
+                 f"{int(packed)}EEEvNS_9FwdParamsE", stack=0, spill=0,
+            regs=regs)
+            for vec, loads, packed, regs in ((8, 1, True, 40),
+                                             (8, 1, False, 48),
+                                             (8, 0, False, 38),
+                                             (1, 4, False, 64)))
+        norm += "Compiling entry function" + PTXAS_BLOCK.format(
+            name=f"{prefix}19rms_norm_bwd_kernelILi8EEEvNS_9BwdParamsE",
+            stack=0, spill=0, regs=58)
+        gate = "".join("Compiling entry function" + PTXAS_BLOCK.format(
+            name=f"{prefix}17swiglu_fwd_kernelI{t}Li8ELi{unroll}EEEvPKT_"
+                 "S3_PS1_x", stack=0, spill=4, regs=regs)
+            for t, unroll, regs in (("13__nv_bfloat16", 4, 56),
+                                    ("f", 1, 32)))
+
+        class Built:
+            def __init__(self, report):
+                self.ptxas_report, self.build_seconds = report, 1.0
+
+        monkeypatch.setattr(chip_smoke, "SOURCES", ["rms_norm.cu",
+                                                    "swiglu.cu"])
+        monkeypatch.setattr(chip_smoke._build, "build_all",
+                            lambda sources: [Built(norm), Built(gate)])
+        monkeypatch.setattr(chip_smoke, "BUILT_INSTANCES", {})
+        chip_smoke.phase_build()
+        out = capsys.readouterr().out
+        assert '"design": "8 elements a load, 1 vectors a thread held in ' \
+            'registers as packed bfloat16"' in out
+        assert '"design": "8 elements a load, two passes' in out
+        assert chip_smoke.instance_ptxas(
+            "rms_norm.cu", "rms_norm_fwd_kernel", vec=8, loads=1,
+            packed=True) == {"registers": 40, "spill_store_bytes": 0,
+                             "stack_bytes": 0}
+        assert chip_smoke.instance_ptxas(
+            "rms_norm.cu", "rms_norm_fwd_kernel", vec=8, loads=1,
+            packed=False)["registers"] == 48
+        assert chip_smoke.instance_ptxas(
+            "rms_norm.cu", "rms_norm_fwd_kernel", vec=1, loads=4,
+            packed=False)["registers"] == 64
+        assert chip_smoke.instance_ptxas(
+            "swiglu.cu", "swiglu_fwd_kernel", dtype="bfloat16", vec=8,
+            unroll=4) == {"registers": 56, "spill_store_bytes": 4,
+                          "stack_bytes": 0}
+        assert chip_smoke.instance_ptxas(
+            "swiglu.cu", "swiglu_fwd_kernel", dtype="float32", vec=8,
+            unroll=1)["registers"] == 32
+        # an instance the report lacks (a reused build) says so
+        assert "not reported" in chip_smoke.instance_ptxas(
+            "swiglu.cu", "swiglu_fwd_kernel", dtype="float32", vec=4,
+            unroll=2)
+
+
+class TestVariantsScript:
+    """``norm_gate_variants.py``'s source variants are string edits of the
+    kernels' sources: each must still find its text, or the script stops
+    on the card."""
+
+    @pytest.mark.parametrize("name", sorted(ngv.VARIANTS))
+    def test_every_edit_still_applies(self, name):
+        for file, edits in ngv.VARIANTS[name].items():
+            text = (ngv._build.CSRC_DIR / file).read_text()
+            for old, new in edits:
+                assert text.count(old) == 1, (name, file, old)
+                assert old != new
+
+    def test_layouts_name_known_variants(self):
+        names = [layout[0] for layout in ngv.NORM_LAYOUTS]
+        assert len(set(names)) == len(names)
+        assert set(ngv.AFTER_PRODUCT_LAYOUTS) <= set(names)
+        for _, variant, target, per_block, grid in ngv.NORM_LAYOUTS:
+            assert variant is None or variant in ngv.VARIANTS
+            assert grid in (None, "full", "strided")
+
+    def test_exits_without_cuda(self, capsys):
+        assert ngv.main([]) == 1
+        assert "CUDA is not available" in capsys.readouterr().err

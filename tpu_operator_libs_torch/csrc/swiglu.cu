@@ -18,17 +18,33 @@
 // expf, which torch.exp and F.silu also call on the card, so kernel and
 // plain version agree bit for bit where their expf does.
 //
-// Design: elementwise and bytes-bound. A thread takes kVec neighbouring
-// elements (8 or 4 with vector loads), the grid strides over the vectors
-// and a scalar tail takes the elements past the last whole vector.
+// Design: elementwise and bytes-bound at the train shape (134M
+// elements), a chain of latencies at the decode step's 65,536. The
+// forward takes typed __restrict__ pointers (T float or bfloat16): a
+// block takes a tile of kUnroll x 256 vectors of kVec neighbouring
+// elements (8 or 4 with vector loads, 1 where an address does not allow
+// them), each thread kUnroll of them 256 vectors apart, with every load
+// of the tile (g, then u) issued before any arithmetic and held packed
+// as loaded (two bfloat16 a register) until it; a grid sized to
+// the SMs times the blocks resident on one strides over the tiles, and a
+// scalar tail takes the elements past the last whole vector. It is
+// launched with programmatic dependent launch (dependent_launch.cuh):
+// nothing but offsets before the wait (g and u are the products just
+// before it), every store after it. The backward (a thread a vector, the
+// grid striding, untyped pointers) is launched plainly.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "dependent_launch.cuh"
 #include "vector_io.cuh"
 
 namespace {
 
+using dependent_launch::launch_dependents;
+using dependent_launch::wait_for_prerequisites;
 using vector_io::load;
 using vector_io::round_to;
 using vector_io::store;
@@ -70,19 +86,94 @@ __device__ __forceinline__ void gate_grad(const void* dy, const void* g,
   store<kVec>(du, i, dtype, db);
 }
 
-template <int kVec>
-__global__ void __launch_bounds__(kThreads)
-    swiglu_fwd_kernel(const void* g, const void* u, void* y, long long n,
-                      int dtype) {
-  const long long vectors = n / kVec;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long first = static_cast<long long>(blockIdx.x) * kThreads
-                          + threadIdx.x;
-  for (long long v = first; v < vectors; v += stride) {
-    gate<kVec>(g, u, y, v * kVec, dtype);
+// kVec elements of T (4 or 8) as one vector load brought them, read an
+// element at a time as float32: a bfloat16 stays packed two to a
+// register until its arithmetic, which halves the registers that the
+// loads in flight hold
+template <typename T, int kVec>
+struct Packed {
+  static constexpr int kWords = kVec * static_cast<int>(sizeof(T)) / 4;
+  uint32_t w[kWords];
+
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (kWords % 4 == 0) {
+#pragma unroll
+      for (int c = 0; c < kWords; c += 4) {
+        const uint4 v = reinterpret_cast<const uint4*>(p)[c / 4];
+        w[c] = v.x;
+        w[c + 1] = v.y;
+        w[c + 2] = v.z;
+        w[c + 3] = v.w;
+      }
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+    }
   }
-  const long long tail = vectors * kVec + first;
-  if (tail < n) gate<1>(g, u, y, tail, dtype);
+
+  // a bfloat16 is the high half of the float32 with the same bits
+  __device__ __forceinline__ float at(int e) const {
+    if constexpr (sizeof(T) == 4) return __uint_as_float(w[e]);
+    return __uint_as_float(e % 2 == 0 ? w[e / 2] << 16
+                                      : w[e / 2] & 0xffff0000u);
+  }
+};
+
+// one element, converted as it is loaded
+template <typename T>
+struct Packed<T, 1> {
+  float v;
+
+  __device__ __forceinline__ void load(const T* p) {
+    float x[1];
+    vector_io::load<1>(p, 0, std::is_same<T, float>::value ? 0 : 1, x);
+    v = x[0];
+  }
+
+  __device__ __forceinline__ float at(int) const { return v; }
+};
+
+template <typename T, int kVec, int kUnroll>
+__global__ void __launch_bounds__(kThreads)
+    swiglu_fwd_kernel(const T* __restrict__ g, const T* __restrict__ u,
+                      T* __restrict__ y, long long n) {
+  constexpr int kDtype = std::is_same<T, float>::value ? 0 : 1;
+  constexpr long long kTile = static_cast<long long>(kThreads) * kUnroll;
+  const long long vectors = n / kVec;
+  const long long tiles = (vectors + kTile - 1) / kTile;
+  wait_for_prerequisites();
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long first = tile * kTile + threadIdx.x;
+    Packed<T, kVec> a[kUnroll], b[kUnroll];
+    // every load of the tile before any arithmetic
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const long long v = first + j * kThreads;
+      if (v < vectors) a[j].load(g + v * kVec);
+    }
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const long long v = first + j * kThreads;
+      if (v < vectors) b[j].load(u + v * kVec);
+    }
+    if (tile + gridDim.x >= tiles) launch_dependents();
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const long long v = first + j * kThreads;
+      if (v >= vectors) continue;
+      float out[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        out[e] = __fmul_rn(silu(a[j].at(e), kDtype), b[j].at(e));
+      }
+      store<kVec>(y, v * kVec, kDtype, out);
+    }
+  }
+  const long long tail = vectors * kVec
+                         + static_cast<long long>(blockIdx.x) * kThreads
+                         + threadIdx.x;
+  if (tail < n) gate<1>(g, u, y, tail, kDtype);
 }
 
 template <int kVec>
@@ -114,33 +205,81 @@ bool args_ok(long long n, int dtype, int vec, int max_blocks) {
          && (vec == 1 || vec == 4 || vec == 8) && max_blocks >= 1;
 }
 
+// The forward instance for (T, vec, unroll), or null
+template <typename T>
+using FwdKernel = void (*)(const T*, const T*, T*, long long);
+
+template <typename T, int kVec>
+FwdKernel<T> forward_unrolled(int unroll) {
+  switch (unroll) {
+    case 1: return swiglu_fwd_kernel<T, kVec, 1>;
+    case 2: return swiglu_fwd_kernel<T, kVec, 2>;
+    case 4: return swiglu_fwd_kernel<T, kVec, 4>;
+    default: return nullptr;
+  }
+}
+
+template <typename T>
+FwdKernel<T> forward_kernel(int vec, int unroll) {
+  if (vec == 8) return forward_unrolled<T, 8>(unroll);
+  if (vec == 4) return forward_unrolled<T, 4>(unroll);
+  if (vec == 1) return forward_unrolled<T, 1>(unroll);
+  return nullptr;
+}
+
+template <typename T>
+int launch_forward(const void* g, const void* u, void* y, long long n,
+                   int vec, int unroll, int blocks, void* stream) {
+  const FwdKernel<T> kernel = forward_kernel<T>(vec, unroll);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  return dependent_launch::launch_dependent(
+      kernel, static_cast<unsigned>(blocks), kThreads, stream,
+      static_cast<const T*>(g), static_cast<const T*>(u), static_cast<T*>(y),
+      n);
+}
+
 }  // namespace
 
 // g, u, y (n,) of dtype (0 float32, 1 bfloat16), contiguous; vec:
 // elements a load (every buffer aligned to vec elements, at most 16
-// bytes); at most max_blocks blocks of 256 threads.
+// bytes); unroll: vectors a thread a tile, 1, 2 or 4; blocks of 256
+// threads, at least 1 and at most one a tile (one for n below a vector).
+// Launched with programmatic dependent launch.
 extern "C" int swiglu_fwd(const void* g, const void* u, void* y, long long n,
-                          int dtype, int vec, int max_blocks, void* stream) {
+                          int dtype, int vec, int unroll, int blocks,
+                          void* stream) {
   using vector_io::aligned;
+  const long long tile = static_cast<long long>(kThreads) * unroll;
   if (g == nullptr || u == nullptr || y == nullptr
-      || !args_ok(n, dtype, vec, max_blocks) || !aligned(g, vec, dtype)
-      || !aligned(u, vec, dtype) || !aligned(y, vec, dtype)) {
+      || !args_ok(n, dtype, vec, blocks) || unroll < 1
+      || (blocks > 1 && blocks > (n / vec + tile - 1) / tile)
+      || !aligned(g, vec, dtype) || !aligned(u, vec, dtype)
+      || !aligned(y, vec, dtype)) {
     return cudaErrorInvalidValue;
   }
-  const unsigned blocks = blocks_for(n, vec, max_blocks);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 8) {
-    swiglu_fwd_kernel<8><<<blocks, kThreads, 0, s>>>(g, u, y, n, dtype);
-  } else if (vec == 4) {
-    swiglu_fwd_kernel<4><<<blocks, kThreads, 0, s>>>(g, u, y, n, dtype);
-  } else {
-    swiglu_fwd_kernel<1><<<blocks, kThreads, 0, s>>>(g, u, y, n, dtype);
-  }
-  return cudaGetLastError();
+  return dtype == 0
+             ? launch_forward<float>(g, u, y, n, vec, unroll, blocks, stream)
+             : launch_forward<__nv_bfloat16>(g, u, y, n, vec, unroll, blocks,
+                                             stream);
 }
 
-// dy, g, u, dg, du (n,) of dtype, contiguous; vec and max_blocks as
-// swiglu_fwd.
+// Blocks of the forward instance (dtype, vec, unroll) that fit on one SM
+// of the current device, or -1 for an instance that does not exist or a
+// failed query.
+extern "C" int swiglu_fwd_resident(int dtype, int vec, int unroll) {
+  if (dtype == 0) {
+    const FwdKernel<float> kernel = forward_kernel<float>(vec, unroll);
+    return kernel == nullptr
+               ? -1 : dependent_launch::resident_blocks(kernel, kThreads);
+  }
+  const FwdKernel<__nv_bfloat16> kernel =
+      forward_kernel<__nv_bfloat16>(vec, unroll);
+  return dtype != 1 || kernel == nullptr
+             ? -1 : dependent_launch::resident_blocks(kernel, kThreads);
+}
+
+// dy, g, u, dg, du (n,) of dtype, contiguous; vec as swiglu_fwd; a
+// thread a vector, at most max_blocks blocks of 256 threads.
 extern "C" int swiglu_bwd(const void* dy, const void* g, const void* u,
                           void* dg, void* du, long long n, int dtype, int vec,
                           int max_blocks, void* stream) {

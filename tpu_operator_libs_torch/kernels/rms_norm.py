@@ -9,8 +9,12 @@ dtype, then the weight multiply, rounded again.
 
 :func:`add_rms_norm` returns ``(h + delta, rms_norm(h + delta))``
 (``delta=None``: ``(h, rms_norm(h))``). For CUDA tensors it launches
-``csrc/rms_norm.cu``'s forward kernel, one launch a call; for CPU ones it
-runs the plain version, :func:`add_rms_norm_reference`. When a gradient
+``csrc/rms_norm.cu``'s forward kernel, one launch a call, with
+programmatic dependent launch (its blocks may be scheduled while the
+product before it finishes and wait for it on the card; graph capture of
+such a launch needs CUDA 12.3 or later), in the layout :func:`plan`
+gives; for CPU ones it runs the plain version,
+:func:`add_rms_norm_reference`. When a gradient
 is wanted it goes through an autograd Function that saves the normalised
 input, the weight and ``rstd`` (float32, one a row) and whose backward is
 :func:`rms_norm_bwd`: the backward kernel on the card, the explicit plain
@@ -35,12 +39,23 @@ SOURCE = "rms_norm.cu"
 EPS = 1e-5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: threads a block of the forward and of the backward kernel at most
-#: (``kMaxThreads`` in the source bounds both)
+#: (``kFwdThreads`` and ``kMaxThreads`` in the source)
 FORWARD_THREADS = 256
 BACKWARD_THREADS = 1024
 #: the most threads a row takes, and an H100's shared memory a block
 MAX_THREADS_PER_ROW = 256
 MAX_SMEM_BYTES = 227 * 1024
+#: the forward's register path: the vectors of a row a thread holds at
+#: most (``kMaxLoads``; wider rows take the two-pass loop) and the
+#: instances built (``loads`` 0 is the two-pass loop)
+MAX_LOADS = 4
+LOADS = (0, 1, 2, 4)
+#: the vectors of a row a thread of the forward aims to hold: one (256
+#: threads a row of 2,048) while the rows fit one wave at a row a block,
+#: two (128 threads, two rows a block) past that. On the H100 these were
+#: the fastest at the decode step and the prefill block, and at the train
+#: step, of 1, 2, 4 and 8 (``norm_gate_variants.py``, PERF.md)
+TARGET_LOADS = (1, 2)
 _lib = None
 #: the backward's ticket counter by (device index, stream): one int, 0
 #: between launches
@@ -89,26 +104,60 @@ def rms_norm_backward_reference(dy, x, weight, rstd, ds=None):
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """How a kernel runs: a group of ``threads_per_row`` threads a row,
-    ``rows_per_block`` groups a block; the backward's ``splits`` blocks
-    each take ``rows_per_split`` rows (the C entry checks it)."""
+    ``rows_per_block`` groups a block; the forward's threads hold
+    ``loads`` vectors each (0: the two-pass loop) and its ``blocks``
+    blocks stride over the groups of rows; the backward's ``splits``
+    blocks each take ``rows_per_split`` rows (the C entry checks it)."""
 
     threads_per_row: int
     rows_per_block: int
     splits: int = 0
     rows_per_split: int = 0
+    loads: int = 0
+    blocks: int = 0
 
 
-def plan(rows: int, dim: int, vec: int, sms: int,
-         backward: bool = False) -> Plan:
+def _row_layout(vectors: int, target: int) -> "tuple[int, int]":
+    """(threads a row, vectors a thread) for a row of ``vectors`` aiming
+    at ``target`` vectors a thread: the fewest threads a row (a multiple
+    of 32, at most 256) at which a thread holds at most ``target``, the
+    vectors a thread the power of two that covers the row; (256, 0), the
+    two-pass loop, past MAX_LOADS."""
+    per_row = min(MAX_THREADS_PER_ROW,
+                  max(32, -(-vectors // (32 * target)) * 32))
+    need = -(-vectors // per_row)
+    if need > MAX_LOADS:
+        return MAX_THREADS_PER_ROW, 0
+    return per_row, next(n for n in LOADS if n >= need)
+
+
+def plan(rows: int, dim: int, vec: int, sms: int, backward: bool = False,
+         resident=None, add: bool = False) -> Plan:
     """The launch for ``rows`` rows of ``dim`` at ``vec`` elements a load
-    on a card of ``sms`` SMs, from these alone: a thread a vector up to
-    256 threads a row; the forward puts rows in 256-thread blocks, the
-    backward in blocks of up to 1024 threads (their partial dw in shared
-    memory, rows_per_block x dim floats), one block an SM at most."""
+    on a card of ``sms`` SMs, from these alone.
+
+    Forward: ``TARGET_LOADS[0]`` vectors a thread while the rows fit one
+    wave of a row a block (``resident(loads, threads)`` blocks an SM, one
+    without it), ``TARGET_LOADS[1]`` past it (``_row_layout``). A block
+    takes up to 256 threads of rows, no more rows a block than spread
+    the rows over the SMs. Without the add a grid of the resident blocks
+    strides over the groups of rows; with it (``add``) there is a block
+    for every group, which measured faster at the train shape.
+    Backward: a thread a vector up to 256 threads a row, in blocks of up
+    to 1024 threads (their partial dw in shared memory, rows_per_block x
+    dim floats), one block an SM at most."""
     vectors = -(-dim // vec)
-    per_row = min(MAX_THREADS_PER_ROW, max(32, -(-vectors // 32) * 32))
     if not backward:
-        return Plan(per_row, max(1, FORWARD_THREADS // per_row))
+        per_sm = resident or (lambda loads, threads: 1)
+        per_row, loads = _row_layout(vectors, TARGET_LOADS[0])
+        if rows > sms * per_sm(loads, per_row):
+            per_row, loads = _row_layout(vectors, TARGET_LOADS[1])
+        per_block = max(1, min(FORWARD_THREADS // per_row, -(-rows // sms)))
+        groups = -(-rows // per_block)
+        blocks = groups if add else min(
+            groups, sms * per_sm(loads, per_row * per_block))
+        return Plan(per_row, per_block, loads=loads, blocks=blocks)
+    per_row = min(MAX_THREADS_PER_ROW, max(32, -(-vectors // 32) * 32))
     groups = min(max(1, BACKWARD_THREADS // per_row),
                  MAX_SMEM_BYTES // (4 * dim))
     if groups < 1:
@@ -133,6 +182,40 @@ def vector_width(dim: int, *tensors) -> int:
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def _resident(index: int, dtypes: "tuple[int, int, int]", vec: int,
+              loads: int, threads: int) -> int:
+    """Blocks of ``threads`` threads of the forward instance for (vec,
+    loads) and the dtype codes of h, delta (h's without it) and w that
+    fit on one SM of card ``index``."""
+    with torch.cuda.device(index):
+        blocks = _library().rms_norm_fwd_resident(vec, loads, threads,
+                                                  *dtypes)
+    if blocks < 1:
+        raise RuntimeError(f"rms_norm: no occupancy for vec {vec}, loads "
+                           f"{loads}, {threads} threads, dtypes {dtypes}")
+    return blocks
+
+
+def packed(vec: int, loads: int, dtypes) -> bool:
+    """Whether the forward's register path holds its vectors as packed
+    bfloat16 (``packs`` in the source): every tensor bfloat16 at 8 a
+    load."""
+    return vec == 8 and loads > 0 and all(d == torch.bfloat16
+                                          for d in dtypes)
+
+
+def forward_plan(rows: int, dim: int, vec: int, index: int, add: bool,
+                 dtypes=(torch.bfloat16,) * 3) -> Plan:
+    """:func:`plan` of the forward on card ``index``, with its SMs and
+    the resident blocks of the instance it launches for the dtypes of h,
+    delta (h's without it) and w."""
+    codes = tuple(_DTYPE_CODES[d] for d in dtypes)
+    return plan(rows, dim, vec, _sm_count(index),
+                resident=functools.partial(_resident, index, codes, vec),
+                add=add)
 
 
 def _check(h, delta, weight) -> None:
@@ -178,8 +261,10 @@ def _library():
         lib = build_all([SOURCE])[0].lib
         lib.rms_norm_fwd.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
-            ctypes.c_int] * 6 + [ctypes.c_void_p]
+            ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.rms_norm_fwd.restype = ctypes.c_int
+        lib.rms_norm_fwd_resident.argtypes = [ctypes.c_int] * 6
+        lib.rms_norm_fwd_resident.restype = ctypes.c_int
         lib.rms_norm_bwd.argtypes = [ctypes.c_void_p] * 9 + [
             ctypes.c_int] * 11 + [ctypes.c_void_p]
         lib.rms_norm_bwd.restype = ctypes.c_int
@@ -215,7 +300,8 @@ def _launch_forward(h, delta, weight, eps, want_rstd):
     if rows == 0:
         return s, y, rstd
     vec = vector_width(dim, h, delta, weight, s, y)
-    p = plan(rows, dim, vec, _sm_count(h.device.index))
+    p = forward_plan(rows, dim, vec, h.device.index, delta is not None, (
+        h.dtype, h.dtype if delta is None else delta.dtype, weight.dtype))
     lib = _library()
     with torch.cuda.device(h.device):
         err = lib.rms_norm_fwd(
@@ -223,7 +309,7 @@ def _launch_forward(h, delta, weight, eps, want_rstd):
             y.data_ptr(), _ptr(rstd), rows, dim, eps, _DTYPE_CODES[h.dtype],
             _DTYPE_CODES[delta.dtype] if delta is not None else 0,
             _DTYPE_CODES[weight.dtype], vec, p.threads_per_row,
-            p.rows_per_block,
+            p.rows_per_block, p.loads, p.blocks,
             torch.cuda.current_stream(h.device).cuda_stream)
     _raise_on(lib, err, "rms_norm", p)
     add_rms_norm.launches += 1

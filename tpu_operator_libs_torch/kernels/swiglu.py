@@ -14,12 +14,17 @@ is :func:`swiglu_bwd`: one pass over ``dy``, ``g`` and ``u`` writing
 :func:`swiglu_backward_reference` on the CPU. Each kernel computes the
 same correctly rounded float32 operations as its plain version, in the
 same order, with ``expf``, so the two agree bit for bit where PyTorch's
-``exp`` on the card does.
+``exp`` on the card does. The forward is launched with programmatic
+dependent launch: its blocks may be scheduled while the product before
+it finishes and wait for it on the card (graph capture of such a launch
+needs CUDA 12.3 or later); :func:`plan` sets its vectors a thread and
+its grid.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -28,9 +33,14 @@ import torch.nn.functional as F
 #: the CUDA source under ``csrc/``
 SOURCE = "swiglu.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: blocks of 256 threads an SM before the grid strides (2,048 threads,
-#: an H100 SM's most)
+#: threads a block of either kernel (``kThreads`` in the source)
+THREADS = 256
+#: the backward's blocks of 256 threads an SM before its grid strides
+#: (2,048 threads, an H100 SM's most)
 BLOCKS_PER_SM = 8
+#: the forward's vectors a thread a tile, most first (the instances
+#: built)
+UNROLLS = (4, 2, 1)
 _lib = None
 
 
@@ -62,9 +72,54 @@ def vector_width(*tensors) -> int:
     return 1
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the forward runs: a thread takes ``unroll`` vectors of a
+    block's tile of ``unroll`` x 256, and ``blocks`` blocks stride over
+    the tiles (the C entry checks it)."""
+
+    unroll: int
+    blocks: int
+
+
+def plan(n: int, vec: int, sms: int, resident=None) -> Plan:
+    """The forward's launch for ``n`` elements at ``vec`` a load on a
+    card of ``sms`` SMs: the most vectors a thread (of UNROLLS) that
+    still gives every SM a tile, else one (the decode step's 65,536
+    elements: the shortest chain, the most blocks); the grid is the
+    tiles, at most ``resident(unroll)`` blocks an SM (one without it),
+    and one block for fewer elements than a vector."""
+    vectors = n // vec
+    for unroll in UNROLLS:
+        tiles = -(-vectors // (THREADS * unroll))
+        if tiles >= sms:
+            break
+    per_sm = 1 if resident is None else resident(unroll)
+    return Plan(unroll, max(1, min(tiles, sms * per_sm)))
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def _resident(index: int, dtype_code: int, vec: int, unroll: int) -> int:
+    """Blocks of the forward instance that fit on one SM of card
+    ``index``."""
+    with torch.cuda.device(index):
+        blocks = _library().swiglu_fwd_resident(dtype_code, vec, unroll)
+    if blocks < 1:
+        raise RuntimeError(f"swiglu: no occupancy for dtype {dtype_code}, "
+                           f"vec {vec}, unroll {unroll}")
+    return blocks
+
+
+def forward_plan(n: int, vec: int, dtype, index: int) -> Plan:
+    """:func:`plan` on card ``index``, with its SMs and the instance's
+    resident blocks."""
+    return plan(n, vec, _sm_count(index), resident=functools.partial(
+        _resident, index, _DTYPE_CODES[dtype], vec))
 
 
 def _check(*named) -> None:
@@ -100,8 +155,10 @@ def _library():
 
         lib = build_all([SOURCE])[0].lib
         lib.swiglu_fwd.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.swiglu_fwd.restype = ctypes.c_int
+        lib.swiglu_fwd_resident.argtypes = [ctypes.c_int] * 3
+        lib.swiglu_fwd_resident.restype = ctypes.c_int
         lib.swiglu_bwd.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.swiglu_bwd.restype = ctypes.c_int
@@ -111,24 +168,24 @@ def _library():
     return _lib
 
 
-def _launch(entry, name, tensors, dtype, device):
-    """One launch of ``entry`` over ``tensors`` (inputs then outputs)."""
-    lib = _library()
-    vec = vector_width(*tensors)
-    with torch.cuda.device(device):
-        err = getattr(lib, entry)(
-            *(t.data_ptr() for t in tensors), tensors[0].numel(),
-            _DTYPE_CODES[dtype], vec, BLOCKS_PER_SM * _sm_count(device.index),
-            torch.cuda.current_stream(device).cuda_stream)
+def _raise_on(lib, err, name, detail="") -> None:
     if err != 0:
         message = lib.swiglu_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: {message} ({err})")
+        raise RuntimeError(f"{name} launch failed{detail}: {message} ({err})")
 
 
 def _launch_forward(g, u):
     y = torch.empty_like(g)
     if g.numel():
-        _launch("swiglu_fwd", "swiglu", (g, u, y), g.dtype, g.device)
+        lib = _library()
+        vec = vector_width(g, u, y)
+        p = forward_plan(g.numel(), vec, g.dtype, g.device.index)
+        with torch.cuda.device(g.device):
+            err = lib.swiglu_fwd(
+                g.data_ptr(), u.data_ptr(), y.data_ptr(), g.numel(),
+                _DTYPE_CODES[g.dtype], vec, p.unroll, p.blocks,
+                torch.cuda.current_stream(g.device).cuda_stream)
+        _raise_on(lib, err, "swiglu", f" ({p})")
         swiglu.launches += 1
     return y
 
@@ -142,8 +199,14 @@ def swiglu_bwd(dy, g, u):
         return swiglu_backward_reference(dy, g, u)
     dg, du = torch.empty_like(g), torch.empty_like(u)
     if g.numel():
-        _launch("swiglu_bwd", "swiglu_bwd", (dy, g, u, dg, du), g.dtype,
-                g.device)
+        lib = _library()
+        with torch.cuda.device(g.device):
+            err = lib.swiglu_bwd(
+                *(t.data_ptr() for t in (dy, g, u, dg, du)), g.numel(),
+                _DTYPE_CODES[g.dtype], vector_width(dy, g, u, dg, du),
+                BLOCKS_PER_SM * _sm_count(g.device.index),
+                torch.cuda.current_stream(g.device).cuda_stream)
+        _raise_on(lib, err, "swiglu_bwd")
         swiglu_bwd.launches += 1
     return dg, du
 
