@@ -7,7 +7,10 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --multichip-only`` runs phases 1, 2 and 9 alone,
-for a machine with several cards.)
+for a machine with several cards; ``python3 chip_smoke.py --train-turns
+DIR`` runs phase 7 of the checkout at DIR and of this one in turns, DIR,
+this, this, DIR, one process a turn, to compare two commits on one
+card.)
 
 Each phase prints one JSON line; any failure raises and the script
 exits non-zero without printing a result. Phases:
@@ -75,6 +78,19 @@ exits non-zero without printing a result. Phases:
    decode are timed also after the product before them on the step (the
    O projection, the up projection): graph(product + kernel) less
    graph(product).
+3g. train_kernels: the batch forward's RoPE kernel (q and k rotated, v
+   copied, in the flash path's head-major layout or the input's) and its
+   backward against their plain versions at the train step's shape in
+   both layouts, the ring's block at its global positions, f32, head_dims
+   64, 16, 8 and 18 and an odd S: every output bit-equal (zeros and
+   negative zeros planted in the gradients), the launch contract, timed
+   in CUDA graphs beside the plain versions; the AdamW kernel over
+   llama-277M's 39 leaves against its plain version in bf16 and f32, a
+   constant rate and the warmup-cosine schedule at counts 0 and 5, the
+   clip with a norm above and below its limit, weight decay 1e-4 and 0:
+   new p, m and v bit-equal, the inputs unchanged, the launch contract of
+   the kernel alone, timed beside the plain version and
+   ``torch._fused_adamw_``.
 4-6. the serving path, with the launch counts set to 0 just before it:
    ``forward`` of llama-277M with ``attention_impl="flash"`` against
    ``"xla"``; the decode contract (stepwise cache == batch forward, host
@@ -86,8 +102,10 @@ exits non-zero without printing a result. Phases:
    a ``DecodeServer`` burst with a mid-burst drain, then decode at the
    bench's shape through the graph and the host loop.
 7-8. the training path, with the launch counts set to 0 just before it:
-   6 steps of ``make_train_step`` (flash, batch 16, seq 1024, bf16), its
-   gradients against ``"xla"`` and against ``remat=True``; then save ->
+   6 steps of ``make_train_step`` (flash, batch 16, seq 1024, bf16; RoPE
+   and its backward once a layer, AdamW once a step), the update's own
+   time, its gradients against ``"xla"`` and against ``remat=True``; then
+   save ->
    checkpoint gate -> restore into another seed's state -> the next
    loss equal bit for bit.
 9. multichip, with the launch counts set to 0 just before it in its
@@ -217,6 +235,12 @@ from tpu_operator_libs_torch.kernels.swiglu import (  # noqa: E402
     swiglu_reference,
     vector_width as gate_vector_width,
 )
+from tpu_operator_libs_torch.kernels import adamw as adamw_mod  # noqa: E402
+from tpu_operator_libs_torch.kernels import rope as rope_mod  # noqa: E402
+from tpu_operator_libs_torch.kernels.rope import (  # noqa: E402
+    rope_bwd,
+    rope_qk,
+)
 from tpu_operator_libs_torch.kernels.int8_matmul import (  # noqa: E402
     int8_matmul,
     int8_matmul_reference,
@@ -233,11 +257,13 @@ from tpu_operator_libs_torch.kernels.flash_attention import (  # noqa: E402
     kernel_design,
 )
 from tpu_operator_libs_torch.optim import (  # noqa: E402
+    AdamW,
     tree_leaves,
     value_and_grad,
 )
 from tpu_operator_libs_torch.parallel import (  # noqa: E402
     dp_tp_split,
+    global_norm,
     run_ranks,
 )
 from decode_step_profile import PORT_KERNELS, port_kernel  # noqa: E402
@@ -513,6 +539,23 @@ def phase_build():
                     {"design": f"{nk.group(2)} elements a load",
                      "dynamic_smem_bytes": None if nk.group(1)
                      == "rms_norm_bwd_kernel" else 0}))
+                continue
+            rk = re.search(r"\d(rope_kernel)ILb([01])ELi(\d)E", block)
+            if rk is not None:
+                entries.append({**ptxas_entry(
+                    block, rk.group(1), "any", None,
+                    {"design": ("backward" if rk.group(2) == "1"
+                                else "forward") + f", {rk.group(3)} pairs "
+                               "a thread",
+                     "dynamic_smem_bytes": 0}),
+                    "backward": rk.group(2) == "1", "vec": int(rk.group(3))})
+                continue
+            ak = re.search(r"\d(adamw_kernel)ILi(\d)E", block)
+            if ak is not None:
+                entries.append({**ptxas_entry(
+                    block, ak.group(1), "any", None,
+                    {"design": f"{ak.group(2)} elements a load",
+                     "dynamic_smem_bytes": 0}), "vec": int(ak.group(2))})
                 continue
             fold = re.search(r"\dattention_fold_kernelI(13__nv_bfloat16|f)E",
                              block)
@@ -2108,6 +2151,273 @@ def phase_norm_gate_kernels(card):
     return norm, norm_bwd, gate, gate_bwd
 
 
+#: (label, B, S, H, H_kv, D, dtype, head_major, first position) of phase
+#: 3g's RoPE rows: the train step's in the flash path's layout (q, k and
+#: v written head-major: the row its launches run) and in the xla path's,
+#: the ring's block at its global positions, f32 at batch 2 (phase 7's f32
+#: gradients), head_dims 64 (GQA, an odd S) and 16, and the narrower
+#: loads' instances (D 8: 4 pairs a thread; D 18: one)
+ROPE_SHAPES = [
+    ("train_flash", 16, 1024, 16, 16, 128, torch.bfloat16, True, None),
+    ("train_xla", 16, 1024, 16, 16, 128, torch.bfloat16, False, None),
+    ("ring_block", 1, 2048, 16, 16, 128, torch.bfloat16, False, 2048),
+    ("f32_flash", 2, 1024, 16, 16, 128, torch.float32, True, None),
+    ("d64_gqa_s997", 2, 997, 8, 2, 64, torch.bfloat16, True, None),
+    ("d16_f32", 2, 256, 4, 2, 16, torch.float32, False, 5),
+    ("d8_vec4", 2, 61, 3, 1, 8, torch.bfloat16, True, None),
+    ("d18_vec1", 1, 33, 2, 2, 18, torch.float32, False, 7),
+]
+
+
+def bit_equal(got, want) -> bool:
+    """The same bits (not only equal values: -0 and +0 differ)."""
+    return all(a.dtype == b.dtype and a.shape == b.shape
+               and torch.equal(a.contiguous().view(torch.uint8),
+                               b.contiguous().view(torch.uint8))
+               for a, b in zip(got, want))
+
+
+def rope_design(head_major, backward, vec, splits) -> str:
+    layout = "head-major" if head_major else "(B, S, H, D)"
+    where = (f"from {layout} to (B, S, H, D)" if backward
+             else f"from (B, S, H, D) to {layout}")
+    return (f"a thread a token's {vec} pairs, their cos/sin once, walking "
+            f"the heads of q, k{' and v' if head_major else ''} in "
+            f"{splits} head groups; {where}")
+
+
+def check_rope_shape(label, batch, seq, heads, kv_heads, dim, dtype,
+                     head_major, start, card):
+    """rope_qk and rope_bwd against their plain versions at one shape:
+    every output bit-equal (the plain version's roundings, signed zeros
+    included: zeros planted in the gradients); the launch contract of
+    each; times in CUDA graphs beside the plain versions (what the path
+    ran before: ``_rope`` of q and k, the flash path's transposed copies,
+    autograd's backward of the same operations)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+
+    def randn(h):
+        return torch.randn((batch, seq, h, dim), generator=gen,
+                           device="cuda").to(dtype)
+
+    q, k, v = randn(heads), randn(kv_heads), randn(kv_heads)
+    v = v if head_major else None
+    pos = None if start is None else \
+        start + torch.arange(seq, device="cuda")
+    extra = {"v": v, "head_major": True} if head_major else {}
+
+    def fwd():
+        return rope_qk(q, k, ROPE_THETA, pos, **extra)
+
+    outs, again = fwd(), fwd()
+    want = rope_mod._plain(q, k, v, ROPE_THETA, pos, head_major)
+    douts = [torch.randn(t.shape, generator=gen, device="cuda").to(dtype)
+             for t in outs]
+    for t in douts:
+        t.view(-1)[: dim * 3] = 0.0
+        t.view(-1)[dim * 3: dim * 4] = -0.0
+    dv = douts[2] if head_major else None
+
+    def bwd():
+        return rope_bwd(douts[0], douts[1], ROPE_THETA, pos, dv=dv,
+                        head_major=head_major)
+
+    grads, grads_again = bwd(), bwd()
+    want_grads = rope_mod._plain_backward(douts[0], douts[1], dv,
+                                          ROPE_THETA, pos, head_major)
+    torch.cuda.synchronize()
+    fwd_equal, bwd_equal = bit_equal(outs, want), bit_equal(grads,
+                                                            want_grads)
+    if not (fwd_equal and bwd_equal):
+        raise RuntimeError(
+            f"rope at {label}: forward bit-equal {fwd_equal} (max ulp "
+            f"{[max_ulp(a, b) for a, b in zip(outs, want)]}), backward "
+            f"{bwd_equal} (max ulp "
+            f"{[max_ulp(a, b) for a, b in zip(grads, want_grads)]})")
+    vec = rope_mod.vector_width(dim, q, k, v, *outs)
+    groups = rope_mod.splits(batch * seq, dim, vec,
+                             heads + kv_heads * (2 if head_major else 1),
+                             _build.sm_count(0))
+    common = {"phase": "train_kernels", "shape": label, "B": batch, "S": seq,
+              "H": heads, "H_kv": kv_heads, "D": dim,
+              "dtype": dtype_name(dtype), "head_major": head_major,
+              "with_v": head_major, "first_position": start or 0,
+              "vec": vec, "head_groups": groups, "max_abs_err": 0.0,
+              "library": "none: no single PyTorch call rotates",
+              "library_ms": None}
+    # the function's bytes: each input read once, each output written once
+    nbytes = tensor_bytes(q, k, v, pos, *outs)
+    rows = []
+    for name, call, got, twice, plain, backward in (
+            ("rope", fwd, outs, again,
+             lambda: rope_mod._plain(q, k, v, ROPE_THETA, pos, head_major),
+             False),
+            ("rope_bwd", bwd, grads, grads_again,
+             lambda: rope_mod._plain_backward(douts[0], douts[1], dv,
+                                              ROPE_THETA, pos, head_major),
+             True)):
+        iters = 50 if q.numel() < 1 << 24 else 20
+        row = {**common, "name": name,
+               **check_launch_contract(name, label, call, got, twice),
+               "design": rope_design(head_major, backward, vec, groups),
+               "ptxas": instance_ptxas("rope.cu", "rope_kernel",
+                                       backward=backward, vec=vec),
+               "bit_equal_to_plain": True,
+               "kernel_ms": graph_ms(call, iters),
+               "plain_ms": graph_ms(plain, max(2, iters // 5))}
+        row["bound_ms"], row["bound_by"] = bytes_bound_ms(nbytes)
+        row["card"] = card
+        emit(row)
+        rows.append(row)
+    del q, k, v, outs, again, want, douts, grads, grads_again, want_grads
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: (label, dtype, AdamW options, count before the step) of phase 3g's
+#: AdamW rows over llama-277M's 39 leaves: the train step's (bf16, a
+#: constant rate; its first row), f32, the warmup-cosine schedule at
+#: counts 0 and 5, the clip with a global norm above its limit (the
+#: gradients scaled) and below it, and optax.adam's weight decay 0
+ADAMW_CASES = [
+    ("bf16_constant", torch.bfloat16, {}, 0),
+    ("f32_constant", torch.float32, {}, 0),
+    ("bf16_schedule_count0", torch.bfloat16,
+     {"warmup_steps": 2, "total_steps": 100}, 0),
+    ("bf16_schedule_count5", torch.bfloat16,
+     {"warmup_steps": 2, "total_steps": 100}, 5),
+    ("bf16_clip_above", torch.bfloat16, {"clip_norm": 0.5}, 0),
+    ("bf16_clip_below", torch.bfloat16, {"clip_norm": 2.0}, 0),
+    ("bf16_adam", torch.bfloat16, {"weight_decay": 0.0}, 0),
+    ("f32_schedule_clip_count5", torch.float32,
+     {"warmup_steps": 2, "total_steps": 100, "clip_norm": 0.5}, 5),
+]
+
+
+def adamw_leaves(dtype):
+    """(grads, mu, nu, params) of llama-277M's shapes in ``dtype``:
+    the model's init, gradients and first moments near 1e-3, second
+    moments their squares."""
+    params = tree_leaves(init_llama_params(CONFIG_277M, param_dtype=dtype,
+                                           seed=SEED + 71, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
+
+    def like(p, scale):
+        return (scale * torch.randn(p.shape, generator=gen,
+                                    device="cuda")).to(dtype)
+
+    grads = [like(p, 1e-3) for p in params]
+    mu = [like(p, 1e-3) for p in params]
+    nu = [like(p, 1e-3).square() for p in params]
+    return grads, mu, nu, params
+
+
+def fused_adamw_ms(grads, mu, nu, params, lr, weight_decay, iters):
+    """``torch._fused_adamw_`` (PyTorch's multi-tensor AdamW: the same
+    work, other numerics: torch's decay and eps) over copies of the
+    leaves, CUDA events."""
+    p, m, v = ([t.clone() for t in ts] for ts in (params, mu, nu))
+    steps = [torch.zeros((), device="cuda") for _ in params]
+
+    def call():
+        torch._fused_adamw_(p, grads, m, v, [], steps, lr=lr,
+                            beta1=adamw_mod.B1, beta2=adamw_mod.B2,
+                            weight_decay=weight_decay, eps=adamw_mod.EPS,
+                            amsgrad=False, maximize=False)
+
+    return cuda_ms(call, iters)
+
+
+def check_adamw_case(label, dtype, options, count, leaves, card):
+    """adamw_update against its plain version on llama-277M's leaves: new
+    p, m and v bit-equal and the inputs unchanged; the launch contract of
+    the kernel alone (its 0-d arguments made first); times beside the
+    plain version and ``torch._fused_adamw_``."""
+    grads, mu, nu, params = leaves
+    opt = AdamW(CONFIG_277M.learning_rate, **options)
+    before = [t.clone() for t in grads + mu + nu + params]
+    count_t = torch.tensor(count, dtype=torch.int32, device="cuda")
+    norm, clip = None, opt.clip_norm
+    if clip:
+        norm = global_norm(grads)
+        # the limit a share of the norm: above it the gradients scale
+        clip = opt.clip_norm * float(norm)
+    state = {"count": count_t, "mu": mu, "nu": nu}
+    kw = {"lr": opt.learning_rate(count_t), "weight_decay": opt.weight_decay,
+          "clip_norm": clip, "norm": norm}
+    got_p, got_s = adamw_mod.adamw_update(grads, state, params, **kw)
+    want_p, want_s = adamw_mod.adamw_update_reference(grads, state, params,
+                                                      **kw)
+    torch.cuda.synchronize()
+    got = got_p + got_s["mu"] + got_s["nu"]
+    want = want_p + want_s["mu"] + want_s["nu"]
+    equal = bit_equal(got, want)
+    unchanged = bit_equal(before, grads + mu + nu + params)
+    if not (equal and unchanged):
+        worst = max(max_ulp(a, b) for a, b in zip(got, want))
+        raise RuntimeError(f"adamw at {label}: bit-equal to plain {equal} "
+                           f"(max ulp {worst}), inputs unchanged "
+                           f"{unchanged}")
+    del got_p, got_s, want_p, want_s, got, want, before
+    args = {**adamw_mod.scalars(count_t + 1, kw["lr"], dtype, clip, norm),
+            "weight_decay": opt.weight_decay, "clip_norm": clip}
+
+    def call():
+        return [t for ts in adamw_mod.launch(grads, mu, nu, params, **args)
+                for t in ts]
+
+    outs = call()
+    row = {"phase": "train_kernels", "name": "adamw", "shape": label,
+           "leaves": len(params), "elements": sum(p.numel() for p in params),
+           "dtype": dtype_name(dtype), "count": count,
+           "schedule": opt.total_steps > 0, "clip_norm": clip,
+           "clipped": bool(clip) and float(norm) >= clip,
+           "weight_decay": opt.weight_decay,
+           **check_launch_contract("adamw", label, call, outs, call()),
+           "design": f"one launch over {len(params)} leaves (a table of "
+                     f"{adamw_mod.MAX_LEAVES} at most in the parameters), "
+                     f"{adamw_mod.vector_width(params[0])} elements a load",
+           "ptxas": instance_ptxas("adamw.cu", "adamw_kernel",
+                                   vec=adamw_mod.vector_width(params[0])),
+           "bit_equal_to_plain": True, "inputs_unchanged": True,
+           "max_abs_err": 0.0}
+    del outs
+    if label in ("bf16_constant", "f32_constant"):
+        row.update({
+            "kernel_ms": cuda_ms(call, 20),
+            "update_ms": cuda_ms(lambda: adamw_mod.adamw_update(
+                grads, state, params, **kw), 20),
+            "plain_ms": cuda_ms(lambda: adamw_mod.adamw_update_reference(
+                grads, state, params, **kw), 5),
+            "library": "torch._fused_adamw_ (torch's AdamW numerics)",
+            "library_ms": fused_adamw_ms(grads, mu, nu, params,
+                                         CONFIG_277M.learning_rate,
+                                         opt.weight_decay, 20)})
+        row["bound_ms"], row["bound_by"] = bytes_bound_ms(
+            tensor_bytes(*grads, *mu, *nu, *params) * 7 // 4)
+    row["card"] = card
+    emit(row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_train_kernels(card):
+    """Phase 3g: (rope rows, rope_bwd rows, adamw rows); the first of each
+    is its kernel's line entry's: the flash train step's RoPE and its
+    backward, the bf16 train step's update."""
+    rope_rows = [row for shape in ROPE_SHAPES
+                 for row in check_rope_shape(*shape, card)]
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        leaves = adamw_leaves(dtype)
+        rows += [check_adamw_case(label, d, options, count, leaves, card)
+                 for label, d, options, count in ADAMW_CASES if d == dtype]
+        del leaves
+        torch.cuda.empty_cache()
+    rows.sort(key=lambda r: r["shape"] != "bf16_constant")
+    return rope_rows[0::2], rope_rows[1::2], rows
+
+
 def cast_params(params, dtype):
     if isinstance(params, dict):
         return {k: cast_params(v, dtype) for k, v in params.items()}
@@ -2451,16 +2761,18 @@ REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-6
 
 
 def expect_launches(delta, fwd, bwd, what, fold=0, int8=0, decode=0,
-                    blocks=None):
+                    blocks=None, train=None):
     """``decode``: the launches of each decode kernel (decode_attention
     and rope_kv_append run once a layer a forward_with_cache call; the
     rotation-free kv_append never); ``blocks``: the norm's and the gate's
-    (:func:`block_launches`; none by default)."""
+    (:func:`block_launches`; none by default); ``train``: RoPE's and
+    AdamW's (:func:`train_launches`; none by default)."""
     want = {"flash_attention_fwd": fwd, "flash_attention_bwd_dkv": bwd,
             "flash_attention_bwd_dq": bwd, "attention_fold": fold,
             "int8_matmul": int8, "decode_attention": decode,
             "rope_kv_append": decode, "kv_append": 0,
-            **(blocks or block_launches(0))}
+            **(blocks or block_launches(0)),
+            **(train or train_launches(0))}
     if delta != want:
         raise RuntimeError(f"{what} launched {delta}, expected {want}")
 
@@ -2482,6 +2794,21 @@ def block_launches(forwards, backwards=0, remat=False) -> dict:
             "swiglu": (forwards + again) * n, "swiglu_bwd": backwards * n}
 
 
+#: the batch forward's RoPE (forward and backward) and the update
+TRAIN_KERNELS = ["rope", "rope_bwd", "adamw"]
+
+
+def train_launches(forwards, backwards=0, updates=0, remat=False) -> dict:
+    """RoPE's launches for ``forwards`` batch forwards of llama-277M and
+    ``backwards`` backwards (once a layer each; with ``remat`` each
+    backward recomputes the layers' forwards), and AdamW's for
+    ``updates`` updates (its 39 leaves take one launch)."""
+    n = CONFIG_277M.n_layers
+    again = backwards if remat else 0
+    return {"rope": (forwards + again) * n, "rope_bwd": backwards * n,
+            "adamw": updates}
+
+
 #: the decode path's kernels that run once a layer a forward_with_cache
 DECODE_KERNELS = ["decode_attention", "rope_kv_append"]
 
@@ -2490,12 +2817,13 @@ def expect_decode_launches(before, forwards, what) -> int:
     """Each decode kernel launched once a layer for each of ``forwards``
     forward_with_cache calls since the counts ``before`` (a replayed
     graph's launches counted), the norm 2L + 1 times and the gate L times
-    a call, their backward kernels and the rotation-free kv_append never;
-    returns the decode kernels' count."""
+    a call, their backward kernels, the rotation-free kv_append, the
+    batch forward's RoPE and AdamW never; returns the decode kernels'
+    count."""
     after = launch_counts()
     want = forwards * CONFIG_277M.n_layers
     expected = {**dict.fromkeys(DECODE_KERNELS, want), "kv_append": 0,
-                **block_launches(forwards)}
+                **block_launches(forwards), **train_launches(0)}
     got = {name: after[name] - before[name] for name in expected}
     if got != expected:
         raise RuntimeError(f"{what} launched {got}, expected {expected} "
@@ -2539,6 +2867,38 @@ def compare_grads(label, got, want, loss_got, loss_want, *, rel_tol=None,
     return worst
 
 
+def time_update(optimizer, state, tokens, config) -> dict:
+    """The train step's AdamW update alone (``AdamW.update``: its 0-d
+    operations and the kernel's one launch) on one step's gradients, and
+    its plain version on the same leaves, CUDA events; the update's
+    launches checked, then every count set back (a measurement is not the
+    path)."""
+    counts = launch_counts()
+    _, grads = value_and_grad(next_token_loss, state["params"], tokens,
+                              config)
+    before = launch_counts()["adamw"]
+    update_ms = cuda_ms(lambda: optimizer.update(grads, state["opt"],
+                                                 state["params"]), 10)
+    launches = launch_counts()["adamw"] - before
+    if launches != 12:  # 10 timed calls and 2 of warm-up
+        raise RuntimeError(f"AdamW.update launched {launches} kernels over "
+                           "12 calls, expected 12")
+    for name, count in counts.items():
+        KERNELS[name].launches = count
+    opt = state["opt"]
+    plain_ms = cuda_ms(lambda: adamw_mod.adamw_update_reference(
+        tree_leaves(grads), {"count": opt["count"],
+                             "mu": tree_leaves(opt["mu"]),
+                             "nu": tree_leaves(opt["nu"])},
+        tree_leaves(state["params"]),
+        lr=optimizer.learning_rate(opt["count"]),
+        weight_decay=optimizer.weight_decay), 5)
+    del grads
+    torch.cuda.empty_cache()
+    return {"update_ms": update_ms, "update_plain_ms": plain_ms,
+            "update_launches_a_call": 1}
+
+
 def phase_train(params, card):
     """make_train_step at llama-277M, flash, batch 16, seq 1024, bf16:
     TRAIN_STEPS steps on make_token_batch, then the step's gradients
@@ -2559,7 +2919,8 @@ def phase_train(params, card):
     first_ms = (time.perf_counter() - start) * 1e3
     one = launch_counts()
     expect_launches({k: one[k] - before[k] for k in one}, n_layers,
-                    n_layers, "one train step", blocks=block_launches(1, 1))
+                    n_layers, "one train step", blocks=block_launches(1, 1),
+                    train=train_launches(1, 1, 1))
     losses = [first]
     start = time.perf_counter()
     for tokens in batches[1:]:
@@ -2572,7 +2933,9 @@ def phase_train(params, card):
     expect_launches({k: after[k] - before[k] for k in after},
                     n_layers * TRAIN_STEPS, n_layers * TRAIN_STEPS,
                     f"{TRAIN_STEPS} train steps",
-                    blocks=block_launches(TRAIN_STEPS, TRAIN_STEPS))
+                    blocks=block_launches(TRAIN_STEPS, TRAIN_STEPS),
+                    train=train_launches(TRAIN_STEPS, TRAIN_STEPS,
+                                         TRAIN_STEPS))
     losses = [float(x) for x in losses]
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise RuntimeError(f"train losses not finite and falling: {losses}")
@@ -2580,6 +2943,7 @@ def phase_train(params, card):
         raise RuntimeError(f"state step {int(state['step'])}")
     profile = profile_device(lambda: step(state, batches[0])[1].item(),
                              top=10)
+    update = time_update(optimizer, state, batches[0], config)
 
     # the step's gradients: flash against xla and against remat, bf16 at
     # the train shape, f32 at batch 2
@@ -2588,7 +2952,7 @@ def phase_train(params, card):
               "first_step_ms": first_ms, "step_ms": step_ms,
               "steps_behind_one_sync": TRAIN_STEPS - 1,
               "tokens_per_s": TRAIN_BATCH * config.seq_len / step_ms * 1e3,
-              "max_memory_allocated_bytes": peak_bytes,
+              "max_memory_allocated_bytes": peak_bytes, **update,
               "profile_1_step": profile, "card": card}
     tokens = batches[0]
     for label, p, toks in (("bf16", params, tokens),
@@ -2596,10 +2960,12 @@ def phase_train(params, card):
                             tokens[:2])):
         flash_loss, flash_g, flash_n = grads_with_launches(p, toks, config)
         expect_launches(flash_n, n_layers, n_layers, f"{label} flash grads",
-                        blocks=block_launches(1, 1))
+                        blocks=block_launches(1, 1),
+                        train=train_launches(1, 1))
         xla_loss, xla_g, xla_n = grads_with_launches(p, toks, CONFIG_277M)
         expect_launches(xla_n, 0, 0, f"{label} xla grads",
-                        blocks=block_launches(1, 1))
+                        blocks=block_launches(1, 1),
+                        train=train_launches(1, 1))
         if label == "bf16":
             vs_xla = compare_grads("bf16 flash vs xla grads", flash_g, xla_g,
                                    flash_loss, xla_loss,
@@ -2615,7 +2981,8 @@ def phase_train(params, card):
         remat_loss, remat_g, remat_n = grads_with_launches(p, toks, remat)
         expect_launches(remat_n, 2 * n_layers, n_layers,
                         f"{label} remat grads",
-                        blocks=block_launches(1, 1, remat=True))
+                        blocks=block_launches(1, 1, remat=True),
+                        train=train_launches(1, 1, remat=True))
         bit_equal = bool(torch.equal(remat_loss, flash_loss) and all(
             torch.equal(a, b) for a, b in zip(tree_leaves(remat_g),
                                               tree_leaves(flash_g))))
@@ -2637,6 +3004,43 @@ def phase_train(params, card):
     emit(result)
     torch.cuda.empty_cache()
     return state, optimizer, step, losses
+
+
+#: one turn of --train-turns, run in a checkout's root: its own phase 7
+TURN_CODE = (
+    "import os, sys; sys.path.insert(0, os.getcwd()); import torch; "
+    "import chip_smoke as cs; card = cs.phase_device(); "
+    "params = cs.init_llama_params(cs.CONFIG_277M, "
+    "param_dtype=torch.bfloat16, seed=cs.SEED, device='cuda'); "
+    "cs.reset_launch_counts(); cs.phase_train(params, card)")
+
+
+def train_turns(other, card) -> None:
+    """Phase 7 of the checkout at ``other`` and of this one in turns
+    (other, this, this, other), a process a turn, each tree running its
+    own ``phase_train`` and building its own kernels; one line a turn
+    with the step's time, losses, peak memory, the profiled step's device
+    events and copies, and the update's time where the tree reports
+    it."""
+    for tree in (other, ROOT, ROOT, other):
+        run = subprocess.run([sys.executable, "-c", TURN_CODE],
+                             cwd=tree, capture_output=True, text=True,
+                             timeout=900)
+        lines = [line for line in run.stdout.splitlines()
+                 if line.startswith('{"phase": "train"')]
+        if run.returncode or not lines:
+            raise RuntimeError(f"phase 7 of {tree} failed (exit "
+                               f"{run.returncode}):\n{run.stderr[-3000:]}")
+        train = json.loads(lines[0])
+        profile = train["profile_1_step"] or {}
+        emit({"phase": "train_turns", "tree": os.path.relpath(tree, ROOT),
+              **{k: train.get(k) for k in (
+                  "step_ms", "first_step_ms", "losses",
+                  "max_memory_allocated_bytes", "update_ms",
+                  "update_plain_ms")},
+              **{k: profile.get(k) for k in (
+                  "device_events", "device_busy_ms", "wall_ms", "copies",
+                  "top")}, "card": card})
 
 
 def phase_checkpoint(state, optimizer, step, card):
@@ -2781,13 +3185,15 @@ def phase_multichip(card, train_losses=None, bench_tokens=None):
     forwards = 2 * 2 * (MULTI_NEW_TOKENS + BENCH_NEW_TOKENS)
     decode = forwards * config.n_layers
     # the norm and the gate in every train step (the train stage's and
-    # the checkpoint stage's two) and every decode forward
+    # the checkpoint stage's two) and every decode forward; RoPE and AdamW
+    # in every train step, flash or xla
     steps = MULTI_STEPS + 2
     for rank in ranks:
         expect_launches(rank["launches"], per_kernel, per_kernel,
                         f"multichip rank path at tp={tp}", int8=int8,
                         decode=decode,
-                        blocks=block_launches(steps + forwards, steps))
+                        blocks=block_launches(steps + forwards, steps),
+                        train=train_launches(steps, steps, steps))
         if rank["losses"] != first["losses"]:
             raise RuntimeError("ranks disagree on the losses")
     train = {"phase": "multichip_train", **common,
@@ -2820,7 +3226,7 @@ def phase_multichip(card, train_losses=None, bench_tokens=None):
     ring = first["ring"]
     llama = ring["llama"]
     for rank in ranks:
-        idle = [k for k in RING_KERNELS + BLOCK_KERNELS
+        idle = [k for k in RING_KERNELS + BLOCK_KERNELS + TRAIN_KERNELS
                 if rank["launches_ring"][k] < 1]
         if idle:
             raise RuntimeError(f"the ring stage never launched {idle}")
@@ -2874,7 +3280,7 @@ def multichip_decode_line(ranks, common, launches):
             "prompt": 64, "new_tokens": MULTI_NEW_TOKENS,
             "int8_matmul_launches": launches["int8_matmul"],
             **{f"{name}_launches": launches[name]
-               for name in DECODE_KERNELS + BLOCK_KERNELS}}
+               for name in DECODE_KERNELS + BLOCK_KERNELS + TRAIN_KERNELS}}
     equal_ranks = True
     for label, name in DECODE_LABELS:
         key = f"decode_{label}"
@@ -3056,16 +3462,19 @@ def decode_entry(name, source, rows, serving, multi, replaces, card,
 
 
 def block_entry(name, source, replaces, rows, launches, shape, card):
-    """The kernels line's entry of a norm or gate kernel; its times and
-    bound are its first phase 3f row's (``phase_norm_gate_kernels``)."""
+    """The kernels line's entry of a norm, gate, RoPE or AdamW kernel; its
+    times and bound are its first phase 3f or 3g row's
+    (``phase_norm_gate_kernels``, ``phase_train_kernels``)."""
     main_row = rows[0]
-    keys = ("shape", "rows", "dim", "dtype", "add", "design",
+    keys = ("shape", "rows", "dim", "B", "S", "H", "H_kv", "D",
+            "head_major", "leaves", "elements", "count", "schedule",
+            "clip_norm", "clipped", "weight_decay", "dtype", "add", "design",
             "cuda_launches_per_call", "max_abs_err", "limit_use",
             "max_ulp_vs_plain", "dg_max_ulp_vs_plain", "du_max_ulp_vs_plain",
             "bit_equal_to_plain", "bit_equal_launches",
-            "graph_replay_bit_equal", "kernel_ms", "plain_ms",
-            "plain_autograd_ms", "library", "library_ms", "bound_ms",
-            "bound_by")
+            "graph_replay_bit_equal", "inputs_unchanged", "kernel_ms",
+            "update_ms", "plain_ms", "plain_autograd_ms", "library",
+            "library_ms", "bound_ms", "bound_by")
     return {
         "name": name, "route": "cuda",
         "source": f"tpu_operator_libs_torch/csrc/{source}",
@@ -3087,6 +3496,11 @@ def block_entry(name, source, replaces, rows, launches, shape, card):
 def main(argv) -> int:
     card = phase_device()
     phase_build()
+    if len(argv) == 2 and argv[0] == "--train-turns":
+        train_turns(os.path.abspath(argv[1]), card)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if argv == ["--multichip-only"]:
         phase_multichip(card)
         emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
@@ -3104,6 +3518,7 @@ def main(argv) -> int:
     attention_rows, append_rows, rope_rows = phase_decode_kernels(card)
     norm_rows, norm_bwd_rows, gate_rows, gate_bwd_rows = \
         phase_norm_gate_kernels(card)
+    rope_qk_rows, rope_bwd_rows, adamw_rows = phase_train_kernels(card)
 
     params = init_llama_params(CONFIG_277M, param_dtype=torch.bfloat16,
                                seed=SEED, device="cuda")
@@ -3129,11 +3544,14 @@ def main(argv) -> int:
             ("serving", serving,
              ["flash_attention_fwd", "int8_matmul", "rms_norm", "swiglu"]
              + DECODE_KERNELS),
-            ("training", training, FLASH_KERNELS + BLOCK_KERNELS),
+            ("training", training,
+             FLASH_KERNELS + BLOCK_KERNELS + TRAIN_KERNELS),
             ("ring chain", chain, ["flash_attention_fwd", "attention_fold"]),
             ("multichip", multi,
-             ["int8_matmul"] + DECODE_KERNELS + BLOCK_KERNELS),
-            ("multichip ring", ring, RING_KERNELS + BLOCK_KERNELS)):
+             ["int8_matmul"] + DECODE_KERNELS + BLOCK_KERNELS
+             + TRAIN_KERNELS),
+            ("multichip ring", ring,
+             RING_KERNELS + BLOCK_KERNELS + TRAIN_KERNELS)):
         missing = [name for name in names if counts[name] < 1]
         if missing:
             raise RuntimeError(f"the {path} path never launched {missing}")
@@ -3239,6 +3657,29 @@ def main(argv) -> int:
             "(jax.grad through XLA; no pallas_call)", gate_bwd_rows,
             {path: counts["swiglu_bwd"] for path, counts in paths.items()},
             "rows=16384 d_ff=8192 bf16 (the train step's)", card),
+        block_entry(
+            "rope", "rope.cu",
+            "tpu_operator_libs/examples/llama.py:117-136 (_rope of q and "
+            "k, called at :280, with the flash path's transposes :292-298; "
+            "fused by XLA, no pallas_call)", rope_qk_rows,
+            {path: counts["rope"] for path, counts in paths.items()},
+            "B=16 S=1024 H=16/16 D=128 bf16, q, k and v written head-major "
+            "(the flash train step's)", card),
+        block_entry(
+            "rope_bwd", "rope.cu",
+            "the gradient of tpu_operator_libs/examples/llama.py:117-136 "
+            "(jax.grad through XLA; no pallas_call)", rope_bwd_rows,
+            {path: counts["rope_bwd"] for path, counts in paths.items()},
+            "B=16 S=1024 H=16/16 D=128 bf16, from head-major (the flash "
+            "train step's)", card),
+        block_entry(
+            "adamw", "adamw.cu",
+            "optax.adamw behind clip_by_global_norm, "
+            "tpu_operator_libs/examples/llama.py:400-413 (fused by XLA; no "
+            "pallas_call)", adamw_rows,
+            {path: counts["adamw"] for path, counts in paths.items()},
+            "llama-277M's 39 leaves, 277M elements, bf16, a constant rate "
+            "(the train step's)", card),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
                                  "count": torch.cuda.device_count()}})

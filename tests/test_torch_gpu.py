@@ -1,7 +1,8 @@
 """The CUDA kernels (flash attention, the ring-attention fold, the
 int8-weight matmul, the decode step's attention and cache write, the
-norm with its residual add and the gate, forward and backward) against
-their plain versions, on the card, the
+norm with its residual add, the gate and the batch forward's RoPE,
+forward and backward, and the AdamW update) against their plain
+versions, on the card, the
 ring's block chain against the whole-sequence kernels, the
 graph-replayed decode loop against the host loop on one card and on
 NCCL meshes of one and two ranks, and the serving pod over NCCL.
@@ -31,10 +32,12 @@ from tpu_operator_libs_torch.examples.ring_attention import (
     _schedule,
 )
 from tpu_operator_libs_torch.kernels import WRAPPERS
+from tpu_operator_libs_torch.kernels import adamw as amod
 from tpu_operator_libs_torch.kernels import decode_attention as dmod
 from tpu_operator_libs_torch.kernels import int8_matmul as imod
 from tpu_operator_libs_torch.kernels import kv_append as kmod
 from tpu_operator_libs_torch.kernels import rms_norm as rmod
+from tpu_operator_libs_torch.kernels import rope as ropemod
 from tpu_operator_libs_torch.kernels import swiglu as smod
 from tpu_operator_libs_torch.kernels.attention_fold import (
     attention_fold,
@@ -984,7 +987,8 @@ def test_decode_step_launches_the_norm_and_the_gate(cuda):
 @pytest.mark.parametrize("module", ["decode_attention", "kv_append",
                                     "rope_kv_append", "int8_matmul",
                                     "rms_norm", "rms_norm_bwd", "swiglu",
-                                    "swiglu_bwd"])
+                                    "swiglu_bwd", "rope", "rope_bwd",
+                                    "adamw"])
 def test_kernel_build_failure_raises(cuda, monkeypatch, module):
     """A kernel whose build fails raises on CUDA tensors: the wrapper
     never returns its plain version's result instead."""
@@ -993,7 +997,8 @@ def test_kernel_build_failure_raises(cuda, monkeypatch, module):
 
     mod = {"decode_attention": dmod, "kv_append": kmod,
            "rope_kv_append": kmod, "int8_matmul": imod, "rms_norm": rmod,
-           "rms_norm_bwd": rmod, "swiglu": smod, "swiglu_bwd": smod}[module]
+           "rms_norm_bwd": rmod, "swiglu": smod, "swiglu_bwd": smod,
+           "rope": ropemod, "rope_bwd": ropemod, "adamw": amod}[module]
     monkeypatch.setattr(mod, "_lib", None)
     monkeypatch.setattr(mod, "_library", broken)
     q, entry = decode_operands(cuda, 2, 1, 4, 2, 16, 8, torch.bfloat16,
@@ -1012,6 +1017,14 @@ def test_kernel_build_failure_raises(cuda, monkeypatch, module):
             smod.swiglu(x, x)
         elif module == "swiglu_bwd":
             smod.swiglu_bwd(x, x, x)
+        elif module == "rope":
+            ropemod.rope_qk(q, q, 10000.0)
+        elif module == "rope_bwd":
+            ropemod.rope_bwd(q, q, 10000.0)
+        elif module == "adamw":
+            amod.adamw_update([x], {"count": torch.zeros(
+                (), dtype=torch.int32, device=cuda), "mu": [x], "nu": [x]},
+                [x], lr=1e-3, weight_decay=1e-4)
         elif module == "decode_attention":
             decode_attention(q, entry, 3)
         elif module == "kv_append":
@@ -1025,6 +1038,158 @@ def test_kernel_build_failure_raises(cuda, monkeypatch, module):
                              .contiguous(), torch.ones(
                                  entry["k"].numel() // 32, device=cuda))
     assert before == {w.__name__: w.launches for w in wrappers}
+
+
+def same_bits(got, want) -> bool:
+    return all(a.dtype == b.dtype and a.shape == b.shape
+               and torch.equal(a.contiguous().view(torch.uint8),
+                               b.contiguous().view(torch.uint8))
+               for a, b in zip(got, want))
+
+
+#: (B, S, H, H_kv, D, dtype, head_major, first position): the flash
+#: path's layout with v, the input layout at an offset (the ring's), f32,
+#: and head_dim 18 (one pair a thread)
+ROPE_CASES = [(2, 64, 4, 2, 128, torch.bfloat16, True, None),
+              (2, 64, 4, 2, 128, torch.bfloat16, False, 100),
+              (1, 37, 3, 1, 64, torch.float32, True, 5),
+              (2, 9, 2, 2, 18, torch.bfloat16, False, None)]
+
+
+@pytest.mark.parametrize("batch,seq,heads,kv_heads,dim,dtype,head_major,"
+                         "start", ROPE_CASES,
+                         ids=["flash_bf16", "natural_offset_bf16",
+                              "flash_f32", "d18_bf16"])
+def test_rope_kernels_match_plain_versions(cuda, batch, seq, heads,
+                                           kv_heads, dim, dtype, head_major,
+                                           start):
+    """rope_qk and rope_bwd: every output bit-equal to the plain version
+    (zeros and negative zeros in the gradients), one launch each, and
+    the autograd Function's gradients those of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+
+    def randn(h):
+        return torch.randn((batch, seq, h, dim), generator=gen,
+                           device=cuda).to(dtype)
+
+    q, k = randn(heads), randn(kv_heads)
+    v = randn(kv_heads) if head_major else None
+    pos = None if start is None else start + torch.arange(seq, device=cuda)
+    extra = {"v": v, "head_major": True} if head_major else {}
+    before = (WRAPPERS["rope"].launches, WRAPPERS["rope_bwd"].launches)
+    outs = ropemod.rope_qk(q, k, 10000.0, pos, **extra)
+    assert same_bits(outs, ropemod._plain(q, k, v, 10000.0, pos,
+                                          head_major))
+    douts = [torch.randn(t.shape, generator=gen, device=cuda).to(dtype)
+             for t in outs]
+    douts[0].view(-1)[:dim] = -0.0
+    dv = douts[2] if head_major else None
+    grads = ropemod.rope_bwd(douts[0], douts[1], 10000.0, pos, dv=dv,
+                             head_major=head_major)
+    assert same_bits(grads, ropemod._plain_backward(
+        douts[0], douts[1], dv, 10000.0, pos, head_major))
+    assert (WRAPPERS["rope"].launches, WRAPPERS["rope_bwd"].launches) == (
+        before[0] + 1, before[1] + 1)
+    inputs = [t.clone().requires_grad_() for t in (q, k, v) if t is not None]
+    outs = ropemod.rope_qk(*inputs[:2], 10000.0, pos,
+                           **({"v": inputs[2], "head_major": True}
+                              if head_major else {}))
+    assert same_bits(torch.autograd.grad(outs, inputs, douts), grads)
+
+
+def adamw_operands(cuda, dtype, n_leaves, seed=32):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    shapes = [(64, 48), (1000,), (3, 5, 7)] * (n_leaves // 3) \
+        + [(17,)] * (n_leaves % 3)
+
+    def like(shape, scale):
+        return (scale * torch.randn(shape, generator=gen, device=cuda)) \
+            .to(dtype)
+
+    params = [like(s, 1.0) for s in shapes]
+    grads = [like(s, 1e-2) for s in shapes]
+    mu = [like(s, 1e-3) for s in shapes]
+    nu = [like(s, 1e-2).square() for s in shapes]
+    return grads, mu, nu, params
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["constant", "schedule", "clip_above",
+                                  "clip_below", "adam"])
+def test_adamw_kernel_matches_plain_version(cuda, dtype, case):
+    """The update over 50 leaves (two launches: 48 a table) bit-equal to
+    the plain version, the inputs unchanged."""
+    from tpu_operator_libs_torch.optim import AdamW
+    from tpu_operator_libs_torch.parallel import global_norm
+
+    options = {"constant": {}, "schedule": {"warmup_steps": 2,
+                                            "total_steps": 10},
+               "clip_above": {"clip_norm": 0.1},
+               "clip_below": {"clip_norm": 100.0},
+               "adam": {"weight_decay": 0.0}}[case]
+    opt = AdamW(3e-3, **options)
+    grads, mu, nu, params = adamw_operands(cuda, dtype, 50)
+    count = torch.tensor(5 if case == "schedule" else 0, dtype=torch.int32,
+                         device=cuda)
+    state = {"count": count, "mu": mu, "nu": nu}
+    kw = {"lr": opt.learning_rate(count), "weight_decay": opt.weight_decay,
+          "clip_norm": opt.clip_norm,
+          "norm": global_norm(grads) if opt.clip_norm else None}
+    before = [t.clone() for t in grads + mu + nu + params]
+    launches = WRAPPERS["adamw"].launches
+    got_p, got_s = amod.adamw_update(grads, state, params, **kw)
+    assert WRAPPERS["adamw"].launches == launches + 2
+    want_p, want_s = amod.adamw_update_reference(grads, state, params, **kw)
+    assert same_bits(got_p + got_s["mu"] + got_s["nu"],
+                     want_p + want_s["mu"] + want_s["nu"])
+    assert torch.equal(got_s["count"], want_s["count"])
+    assert same_bits(before, grads + mu + nu + params)
+
+
+def test_rope_and_adamw_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.randn(2, 8, 4, 16, device=cuda)
+    with pytest.raises(ValueError):
+        ropemod.rope_qk(q, q.bfloat16(), 10000.0)
+    with pytest.raises(ValueError):
+        ropemod.rope_qk(q.transpose(1, 2).contiguous().transpose(1, 2), q,
+                        10000.0)
+    grads, mu, nu, params = adamw_operands(cuda, torch.float32, 3)
+    count = torch.zeros((), dtype=torch.int32, device=cuda)
+    for bad in ({"grads": [grads[0].bfloat16()] + grads[1:]},
+                {"params": [params[0].t()] + params[1:]}):
+        args = {"grads": grads, "params": params, **bad}
+        with pytest.raises(ValueError):
+            amod.adamw_update(args["grads"], {"count": count, "mu": mu,
+                                              "nu": nu}, args["params"],
+                              lr=1e-3, weight_decay=1e-4)
+
+
+def test_train_step_launches_rope_and_adamw(cuda):
+    """One flash train step of a narrow Llama on the card: RoPE and its
+    backward once a layer, AdamW once; against the same step on the CPU
+    (the plain versions) within the bf16 logits' tolerance of the loss."""
+    cfg = tllama.LlamaConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
+                             n_kv_heads=2, d_ff=512, seq_len=64,
+                             attention_impl="flash")
+    losses = {}
+    for device in (cuda, torch.device("cpu")):
+        optimizer, step = tllama.make_train_step(cfg, device=device)
+        params = tllama.init_llama_params(cfg, seed=2, device="cpu")
+        params = {k: v.to(device) if torch.is_tensor(v) else
+                  [{n: t.to(device) for n, t in layer.items()}
+                   for layer in v] for k, v in params.items()}
+        state = {"params": params, "opt": optimizer.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=device)}
+        before = {n: WRAPPERS[n].launches for n in ("rope", "rope_bwd",
+                                                    "adamw")}
+        _, loss = step(state, tllama.make_token_batch(0, cfg, device="cpu"))
+        losses[device.type] = float(loss)
+        launched = {n: WRAPPERS[n].launches - before[n] for n in before}
+        assert launched == ({"rope": 2, "rope_bwd": 2, "adamw": 1}
+                            if device.type == "cuda" else
+                            dict.fromkeys(before, 0))
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
 
 
 #: a narrow Llama for the decode loops on the card (the kernels' shapes
@@ -1127,7 +1292,8 @@ def test_mesh_graph_decode_equals_host_loop(cuda, case, ranks):
             "decode_attention": new * DECODE_CFG.n_layers,
             "rope_kv_append": new * DECODE_CFG.n_layers, "kv_append": 0,
             "rms_norm": new * (2 * DECODE_CFG.n_layers + 1),
-            "swiglu": new * DECODE_CFG.n_layers}
+            "swiglu": new * DECODE_CFG.n_layers, "rope": 0, "rope_bwd": 0,
+            "adamw": 0}
         np.testing.assert_array_equal(rank["device"], rank["host"])
         np.testing.assert_array_equal(rank["device"], first["device"])
         if "device_logprobs" in rank:

@@ -343,7 +343,7 @@ def mesh_graph_decode_rank(mesh, case, config_kw, batch, prompt_len,
     host = run(llama_decode.generate)
     before = int8_matmul.launches
     decode_kernels = ("decode_attention", "rope_kv_append", "kv_append",
-                      "rms_norm", "swiglu")
+                      "rms_norm", "swiglu", "rope", "rope_bwd", "adamw")
     before_decode = {name: WRAPPERS[name].launches for name in decode_kernels}
     dev = run(llama_decode.generate_on_device)
     torch.cuda.synchronize(device)

@@ -5,15 +5,17 @@ Mirrors ``tpu_operator_libs/examples/llama.py``: ``ATTENTION_IMPLS`` and
 ``LlamaConfig`` (copied), ``_rms_norm``, ``_rope``,
 ``init_llama_params``, ``forward`` (with ``remat``), ``next_token_loss``,
 ``config_for_mesh``, ``make_train_step`` and ``make_token_batch``
-(``_rope`` lives beside the decode step's rotating cache write, in
-``kernels/kv_append.py``; ``_rms_norm``, the plain norm, in
-``kernels/rms_norm.py``). RMSNorm -> causal self-attention with rotary
-embeddings and grouped-query KV heads -> SwiGLU MLP, the Llama-3 block
-structure. The norms (the attention's residual add folded into the MLP's
-norm) and the gate run the hand-written kernels of
-``kernels/rms_norm.py`` and ``kernels/swiglu.py``, forward and backward;
-the layer's output add stays a plain add, the boundary that ``remat``
-saves.
+(``_rope``, the plain rotation, lives in ``kernels/rope.py``;
+``_rms_norm``, the plain norm, in ``kernels/rms_norm.py``). RMSNorm ->
+causal self-attention with rotary embeddings and grouped-query KV heads
+-> SwiGLU MLP, the Llama-3 block structure. The norms (the attention's
+residual add folded into the MLP's norm), the gate and the rotation of q
+and k (one launch a layer, which on the flash path writes q, k and v in
+the kernel's head-major layout) run the hand-written kernels of
+``kernels/rms_norm.py``, ``kernels/swiglu.py`` and ``kernels/rope.py``,
+forward and backward, and the train step's AdamW update that of
+``kernels/adamw.py``; the layer's output add stays a plain add, the
+boundary that ``remat`` saves.
 
 Parameters are a nested dict of tensors in the JAX package's layout:
 weights are ``(in, out)`` and applied as ``x @ W``, so
@@ -51,10 +53,13 @@ from tpu_operator_libs_torch import resolve_device
 from tpu_operator_libs_torch.convert import shard_params
 from tpu_operator_libs_torch.examples.ring_attention import ring_attention
 from tpu_operator_libs_torch.kernels.flash_attention import flash_attention
-from tpu_operator_libs_torch.kernels.kv_append import _rope
 from tpu_operator_libs_torch.kernels.rms_norm import (  # noqa: F401
     add_rms_norm,
     rms_norm_reference as _rms_norm,  # the plain norm, the reference's name
+)
+from tpu_operator_libs_torch.kernels.rope import (  # noqa: F401
+    rope_qk,
+    rope_reference as _rope,  # the plain rotation, the reference's name
 )
 from tpu_operator_libs_torch.kernels.swiglu import swiglu
 from tpu_operator_libs_torch.optim import AdamW, tree_map, value_and_grad
@@ -235,20 +240,19 @@ def _layer(h, layer, config: LlamaConfig, causal, mesh=None,
     q = (a @ layer["wq"]).reshape(batch, seq, nh, hd)
     k = (a @ layer["wk"]).reshape(batch, seq, nkv, hd)
     v = (a @ layer["wv"]).reshape(batch, seq, nkv, hd)
-    q = _rope(q, config.rope_theta, positions)
-    k = _rope(k, config.rope_theta, positions)
     if config.attention_impl == "ring":
+        q, k = rope_qk(q, k, config.rope_theta, positions)
         # only the narrow KV heads travel the ring
         ctx = ring_attention(q, k, v, mesh, causal=True)
     elif causal is None:
-        # the kernel reads the nkv-head K/V natively (no repeat)
-        ctx = flash_attention(
-            q.transpose(1, 2).contiguous(),
-            k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(),
-            causal=True, sm_scale=hd ** -0.5)
+        # q, k and v written (B, H, S, D) by the rotation's launch; the
+        # kernel reads the nkv-head K/V natively (no repeat)
+        q, k, v = rope_qk(q, k, config.rope_theta, positions, v=v,
+                          head_major=True)
+        ctx = flash_attention(q, k, v, causal=True, sm_scale=hd ** -0.5)
         ctx = ctx.transpose(1, 2)
     else:
+        q, k = rope_qk(q, k, config.rope_theta, positions)
         group = nh // nkv
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)

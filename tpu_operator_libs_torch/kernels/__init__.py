@@ -1,16 +1,19 @@
 """The port's hand-written CUDA kernels, each beside its plain PyTorch
 version: flash attention (forward, dK/dV, dQ), the ring-attention block
 fold, the decode path's int8-weight matmul, cache write and cached
-attention, and the Llama block's RMSNorm (with the residual add) and
-SwiGLU gate, forward and backward."""
+attention, the Llama block's RMSNorm (with the residual add), SwiGLU gate
+and the batch forward's RoPE, forward and backward, and the training
+step's AdamW update."""
 
 from tpu_operator_libs_torch.kernels import (
+    adamw,
     attention_fold,
     decode_attention,
     flash_attention,
     int8_matmul,
     kv_append,
     rms_norm,
+    rope,
     swiglu,
 )
 
@@ -19,8 +22,10 @@ SOURCES = flash_attention.SOURCES + (attention_fold.SOURCE,
                                      int8_matmul.SOURCE,
                                      decode_attention.SOURCE,
                                      kv_append.SOURCE, rms_norm.SOURCE,
-                                     swiglu.SOURCE)
+                                     swiglu.SOURCE, rope.SOURCE,
+                                     adamw.SOURCE)
 #: every kernel's wrapper, by the name its launch count reports under
 WRAPPERS = {**flash_attention.WRAPPERS, **attention_fold.WRAPPERS,
             **int8_matmul.WRAPPERS, **decode_attention.WRAPPERS,
-            **kv_append.WRAPPERS, **rms_norm.WRAPPERS, **swiglu.WRAPPERS}
+            **kv_append.WRAPPERS, **rms_norm.WRAPPERS, **swiglu.WRAPPERS,
+            **rope.WRAPPERS, **adamw.WRAPPERS}

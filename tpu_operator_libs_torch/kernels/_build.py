@@ -3,18 +3,21 @@
 Each ``csrc/*.cu`` file has a plain C interface. It is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/tpu_operator_libs_torch/`` at the
 root of the checkout, linked against ``libcuda`` (``-lcuda``), and
-loaded with :mod:`ctypes`. The library name carries a hash of the source,
+loaded with :mod:`ctypes` (:func:`load` binds its C entries'
+signatures). The library name carries a hash of the source,
 the shared headers (``csrc/*.cuh``), the flags and the libraries, so an
 edited source is rebuilt and a built one is reused within a checkout.
 :func:`build_all` starts one ``nvcc`` per source at once. Nothing here
 runs when the module is imported, so the package imports on machines
-without ``nvcc``; only a kernel launch needs it.
+without ``nvcc``; only a kernel launch needs it. The wrappers share
+:func:`raise_on` and :func:`sm_count` too.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -105,3 +108,38 @@ def build_all(sources) -> "list[BuiltLibrary]":
         if failures:
             raise RuntimeError("\n".join(failures))
         return [_built[source] for source in sources]
+
+
+def bind(lib: ctypes.CDLL, entries, error_string: str) -> ctypes.CDLL:
+    """``lib`` with the argument types of its C entries (``entries``:
+    name -> argtypes; each returns an int, 0 or a ``cudaError_t``) and
+    of ``error_string``, its entry that gives such an error's text."""
+    for name, argtypes in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    fn = getattr(lib, error_string)
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+    return lib
+
+
+def load(source: str, entries, error_string: str) -> ctypes.CDLL:
+    """``csrc/<source>`` built (at first use) and loaded, its entries
+    bound as :func:`bind` says."""
+    return bind(build_all([source])[0].lib, entries, error_string)
+
+
+def raise_on(err: int, error_string, name: str, detail: str = "") -> None:
+    """Raise if a C entry returned the CUDA error ``err`` (not 0): a
+    refused launch never runs, and no synchronize would report it.
+    ``error_string``: the library's entry that names the error."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed{detail}: "
+                           f"{error_string(err).decode()} ({err})")
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA card ``index``."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count

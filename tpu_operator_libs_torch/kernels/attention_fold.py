@@ -24,6 +24,8 @@ import ctypes
 
 import torch
 
+from tpu_operator_libs_torch.kernels._build import load, raise_on
+
 #: the CUDA source under ``csrc/``
 SOURCE = "attention_fold.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,15 +70,10 @@ def _check(acc, lse, o_blk, lse_blk) -> None:
 def _library():
     global _lib
     if _lib is None:
-        from tpu_operator_libs_torch.kernels._build import build_all
-
-        lib = build_all([SOURCE])[0].lib
-        lib.attention_fold.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.attention_fold.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = load(SOURCE, {
+            "attention_fold": [ctypes.c_void_p] * 4 + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]}, "flash_attention_error_string")
     return _lib
 
 
@@ -99,9 +96,7 @@ def attention_fold(acc, lse, o_blk, lse_blk):
                                  o_blk.data_ptr(), lse_blk.data_ptr(),
                                  lse.numel(), acc.shape[-1],
                                  _DTYPE_CODES[o_blk.dtype], stream)
-    if err != 0:
-        message = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"attention_fold launch failed: {message} ({err})")
+    raise_on(err, lib.flash_attention_error_string, "attention_fold")
     attention_fold.launches += 1
     return acc, lse
 

@@ -28,6 +28,7 @@ import dataclasses
 
 import torch
 
+from tpu_operator_libs_torch.kernels import _build
 from tpu_operator_libs_torch.kernels.kv_append import (
     check_cache_entry,
     check_start_pos,
@@ -277,21 +278,16 @@ def _check(q, entry, start_pos) -> None:
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` (a build of ``SOURCE``) with its C entries' signatures."""
-    lib.decode_attention.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_longlong] + [ctypes.c_void_p] * 2 + [
-            ctypes.c_int] * 16 + [ctypes.c_float, ctypes.c_void_p]
-    lib.decode_attention.restype = ctypes.c_int
-    lib.decode_attention_error_string.argtypes = [ctypes.c_int]
-    lib.decode_attention_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.bind(lib, {
+        "decode_attention": [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 16
+        + [ctypes.c_float, ctypes.c_void_p]}, "decode_attention_error_string")
 
 
 def _library():
     global _lib
     if _lib is None:
-        from tpu_operator_libs_torch.kernels._build import build_all
-
-        _lib = bind(build_all([SOURCE])[0].lib)
+        _lib = bind(_build.build_all([SOURCE])[0].lib)
     return _lib
 
 
@@ -371,10 +367,8 @@ def decode_attention(q, entry, start_pos):
             int(p.route == "tensor_cores"), int(p.vec), p.key_tile,
             p.row_stride, p.stages, p.splits, dim ** -0.5,
             stream.cuda_stream)
-    if err != 0:
-        message = lib.decode_attention_error_string(err).decode()
-        raise RuntimeError(f"decode_attention launch failed ({p}): "
-                           f"{message} ({err})")
+    _build.raise_on(err, lib.decode_attention_error_string,
+                    "decode_attention", f" ({p})")
     decode_attention.launches += 1
     return out
 

@@ -24,9 +24,10 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 
 import torch
+
+from tpu_operator_libs_torch.kernels._build import load, sm_count
 
 #: the CUDA source under ``csrc/``
 SOURCE = "int8_matmul.cu"
@@ -133,21 +134,10 @@ def _check(x, q, s) -> None:
 def _library():
     global _lib
     if _lib is None:
-        from tpu_operator_libs_torch.kernels._build import build_all
-
-        lib = build_all([SOURCE])[0].lib
-        lib.int8_matmul.argtypes = [ctypes.c_void_p] * 6 \
-            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        lib.int8_matmul.restype = ctypes.c_int
-        lib.int8_matmul_error_string.argtypes = [ctypes.c_int]
-        lib.int8_matmul_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = load(SOURCE, {
+            "int8_matmul": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+            + [ctypes.c_void_p]}, "int8_matmul_error_string")
     return _lib
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _tile_counters(device: torch.device, stream, sms: int) -> torch.Tensor:
@@ -181,7 +171,7 @@ def int8_matmul(x, q, s):
         raise ValueError(f"x has dtype {x.dtype}; the kernel takes "
                          f"{sorted(str(d) for d in _DTYPE_CODES)}")
     (m, k), n = x.shape, q.shape[1]
-    sms = _sm_count(x.device.index)
+    sms = sm_count(x.device.index)
     p = plan(m, k, n, x.dtype, sms)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _library()

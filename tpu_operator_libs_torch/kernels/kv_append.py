@@ -16,18 +16,26 @@ rotation rounds each product, sum and difference on its own with the
 same ``cosf`` / ``sinf``, and the quantization uses only exact float32
 operations (a max, IEEE divisions, round half to even).
 
-The port's ``_rope`` and its int8 recipe, :func:`_sym_int8`, live here
-too: the batch forward (``examples/llama.py``) and the weight quantizer
-(``examples/llama_decode.py``) share them.
+The port's int8 recipe, :func:`_sym_int8`, lives here too: the weight
+quantizer (``examples/llama_decode.py``) shares it. ``_rope`` and
+``rope_freqs`` are ``kernels/rope.py``'s, imported back under the names
+the decode path has used.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 import torch.distributed as dist
+
+from tpu_operator_libs_torch.kernels._build import load, raise_on
+from tpu_operator_libs_torch.kernels.rope import (  # noqa: F401
+    _freqs,  # the frequencies on the card, shared with kernels/rope.py
+    _freqs_on,
+    rope_freqs,
+    rope_reference as _rope,  # the port's name for the plain rotation
+)
 
 #: the CUDA source under ``csrc/``
 SOURCE = "kv_append.cu"
@@ -35,40 +43,6 @@ SOURCE = "kv_append.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
-#: the rotation's frequencies on the card by (theta, head_dim, device),
-#: made at a call's first eager launch and kept (a captured launch reads
-#: them in place)
-_freqs = {}
-_freqs_lock = threading.Lock()
-
-
-def rope_freqs(theta: float, head_dim: int, device):
-    """RoPE's (head_dim // 2,) float32 frequencies, ``theta ** (-i /
-    half)``: the expression of the reference's ``_rope``
-    (``tpu_operator_libs/examples/llama.py:128``)."""
-    half = head_dim // 2
-    return theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                   device=device) / half)
-
-
-def _rope(x, theta: float, positions=None):
-    """Rotary position embedding over the last axis of (B, S, H, D):
-    a half-split rotation (not interleaved) with f32 frequencies.
-
-    ``positions`` (S,) overrides the default 0..S-1 — decode steps pass
-    the absolute position so a cached token rotates identically whether
-    it arrived via prefill or one step at a time."""
-    _, seq, _, head_dim = x.shape
-    half = head_dim // 2
-    freqs = rope_freqs(theta, head_dim, x.device)
-    if positions is None:
-        positions = torch.arange(seq, dtype=torch.float32, device=x.device)
-    angles = positions.to(torch.float32)[:, None] * freqs[None, :]
-    cos = torch.cos(angles)[None, :, None, :]
-    sin = torch.sin(angles)[None, :, None, :]
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
-                     dim=-1).to(x.dtype)
 
 
 def _sym_int8(x, axis, group=None):
@@ -240,41 +214,15 @@ def vector_width(*tensors) -> int:
     return 1
 
 
-def _freqs_on(theta, head_dim, device):
-    """``rope_freqs`` on ``device``, made once (eagerly) and kept: a
-    captured launch holds its address."""
-    key = (theta, head_dim, device)
-    with _freqs_lock:
-        freqs = _freqs.get(key)
-        if freqs is None:
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError(
-                    f"rope_kv_append's frequencies for theta={theta}, "
-                    f"head_dim={head_dim} on {device} are made by an eager "
-                    "call: launch it once before capturing")
-            freqs = rope_freqs(theta, head_dim, device)
-            # ready for launches on every stream of the device
-            torch.cuda.synchronize(device)
-            _freqs[key] = freqs
-    return freqs
-
-
 def _library():
     global _lib
     if _lib is None:
-        from tpu_operator_libs_torch.kernels._build import build_all
-
-        lib = build_all([SOURCE])[0].lib
-        lib.kv_append.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 9 + [
-            ctypes.c_void_p]
-        lib.kv_append.restype = ctypes.c_int
-        lib.rope_kv_append.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int] * 2 + lib.kv_append.argtypes
-        lib.rope_kv_append.restype = ctypes.c_int
-        lib.kv_append_error_string.argtypes = [ctypes.c_int]
-        lib.kv_append_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        append = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] \
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        _lib = load(SOURCE, {
+            "kv_append": append,
+            "rope_kv_append": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+            + append}, "kv_append_error_string")
     return _lib
 
 
@@ -298,7 +246,7 @@ def kv_append(entry, k, v, start_pos):
         err = lib.kv_append(*_cache_args(entry, k, v, start_pos),
                             vector_width(k, v, entry["k"], entry["v"]),
                             torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(lib, err, "kv_append")
+    raise_on(err, lib.kv_append_error_string, "kv_append")
     kv_append.launches += 1
     return entry
 
@@ -316,12 +264,6 @@ def _cache_args(entry, k, v, start_pos):
             0 if on_device else start_pos, batch, k.shape[1], seq,
             kv_heads, dim, _DTYPE_CODES[k.dtype], _DTYPE_CODES[v.dtype],
             _DTYPE_CODES[entry["k"].dtype])
-
-
-def _raise_on(lib, err, name) -> None:
-    if err != 0:
-        message = lib.kv_append_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: {message} ({err})")
 
 
 def rope_kv_append(entry, q, k, v, start_pos, theta):
@@ -351,7 +293,7 @@ def rope_kv_append(entry, q, k, v, start_pos, theta):
             _DTYPE_CODES[q.dtype], *_cache_args(entry, k, v, start_pos),
             vector_width(q, q_out, k, v, entry["k"], entry["v"]),
             torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(lib, err, "rope_kv_append")
+    raise_on(err, lib.kv_append_error_string, "rope_kv_append")
     rope_kv_append.launches += 1
     return q_out
 

@@ -34,6 +34,8 @@ import functools
 
 import torch
 
+from tpu_operator_libs_torch.kernels._build import load, raise_on, sm_count
+
 #: the CUDA source under ``csrc/``
 SOURCE = "rms_norm.cu"
 EPS = 1e-5
@@ -180,11 +182,6 @@ def vector_width(dim: int, *tensors) -> int:
 
 
 @functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.cache
 def _resident(index: int, dtypes: "tuple[int, int, int]", vec: int,
               loads: int, threads: int) -> int:
     """Blocks of ``threads`` threads of the forward instance for (vec,
@@ -213,7 +210,7 @@ def forward_plan(rows: int, dim: int, vec: int, index: int, add: bool,
     the resident blocks of the instance it launches for the dtypes of h,
     delta (h's without it) and w."""
     codes = tuple(_DTYPE_CODES[d] for d in dtypes)
-    return plan(rows, dim, vec, _sm_count(index),
+    return plan(rows, dim, vec, sm_count(index),
                 resident=functools.partial(_resident, index, codes, vec),
                 add=add)
 
@@ -256,28 +253,14 @@ def _check_kernel_operands(named) -> None:
 def _library():
     global _lib
     if _lib is None:
-        from tpu_operator_libs_torch.kernels._build import build_all
-
-        lib = build_all([SOURCE])[0].lib
-        lib.rms_norm_fwd.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
-            ctypes.c_int] * 8 + [ctypes.c_void_p]
-        lib.rms_norm_fwd.restype = ctypes.c_int
-        lib.rms_norm_fwd_resident.argtypes = [ctypes.c_int] * 6
-        lib.rms_norm_fwd_resident.restype = ctypes.c_int
-        lib.rms_norm_bwd.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_int] * 11 + [ctypes.c_void_p]
-        lib.rms_norm_bwd.restype = ctypes.c_int
-        lib.rms_norm_error_string.argtypes = [ctypes.c_int]
-        lib.rms_norm_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = load(SOURCE, {
+            "rms_norm_fwd": [ctypes.c_void_p] * 6 + [
+                ctypes.c_int, ctypes.c_int, ctypes.c_float]
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+            "rms_norm_fwd_resident": [ctypes.c_int] * 6,
+            "rms_norm_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+            + [ctypes.c_void_p]}, "rms_norm_error_string")
     return _lib
-
-
-def _raise_on(lib, err, name, p) -> None:
-    if err != 0:
-        message = lib.rms_norm_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed ({p}): {message} ({err})")
 
 
 def _ptr(t):
@@ -311,7 +294,7 @@ def _launch_forward(h, delta, weight, eps, want_rstd):
             _DTYPE_CODES[weight.dtype], vec, p.threads_per_row,
             p.rows_per_block, p.loads, p.blocks,
             torch.cuda.current_stream(h.device).cuda_stream)
-    _raise_on(lib, err, "rms_norm", p)
+    raise_on(err, lib.rms_norm_error_string, "rms_norm", f" ({p})")
     add_rms_norm.launches += 1
     return s, y, rstd
 
@@ -360,7 +343,7 @@ def rms_norm_bwd(dy, x, weight, rstd, ds=None):
         return dx, torch.zeros_like(weight)
     dw = torch.empty_like(weight)
     vec = vector_width(dim, dy, x, weight, ds, dx)
-    p = plan(rows, dim, vec, _sm_count(x.device.index), backward=True)
+    p = plan(rows, dim, vec, sm_count(x.device.index), backward=True)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device)
@@ -377,7 +360,7 @@ def rms_norm_bwd(dy, x, weight, rstd, ds=None):
             _DTYPE_CODES[weight.dtype],
             _DTYPE_CODES[ds.dtype] if ds is not None else 0, vec,
             p.threads_per_row, p.rows_per_block, stream.cuda_stream)
-    _raise_on(lib, err, "rms_norm_bwd", p)
+    raise_on(err, lib.rms_norm_error_string, "rms_norm_bwd", f" ({p})")
     rms_norm_bwd.launches += 1
     return dx, dw
 

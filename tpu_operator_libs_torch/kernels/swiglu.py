@@ -30,6 +30,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from tpu_operator_libs_torch.kernels._build import load, raise_on, sm_count
+
 #: the CUDA source under ``csrc/``
 SOURCE = "swiglu.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -99,11 +101,6 @@ def plan(n: int, vec: int, sms: int, resident=None) -> Plan:
 
 
 @functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.cache
 def _resident(index: int, dtype_code: int, vec: int, unroll: int) -> int:
     """Blocks of the forward instance that fit on one SM of card
     ``index``."""
@@ -118,7 +115,7 @@ def _resident(index: int, dtype_code: int, vec: int, unroll: int) -> int:
 def forward_plan(n: int, vec: int, dtype, index: int) -> Plan:
     """:func:`plan` on card ``index``, with its SMs and the instance's
     resident blocks."""
-    return plan(n, vec, _sm_count(index), resident=functools.partial(
+    return plan(n, vec, sm_count(index), resident=functools.partial(
         _resident, index, _DTYPE_CODES[dtype], vec))
 
 
@@ -151,27 +148,13 @@ def _check(*named) -> None:
 def _library():
     global _lib
     if _lib is None:
-        from tpu_operator_libs_torch.kernels._build import build_all
-
-        lib = build_all([SOURCE])[0].lib
-        lib.swiglu_fwd.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.swiglu_fwd.restype = ctypes.c_int
-        lib.swiglu_fwd_resident.argtypes = [ctypes.c_int] * 3
-        lib.swiglu_fwd_resident.restype = ctypes.c_int
-        lib.swiglu_bwd.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.swiglu_bwd.restype = ctypes.c_int
-        lib.swiglu_error_string.argtypes = [ctypes.c_int]
-        lib.swiglu_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = load(SOURCE, {
+            "swiglu_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+            "swiglu_fwd_resident": [ctypes.c_int] * 3,
+            "swiglu_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]}, "swiglu_error_string")
     return _lib
-
-
-def _raise_on(lib, err, name, detail="") -> None:
-    if err != 0:
-        message = lib.swiglu_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed{detail}: {message} ({err})")
 
 
 def _launch_forward(g, u):
@@ -185,7 +168,7 @@ def _launch_forward(g, u):
                 g.data_ptr(), u.data_ptr(), y.data_ptr(), g.numel(),
                 _DTYPE_CODES[g.dtype], vec, p.unroll, p.blocks,
                 torch.cuda.current_stream(g.device).cuda_stream)
-        _raise_on(lib, err, "swiglu", f" ({p})")
+        raise_on(err, lib.swiglu_error_string, "swiglu", f" ({p})")
         swiglu.launches += 1
     return y
 
@@ -204,9 +187,9 @@ def swiglu_bwd(dy, g, u):
             err = lib.swiglu_bwd(
                 *(t.data_ptr() for t in (dy, g, u, dg, du)), g.numel(),
                 _DTYPE_CODES[g.dtype], vector_width(dy, g, u, dg, du),
-                BLOCKS_PER_SM * _sm_count(g.device.index),
+                BLOCKS_PER_SM * sm_count(g.device.index),
                 torch.cuda.current_stream(g.device).cuda_stream)
-        _raise_on(lib, err, "swiglu_bwd")
+        raise_on(err, lib.swiglu_error_string, "swiglu_bwd")
         swiglu_bwd.launches += 1
     return dg, du
 

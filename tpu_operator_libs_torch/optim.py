@@ -25,6 +25,10 @@ increment, and clipping by ``max_norm / norm`` only when
 ``norm + 1e-6``). The global norm is taken in float32; on tp shards
 (a ``mesh``) it is the whole model's (``parallel.global_norm``), as optax
 takes it over the global arrays.
+
+The update itself is ``kernels/adamw.py``'s :func:`adamw_update`: one
+hand-written kernel launch over every leaf on the card, its plain
+version (this class's former body, op for op) on the CPU.
 """
 
 from __future__ import annotations
@@ -33,10 +37,13 @@ import math
 
 import torch
 
+from tpu_operator_libs_torch.kernels.adamw import (  # noqa: F401
+    B1,  # optax.adamw's defaults, which make_train_step takes as they are
+    B2,
+    EPS,
+    adamw_update,
+)
 from tpu_operator_libs_torch.parallel import global_norm
-
-#: optax.adamw's defaults, which make_train_step takes as they are
-B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
 def tree_map(fn, tree, *rest):
@@ -121,32 +128,28 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state, params):
-        """(new params, new state) after one step on ``grads``."""
-        if self.clip_norm > 0.0:
-            norm = global_norm(grads, self.mesh)
-            keep = norm < self.clip_norm
-            grads = tree_map(
-                lambda g: torch.where(
-                    keep, g, g / norm.to(g.dtype) * self.clip_norm), grads)
-        mu = tree_map(lambda g, m: (1 - B1) * g + B1 * m, grads,
-                      state["mu"])
-        nu = tree_map(lambda g, v: (1 - B2) * g * g + B2 * v, grads,
-                      state["nu"])
-        count = state["count"] + 1
-        bias1 = 1 - torch.pow(B1, count.float())
-        bias2 = 1 - torch.pow(B2, count.float())
-        lr = self.learning_rate(state["count"])
+        """(new params, new state) after one step on ``grads``: the
+        leaves in ``params``' order through
+        :func:`~tpu_operator_libs_torch.kernels.adamw.adamw_update` (the
+        kernel on the card, one launch a step; on the CPU its plain
+        version, ``adamw_update_reference``)."""
+        def leaves(tree):  # tree's leaves in params' order
+            return tree_leaves(tree_map(lambda _, x: x, params, tree))
 
-        def step(p, m, v):
-            u = (m / bias1.to(m.dtype)) / (
-                torch.sqrt(v / bias2.to(v.dtype)) + EPS)
-            if self.weight_decay:
-                u = u + self.weight_decay * p
-            if isinstance(lr, torch.Tensor):
-                u = (-lr).to(u.dtype) * u
-            else:
-                u = u * -lr
-            return (p + u).to(p.dtype)
+        norm = (global_norm(grads, self.mesh) if self.clip_norm > 0.0
+                else None)
+        new_params, new = adamw_update(
+            leaves(grads), {"count": state["count"],
+                            "mu": leaves(state["mu"]),
+                            "nu": leaves(state["nu"])}, tree_leaves(params),
+            lr=self.learning_rate(state["count"]),
+            weight_decay=self.weight_decay, clip_norm=self.clip_norm,
+            norm=norm)
 
-        new_params = tree_map(step, params, mu, nu)
-        return new_params, {"count": count, "mu": mu, "nu": nu}
+        def like_params(flat):
+            it = iter(flat)
+            return tree_map(lambda _: next(it), params)
+
+        return like_params(new_params), {"count": new["count"],
+                                         "mu": like_params(new["mu"]),
+                                         "nu": like_params(new["nu"])}
