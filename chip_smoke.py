@@ -407,15 +407,16 @@ def ptxas_entry(block, kernel, dtype, head_dim, design, serialized=()):
 BUILT_INSTANCES: "dict[str, list]" = {}
 
 
-def instance_ptxas(source, kernel, **template):
-    """Registers, spills and stack of the built instance of ``kernel``
-    with these template arguments, from the build phase's ptxas report;
-    "not reported" where the build was reused (ptxas did not run)."""
+def instance_ptxas(source, kernel, keys=("registers", "spill_store_bytes",
+                                         "stack_bytes"), **template):
+    """``keys`` (registers, spills and stack) of the built instance of
+    ``kernel`` with these template arguments, from the build phase's
+    ptxas report; "not reported" where the build was reused (ptxas did
+    not run)."""
     for entry in BUILT_INSTANCES.get(source, []):
         if entry["kernel"] == kernel and all(
                 entry.get(k) == v for k, v in template.items()):
-            return {k: entry[k] for k in ("registers", "spill_store_bytes",
-                                          "stack_bytes")}
+            return {k: entry[k] for k in keys}
     return "not reported (a reused build: ptxas did not run)"
 
 
@@ -530,15 +531,25 @@ def phase_build():
                      "dynamic_smem_bytes": 0}), "vec": vec,
                     "unroll": unroll})
                 continue
-            nk = re.search(r"\d((?:rms_norm|swiglu)_bwd_kernel)ILi(\d)E",
-                           block)
+            nb = re.search(r"\d(rms_norm_bwd_kernel)ILi(\d)ELi(\d)ELb([01])E"
+                           r"Lb([01])E", block)
+            if nb is not None:
+                vec, loads = int(nb.group(2)), int(nb.group(3))
+                packed, ds = nb.group(4) == "1", nb.group(5) == "1"
+                # dw's exchange or sums: dim floats, set by the launch
+                entries.append({**ptxas_entry(
+                    block, nb.group(1), "bfloat16" if packed else "any", None,
+                    {"design": norm_instance_design(vec, loads, packed)
+                     + (", with ds" if ds else ", without ds"),
+                     "dynamic_smem_bytes": None}), "vec": vec,
+                    "loads": loads, "packed": packed, "ds": ds})
+                continue
+            nk = re.search(r"\d(swiglu_bwd_kernel)ILi(\d)E", block)
             if nk is not None:
-                # the backward's partial dw: rows_per_block x dim floats
                 entries.append(ptxas_entry(
                     block, nk.group(1), "any", None,
                     {"design": f"{nk.group(2)} elements a load",
-                     "dynamic_smem_bytes": None if nk.group(1)
-                     == "rms_norm_bwd_kernel" else 0}))
+                     "dynamic_smem_bytes": 0}))
                 continue
             rk = re.search(r"\d(rope_kernel)ILb([01])ELi(\d)E", block)
             if rk is not None:
@@ -1868,9 +1879,13 @@ def check_norm_bwd_shape(label, rows, dim, dtype, iters, fused, card):
     with the residual output's gradient ``ds`` or without: dx and dw
     within ``KERNEL_TOL`` (the row sums and dw's sum over the rows in
     another order); the launch contract (dw's ordered combine: launches
-    and a replay bit-equal); times in CUDA graphs beside the plain
-    formula, and eagerly beside the autograd of the plain norm (what the
-    train step ran before) and of ``F.rms_norm``."""
+    and a replay bit-equal); the plan, the design and the instance's
+    registers, shared memory, spills and stack; times in CUDA graphs
+    beside the plain formula and ``F.rms_norm``'s backward op (eagerly
+    its autograd backward and that of the plain norm, what the train step
+    ran before); where dw's combine has two levels, the kernel with
+    one level (every block's partial added by the last block) beside it;
+    at the train shape the kernel in other layouts of the row."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
     randn, w = norm_inputs(gen, dim, dtype)
     x, dy = randn(rows, dim), randn(rows, dim)
@@ -1896,32 +1911,73 @@ def check_norm_bwd_shape(label, rows, dim, dtype, iters, fused, card):
         raise RuntimeError(
             f"rms_norm_bwd off its plain formula at {label} (ds {fused}): "
             f"limit_use {use}, max|err| {err}")
-    p = norm_mod.plan(rows, dim, norm_mod.vector_width(dim, dy, x, w, ds, dx),
-                      torch.cuda.get_device_properties(0)
-                      .multi_processor_count, backward=True)
+    vec = norm_mod.vector_width(dim, dy, x, w, ds, dx)
+    dtypes = (dtype, dtype, dtype, dtype if fused else None)
+    p = norm_mod.backward_plan(rows, dim, vec, 0, dtypes)
+    packed = norm_mod.packed(vec, p.loads, [d for d in dtypes if d])
+    ptxas = instance_ptxas(
+        "rms_norm.cu", "rms_norm_bwd_kernel",
+        keys=("registers", "static_smem_bytes", "spill_store_bytes",
+              "stack_bytes"), vec=vec, loads=p.loads, packed=packed,
+        ds=fused)
+    if isinstance(ptxas, dict):
+        ptxas["dynamic_smem_bytes"] = 4 * dim
     row = {"phase": "norm_gate_kernels", "name": "rms_norm_bwd",
            "shape": label, "rows": rows, "dim": dim,
            "dtype": dtype_name(dtype), "add": fused,
            **check_launch_contract("rms_norm_bwd", label, call, (dx, dw),
                                    again),
-           "design": norm_design(rows, dim, norm_mod.vector_width(
-               dim, dy, x, w, ds, dx), backward=True),
-           "plan": dataclasses.asdict(p),
+           "design": norm_design(rows, dim, vec, backward=True, dtype=dtype,
+                                 add=fused),
+           "plan": dataclasses.asdict(p), "ptxas": ptxas,
            "max_abs_err": err, "rtol": rtol, "atol": atol, "limit_use": use,
            "dw_bit_equal_to_plain": bool(torch.equal(dw, ref_dw)),
            "kernel_ms": graph_ms(call, iters),
            "plain_ms": graph_ms(lambda: rms_norm_backward_reference(
                dy, x, w, rstd, ds), max(2, iters // 4))}
+    groups = -(-p.blocks // p.blocks_per_group)
+    row["combine"] = {
+        "order": "a thread's rows in order; the block's groups in order; "
+                 + (f"{groups} groups of {p.blocks_per_group} blocks, each "
+                    "group's partials in block order by its last block, "
+                    "then the groups' sums in group order by the last "
+                    "group" if groups > 1 else
+                    "the blocks' partials in block order by the last "
+                    "block"),
+        "blocks": p.blocks, "groups": groups,
+        "partial_bytes": 4 * dim * (p.blocks + (groups if groups > 1
+                                                else 0))}
+    if groups > 1:
+        # the same launch with one level: the last block adds every
+        # block's partial
+        row["combine"]["one_level_ms"] = with_attrs(
+            norm_mod, lambda: graph_ms(call, iters), COMBINE_GROUPS=1)
+    if label == "train":
+        # the plan's other layouts of a row of 2,048 (threads a row x
+        # vectors a thread), each with its resident blocks
+        row["layouts_ms"] = {
+            f"{2048 // vec // loads}x{loads}": with_attrs(
+                norm_mod, lambda: graph_ms(call, iters),
+                BACKWARD_TARGET_LOADS=loads)
+            for loads in (1, 2, 4)}
     xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
     y = rms_norm_reference(xr, wr)
     row["plain_autograd_ms"] = cuda_ms(lambda: torch.autograd.grad(
         y, [xr, wr], dy, retain_graph=True), eager_iters(iters))
     y = torch.nn.functional.rms_norm(xr, (dim,), wr, norm_mod.EPS)
-    row["library"] = ("the autograd backward of torch.nn.functional.rms_norm"
-                      " (no ds added; one rounding)")
-    row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+    row["library"] = (
+        "torch.ops.aten._fused_rms_norm_backward (dx and dw; no ds added; "
+        "one rounding), the backward of torch.nn.functional.rms_norm "
+        f"(grad_fn {type(y.grad_fn).__name__}), in a CUDA graph as the "
+        "kernel; library_eager_ms: the autograd backward, eagerly")
+    _, library_rstd = torch.ops.aten._fused_rms_norm(x, [dim], w,
+                                                     norm_mod.EPS)
+    row["library_ms"] = graph_ms(
+        lambda: torch.ops.aten._fused_rms_norm_backward(
+            dy, x, [dim], library_rstd, w, [True, True]), iters)
+    row["library_eager_ms"] = cuda_ms(lambda: torch.autograd.grad(
         y, [xr, wr], dy, retain_graph=True), eager_iters(iters))
-    del y, xr, wr
+    del y, xr, wr, library_rstd
     row["bound_ms"], row["bound_by"] = bytes_bound_ms(
         tensor_bytes(dy, x, w, rstd, ds, dx, dw))
     row["card"] = card
@@ -1929,6 +1985,19 @@ def check_norm_bwd_shape(label, rows, dim, dtype, iters, fused, card):
     del x, dy, ds, dx, dw, again, ref_dx, ref_dw
     torch.cuda.empty_cache()
     return row
+
+
+def with_attrs(module, fn, **values):
+    """``fn()`` with ``module``'s attributes set to ``values``, then
+    restored."""
+    own = {name: getattr(module, name) for name in values}
+    for name, value in values.items():
+        setattr(module, name, value)
+    try:
+        return fn()
+    finally:
+        for name, value in own.items():
+            setattr(module, name, value)
 
 
 def eager_iters(iters) -> int:
@@ -1950,11 +2019,26 @@ def norm_design(rows, dim, vec, backward, dtype=torch.bfloat16,
     loads = {8: "8-element vector loads", 4: "4-element vector loads",
              1: "element loads"}[vec]
     if backward:
-        p = norm_mod.plan(rows, dim, vec, torch.cuda.get_device_properties(0)
-                          .multi_processor_count, backward=True)
-        return (f"{p.threads_per_row} threads a row, {loads}; {p.splits} "
-                f"blocks of {p.rows_per_block} rows at a time, dw combined "
-                "in block order by the last")
+        dtypes = (dtype, dtype, dtype, dtype if add else None)
+        p = norm_mod.backward_plan(rows, dim, vec, 0, dtypes)
+        groups = -(-p.blocks // p.blocks_per_group)
+        held = ("the row read twice, dw's sums in shared memory"
+                if p.loads == 0 else
+                f"{p.loads} vectors a thread of dy, x"
+                + (" and ds" if add else "") + " held in registers"
+                + (" as packed bfloat16" if norm_mod.packed(
+                    vec, p.loads, [d for d in dtypes if d]) else "")
+                + ", the next row's loads before this row's sum, dw's "
+                "sums in registers")
+        barrier = ("no barrier" if p.threads_per_row == 32
+                   else "the row's own named barrier")
+        combine = (f"dw combined in {groups} groups of "
+                   f"{p.blocks_per_group} blocks, then the groups"
+                   if groups > 1 else "dw combined in block order by the "
+                   "last block")
+        return (f"{p.threads_per_row} threads a row, {loads}, {held}, "
+                f"{barrier}; {p.rows_per_block} rows a block, {p.blocks} "
+                f"blocks striding; {combine}")
     p = norm_mod.forward_plan(rows, dim, vec, 0, add, (dtype,) * 3)
     held = ("the row read twice" if p.loads == 0 else
             f"{p.loads} vectors a thread held in registers"
@@ -3020,8 +3104,8 @@ def train_turns(other, card) -> None:
     (other, this, this, other), a process a turn, each tree running its
     own ``phase_train`` and building its own kernels; one line a turn
     with the step's time, losses, peak memory, the profiled step's device
-    events and copies, and the update's time where the tree reports
-    it."""
+    events, copies and norm kernels (forward and backward instances),
+    and the update's time where the tree reports it."""
     for tree in (other, ROOT, ROOT, other):
         run = subprocess.run([sys.executable, "-c", TURN_CODE],
                              cwd=tree, capture_output=True, text=True,
@@ -3040,7 +3124,7 @@ def train_turns(other, card) -> None:
                   "update_plain_ms")},
               **{k: profile.get(k) for k in (
                   "device_events", "device_busy_ms", "wall_ms", "copies",
-                  "top")}, "card": card})
+                  "top", "rms_norm")}, "card": card})
 
 
 def phase_checkpoint(state, optimizer, step, card):

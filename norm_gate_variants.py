@@ -118,7 +118,8 @@ AFTER_PRODUCT_LAYOUTS = ("as_is", "two_vectors", "prefetch_w",
 #: the C entries of each library, whose argument types a variant takes
 #: from the package's own library
 ENTRIES = {"rms_norm.cu": ("rms_norm_fwd", "rms_norm_fwd_resident",
-                           "rms_norm_bwd", "rms_norm_error_string"),
+                           "rms_norm_bwd", "rms_norm_bwd_resident",
+                           "rms_norm_error_string"),
            "swiglu.cu": ("swiglu_fwd", "swiglu_fwd_resident", "swiglu_bwd",
                          "swiglu_error_string")}
 MODULES = {"rms_norm.cu": rmod, "swiglu.cu": smod}
@@ -176,6 +177,8 @@ def use(libs) -> None:
     for source, lib in libs.items():
         MODULES[source]._lib = lib
         MODULES[source]._resident.cache_clear()
+        if source == "rms_norm.cu":
+            rmod._bwd_resident.cache_clear()
 
 
 def randn(gen, *shape):
@@ -195,8 +198,8 @@ def part_plans(rounds) -> dict:
     def planner(per_block, grid):
         """``plan`` with the rows a block and the grid overridden."""
         def planned(rows, dim, vec, sms, backward=False, resident=None,
-                    add=False):
-            p = plan(rows, dim, vec, sms, backward, resident, add)
+                    add=False, bf16=False):
+            p = plan(rows, dim, vec, sms, backward, resident, add, bf16)
             if per_block is not None:
                 p = dataclasses.replace(p, rows_per_block=per_block)
             groups = -(-rows // p.rows_per_block)

@@ -780,8 +780,9 @@ def test_rms_norm_bwd_matches_plain_formula(cuda, rows, dim, dtype, fused):
     """The backward kernel against its plain formula within the dtype's
     tolerance (the row sums and dw's sum over the rows in another order),
     ds added into dx; two launches and a graph replay bit-equal (dw's
-    partials combined in block order by the last block, no atomics), the
-    ticket counter back at 0; one CUDA launch a call."""
+    partials combined in a fixed order by the last blocks to draw their
+    tickets, no atomics), the ticket counters back at 0; one CUDA launch
+    a call."""
     _, _, w, dy, ds = norm_operands(cuda, rows, dim, dtype)
     x = norm_operands(cuda, rows, dim, dtype, seed=21)[0]
     ds = ds if fused else None
@@ -810,8 +811,9 @@ def test_rms_norm_bwd_matches_plain_formula(cuda, rows, dim, dtype, fused):
 
 
 def test_rms_norm_bwd_dw_deterministic_at_the_train_shape(cuda):
-    """dw sums 16,384 rows in 132 blocks' partials: five launches, each
-    on a fresh workspace, give the same bits."""
+    """dw sums 16,384 rows over the blocks' partials and the two-level
+    combine: five launches, each on a fresh workspace, give the same
+    bits."""
     _, _, w, dy, ds = norm_operands(cuda, chip_smoke.TRAIN_ROWS, 2048,
                                     torch.bfloat16)
     x = norm_operands(cuda, chip_smoke.TRAIN_ROWS, 2048, torch.bfloat16,
@@ -821,6 +823,36 @@ def test_rms_norm_bwd_dw_deterministic_at_the_train_shape(cuda):
     for _ in range(4):
         dx, dw = rmod.rms_norm_bwd(dy, x, w, rstd, ds)
         assert torch.equal(dx, first[0]) and torch.equal(dw, first[1])
+
+
+@pytest.mark.parametrize("case", ["f32_x_bf16_w", "width_1001"])
+def test_rms_norm_bwd_mixed_dtypes_and_odd_widths(cuda, case):
+    """One backward on an f32 x (and dy, ds) under a bf16 weight (the
+    instance that holds float32 vectors at 8 a load, dw rounded to bf16),
+    and one at a width that is not a multiple of 8 (element loads, four
+    vectors a thread): within the dtype's tolerance of the plain formula,
+    two launches bit-equal, the counters back at 0."""
+    if case == "f32_x_bf16_w":
+        _, _, _, dy, ds = norm_operands(cuda, 300, 2048, torch.float32)
+        x = norm_operands(cuda, 300, 2048, torch.float32, seed=23)[0]
+        w = norm_operands(cuda, 300, 2048, torch.bfloat16, seed=24)[2]
+    else:
+        _, _, w, dy, ds = norm_operands(cuda, 300, 1001, torch.bfloat16)
+        x = norm_operands(cuda, 300, 1001, torch.bfloat16, seed=23)[0]
+    _, rstd = rmod._rms_parts(x, w, rmod.EPS)
+    dx, dw = rmod.rms_norm_bwd(dy, x, w, rstd, ds)
+    again = rmod.rms_norm_bwd(dy, x, w, rstd, ds)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+    assert all(not c.any() for c in rmod._counters.values())
+    ref_dx, ref_dw = rmod.rms_norm_backward_reference(dy, x, w, rstd, ds)
+    assert dx.dtype == x.dtype and dw.dtype == w.dtype
+    rtol, atol = TOL[x.dtype]
+    torch.testing.assert_close(dx.float(), ref_dx.float(), rtol=rtol,
+                               atol=atol)
+    rtol, atol = TOL[w.dtype]
+    torch.testing.assert_close(dw.float(), ref_dw.float(), rtol=rtol,
+                               atol=atol)
 
 
 def test_rms_norm_without_the_add_deterministic_at_the_train_shape(cuda):

@@ -8,6 +8,8 @@ the launch plan, and the call sites: the cached step against JAX's
 ``forward_with_cache`` and the count of norms and gates a forward runs.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -171,6 +173,187 @@ class TestBackwardAgainstJax:
                                            to_torch(u))
         assert_grad_close(dg, to_torch(jdg), "dg")
         assert_grad_close(du, to_torch(jdu), "du")
+
+
+def bf16_round(a):
+    """float32 values rounded to bfloat16 (to nearest even), as float32."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def fma32(a, b, c):
+    """float32 ``fmaf(a, b, c)``: the product exact in float64, one
+    rounding of the sum (twice where float64 itself rounds, which a
+    tolerance covers)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def emulate_backward(dy, x, w, rstd, ds, p, vec, x_bf16, w_bf16):
+    """``rms_norm_bwd_kernel``'s arithmetic in its order, in float32
+    numpy from float32 arrays (the loaded values): the row sum (each
+    thread's elements in order, vector c = t + i * threads_per_row, by
+    fmaf; the warp's butterfly; the row's warps in order), dx with every
+    product and sum rounded on its own, and dw (each thread's rows in
+    order, from 0; the block's groups in order; each combine group's
+    partials in block order, then the groups' sums in group order, each
+    from 0), for ``Plan`` p at ``vec`` elements a load."""
+    rows, dim = x.shape
+    f32 = np.float32
+    per_row, per_block = p.threads_per_row, p.rows_per_block
+    chunks = dim // vec
+    loads = p.loads or -(-chunks // per_row)
+    g = dy * w
+    cs = np.zeros((rows, per_row), f32)
+    t = np.arange(per_row)
+    for i in range(loads):
+        c = t + i * per_row
+        live = c < chunks
+        for e in range(vec):
+            col = np.where(live, c * vec + e, 0)
+            cs = np.where(live, fma32(g[:, col], x[:, col], cs), cs)
+    v = cs.reshape(rows, per_row // 32, 32)
+    lane = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ o]
+    total = v[:, 0, 0]
+    if per_row > 32:
+        total = np.zeros(rows, f32)
+        for warp in range(per_row // 32):
+            total = total + v[:, warp, 0]
+    r = rstd[:, None]
+    k = (r * r * total[:, None]) / f32(dim)
+    dx = r * (g - x * k)
+    if ds is not None:
+        dx = dx + ds
+    n = x * r
+    if x_bf16:
+        dx, n = bf16_round(dx), bf16_round(n)
+    contrib = dy * n
+    # the rows of (block b, group j): b * rows_per_block + j + k * stride
+    stride = p.blocks * per_block
+    acc = np.zeros((p.blocks, per_block, dim), f32)
+    first = np.arange(p.blocks * per_block).reshape(p.blocks, per_block)
+    for step in range(-(-rows // stride)):
+        row = first + step * stride
+        live = (row < rows)[..., None]
+        acc = np.where(live, acc + contrib[np.minimum(row, rows - 1)], acc)
+    partial = acc[:, 0]
+    for j in range(1, per_block):
+        partial = partial + acc[:, j]
+    per = p.blocks_per_group
+    sums = []
+    for start in range(0, p.blocks, per):
+        total = np.zeros(dim, f32)
+        for b in range(start, min(p.blocks, start + per)):
+            total = total + partial[b]
+        sums.append(total)
+    dw = sums[0]
+    if len(sums) > 1:
+        dw = np.zeros(dim, f32)
+        for total in sums:
+            dw = dw + total
+    if w_bf16:
+        dw = bf16_round(dw)
+    return dx, dw
+
+
+#: (rows, dim, layout): the wrapper's plan on 132 SMs ("plan": a row a
+#: block, a two-level combine), the plan on 3 SMs (several rows a group,
+#: one level), and the first with 6 blocks in combine groups of 2
+#: ("strided": several rows a group, two levels)
+EMULATED_SHAPES = [(rows, dim, layout) for rows, dim in ((37, 256),
+                                                         (130, 1001))
+                   for layout in ("plan", "three_sms", "strided")]
+
+
+def emulated_plan(rows, dim, vec, layout, bf16=True):
+    if layout == "three_sms":
+        return rmod.plan(rows, dim, vec, 3, backward=True, bf16=bf16)
+    p = rmod.plan(rows, dim, vec, 132, backward=True, bf16=bf16)
+    if layout == "strided":
+        p = dataclasses.replace(p, blocks=6, blocks_per_group=2)
+    return p
+
+
+def sum_bound(dy, n):
+    """The rounding bound of two float32 sums over the rows of ``dy *
+    n`` in different orders: 2 (rows - 1) 2^-24 sum |dy * n| a column."""
+    rows = dy.shape[0]
+    return 2 * (rows - 1) * 2.0 ** -24 * (dy.float() * n.float()).abs().sum(0)
+
+
+class TestBackwardSummationOrder:
+    """The backward kernel's summation order, emulated on the CPU at the
+    plans its wrapper gives, held to the plain formula within the
+    kernels' tolerance and to ``jax.vjp`` of the JAX package's
+    ``_rms_norm`` within ``TestBackwardAgainstJax``'s. In float32, dw
+    against JAX adds ``sum_bound`` to that tolerance: dw sums 37 and 130
+    rows here (10 there), and the plain formula itself lands 0.9-4.3
+    times the 1e-6 atol off JAX's at these row counts."""
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("rows,dim,layout", EMULATED_SHAPES)
+    @pytest.mark.parametrize("fused", [True, False], ids=["ds", "no_ds"])
+    def test_emulated_kernel_against_plain_and_jax(self, fused, rows, dim,
+                                                   layout, dtype):
+        h, d, w, dy, ds = arrays(40 + dim, *[(rows, dim)] * 2, (dim,),
+                                 *[(rows, dim)] * 2, dtype=dtype,
+                                 scale=2.0)
+        if fused:
+            (_, _), vjp = jax.vjp(jax_add_norm, *map(jnp.asarray, (h, d, w)))
+            jdx, _, jdw = vjp((jnp.asarray(ds), jnp.asarray(dy)))
+        else:
+            _, vjp = jax.vjp(lambda x, w_: jllama._rms_norm(x, w_),
+                             jnp.asarray(h), jnp.asarray(w))
+            jdx, jdw = vjp(jnp.asarray(dy))
+        x = to_torch(h) + to_torch(d) if fused else to_torch(h)
+        tw, tdy = to_torch(w), to_torch(dy)
+        tds = to_torch(ds) if fused else None
+        _, rstd = rmod._rms_parts(x, tw, EPS)
+        vec = rmod.vector_width(dim, x)
+        bf16 = dtype == "bfloat16"
+        p = emulated_plan(rows, dim, vec, layout, bf16)
+        dx, dw = emulate_backward(
+            tdy.float().numpy(), x.float().numpy(), tw.float().numpy(),
+            rstd.numpy(), None if tds is None else tds.float().numpy(), p,
+            vec, bf16, bf16)
+        dx = torch.from_numpy(dx).to(x.dtype)
+        dw = torch.from_numpy(dw).to(tw.dtype)
+        ref_dx, ref_dw = rms_norm_backward_reference(tdy, x, tw, rstd, tds)
+        rtol, atol = chip_smoke.KERNEL_TOL[x.dtype]
+        torch.testing.assert_close(dx.float(), ref_dx.float(), rtol=rtol,
+                                   atol=atol)
+        torch.testing.assert_close(dw.float(), ref_dw.float(), rtol=rtol,
+                                   atol=atol)
+        assert_grad_close(dx, to_torch(jdx), "dx")
+        if bf16:
+            assert_grad_close(dw, to_torch(jdw), "dw")
+        else:
+            n = (x * rstd[:, None]).to(x.dtype)
+            limit = GRAD_ATOL + GRAD_RTOL * to_torch(jdw).abs() \
+                + sum_bound(tdy, n)
+            assert ((dw - to_torch(jdw)).abs() <= limit).all()
+
+    def test_emulation_follows_the_plan(self):
+        """The emulated dw depends on the plan's order (a block a row and
+        several rows a group give other float32 bits) and equals the plain
+        sum where every order is exact (small integers)."""
+        rng = np.random.default_rng(41)
+        rows, dim = 130, 256
+        dy = rng.standard_normal((rows, dim)).astype(np.float32)
+        x = rng.standard_normal((rows, dim)).astype(np.float32)
+        w, rstd = np.ones(dim, np.float32), np.ones(rows, np.float32)
+        layouts = ("plan", "three_sms", "strided")
+        got = [emulate_backward(dy, x, w, rstd, None,
+                                emulated_plan(rows, dim, 8, layout), 8,
+                                False, False)[1] for layout in layouts]
+        assert not np.array_equal(got[0], got[1])
+        assert not np.array_equal(got[0], got[2])
+        ints = rng.integers(-8, 9, (rows, dim)).astype(np.float32)
+        for layout in layouts:
+            _, dw = emulate_backward(
+                ints, np.ones((rows, dim), np.float32), w, rstd, None,
+                emulated_plan(rows, dim, 8, layout), 8, False, False)
+            assert np.array_equal(dw, ints.sum(axis=0))
 
 
 def plain_norm_loss(h, d, w, fused):
@@ -438,26 +621,92 @@ class TestPlan:
         p = rmod.plan(16384, 2048, 8, 132, resident=count)
         assert asked == [(1, 256), (2, 256)] and p.blocks == 396
 
-    @pytest.mark.parametrize("rows,dim,vec,want", [
-        # the train shape: a block an SM, 4 rows at a time
-        (16384, 2048, 8, (256, 4, 132, 125)),
-        (8, 2048, 8, (256, 4, 2, 4)),
-        (512, 2048, 4, (256, 4, 128, 4)),
-        (10, 33, 1, (64, 16, 1, 10)),
-        (7, 70000, 8, (256, 0, 0, 0)),
+    @pytest.mark.parametrize("rows,dim,vec,per_sm,bf16,want", [
+        # the train shape: 128 threads x 2 vectors a row, four rows a
+        # block, a grid of the resident blocks, dw combined in groups of
+        # about the square root of the blocks
+        (16384, 2048, 8, 1, True, (128, 4, 2, 132, 12)),
+        (16384, 2048, 8, 2, True, (128, 4, 2, 264, 17)),
+        (16384, 2048, 8, 3, True, (128, 4, 2, 396, 20)),
+        # in f32 (16 registers of each array a thread): blocks of 256
+        (16384, 2048, 8, 1, False, (128, 2, 2, 132, 12)),
+        # fewer rows than SMs: a row a block, dw in one level
+        (8, 2048, 8, 2, True, (128, 1, 2, 8, 8)),
+        (8, 2048, 8, 2, False, (128, 1, 2, 8, 8)),
+        # the prefill block: a block for every four rows
+        (512, 2048, 8, 2, True, (128, 4, 2, 128, 12)),
+        (512, 2048, 4, 2, False, (256, 2, 2, 256, 16)),
+        # f32 at 4 a load (the decode step of an f32 model)
+        (8, 2048, 4, 2, False, (256, 1, 2, 8, 8)),
+        # an odd width at element loads: 4 vectors a thread
+        (64, 1001, 1, 2, True, (256, 1, 4, 64, 8)),
+        (10, 33, 1, 2, False, (32, 1, 2, 10, 10)),
+        # 32 elements a thread: blocks of 256 threads
+        (7, 8192, 8, 2, True, (256, 1, 4, 7, 7)),
+        (16384, 8192, 8, 1, True, (256, 1, 4, 132, 12)),
+        (16384, 4096, 8, 1, True, (256, 2, 2, 132, 12)),
+        # past the register budget the two-pass loop, a row a block, up
+        # to the widest width whose dw sums fit the shared memory
+        (7, 8200, 8, 2, True, (256, 1, 0, 7, 7)),
+        (7, 58112, 8, 2, True, (256, 1, 0, 7, 7)),
+        (7, 58113, 1, 2, True, None),
+        (7, 70000, 8, 2, True, None),
     ])
-    def test_backward(self, rows, dim, vec, want):
-        if want[1] == 0:
+    def test_backward(self, rows, dim, vec, per_sm, bf16, want):
+        if want is None:
             with pytest.raises(ValueError, match="shared memory"):
-                rmod.plan(rows, dim, vec, 132, backward=True)
+                rmod.plan(rows, dim, vec, 132, backward=True, bf16=bf16)
             return
-        p = rmod.plan(rows, dim, vec, 132, backward=True)
-        assert (p.threads_per_row, p.rows_per_block, p.splits,
-                p.rows_per_split) == want
-        # every block has a row and the blocks cover every row
-        assert (p.splits - 1) * p.rows_per_split < rows \
-            <= p.splits * p.rows_per_split
-        assert p.rows_per_block * dim * 4 <= rmod.MAX_SMEM_BYTES
+        p = rmod.plan(rows, dim, vec, 132, backward=True,
+                      resident=resident(per_sm), bf16=bf16)
+        assert (p.threads_per_row, p.rows_per_block, p.loads, p.blocks,
+                p.blocks_per_group) == want
+        # the register path covers the row, the two passes take a row a
+        # block; a block's groups fit; the combine's groups have counters
+        assert (p.loads * p.threads_per_row * vec >= dim if p.loads
+                else p.rows_per_block == 1)
+        held = p.loads * vec // (2 if bf16 and vec == 8 else 1)
+        assert p.threads_per_row * p.rows_per_block <= (
+            rmod.BACKWARD_THREADS if held <= 8
+            else rmod.WIDE_BACKWARD_THREADS)
+        assert -(-p.blocks // p.blocks_per_group) <= rmod.COMBINE_GROUPS
+        assert dim * 4 <= rmod.MAX_SMEM_BYTES
+        # every block has a row, and the groups' strides take every row
+        # once
+        assert (p.blocks - 1) * p.rows_per_block < rows
+        taken = sorted(row for first in range(p.blocks * p.rows_per_block)
+                       for row in range(first, rows,
+                                        p.blocks * p.rows_per_block))
+        assert taken == list(range(rows))
+
+    @pytest.mark.parametrize("fused", [True, False], ids=["ds", "no_ds"])
+    def test_backward_plan_asks_the_resident_count_of_its_instance(
+            self, monkeypatch, fused):
+        """At the train shape the wrapper's plan asks CUDA's occupancy
+        query for the resident blocks of the instance it launches, with
+        ds or without (-1), and spreads the blocks it is told of."""
+        asked = []
+
+        def count(index, codes, vec, dim, loads, threads):
+            asked.append((codes, vec, dim, loads, threads))
+            return 2 if fused else 3
+
+        monkeypatch.setattr(rmod, "_bwd_resident", count)
+        monkeypatch.setattr(rmod, "sm_count", lambda index: 132)
+        p = rmod.backward_plan(16384, 2048, 8, 0, (torch.bfloat16,) * 3
+                               + (torch.bfloat16 if fused else None,))
+        assert asked == [((1, 1, 1, 1 if fused else -1), 8, 2048, 2, 512)]
+        assert p == rmod.Plan(128, 4, 2, 264 if fused else 396,
+                              17 if fused else 20)
+
+    def test_combine_groups_stay_within_the_counters(self):
+        """Any grid up to 64 x 64 blocks falls into at most
+        ``COMBINE_GROUPS`` combine groups, each of at least one block."""
+        for blocks in range(1, 64 * 64 + 1):
+            p = rmod.plan(blocks, 32, 8, blocks, backward=True)
+            assert p.blocks == blocks
+            assert 1 <= -(-blocks // p.blocks_per_group) \
+                <= rmod.COMBINE_GROUPS
 
     @pytest.mark.parametrize("n,vec,per_sm,want", [
         # the bench decode's gate (8, 8192): a vector a thread, 32 blocks
@@ -665,6 +914,10 @@ class TestChipSmokeCounts:
          "rms_norm"),
         ("_ZN12_GLOBAL__N_119rms_norm_bwd_kernelILi4EEEvNS_9BwdParamsE",
          "rms_norm"),
+        ("_ZN12_GLOBAL__N_119rms_norm_bwd_kernelILi8ELi2ELb1ELb1EEEvNS_9Bwd"
+         "ParamsE", "rms_norm"),
+        ("void (anonymous namespace)::rms_norm_bwd_kernel<8, 2, true, "
+         "false>(BwdParams)", "rms_norm"),
         ("void (anonymous namespace)::swiglu_fwd_kernel<8>(void const*)",
          "swiglu"),
         ("void (anonymous namespace)::rms_norm_fwd_kernel<8, 1, true>("
@@ -693,9 +946,10 @@ ptxas info    : Used {regs} registers, used 1 barriers, 64 bytes smem
 class TestBuildReport:
     def test_build_phase_reads_the_forward_instances(self, monkeypatch,
                                                      capsys):
-        """The build phase names each forward instance by its template
-        arguments (the norm's vec and loads, the gate's dtype, vec and
-        unroll), and phase 3f finds its registers and spills by them."""
+        """The build phase names each instance by its template arguments
+        (the norm's vec, loads, packing and, backward, ds; the gate's
+        dtype, vec and unroll), and phase 3f finds its registers, shared
+        memory and spills by them."""
         prefix = "_ZN36_INTERNAL_3f2c1e0a_11_rms_norm_cu_7e7f3a2a"
         norm = "".join("Compiling entry function" + PTXAS_BLOCK.format(
             name=f"{prefix}19rms_norm_fwd_kernelILi{vec}ELi{loads}ELb"
@@ -705,9 +959,13 @@ class TestBuildReport:
                                              (8, 1, False, 48),
                                              (8, 0, False, 38),
                                              (1, 4, False, 64)))
-        norm += "Compiling entry function" + PTXAS_BLOCK.format(
-            name=f"{prefix}19rms_norm_bwd_kernelILi8EEEvNS_9BwdParamsE",
-            stack=0, spill=0, regs=58)
+        norm += "".join("Compiling entry function" + PTXAS_BLOCK.format(
+            name=f"{prefix}19rms_norm_bwd_kernelILi{vec}ELi{loads}ELb"
+                 f"{int(packed)}ELb{int(ds)}EEEvNS_9BwdParamsE", stack=0,
+            spill=spill, regs=regs)
+            for vec, loads, packed, ds, spill, regs in (
+                (8, 2, True, True, 0, 96), (8, 2, True, False, 0, 80),
+                (1, 0, False, True, 8, 40)))
         gate = "".join("Compiling entry function" + PTXAS_BLOCK.format(
             name=f"{prefix}17swiglu_fwd_kernelI{t}Li8ELi{unroll}EEEvPKT_"
                  "S3_PS1_x", stack=0, spill=4, regs=regs)
@@ -728,6 +986,20 @@ class TestBuildReport:
         assert '"design": "8 elements a load, 1 vectors a thread held in ' \
             'registers as packed bfloat16"' in out
         assert '"design": "8 elements a load, two passes' in out
+        assert '"design": "8 elements a load, 2 vectors a thread held in ' \
+            'registers as packed bfloat16, with ds"' in out
+        assert chip_smoke.instance_ptxas(
+            "rms_norm.cu", "rms_norm_bwd_kernel",
+            keys=("registers", "static_smem_bytes", "spill_store_bytes"),
+            vec=8, loads=2, packed=True, ds=True) == {
+                "registers": 96, "static_smem_bytes": 64,
+                "spill_store_bytes": 0}
+        assert chip_smoke.instance_ptxas(
+            "rms_norm.cu", "rms_norm_bwd_kernel", vec=8, loads=2,
+            packed=True, ds=False)["registers"] == 80
+        assert chip_smoke.instance_ptxas(
+            "rms_norm.cu", "rms_norm_bwd_kernel", vec=1, loads=0,
+            packed=False, ds=True)["spill_store_bytes"] == 8
         assert chip_smoke.instance_ptxas(
             "rms_norm.cu", "rms_norm_fwd_kernel", vec=8, loads=1,
             packed=True) == {"registers": 40, "spill_store_bytes": 0,

@@ -14,11 +14,17 @@
 //   g = dy * w,   c = sum_j g_j x_j,
 //   dx = rstd * (g - x * (rstd^2 * c / dim)) + ds,
 //   dw_j = sum over rows of dy_j * round(x_j * rstd).
-// dw sums every row (16,384 at the train shape): each block sums a fixed
-// range of rows into shared memory, writes its partial to a workspace and
-// takes a ticket; the block that draws the last ticket adds the partials
-// in block order and writes dw. No float atomics, every sum in a fixed
-// order: two launches, or a replayed graph, give the same bits.
+// dw sums every row (16,384 at the train shape) in a fixed order, with no
+// float atomics, so two launches, or a replayed graph, give the same bits:
+// each thread adds dy * round(x * rstd) of its columns over the rows it
+// takes, in row order; a block adds its groups' sums in group order (one
+// exchange through shared memory, after the last row) into its partial;
+// then a two-level ticket combine: the blocks fall into combine groups of
+// blocks_per_group consecutive blocks, and the block that draws the last
+// ticket of its group adds the group's partials in block order; where
+// there are several groups, the group combiner that draws the last ticket
+// of the second level adds the groups' sums in group order and writes dw.
+// Every counter is back at 0 when the launch ends.
 //
 // Rounding follows the reference: the sum is rounded to the residual
 // stream's dtype before it is normalised; the variance is the float32
@@ -53,6 +59,33 @@
 // take the two-pass loop (kLoads 0): the row read twice, the second time
 // from L1 or L2.
 //
+// Backward design: bytes-bound as well (dy, x and ds read once, dx
+// written once), and the train step's shape is its main use. It keeps the
+// forward's layout: a group of threads_per_row threads a row, kLoads
+// vectors a thread on the register path, rows_per_block groups a block
+// (up to 512 threads), and a grid of the SMs times the resident blocks,
+// each group taking rows row0, row0 + stride, ... (stride = blocks *
+// rows_per_block). A thread
+// loads its columns of w once, first; each row's dy, x, ds (when given)
+// and rstd are loaded before any of its arithmetic and held in registers
+// (packed bfloat16 where every tensor is bfloat16) from the row sum to the
+// store of dx; the next row's loads are issued before the current row's
+// sum and arithmetic (two rows held, double-buffered in registers), so
+// each group keeps a row in flight while it computes another. The row sum
+// takes the group's own named barrier (none for a warp a row), never a
+// block-wide one. dw's column sums stay in registers (kLoads * kVec a
+// thread) over every row a thread takes. Rows wider than kMaxLoads vectors
+// a thread take the two-pass loop (kLoads 0, a row a block): the sum, then
+// dx from the row read again, dw's sums in shared memory. On the H100, at
+// the train shape, 128 threads a row with two vectors each and four rows
+// a block (one block an SM) measured fastest of 256 x 1, 128 x 2, 64 x 4
+// and one warp x 8, and the two-level combine faster than one level; the
+// combine is a chain of dependent memory round trips after the grid's
+// last row (a fence, a ticket, the partials' loads, twice). No programmatic
+// dependent launch: the backward follows a cuBLAS product, which never
+// triggers its dependents (the forward measured the attribute a loss
+// there).
+//
 // Launched with programmatic dependent launch (dependent_launch.cuh):
 // before the wait only the offsets (w may be written by the kernel just
 // before, an optimizer step or a cast, so it is not read before the wait;
@@ -77,14 +110,23 @@ using vector_io::load;
 using vector_io::round_to;
 using vector_io::store;
 
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxWarps = kMaxThreads / 32;
 // a forward block's threads at most, and the vectors of a row a thread
 // holds at most on the register path: rows up to 4 x 256 vectors (8,192
 // elements at 8 a load, 4,096 at 4, 1,024 at 1)
 constexpr int kFwdThreads = 256;
 constexpr int kFwdWarps = kFwdThreads / 32;
 constexpr int kMaxLoads = 4;
+// a backward block's threads at most: 512 where a thread holds at most 8
+// registers of each array of a row (loads * vec elements, two to a
+// register where packed), which keeps an instance within 128 registers,
+// else 256; and the combine's groups of blocks at most (a stream's
+// counters: one a group and one for the second level)
+constexpr int kBwdThreads = 512;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int backward_threads(int vec, int loads, bool packed) {
+  return loads * vec > (packed ? 16 : 8) ? 256 : kBwdThreads;
+}
+constexpr int kMaxCombineGroups = 64;
 
 struct FwdParams {
   const void* h;      // (rows, dim) of h_dtype
@@ -106,32 +148,12 @@ struct BwdParams {
   const void* ds;    // (rows, dim) of ds_dtype, or null
   void* dx;          // (rows, dim) of x_dtype
   void* dw;          // (dim,) of w_dtype
-  float* ws;         // (blocks, dim) the blocks' partial dw
-  int* counter;      // the ticket counter, 0 between launches
-  int rows, dim, threads_per_row, rows_per_block, rows_per_split;
+  float* ws;         // (blocks + groups, dim): the blocks' partial dw,
+                     // then the combine groups' sums
+  int* counters;     // groups + 1 ticket counters, 0 between launches
+  int rows, dim, threads_per_row, rows_per_block, blocks_per_group;
   int dy_dtype, x_dtype, w_dtype, ds_dtype;
 };
-
-// The sum of v over a group of `threads` threads (a multiple of 32) in a
-// fixed order: a butterfly within each warp, then the group's warps in
-// order. Every thread of the block calls it (it holds block barriers);
-// `sums` has a slot for each warp of the block.
-__device__ __forceinline__ float group_sum(float v, int threads,
-                                           float* sums) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
-  }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) sums[warp] = v;
-  __syncthreads();
-  const int warps = threads >> 5;
-  const int first = warp / warps * warps;
-  float total = 0.f;
-  for (int i = 0; i < warps; ++i) total = __fadd_rn(total, sums[first + i]);
-  __syncthreads();  // the slots are free for the next sum
-  return total;
-}
 
 // The ticket of a block: an atomic add with release semantics for the
 // block's partial (which its fence and barrier ordered before it) and
@@ -152,16 +174,17 @@ __device__ __forceinline__ int take_ticket(int* counter) {
 // do not wait on it), which every thread of the group reaches; a row of
 // one warp takes none. The slots alternate with the row's parity, so a
 // row's writes never meet the previous row's reads.
+template <int kSlots>
 __device__ __forceinline__ float row_sum(float v, int warps, int group,
                                          int parity,
-                                         float (*sums)[kFwdWarps]) {
+                                         float (*sums)[kSlots]) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
   }
   if (warps == 1) return v;
   if ((threadIdx.x & 31) == 0) sums[parity][threadIdx.x >> 5] = v;
-  // barrier 0 is __syncthreads'; a group's is 1 + group (at most 4)
+  // barrier 0 is __syncthreads'; a group's is 1 + group (at most 8)
   asm volatile("bar.sync %0, %1;\n" : : "r"(group + 1), "r"(warps * 32)
                : "memory");
   float total = 0.f;
@@ -383,30 +406,268 @@ __global__ void __launch_bounds__(kFwdThreads)
   }
 }
 
-template <int kVec>
-__global__ void __launch_bounds__(kMaxThreads)
-    rms_norm_bwd_kernel(const BwdParams p) {
-  // the groups' partial dw, rows_per_block x dim
-  extern __shared__ float acc[];
-  __shared__ float sums[kMaxWarps];
-  __shared__ int ticket;
-  const int group = threadIdx.x / p.threads_per_row;
-  const int t = threadIdx.x % p.threads_per_row;
-  const int chunks = p.dim / kVec;
-  float* mine = acc + static_cast<long long>(group) * p.dim;
-  for (int c = t; c < chunks; c += p.threads_per_row) {
+// One row of the backward's register path as loaded: dy, x and ds (kDs),
+// kLoads vectors a thread (vector c = t + i * threads_per_row), and rstd
+template <int kVec, int kLoads, bool kBf16, bool kDs>
+struct BwdRow {
+  Vec<kVec, kBf16> dy[kLoads];
+  Vec<kVec, kBf16> x[kLoads];
+  Vec<kVec, kBf16> ds[kDs ? kLoads : 1];
+  float rstd;
+};
+
+// Issues every load of `row` into r (nothing past the last row).
+template <int kVec, int kLoads, bool kBf16, bool kDs>
+__device__ __forceinline__ void load_bwd_row(
+    const BwdParams& p, int row, int t, int chunks,
+    BwdRow<kVec, kLoads, kBf16, kDs>& r) {
+  if (row >= p.rows) return;
+  const long long off = static_cast<long long>(row) * p.dim;
+  const int tpr = p.threads_per_row;
+  r.rstd = p.rstd[row];
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) mine[c * kVec + e] = 0.f;
+  for (int i = 0; i < kLoads; ++i) {
+    const int c = t + i * tpr;
+    if (c < chunks) r.dy[i].load(p.dy, off + c * kVec, p.dy_dtype);
   }
-  const int first = blockIdx.x * p.rows_per_split;
-  const int end = min(p.rows, first + p.rows_per_split);
-  for (int base = first; base < end; base += p.rows_per_block) {
-    const int row = base + group;
-    const bool live = row < end;
-    const long long off = static_cast<long long>(row) * p.dim;
-    float cs = 0.f;
-    if (live) {
-      for (int c = t; c < chunks; c += p.threads_per_row) {
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int c = t + i * tpr;
+    if (c < chunks) r.x[i].load(p.x, off + c * kVec, p.x_dtype);
+  }
+  if constexpr (kDs) {
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int c = t + i * tpr;
+      if (c < chunks) r.ds[i].load(p.ds, off + c * kVec, p.ds_dtype);
+    }
+  }
+}
+
+// The row sum (the group's barrier, which every thread of the group
+// reaches: a group's row is live for all its threads or none), dx's store
+// and the thread's dw sums of a live `row` from r.
+template <int kVec, int kLoads, bool kBf16, bool kDs>
+__device__ __forceinline__ void finish_bwd_row(
+    const BwdParams& p, int row, int t, int chunks, int group, int parity,
+    float (*sums)[kBwdWarps], const BwdRow<kVec, kLoads, kBf16, kDs>& r,
+    const Vec<kVec, kBf16> (&w)[kLoads], float (&acc)[kLoads][kVec]) {
+  const int tpr = p.threads_per_row;
+  const long long off = static_cast<long long>(row) * p.dim;
+  float cs = 0.f;
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    if (t + i * tpr >= chunks) continue;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      cs = __fmaf_rn(__fmul_rn(r.dy[i].at(e), w[i].at(e)), r.x[i].at(e), cs);
+    }
+  }
+  const float total = row_sum(cs, tpr >> 5, group, parity, sums);
+  const float rs = r.rstd;
+  const float k = __fdiv_rn(__fmul_rn(__fmul_rn(rs, rs), total),
+                            static_cast<float>(p.dim));
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int c = t + i * tpr;
+    if (c >= chunks) continue;
+    float dx[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      const float dy = r.dy[i].at(e), x = r.x[i].at(e);
+      const float g = __fmul_rn(dy, w[i].at(e));
+      const float v = __fmul_rn(rs, __fsub_rn(g, __fmul_rn(x, k)));
+      if constexpr (kDs) {
+        dx[e] = __fadd_rn(v, r.ds[i].at(e));
+      } else {
+        dx[e] = v;
+      }
+      const float n = round_to(__fmul_rn(x, rs), p.x_dtype);
+      acc[i][e] = __fadd_rn(acc[i][e], __fmul_rn(dy, n));
+    }
+    store<kVec>(p.dx, off + c * kVec, p.x_dtype, dx);
+  }
+}
+
+// The sum of n rows of dim floats from L2 (written by other blocks of
+// this launch), in row order from 0, into out, or rounded into dw. A
+// thread takes four neighbouring columns at a time (one where dim is not
+// a multiple of 4) and issues the loads of up to kRowsInFlight rows
+// before their sums: the combine is a chain of L2 round trips after the
+// grid's last row, so it is bound by their latency, not by bytes.
+constexpr int kRowsInFlight = 16;
+
+__device__ __forceinline__ void put(const BwdParams& p, float* out, int j,
+                                    float v) {
+  if (out != nullptr) {
+    out[j] = v;
+  } else {
+    float one[1] = {v};
+    store<1>(p.dw, j, p.w_dtype, one);
+  }
+}
+
+__device__ __forceinline__ void sum_partials(const float* rows, int n,
+                                             int dim, float* out,
+                                             const BwdParams& p) {
+  const bool quads = dim % 4 == 0;
+  const int width = quads ? 4 : 1;
+  for (int j = threadIdx.x * width; j < dim;
+       j += static_cast<int>(blockDim.x) * width) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int b0 = 0; b0 < n; b0 += kRowsInFlight) {
+      float4 part[kRowsInFlight];
+#pragma unroll
+      for (int i = 0; i < kRowsInFlight; ++i) {
+        const float* at = rows + static_cast<long long>(b0 + i) * dim + j;
+        if (b0 + i < n) {
+          part[i] = quads ? __ldcg(reinterpret_cast<const float4*>(at))
+                          : make_float4(__ldcg(at), 0.f, 0.f, 0.f);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRowsInFlight; ++i) {
+        if (b0 + i < n) {
+          v.x = __fadd_rn(v.x, part[i].x);
+          v.y = __fadd_rn(v.y, part[i].y);
+          v.z = __fadd_rn(v.z, part[i].z);
+          v.w = __fadd_rn(v.w, part[i].w);
+        }
+      }
+    }
+    put(p, out, j, v.x);
+    if (quads) {
+      put(p, out, j + 1, v.y);
+      put(p, out, j + 2, v.z);
+      put(p, out, j + 3, v.w);
+    }
+  }
+}
+
+// Whether this block drew the last of n tickets of `counter`. The
+// block's barrier orders its threads' writes (its partial) before thread
+// 0's fence and ticket, whose release makes them visible at the card's
+// scope; the last ticket's acquire, and the barrier after it, order the
+// other blocks' writes before every thread's reads. One fence a block,
+// not one a thread: a fence in every thread measured slower on the
+// combine's chain at the train shape on the H100.
+__device__ __forceinline__ bool last_ticket(int* counter, int n,
+                                            int* ticket) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *ticket = take_ticket(counter);
+  }
+  __syncthreads();
+  return *ticket == n - 1;
+}
+
+// The two-level combine of the blocks' partials (written before) into dw,
+// each level in a fixed order; every counter it takes is left at 0.
+__device__ __forceinline__ void combine(const BwdParams& p, int* ticket) {
+  const int blocks = gridDim.x;
+  const int per = p.blocks_per_group;
+  const int groups = (blocks + per - 1) / per;
+  const int g = blockIdx.x / per;
+  const int first = g * per;
+  const int n = min(per, blocks - first);
+  if (!last_ticket(p.counters + g, n, ticket)) return;
+  // the group's partials in block order: dw itself for a single group
+  sum_partials(p.ws + static_cast<long long>(first) * p.dim, n, p.dim,
+               groups == 1 ? nullptr
+                           : p.ws + static_cast<long long>(blocks + g) * p.dim,
+               p);
+  if (threadIdx.x == 0) p.counters[g] = 0;
+  if (groups == 1) return;
+  if (!last_ticket(p.counters + groups, groups, ticket)) return;
+  // the groups' sums in group order
+  sum_partials(p.ws + static_cast<long long>(blocks) * p.dim, groups, p.dim,
+               nullptr, p);
+  if (threadIdx.x == 0) p.counters[groups] = 0;
+}
+
+// kLoads > 0: the register path (kLoads vectors a thread, packed where
+// kBf16); kLoads == 0: the two-pass loop for wider rows (a row a block).
+// kDs: ds is given and added into dx.
+template <int kVec, int kLoads, bool kBf16, bool kDs>
+__global__ void __launch_bounds__(backward_threads(kVec, kLoads, kBf16))
+    rms_norm_bwd_kernel(const BwdParams p) {
+  // dim floats: the groups' exchange of dw (register path), or the
+  // block's dw sums (two passes)
+  extern __shared__ float buf[];
+  __shared__ float sums[2][kBwdWarps];
+  __shared__ int ticket;
+  const int tpr = p.threads_per_row;
+  const int group = threadIdx.x / tpr;
+  const int t = threadIdx.x % tpr;
+  const int chunks = p.dim / kVec;
+  const int stride = static_cast<int>(gridDim.x) * p.rows_per_block;
+  float* partial = p.ws + static_cast<long long>(blockIdx.x) * p.dim;
+  int row = blockIdx.x * p.rows_per_block + group;
+  int parity = 0;
+  if constexpr (kLoads > 0) {
+    // the thread's columns of w, first: every row it takes needs them
+    Vec<kVec, kBf16> w[kLoads];
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int c = t + i * tpr;
+      if (c < chunks) w[i].load(p.w, c * kVec, p.w_dtype);
+    }
+    float acc[kLoads][kVec];
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[i][e] = 0.f;
+    }
+    // two rows held: the next one's loads go out before this one's sum
+    BwdRow<kVec, kLoads, kBf16, kDs> a, b;
+    load_bwd_row(p, row, t, chunks, a);
+    while (row < p.rows) {
+      load_bwd_row(p, row + stride, t, chunks, b);
+      finish_bwd_row(p, row, t, chunks, group, parity, sums, a, w, acc);
+      row += stride;
+      parity ^= 1;
+      if (row >= p.rows) break;
+      load_bwd_row(p, row + stride, t, chunks, a);
+      finish_bwd_row(p, row, t, chunks, group, parity, sums, b, w, acc);
+      row += stride;
+      parity ^= 1;
+    }
+    // the block's partial: its groups' sums in group order, the last
+    // group's added straight into the partial
+    for (int turn = 0; turn < p.rows_per_block; ++turn) {
+      if (group == turn) {
+        const bool last = turn == p.rows_per_block - 1;
+#pragma unroll
+        for (int i = 0; i < kLoads; ++i) {
+          const int c = t + i * tpr;
+          if (c >= chunks) continue;
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) {
+            const int j = c * kVec + e;
+            const float v =
+                turn == 0 ? acc[i][e] : __fadd_rn(buf[j], acc[i][e]);
+            if (last) {
+              partial[j] = v;
+            } else {
+              buf[j] = v;
+            }
+          }
+        }
+      }
+      if (turn + 1 < p.rows_per_block) __syncthreads();
+    }
+  } else {
+    // two passes (rows_per_block 1): the sum, then dx from the row read
+    // again (from L1 or L2); the thread's dw sums in buf, its own columns
+    for (int c = t; c < chunks; c += tpr) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) buf[c * kVec + e] = 0.f;
+    }
+    for (; row < p.rows; row += stride, parity ^= 1) {
+      const long long off = static_cast<long long>(row) * p.dim;
+      float cs = 0.f;
+      for (int c = t; c < chunks; c += tpr) {
         float dy[kVec], x[kVec], w[kVec];
         load<kVec>(p.dy, off + c * kVec, p.dy_dtype, dy);
         load<kVec>(p.x, off + c * kVec, p.x_dtype, x);
@@ -416,62 +677,40 @@ __global__ void __launch_bounds__(kMaxThreads)
           cs = __fmaf_rn(__fmul_rn(dy[e], w[e]), x[e], cs);
         }
       }
-    }
-    const float total = group_sum(cs, p.threads_per_row, sums);
-    if (!live) continue;
-    const float r = p.rstd[row];
-    const float k = __fdiv_rn(__fmul_rn(__fmul_rn(r, r), total),
-                              static_cast<float>(p.dim));
-    for (int c = t; c < chunks; c += p.threads_per_row) {
-      float dy[kVec], x[kVec], w[kVec], dx[kVec];
-      load<kVec>(p.dy, off + c * kVec, p.dy_dtype, dy);
-      load<kVec>(p.x, off + c * kVec, p.x_dtype, x);
-      load<kVec>(p.w, c * kVec, p.w_dtype, w);
-      if (p.ds != nullptr) {
-        load<kVec>(p.ds, off + c * kVec, p.ds_dtype, dx);
-      } else {
+      const float total = row_sum(cs, tpr >> 5, group, parity, sums);
+      const float r = p.rstd[row];
+      const float k = __fdiv_rn(__fmul_rn(__fmul_rn(r, r), total),
+                                static_cast<float>(p.dim));
+      for (int c = t; c < chunks; c += tpr) {
+        float dy[kVec], x[kVec], w[kVec], dx[kVec];
+        load<kVec>(p.dy, off + c * kVec, p.dy_dtype, dy);
+        load<kVec>(p.x, off + c * kVec, p.x_dtype, x);
+        load<kVec>(p.w, c * kVec, p.w_dtype, w);
+        if constexpr (kDs) load<kVec>(p.ds, off + c * kVec, p.ds_dtype, dx);
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) dx[e] = 0.f;
+        for (int e = 0; e < kVec; ++e) {
+          const float g = __fmul_rn(dy[e], w[e]);
+          const float v = __fmul_rn(r, __fsub_rn(g, __fmul_rn(x[e], k)));
+          if constexpr (kDs) {
+            dx[e] = __fadd_rn(v, dx[e]);
+          } else {
+            dx[e] = v;
+          }
+          const float n = round_to(__fmul_rn(x[e], r), p.x_dtype);
+          float* a = buf + c * kVec + e;
+          *a = __fadd_rn(*a, __fmul_rn(dy[e], n));
+        }
+        store<kVec>(p.dx, off + c * kVec, p.x_dtype, dx);
       }
+    }
+    for (int c = t; c < chunks; c += tpr) {
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
-        const float g = __fmul_rn(dy[e], w[e]);
-        const float v = __fmul_rn(r, __fsub_rn(g, __fmul_rn(x[e], k)));
-        dx[e] = p.ds != nullptr ? __fadd_rn(v, dx[e]) : v;
-        const float n = round_to(__fmul_rn(x[e], r), p.x_dtype);
-        float* a = mine + c * kVec + e;
-        *a = __fadd_rn(*a, __fmul_rn(dy[e], n));
+        partial[c * kVec + e] = buf[c * kVec + e];
       }
-      store<kVec>(p.dx, off + c * kVec, p.x_dtype, dx);
     }
   }
-  __syncthreads();
-  // the block's partial: its groups' sums in group order
-  float* partial = p.ws + static_cast<long long>(blockIdx.x) * p.dim;
-  for (int j = threadIdx.x; j < p.dim; j += blockDim.x) {
-    float v = 0.f;
-    for (int g = 0; g < p.rows_per_block; ++g) {
-      v = __fadd_rn(v, acc[static_cast<long long>(g) * p.dim + j]);
-    }
-    partial[j] = v;
-  }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) ticket = take_ticket(p.counter);
-  __syncthreads();
-  if (ticket != static_cast<int>(gridDim.x) - 1) return;
-  __threadfence();
-  // the last block: every partial in block order, read from L2
-  for (int j = threadIdx.x; j < p.dim; j += blockDim.x) {
-    float v = 0.f;
-#pragma unroll 8
-    for (int b = 0; b < static_cast<int>(gridDim.x); ++b) {
-      v = __fadd_rn(v, __ldcg(p.ws + static_cast<long long>(b) * p.dim + j));
-    }
-    float out[1] = {v};
-    store<1>(p.dw, j, p.w_dtype, out);
-  }
-  if (threadIdx.x == 0) *p.counter = 0;
+  combine(p, &ticket);
 }
 
 bool dtype_ok(int dtype) { return dtype == 0 || dtype == 1; }
@@ -480,12 +719,12 @@ bool dtype_ok(int dtype) { return dtype == 0 || dtype == 1; }
 int promoted(int a, int b) { return a == 0 || b == 0 ? 0 : 1; }
 
 bool layout_ok(int rows, int dim, int vec, int threads_per_row,
-               int rows_per_block) {
+               int rows_per_block, int max_threads) {
   return rows >= 1 && dim >= 1 && (vec == 1 || vec == 4 || vec == 8)
          && dim % vec == 0 && threads_per_row >= 32
          && threads_per_row % 32 == 0 && threads_per_row <= 256
          && rows_per_block >= 1
-         && threads_per_row * rows_per_block <= kMaxThreads;
+         && threads_per_row * rows_per_block <= max_threads;
 }
 
 template <typename Kernel>
@@ -537,6 +776,54 @@ FwdKernel forward_kernel(int vec, int loads, bool bf16) {
   return nullptr;
 }
 
+// The backward instance for vec, loads (0: the two-pass loop), packed
+// bfloat16 or not, with ds or without, or null
+using BwdKernel = void (*)(BwdParams);
+
+template <int kVec, bool kBf16, bool kDs>
+BwdKernel backward_instance(int loads) {
+  if (kBf16 && loads == 0) return nullptr;  // the two passes hold nothing
+  switch (loads) {
+    case 0: return rms_norm_bwd_kernel<kVec, 0, false, kDs>;
+    case 1: return rms_norm_bwd_kernel<kVec, 1, kBf16, kDs>;
+    case 2: return rms_norm_bwd_kernel<kVec, 2, kBf16, kDs>;
+    case kMaxLoads: return rms_norm_bwd_kernel<kVec, kMaxLoads, kBf16, kDs>;
+    default: return nullptr;
+  }
+}
+
+template <bool kDs>
+BwdKernel backward_kernel(int vec, int loads, bool bf16) {
+  if (vec == 8) {
+    return bf16 ? backward_instance<8, true, kDs>(loads)
+                : backward_instance<8, false, kDs>(loads);
+  }
+  if (bf16) return nullptr;
+  if (vec == 4) return backward_instance<4, false, kDs>(loads);
+  if (vec == 1) return backward_instance<1, false, kDs>(loads);
+  return nullptr;
+}
+
+// Whether the backward's register path holds its vectors packed: every
+// tensor bfloat16 (ds_dtype -1: no ds) at 8 a load
+bool backward_packs(int vec, int loads, int dy_dtype, int x_dtype,
+                    int w_dtype, int ds_dtype) {
+  return packs(vec, loads, dy_dtype, x_dtype, w_dtype) && ds_dtype != 0;
+}
+
+BwdKernel backward_kernel(int vec, int loads, bool packed, int ds_dtype) {
+  return ds_dtype < 0 ? backward_kernel<false>(vec, loads, packed)
+                      : backward_kernel<true>(vec, loads, packed);
+}
+
+// the backward's dynamic shared memory: dim floats
+size_t backward_smem(int dim) {
+  return sizeof(float) * static_cast<size_t>(dim);
+}
+
+// the shared memory a block may take at most on an H100
+constexpr size_t kMaxSmem = 227 * 1024;
+
 }  // namespace
 
 // h, delta (or null) (rows, dim) of h_dtype, delta_dtype; w (dim,) of
@@ -569,8 +856,8 @@ extern "C" int rms_norm_fwd(const void* h, const void* delta, const void* w,
   if (kernel == nullptr || h == nullptr || w == nullptr || y == nullptr
       || (delta == nullptr) != (s == nullptr) || !dtype_ok(h_dtype)
       || !dtype_ok(p.delta_dtype) || !dtype_ok(w_dtype)
-      || !layout_ok(rows, dim, vec, threads_per_row, rows_per_block)
-      || threads > kFwdThreads
+      || !layout_ok(rows, dim, vec, threads_per_row, rows_per_block,
+                    kFwdThreads)
       || (loads > 0 && static_cast<long long>(loads) * threads_per_row * vec
                            < dim)
       || blocks < 1 || blocks > groups
@@ -598,44 +885,82 @@ extern "C" int rms_norm_fwd_resident(int vec, int loads, int threads,
 
 // dy (rows, dim) of dy_dtype; x (rows, dim) of x_dtype, the normalised
 // input; w (dim,) of w_dtype; rstd (rows,) float32; ds (rows, dim) of
-// ds_dtype or null; dx (rows, dim) of x_dtype; dw (dim,) of w_dtype; ws
-// (splits, dim) float32; counter one int, 0 (every launch leaves it 0).
-// Block b takes rows [b * rows_per_split, (b + 1) * rows_per_split),
-// rows_per_block at a time; splits * rows_per_split >= rows and every
-// block has a row. vec, threads_per_row, rows_per_block as rms_norm_fwd.
+// ds_dtype or null; dx (rows, dim) of x_dtype; dw (dim,) of w_dtype; all
+// contiguous. ws (blocks + groups, dim) float32, where groups = ceil(blocks
+// / blocks_per_group) is at most kMaxCombineGroups; counters groups + 1
+// ints, 0 (every launch leaves them 0). Group g of block b takes rows b *
+// rows_per_block + g + k * blocks * rows_per_block; blocks is at most one
+// for each group of rows_per_block rows. vec, threads_per_row and loads
+// as rms_norm_fwd, rows_per_block 1 for loads 0, a block's threads at most
+// backward_threads; dim floats of shared memory a block.
 extern "C" int rms_norm_bwd(const void* dy, const void* x, const void* w,
                             const float* rstd, const void* ds, void* dx,
-                            void* dw, float* ws, int* counter, int rows,
-                            int dim, int splits, int rows_per_split,
-                            int dy_dtype, int x_dtype, int w_dtype,
+                            void* dw, float* ws, int* counters, int rows,
+                            int dim, int dy_dtype, int x_dtype, int w_dtype,
                             int ds_dtype, int vec, int threads_per_row,
-                            int rows_per_block, void* stream) {
-  const BwdParams p{dy, x, w, rstd, ds, dx, dw, ws, counter, rows, dim,
-                    threads_per_row, rows_per_block, rows_per_split,
+                            int rows_per_block, int loads, int blocks,
+                            int blocks_per_group, void* stream) {
+  const BwdParams p{dy, x, w, rstd, ds, dx, dw, ws, counters, rows, dim,
+                    threads_per_row, rows_per_block, blocks_per_group,
                     dy_dtype, x_dtype, w_dtype,
                     ds != nullptr ? ds_dtype : x_dtype};
   using vector_io::aligned;
-  const size_t smem = sizeof(float) * static_cast<size_t>(rows_per_block)
-                      * static_cast<size_t>(dim);
-  if (dy == nullptr || x == nullptr || w == nullptr || rstd == nullptr
-      || dx == nullptr || dw == nullptr || ws == nullptr
-      || counter == nullptr || !dtype_ok(dy_dtype) || !dtype_ok(x_dtype)
+  const int ds_code = ds != nullptr ? p.ds_dtype : -1;
+  const bool packed =
+      backward_packs(vec, loads, dy_dtype, x_dtype, w_dtype, ds_code);
+  const BwdKernel kernel = backward_kernel(vec, loads, packed, ds_code);
+  const long long groups = (rows + static_cast<long long>(rows_per_block)
+                            - 1) / rows_per_block;
+  const size_t smem = backward_smem(dim);
+  if (kernel == nullptr || dy == nullptr || x == nullptr || w == nullptr
+      || rstd == nullptr || dx == nullptr || dw == nullptr || ws == nullptr
+      || counters == nullptr || !dtype_ok(dy_dtype) || !dtype_ok(x_dtype)
       || !dtype_ok(w_dtype) || !dtype_ok(p.ds_dtype)
-      || !layout_ok(rows, dim, vec, threads_per_row, rows_per_block)
-      || splits < 1 || rows_per_split < 1
-      || static_cast<long long>(splits - 1) * rows_per_split >= rows
-      || static_cast<long long>(splits) * rows_per_split < rows
-      || smem > 227 * 1024 || !aligned(dy, vec, dy_dtype)
+      || !layout_ok(rows, dim, vec, threads_per_row, rows_per_block,
+                    backward_threads(vec, loads, packed))
+      || (loads > 0 && static_cast<long long>(loads) * threads_per_row * vec
+                           < dim)
+      || (loads == 0 && rows_per_block != 1)
+      || blocks < 1 || blocks > groups || blocks_per_group < 1
+      || (blocks + blocks_per_group - 1) / blocks_per_group
+             > kMaxCombineGroups
+      || smem > kMaxSmem || !aligned(dy, vec, dy_dtype)
       || !aligned(x, vec, x_dtype) || !aligned(w, vec, w_dtype)
       || !aligned(ds, vec, p.ds_dtype) || !aligned(dx, vec, x_dtype)) {
     return cudaErrorInvalidValue;
   }
-  const int threads = threads_per_row * rows_per_block;
-  if (vec == 8) return launch(rms_norm_bwd_kernel<8>, splits, threads, smem,
-                              stream, &p);
-  if (vec == 4) return launch(rms_norm_bwd_kernel<4>, splits, threads, smem,
-                              stream, &p);
-  return launch(rms_norm_bwd_kernel<1>, splits, threads, smem, stream, &p);
+  return launch(kernel, static_cast<unsigned>(blocks),
+                threads_per_row * rows_per_block, smem, stream, &p);
+}
+
+// Blocks of `threads` threads of the backward instance that rms_norm_bwd
+// launches for (vec, loads), a row of dim and these dtypes (ds_dtype -1
+// without ds) that fit on one SM of the current device, or -1 for an
+// instance that does not exist or a failed query.
+extern "C" int rms_norm_bwd_resident(int vec, int loads, int threads,
+                                     int dim, int dy_dtype, int x_dtype,
+                                     int w_dtype, int ds_dtype) {
+  const bool packed =
+      backward_packs(vec, loads, dy_dtype, x_dtype, w_dtype, ds_dtype);
+  const BwdKernel kernel = backward_kernel(vec, loads, packed, ds_dtype);
+  const size_t smem = backward_smem(dim);
+  if (kernel == nullptr || threads < 32
+      || threads > backward_threads(vec, loads, packed) || smem > kMaxSmem) {
+    return -1;
+  }
+  if (smem > 48 * 1024
+      && cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem)) != cudaSuccess) {
+    return -1;
+  }
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, reinterpret_cast<const void*>(kernel), threads, smem)
+      != cudaSuccess) {
+    return -1;
+  }
+  return blocks < 1 ? 1 : blocks;
 }
 
 // The text of a cudaError_t that rms_norm_fwd or rms_norm_bwd returned.

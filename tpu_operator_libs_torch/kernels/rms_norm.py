@@ -20,7 +20,9 @@ input, the weight and ``rstd`` (float32, one a row) and whose backward is
 :func:`rms_norm_bwd`: the backward kernel on the card, the explicit plain
 formula :func:`rms_norm_backward_reference` on the CPU. The backward
 kernel adds the incoming gradient of the residual output into ``dx`` and
-sums ``dw`` over every row in a fixed order inside its one launch, so
+sums ``dw`` over every row in a fixed order inside its one launch (each
+thread's columns in registers over its rows, then the block's groups,
+then a two-level combine of the blocks' partials: :func:`plan`), so
 repeated launches and graph replays give the same bits. The row sums
 differ in order from PyTorch's, so the kernels are held to their plain
 versions within a tolerance, not bit for bit.
@@ -31,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 
@@ -41,9 +44,12 @@ SOURCE = "rms_norm.cu"
 EPS = 1e-5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: threads a block of the forward and of the backward kernel at most
-#: (``kFwdThreads`` and ``kMaxThreads`` in the source)
+#: (``kFwdThreads`` and ``kBwdThreads`` in the source); the backward's
+#: where a thread holds more than 8 registers of each array of a row
+#: (``backward_threads``: its instances then take over 128 registers)
 FORWARD_THREADS = 256
-BACKWARD_THREADS = 1024
+BACKWARD_THREADS = 512
+WIDE_BACKWARD_THREADS = 256
 #: the most threads a row takes, and an H100's shared memory a block
 MAX_THREADS_PER_ROW = 256
 MAX_SMEM_BYTES = 227 * 1024
@@ -58,9 +64,19 @@ LOADS = (0, 1, 2, 4)
 #: the fastest at the decode step and the prefill block, and at the train
 #: step, of 1, 2, 4 and 8 (``norm_gate_variants.py``, PERF.md)
 TARGET_LOADS = (1, 2)
+#: the vectors of a row a thread of the backward aims to hold: two (128
+#: threads a row of 2,048, four rows a block), at every row count; of 1,
+#: 2 and 4 the fastest at the train shape on the H100 (``chip_smoke.py``
+#: phase 3f's ``layouts_ms``, PERF.md)
+BACKWARD_TARGET_LOADS = 2
+#: the backward's combine groups of blocks at most (``kMaxCombineGroups``),
+#: and the blocks up to which one level adds every partial (the rows of
+#: partials whose loads the combine issues at once, ``kRowsInFlight``)
+COMBINE_GROUPS = 64
+ONE_LEVEL_BLOCKS = 16
 _lib = None
-#: the backward's ticket counter by (device index, stream): one int, 0
-#: between launches
+#: the backward's ticket counters by (device index, stream): one for
+#: each combine group and one for the second level, 0 between launches
 _counters: "dict[tuple[int, int], torch.Tensor]" = {}
 
 
@@ -106,17 +122,17 @@ def rms_norm_backward_reference(dy, x, weight, rstd, ds=None):
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """How a kernel runs: a group of ``threads_per_row`` threads a row,
-    ``rows_per_block`` groups a block; the forward's threads hold
-    ``loads`` vectors each (0: the two-pass loop) and its ``blocks``
-    blocks stride over the groups of rows; the backward's ``splits``
-    blocks each take ``rows_per_split`` rows (the C entry checks it)."""
+    ``rows_per_block`` groups a block, each thread holding ``loads``
+    vectors of a row (0: the two-pass loop); the ``blocks`` blocks stride
+    over the groups of rows. The backward's blocks fall into combine
+    groups of ``blocks_per_group`` for dw's two-level combine (the C
+    entry checks it)."""
 
     threads_per_row: int
     rows_per_block: int
-    splits: int = 0
-    rows_per_split: int = 0
     loads: int = 0
     blocks: int = 0
+    blocks_per_group: int = 0
 
 
 def _row_layout(vectors: int, target: int) -> "tuple[int, int]":
@@ -134,7 +150,7 @@ def _row_layout(vectors: int, target: int) -> "tuple[int, int]":
 
 
 def plan(rows: int, dim: int, vec: int, sms: int, backward: bool = False,
-         resident=None, add: bool = False) -> Plan:
+         resident=None, add: bool = False, bf16: bool = False) -> Plan:
     """The launch for ``rows`` rows of ``dim`` at ``vec`` elements a load
     on a card of ``sms`` SMs, from these alone.
 
@@ -145,29 +161,41 @@ def plan(rows: int, dim: int, vec: int, sms: int, backward: bool = False,
     the rows over the SMs. Without the add a grid of the resident blocks
     strides over the groups of rows; with it (``add``) there is a block
     for every group, which measured faster at the train shape.
-    Backward: a thread a vector up to 256 threads a row, in blocks of up
-    to 1024 threads (their partial dw in shared memory, rows_per_block x
-    dim floats), one block an SM at most."""
+    Backward: ``BACKWARD_TARGET_LOADS`` vectors a thread (the two-pass
+    loop, a row a block, past the register budget), up to 512 threads of
+    rows a block (256 where a thread holds more than 8 registers of each
+    array of a row: 16 elements packed, every tensor ``bf16`` at 8 a
+    load, else 8), no more rows a block than spread the rows over the SMs, a grid
+    of the resident blocks striding over the groups of rows; dw's combine
+    in one level up to ``ONE_LEVEL_BLOCKS`` blocks, else in groups of
+    about the square root of the blocks, at most ``COMBINE_GROUPS``.
+    Every width whose dw sums fit a block's shared memory (dim floats) is
+    taken."""
     vectors = -(-dim // vec)
-    if not backward:
-        per_sm = resident or (lambda loads, threads: 1)
-        per_row, loads = _row_layout(vectors, TARGET_LOADS[0])
-        if rows > sms * per_sm(loads, per_row):
-            per_row, loads = _row_layout(vectors, TARGET_LOADS[1])
-        per_block = max(1, min(FORWARD_THREADS // per_row, -(-rows // sms)))
+    per_sm = resident or (lambda loads, threads: 1)
+    if backward:
+        if 4 * dim > MAX_SMEM_BYTES:
+            raise ValueError(f"width {dim} needs more shared memory than a "
+                             "block has for its dw sums")
+        per_row, loads = _row_layout(vectors, BACKWARD_TARGET_LOADS)
+        packed = bf16 and vec == 8 and loads > 0
+        threads = BACKWARD_THREADS if loads * vec <= (16 if packed else 8) \
+            else WIDE_BACKWARD_THREADS
+        per_block = 1 if loads == 0 else max(
+            1, min(threads // per_row, -(-rows // sms)))
         groups = -(-rows // per_block)
-        blocks = groups if add else min(
-            groups, sms * per_sm(loads, per_row * per_block))
-        return Plan(per_row, per_block, loads=loads, blocks=blocks)
-    per_row = min(MAX_THREADS_PER_ROW, max(32, -(-vectors // 32) * 32))
-    groups = min(max(1, BACKWARD_THREADS // per_row),
-                 MAX_SMEM_BYTES // (4 * dim))
-    if groups < 1:
-        raise ValueError(f"width {dim} needs more shared memory than a "
-                         "block has for its partial dw")
-    splits = max(1, min(sms, -(-rows // groups)))
-    per_split = -(-rows // splits)
-    return Plan(per_row, groups, -(-rows // per_split), per_split)
+        blocks = min(groups, sms * per_sm(loads, per_row * per_block))
+        per_group = blocks if blocks <= ONE_LEVEL_BLOCKS else max(
+            math.isqrt(blocks - 1) + 1, -(-blocks // COMBINE_GROUPS))
+        return Plan(per_row, per_block, loads, blocks, per_group)
+    per_row, loads = _row_layout(vectors, TARGET_LOADS[0])
+    if rows > sms * per_sm(loads, per_row):
+        per_row, loads = _row_layout(vectors, TARGET_LOADS[1])
+    per_block = max(1, min(FORWARD_THREADS // per_row, -(-rows // sms)))
+    groups = -(-rows // per_block)
+    blocks = groups if add else min(
+        groups, sms * per_sm(loads, per_row * per_block))
+    return Plan(per_row, per_block, loads=loads, blocks=blocks)
 
 
 def vector_width(dim: int, *tensors) -> int:
@@ -215,6 +243,34 @@ def forward_plan(rows: int, dim: int, vec: int, index: int, add: bool,
                 add=add)
 
 
+@functools.cache
+def _bwd_resident(index: int, dtypes: "tuple[int, int, int, int]",
+                  vec: int, dim: int, loads: int, threads: int) -> int:
+    """Blocks of ``threads`` threads of the backward instance for (vec,
+    loads), a row of ``dim`` and the dtype codes of dy, x, w and ds (-1
+    without ds) that fit on one SM of card ``index``."""
+    with torch.cuda.device(index):
+        blocks = _library().rms_norm_bwd_resident(vec, loads, threads, dim,
+                                                  *dtypes)
+    if blocks < 1:
+        raise RuntimeError(f"rms_norm_bwd: no occupancy for vec {vec}, "
+                           f"loads {loads}, {threads} threads, dim {dim}, "
+                           f"dtypes {dtypes}")
+    return blocks
+
+
+def backward_plan(rows: int, dim: int, vec: int, index: int,
+                  dtypes=(torch.bfloat16,) * 4) -> Plan:
+    """:func:`plan` of the backward on card ``index``, with its SMs and
+    the resident blocks of the instance it launches for the dtypes of
+    dy, x, w and ds (None without ds)."""
+    codes = tuple(-1 if d is None else _DTYPE_CODES[d] for d in dtypes)
+    return plan(rows, dim, vec, sm_count(index), backward=True,
+                resident=functools.partial(_bwd_resident, index, codes, vec,
+                                           dim),
+                bf16=all(d in (None, torch.bfloat16) for d in dtypes))
+
+
 def _check(h, delta, weight) -> None:
     named = {"h": h, "delta": delta, "weight": weight}
     for name, t in named.items():
@@ -258,8 +314,10 @@ def _library():
                 ctypes.c_int, ctypes.c_int, ctypes.c_float]
             + [ctypes.c_int] * 8 + [ctypes.c_void_p],
             "rms_norm_fwd_resident": [ctypes.c_int] * 6,
-            "rms_norm_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
-            + [ctypes.c_void_p]}, "rms_norm_error_string")
+            "rms_norm_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
+            + [ctypes.c_void_p],
+            "rms_norm_bwd_resident": [ctypes.c_int] * 8},
+            "rms_norm_error_string")
     return _lib
 
 
@@ -299,10 +357,11 @@ def _launch_forward(h, delta, weight, eps, want_rstd):
     return s, y, rstd
 
 
-def _ticket_counter(device: torch.device, stream) -> torch.Tensor:
-    """The backward's ticket counter on ``stream``: one int, zeroed once,
-    outside any graph capture; every launch leaves it 0. A capture records
-    its address, so it lives as long as the process."""
+def _ticket_counters(device: torch.device, stream) -> torch.Tensor:
+    """The backward's ticket counters on ``stream``: ``COMBINE_GROUPS``
+    + 1 ints, zeroed once, outside any graph capture; every launch leaves
+    them 0. A capture records their address, so they live as long as the
+    process."""
     key = (device.index, stream.cuda_stream)
     counter = _counters.get(key)
     if counter is None:
@@ -311,7 +370,8 @@ def _ticket_counter(device: torch.device, stream) -> torch.Tensor:
                 "rms_norm_bwd: the first call on a stream must not be "
                 "captured (its counter is zeroed then); run one eager call "
                 "on the capturing stream first")
-        counter = torch.zeros(1, dtype=torch.int32, device=device)
+        counter = torch.zeros(COMBINE_GROUPS + 1, dtype=torch.int32,
+                              device=device)
         _counters[key] = counter
     return counter
 
@@ -343,23 +403,24 @@ def rms_norm_bwd(dy, x, weight, rstd, ds=None):
         return dx, torch.zeros_like(weight)
     dw = torch.empty_like(weight)
     vec = vector_width(dim, dy, x, weight, ds, dx)
-    p = plan(rows, dim, vec, sm_count(x.device.index), backward=True)
+    p = backward_plan(rows, dim, vec, x.device.index, (
+        dy.dtype, x.dtype, weight.dtype, None if ds is None else ds.dtype))
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device)
-        counter = _ticket_counter(x.device, stream)
-        # the blocks' partial dw; allocated here, so inside a captured
-        # graph it comes from the graph's pool
-        ws = torch.empty((p.splits, dim), dtype=torch.float32,
-                         device=x.device)
+        counters = _ticket_counters(x.device, stream)
+        # the blocks' partial dw, then the combine groups' sums; allocated
+        # here, so inside a captured graph it comes from the graph's pool
+        ws = torch.empty((p.blocks + -(-p.blocks // p.blocks_per_group),
+                          dim), dtype=torch.float32, device=x.device)
         err = lib.rms_norm_bwd(
             dy.data_ptr(), x.data_ptr(), weight.data_ptr(), rstd.data_ptr(),
             _ptr(ds), dx.data_ptr(), dw.data_ptr(), ws.data_ptr(),
-            counter.data_ptr(), rows, dim, p.splits, p.rows_per_split,
-            _DTYPE_CODES[dy.dtype], _DTYPE_CODES[x.dtype],
-            _DTYPE_CODES[weight.dtype],
+            counters.data_ptr(), rows, dim, _DTYPE_CODES[dy.dtype],
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[weight.dtype],
             _DTYPE_CODES[ds.dtype] if ds is not None else 0, vec,
-            p.threads_per_row, p.rows_per_block, stream.cuda_stream)
+            p.threads_per_row, p.rows_per_block, p.loads, p.blocks,
+            p.blocks_per_group, stream.cuda_stream)
     raise_on(err, lib.rms_norm_error_string, "rms_norm_bwd", f" ({p})")
     rms_norm_bwd.launches += 1
     return dx, dw
