@@ -90,7 +90,17 @@ exits non-zero without printing a result. Phases:
    clip with a norm above and below its limit, weight decay 1e-4 and 0:
    new p, m and v bit-equal, the inputs unchanged, the launch contract of
    the kernel alone, timed beside the plain version and
-   ``torch._fused_adamw_``.
+   ``torch._fused_adamw_``; the loss's forward and backward kernels
+   against their plain version and its autograd at the train step's
+   logits (16, 1024, 2048) bf16, f32, an odd vocabulary (1001), a
+   128,256-wide one at few rows and a ring block (S_used = S): the loss
+   within 1e-5 relative, dlogits within one bf16 ulp (f32: 1e-5 relative
+   plus 2^-20 of the gradient's scale) and 0 past S_used, the launch
+   contract, timed beside the plain version
+   and ``F.cross_entropy`` (forward, backward, and both); the clip's
+   global norm over the 39 leaves in bf16 and f32 within 1e-5 relative,
+   the launch contract, timed beside the plain version and
+   ``torch._foreach_norm``.
 4-6. the serving path, with the launch counts set to 0 just before it:
    ``forward`` of llama-277M with ``attention_impl="flash"`` against
    ``"xla"``; the decode contract (stepwise cache == batch forward, host
@@ -103,9 +113,13 @@ exits non-zero without printing a result. Phases:
    bench's shape through the graph and the host loop.
 7-8. the training path, with the launch counts set to 0 just before it:
    6 steps of ``make_train_step`` (flash, batch 16, seq 1024, bf16; RoPE
-   and its backward once a layer, AdamW once a step), the update's own
-   time, its gradients against ``"xla"`` and against ``remat=True``; then
-   save ->
+   and its backward once a layer, the loss and its backward and AdamW
+   once a step), the update's own time, the loss's device time by its
+   kernels and by the plain version, its gradients against ``"xla"`` and
+   against ``remat=True``; then the clipped trainer configuration
+   (``--grad-clip-norm`` 1.0 behind the warmup-cosine schedule: the
+   global norm once a step, the first loss bit-equal to the unclipped
+   run's, the first step's norm and whether the clip bound); then save ->
    checkpoint gate -> restore into another seed's state -> the next
    loss equal bit for bit.
 9. multichip, with the launch counts set to 0 just before it in its
@@ -154,6 +168,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
 from tpu_operator_libs_torch.examples.llama import (  # noqa: E402
@@ -236,6 +251,10 @@ from tpu_operator_libs_torch.kernels.swiglu import (  # noqa: E402
     vector_width as gate_vector_width,
 )
 from tpu_operator_libs_torch.kernels import adamw as adamw_mod  # noqa: E402
+from tpu_operator_libs_torch.kernels import (  # noqa: E402
+    cross_entropy as loss_mod,
+    global_norm as gnorm_mod,
+)
 from tpu_operator_libs_torch.kernels import rope as rope_mod  # noqa: E402
 from tpu_operator_libs_torch.kernels.rope import (  # noqa: E402
     rope_bwd,
@@ -560,6 +579,21 @@ def phase_build():
                                "a thread",
                      "dynamic_smem_bytes": 0}),
                     "backward": rk.group(2) == "1", "vec": int(rk.group(3))})
+                continue
+            ce = re.search(r"\d(cross_entropy_(?:wide|fwd|bwd)_kernel)"
+                           r"ILi(\d)E", block)
+            if ce is not None:
+                entries.append({**ptxas_entry(
+                    block, ce.group(1), "any", None,
+                    {"design": loss_design(ce.group(1), int(ce.group(2))),
+                     "dynamic_smem_bytes": 0}), "vec": int(ce.group(2))})
+                continue
+            gn = re.search(r"\d(global_norm_kernel)ILi(\d)E", block)
+            if gn is not None:
+                entries.append({**ptxas_entry(
+                    block, gn.group(1), "any", None,
+                    {"design": global_norm_design(int(gn.group(2))),
+                     "dynamic_smem_bytes": 0}), "vec": int(gn.group(2))})
                 continue
             ak = re.search(r"\d(adamw_kernel)ILi(\d)E", block)
             if ak is not None:
@@ -1755,7 +1789,7 @@ def bytes_bound_ms(nbytes):
 
 
 def flat_bytes(*tensors):
-    return torch.cat([t.contiguous().view(torch.uint8).flatten()
+    return torch.cat([t.reshape(-1).contiguous().view(torch.uint8)
                       for t in tensors if t is not None])
 
 
@@ -2256,8 +2290,8 @@ ROPE_SHAPES = [
 def bit_equal(got, want) -> bool:
     """The same bits (not only equal values: -0 and +0 differ)."""
     return all(a.dtype == b.dtype and a.shape == b.shape
-               and torch.equal(a.contiguous().view(torch.uint8),
-                               b.contiguous().view(torch.uint8))
+               and torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                               b.reshape(-1).contiguous().view(torch.uint8))
                for a, b in zip(got, want))
 
 
@@ -2485,21 +2519,236 @@ def check_adamw_case(label, dtype, options, count, leaves, card):
     return row
 
 
+#: (label, B, S, V, dtype, S_used, gradient, iters) of phase 3g's loss
+#: rows: the train step's logits (its first row), phase 7's f32
+#: gradients at batch 2, an odd vocabulary (element loads), Llama 3's
+#: 128,256-wide vocabulary at few rows (the wide rows' loop) and a ring
+#: block of four at the train shape, whose S_used is S and whose loss
+#: takes a share of 1/4 of the gradient
+LOSS_SHAPES = [
+    ("train", TRAIN_BATCH, 1024, 2048, torch.bfloat16, 1023, 1.0, 20),
+    ("f32", 2, 1024, 2048, torch.float32, 1023, 1.0, 50),
+    ("odd_vocab_1001", 4, 256, 1001, torch.bfloat16, 255, 1.0, 50),
+    ("vocab_128256", 2, 16, 128256, torch.bfloat16, 15, 1.0, 50),
+    ("ring_block", TRAIN_BATCH, 256, 2048, torch.bfloat16, 256, 0.25, 50),
+]
+#: the loss against its plain version: float32 on both sides, each row's
+#: sum of exps in another order (the kept log-sum within a few float32
+#: ulps), so 1e-5 relative, not bit for bit
+LOSS_RTOL = 1e-5
+#: float32 dlogits: exp(log p) carries the log-sum's few ulps (1e-5 of
+#: the value), and the target's element, gp - p * gp, cancels as p nears
+#: 1 and keeps an absolute error of a few ulps of gp = g / (B * S_used)
+#: (2^-20 of it); bfloat16 dlogits: both round the same float32 work to
+#: bfloat16 once, so one ulp
+DLOGITS_F32_RTOL, DLOGITS_F32_GP_ATOL = 1e-5, 2.0 ** -20
+DLOGITS_BF16_ULPS = 1
+#: the clip's norm and each leaf's sum of squares: float32 sums in other
+#: orders
+GLOBAL_NORM_RTOL = 1e-5
+
+
+def loss_design(kernel, vec) -> str:
+    if kernel == "cross_entropy_fwd_kernel":
+        return (f"a warp a row of up to 2,048 held in registers, {vec} "
+                "elements a load; the mean's partials added in order by "
+                "the last ticket")
+    if kernel == "cross_entropy_wide_kernel":
+        return (f"a block a row, an online (max, sum) a thread, {vec} "
+                "elements a load; the mean's partials added in order by "
+                "the last ticket")
+    return (f"a warp a row and 2,048 columns, {vec} elements a load, "
+            "log p recomputed from the kept (max, log-sum)")
+
+
+def global_norm_design(vec) -> str:
+    return (f"one launch over the AdamW table's leaves, {vec} elements a "
+            "load, chunks of 8 vectors a thread; each leaf's partials, then "
+            "the leaves, added in order by the last ticket")
+
+
+def check_loss_shape(label, batch, seq, vocab, dtype, used, gradient, iters,
+                     card):
+    """The loss's forward and backward kernels against their plain
+    versions (``next_token_loss_reference`` and its autograd, what the
+    path ran before) at one shape: the loss within LOSS_RTOL, dlogits
+    within DLOGITS_BF16_ULPS (bf16) or the f32 limit and exactly 0 past
+    S_used; the launch contract of each; times in CUDA graphs beside the
+    plain versions (the backward's by autograd, eagerly) and
+    ``F.cross_entropy`` on the (N, V) rows, which rounds log p to the
+    logits' dtype: a yardstick, not an oracle. Returns (forward row,
+    backward row)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    logits = (3.0 * torch.randn((batch, seq, vocab), generator=gen,
+                                device="cuda")).to(dtype)
+    targets = torch.randint(0, vocab, (batch, used), generator=gen,
+                            device="cuda")
+    grad = torch.tensor(gradient, device="cuda")
+
+    def fwd():
+        return loss_mod.cross_entropy_fwd(logits, targets)
+
+    def bwd(stats):
+        return (loss_mod.cross_entropy_bwd(logits, targets, stats, grad),)
+
+    got, again = fwd(), fwd()
+    stats = got[1]
+    dgot, dagain = bwd(stats), bwd(stats)
+    x = logits.clone().requires_grad_()
+    want = loss_mod.next_token_loss_reference(x, targets)
+    (dwant,) = torch.autograd.grad(want, x, grad)
+    want = want.detach()
+    torch.cuda.synchronize()
+    loss_err = abs(float(got[0]) - float(want)) / abs(float(want))
+    gp = gradient / targets.numel()
+    rest_zero = not dgot[0][:, used:].any()
+    if dtype == torch.bfloat16:
+        ulps = max_ulp(dgot[0], dwant)
+        d_ok, d_use = ulps <= DLOGITS_BF16_ULPS, ulps / DLOGITS_BF16_ULPS
+    else:
+        ulps = max_ulp(dgot[0], dwant)
+        d_use = float(((dgot[0] - dwant).abs() / (
+            DLOGITS_F32_RTOL * dwant.abs() + DLOGITS_F32_GP_ATOL * gp))
+            .max())
+        d_ok = d_use <= 1
+    d_err = float((dgot[0].float() - dwant.float()).abs().max())
+    if not (loss_err <= LOSS_RTOL and d_ok and rest_zero
+            and torch.isfinite(got[0])):
+        raise RuntimeError(
+            f"cross_entropy at {label}: loss {float(got[0])!r} against "
+            f"{float(want)!r} (relative {loss_err}), dlogits max ulp {ulps} "
+            f"(limit use {d_use}), rows past S_used zero {rest_zero}")
+    common = {"phase": "train_kernels", "shape": label, "B": batch, "S": seq,
+              "V": vocab, "S_used": used, "dtype": dtype_name(dtype),
+              "vec": loss_mod.vector_width(logits), "card": card}
+    # the library's yardstick on the used rows, copied out beforehand
+    rows = logits[:, :used].reshape(-1, vocab).contiguous()
+    flat = targets.reshape(-1)
+    lib_x = rows.clone().requires_grad_()
+    lib_loss = F.cross_entropy(lib_x, flat)
+    plain_loss = loss_mod.next_token_loss_reference(x, targets)
+    wide = vocab > 2048
+    fwd_row = {
+        **common, "name": "cross_entropy",
+        **check_launch_contract("cross_entropy", label, fwd, got, again),
+        "design": loss_design("cross_entropy_wide_kernel" if wide
+                              else "cross_entropy_fwd_kernel",
+                              common["vec"]),
+        "ptxas": instance_ptxas(
+            "cross_entropy.cu", "cross_entropy_wide_kernel" if wide
+            else "cross_entropy_fwd_kernel", vec=common["vec"]),
+        "loss": float(got[0]), "plain_loss": float(want),
+        "max_abs_err": abs(float(got[0]) - float(want)),
+        "rel_err": loss_err, "rel_tol": LOSS_RTOL,
+        "kernel_ms": graph_ms(fwd, iters),
+        "plain_ms": graph_ms(
+            lambda: loss_mod.next_token_loss_reference(logits, targets),
+            max(2, iters // 5)),
+        "library": "F.cross_entropy on the (N, V) rows (log p rounded to "
+                   "the logits' dtype)",
+        "library_ms": graph_ms(lambda: F.cross_entropy(rows, flat), iters)}
+    fwd_row["bound_ms"], fwd_row["bound_by"] = bytes_bound_ms(
+        tensor_bytes(rows, flat, stats) + 4)
+    emit(fwd_row)
+    bwd_row = {
+        **common, "name": "cross_entropy_bwd", "gradient": gradient,
+        **check_launch_contract("cross_entropy_bwd", label,
+                                lambda: bwd(stats), dgot, dagain),
+        "design": loss_design("cross_entropy_bwd_kernel", common["vec"]),
+        "ptxas": instance_ptxas("cross_entropy.cu",
+                                "cross_entropy_bwd_kernel",
+                                vec=common["vec"]),
+        "max_abs_err": d_err, "max_ulp_vs_plain": ulps, "limit_use": d_use,
+        "rows_past_s_used_zero": True,
+        "kernel_ms": graph_ms(lambda: bwd(stats), iters),
+        "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+            plain_loss, x, grad, retain_graph=True), max(2, iters // 5)),
+        "library": "F.cross_entropy's backward on the (N, V) rows",
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+            lib_loss, lib_x, retain_graph=True), iters),
+        # the loss's whole work in the step: forward and backward
+        "kernel_fwd_bwd_ms": graph_ms(lambda: bwd(fwd()[1]), iters),
+        "plain_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+            loss_mod.next_token_loss_reference(x, targets), x, grad),
+            max(2, iters // 5)),
+        "library_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+            F.cross_entropy(lib_x, flat), lib_x), iters)}
+    bwd_row["bound_ms"], bwd_row["bound_by"] = bytes_bound_ms(
+        tensor_bytes(rows, flat, stats, grad, logits))
+    emit(bwd_row)
+    del logits, x, dwant, dgot, dagain, got, again, rows, lib_x, lib_loss
+    del plain_loss, want
+    torch.cuda.empty_cache()
+    return fwd_row, bwd_row
+
+
+def check_global_norm_case(label, dtype, grads, card):
+    """The clip's global norm (``sum_of_squares`` with the norm: one
+    launch over llama-277M's 39 leaves) against its plain version: each
+    leaf's sum of squares and the norm within GLOBAL_NORM_RTOL, and
+    ``parallel.global_norm`` the same launch's norm bit for bit; the
+    launch contract; times in CUDA graphs beside the plain version and
+    ``torch._foreach_norm`` (each leaf's norm in its dtype, not summed:
+    a yardstick that reads every leaf once)."""
+
+    def call():
+        return gnorm_mod.sum_of_squares(grads, norm=True)
+
+    got, again = call(), call()
+    plain = gnorm_mod.sum_of_squares_reference(grads)
+    want_sums, want = torch.stack(plain), torch.sqrt(sum(plain))
+    via_parallel = global_norm(grads)
+    torch.cuda.synchronize()
+    rel = max(float(((got[0] - want_sums).abs() / want_sums).max()),
+              abs(float(got[1]) - float(want)) / float(want))
+    same = bool(torch.equal(via_parallel, got[1]))
+    if not (rel <= GLOBAL_NORM_RTOL and same):
+        raise RuntimeError(f"global_norm at {label}: relative error {rel}, "
+                           f"parallel.global_norm the kernel's {same}")
+    row = {"phase": "train_kernels", "name": "global_norm", "shape": label,
+           "leaves": len(grads), "elements": sum(g.numel() for g in grads),
+           "dtype": dtype_name(dtype),
+           "vec": adamw_mod.vector_width(*grads),
+           **check_launch_contract("global_norm", label, call, got, again),
+           "design": global_norm_design(adamw_mod.vector_width(*grads)),
+           "ptxas": instance_ptxas("adamw.cu", "global_norm_kernel",
+                                   vec=adamw_mod.vector_width(*grads)),
+           "norm": float(got[1]), "plain_norm": float(want),
+           "max_abs_err": abs(float(got[1]) - float(want)), "rel_err": rel,
+           "rel_tol": GLOBAL_NORM_RTOL, "parallel_global_norm_equal": True,
+           "kernel_ms": graph_ms(call, 20),
+           "plain_ms": graph_ms(lambda: torch.sqrt(sum(
+               gnorm_mod.sum_of_squares_reference(grads))), 5),
+           "library": "torch._foreach_norm (each leaf's norm in its dtype)",
+           "library_ms": graph_ms(lambda: torch._foreach_norm(grads), 20),
+           "card": card}
+    row["bound_ms"], row["bound_by"] = bytes_bound_ms(tensor_bytes(*grads))
+    emit(row)
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_train_kernels(card):
-    """Phase 3g: (rope rows, rope_bwd rows, adamw rows); the first of each
-    is its kernel's line entry's: the flash train step's RoPE and its
-    backward, the bf16 train step's update."""
+    """Phase 3g: (rope rows, rope_bwd rows, adamw rows, cross_entropy
+    rows, cross_entropy_bwd rows, global_norm rows); the first of each is
+    its kernel's line entry's: the flash train step's RoPE and its
+    backward, the bf16 train step's update, loss and norm."""
     rope_rows = [row for shape in ROPE_SHAPES
                  for row in check_rope_shape(*shape, card)]
-    rows = []
+    loss_rows = [row for shape in LOSS_SHAPES
+                 for row in check_loss_shape(*shape, card)]
+    rows, norm_rows = [], []
     for dtype in (torch.bfloat16, torch.float32):
         leaves = adamw_leaves(dtype)
         rows += [check_adamw_case(label, d, options, count, leaves, card)
                  for label, d, options, count in ADAMW_CASES if d == dtype]
+        norm_rows.append(check_global_norm_case(
+            f"{dtype_name(dtype)}_39_leaves", dtype, leaves[0], card))
         del leaves
         torch.cuda.empty_cache()
     rows.sort(key=lambda r: r["shape"] != "bf16_constant")
-    return rope_rows[0::2], rope_rows[1::2], rows
+    return (rope_rows[0::2], rope_rows[1::2], rows, loss_rows[0::2],
+            loss_rows[1::2], norm_rows)
 
 
 def cast_params(params, dtype):
@@ -2878,19 +3127,28 @@ def block_launches(forwards, backwards=0, remat=False) -> dict:
             "swiglu": (forwards + again) * n, "swiglu_bwd": backwards * n}
 
 
-#: the batch forward's RoPE (forward and backward) and the update
-TRAIN_KERNELS = ["rope", "rope_bwd", "adamw"]
+#: the batch forward's RoPE and the loss (forward and backward each) and
+#: the update
+TRAIN_KERNELS = ["rope", "rope_bwd", "cross_entropy", "cross_entropy_bwd",
+                 "adamw"]
+#: the clipped update's global norm (phase 7's clipped trainer
+#: configuration; no other path clips)
+CLIP_KERNELS = ["global_norm"]
 
 
-def train_launches(forwards, backwards=0, updates=0, remat=False) -> dict:
+def train_launches(forwards, backwards=0, updates=0, remat=False,
+                   clipped=False) -> dict:
     """RoPE's launches for ``forwards`` batch forwards of llama-277M and
     ``backwards`` backwards (once a layer each; with ``remat`` each
-    backward recomputes the layers' forwards), and AdamW's for
-    ``updates`` updates (its 39 leaves take one launch)."""
+    backward recomputes the layers' forwards), the loss's (one forward
+    and one backward launch for each; remat does not recompute it), and
+    AdamW's for ``updates`` updates (its 39 leaves take one launch), each
+    behind one launch of the global norm when ``clipped``."""
     n = CONFIG_277M.n_layers
     again = backwards if remat else 0
     return {"rope": (forwards + again) * n, "rope_bwd": backwards * n,
-            "adamw": updates}
+            "cross_entropy": forwards, "cross_entropy_bwd": backwards,
+            "adamw": updates, "global_norm": updates if clipped else 0}
 
 
 #: the decode path's kernels that run once a layer a forward_with_cache
@@ -3028,6 +3286,7 @@ def phase_train(params, card):
     profile = profile_device(lambda: step(state, batches[0])[1].item(),
                              top=10)
     update = time_update(optimizer, state, batches[0], config)
+    loss_device = loss_device_time(batches[0], profile)
 
     # the step's gradients: flash against xla and against remat, bf16 at
     # the train shape, f32 at batch 2
@@ -3037,7 +3296,8 @@ def phase_train(params, card):
               "steps_behind_one_sync": TRAIN_STEPS - 1,
               "tokens_per_s": TRAIN_BATCH * config.seq_len / step_ms * 1e3,
               "max_memory_allocated_bytes": peak_bytes, **update,
-              "profile_1_step": profile, "card": card}
+              "profile_1_step": profile, "loss_device": loss_device,
+              "card": card}
     tokens = batches[0]
     for label, p, toks in (("bf16", params, tokens),
                            ("f32", cast_params(params, torch.float32),
@@ -3090,22 +3350,147 @@ def phase_train(params, card):
     return state, optimizer, step, losses
 
 
+def loss_device_time(tokens, step_profile) -> dict:
+    """The loss's device time in the train step, forward and backward,
+    from the profiler: by its kernels, and by the plain version with
+    autograd (what the step ran before), on logits of the step's shape
+    and dtype (random) and its batch's targets; each beside its share of
+    the step's device time (the profiled step's, with the plain version's
+    time in place of the kernels' for the plain share). The launch counts
+    are set back after (a measurement is not the path)."""
+    counts = launch_counts()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    x = (3.0 * torch.randn((*tokens.shape, CONFIG_277M.vocab),
+                           generator=gen, device="cuda")) \
+        .to(torch.bfloat16).requires_grad_()
+    targets = tokens[:, 1:].long().contiguous()
+
+    def run(loss_fn):
+        def call():
+            torch.autograd.grad(loss_fn(x, targets), x)
+            torch.cuda.synchronize()
+        call()
+        found = profile_device(call) or {}
+        return {k: found.get(k) for k in ("device_busy_ms",
+                                          "device_events")}
+
+    out = {"kernels": run(loss_mod.cross_entropy),
+           "plain": run(loss_mod.next_token_loss_reference)}
+    for name, count in counts.items():
+        KERNELS[name].launches = count
+    busy = (step_profile or {}).get("device_busy_ms")
+    kernels, plain = (out[k]["device_busy_ms"] for k in ("kernels", "plain"))
+    if busy and kernels is not None and plain is not None:
+        out["kernels"]["share_of_step"] = kernels / busy
+        out["plain"]["share_of_step"] = plain / (busy - kernels + plain)
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase 7's clipped trainer configuration: the training job's
+#: --grad-clip-norm (tpu_operator_libs/examples/jax_training_job.py:
+#: 284-293) at 1.0, with the warmup-cosine schedule
+CLIPPED = {"grad_clip_norm": 1.0, "warmup_steps": 2, "total_steps": 1000}
+CLIPPED_STEPS = 4
+
+
+def phase_train_clipped(params, card, first_loss):
+    """make_train_step in the clipped trainer configuration (CLIPPED) at
+    phase 7's shape (llama-277M, flash, batch 16, seq 1024, bf16):
+    CLIPPED_STEPS steps on phase 7's batches, each with one launch of the
+    global norm before the update; the first loss bit-equal to the
+    unclipped run's ``first_loss`` (the same parameters and batch: the
+    loss comes before the update); the step's time (the steps after the
+    first, behind one sync) and peak memory; the first step's global
+    norm and whether the clip bound; the clipped update's time."""
+    config = dataclasses.replace(CONFIG_277M, attention_impl="flash",
+                                 **CLIPPED)
+    n_layers = config.n_layers
+    optimizer, step = make_train_step(config)
+    state = {"params": params, "opt": optimizer.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    batches = [make_token_batch(i, config, TRAIN_BATCH)
+               for i in range(CLIPPED_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    start = time.perf_counter()
+    state, first = step(state, batches[0])
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - start) * 1e3
+    losses = [first]
+    start = time.perf_counter()
+    for tokens in batches[1:]:
+        state, loss = step(state, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - start) * 1e3 / (CLIPPED_STEPS - 1)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    after = launch_counts()
+    expect_launches({k: after[k] - before[k] for k in after},
+                    n_layers * CLIPPED_STEPS, n_layers * CLIPPED_STEPS,
+                    f"{CLIPPED_STEPS} clipped train steps",
+                    blocks=block_launches(CLIPPED_STEPS, CLIPPED_STEPS),
+                    train=train_launches(CLIPPED_STEPS, CLIPPED_STEPS,
+                                         CLIPPED_STEPS, clipped=True))
+    losses = [float(x) for x in losses]
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"clipped train losses not finite: {losses}")
+    if losses[0] != first_loss:
+        raise RuntimeError(f"the clipped run's first loss {losses[0]!r} is "
+                           f"not the unclipped run's {first_loss!r}")
+    # the first step's norm and the clipped update's time: measurements,
+    # so the counts are set back after
+    counts = launch_counts()
+    _, grads = value_and_grad(next_token_loss, params, batches[0], config)
+    norm = float(global_norm(grads))
+    update_ms = cuda_ms(lambda: optimizer.update(grads, state["opt"],
+                                                 state["params"]), 10)
+    norm_ms = cuda_ms(lambda: global_norm(grads), 10)
+    for name, count in counts.items():
+        KERNELS[name].launches = count
+    del grads
+    profile = profile_device(lambda: step(state, batches[0])[1].item(),
+                             top=10)
+    emit({"phase": "train_clipped", **CLIPPED, "batch": TRAIN_BATCH,
+          "seq": config.seq_len, "steps": CLIPPED_STEPS, "losses": losses,
+          "first_loss_bit_equal_to_unclipped": True,
+          "first_step_global_norm": norm,
+          "clip_bound_first_step": norm >= CLIPPED["grad_clip_norm"],
+          "first_step_ms": first_ms, "step_ms": step_ms,
+          "steps_behind_one_sync": CLIPPED_STEPS - 1,
+          "tokens_per_s": TRAIN_BATCH * config.seq_len / step_ms * 1e3,
+          "max_memory_allocated_bytes": peak_bytes,
+          "update_ms": update_ms, "global_norm_ms": norm_ms,
+          "launches": {k: after[k] - before[k] for k in
+                       TRAIN_KERNELS + CLIP_KERNELS},
+          "profile_1_step": profile, "card": card})
+    del state
+    torch.cuda.empty_cache()
+    return step_ms
+
+
 #: one turn of --train-turns, run in a checkout's root: its own phase 7
+#: and, where the checkout has it, its clipped trainer configuration
 TURN_CODE = (
     "import os, sys; sys.path.insert(0, os.getcwd()); import torch; "
     "import chip_smoke as cs; card = cs.phase_device(); "
     "params = cs.init_llama_params(cs.CONFIG_277M, "
     "param_dtype=torch.bfloat16, seed=cs.SEED, device='cuda'); "
-    "cs.reset_launch_counts(); cs.phase_train(params, card)")
+    "cs.reset_launch_counts(); losses = cs.phase_train(params, card)[3]; "
+    "clipped = getattr(cs, 'phase_train_clipped', None); "
+    "clipped and clipped(params, card, losses[0])")
 
 
 def train_turns(other, card) -> None:
     """Phase 7 of the checkout at ``other`` and of this one in turns
     (other, this, this, other), a process a turn, each tree running its
-    own ``phase_train`` and building its own kernels; one line a turn
-    with the step's time, losses, peak memory, the profiled step's device
-    events, copies and norm kernels (forward and backward instances),
-    and the update's time where the tree reports it."""
+    own ``phase_train`` (and ``phase_train_clipped`` where it has one) and
+    building its own kernels; one line a turn with the step's time,
+    losses, peak memory, the profiled step's device events, copies, norm
+    and loss kernels, the update's time and the loss's device time where
+    the tree reports them, and the clipped step's."""
     for tree in (other, ROOT, ROOT, other):
         run = subprocess.run([sys.executable, "-c", TURN_CODE],
                              cwd=tree, capture_output=True, text=True,
@@ -3117,14 +3502,21 @@ def train_turns(other, card) -> None:
                                f"{run.returncode}):\n{run.stderr[-3000:]}")
         train = json.loads(lines[0])
         profile = train["profile_1_step"] or {}
+        clipped = [json.loads(line) for line in run.stdout.splitlines()
+                   if line.startswith('{"phase": "train_clipped"')]
         emit({"phase": "train_turns", "tree": os.path.relpath(tree, ROOT),
               **{k: train.get(k) for k in (
                   "step_ms", "first_step_ms", "losses",
                   "max_memory_allocated_bytes", "update_ms",
-                  "update_plain_ms")},
+                  "update_plain_ms", "loss_device")},
               **{k: profile.get(k) for k in (
                   "device_events", "device_busy_ms", "wall_ms", "copies",
-                  "top", "rms_norm")}, "card": card})
+                  "top", "rms_norm", "cross_entropy")},
+              "clipped": {k: clipped[0].get(k) for k in (
+                  "step_ms", "losses", "max_memory_allocated_bytes",
+                  "update_ms", "global_norm_ms",
+                  "first_step_global_norm")} if clipped else None,
+              "card": card})
 
 
 def phase_checkpoint(state, optimizer, step, card):
@@ -3546,19 +3938,21 @@ def decode_entry(name, source, rows, serving, multi, replaces, card,
 
 
 def block_entry(name, source, replaces, rows, launches, shape, card):
-    """The kernels line's entry of a norm, gate, RoPE or AdamW kernel; its
-    times and bound are its first phase 3f or 3g row's
+    """The kernels line's entry of a norm, gate, RoPE, AdamW, loss or
+    global-norm kernel; its times and bound are its first phase 3f or 3g
+    row's
     (``phase_norm_gate_kernels``, ``phase_train_kernels``)."""
     main_row = rows[0]
-    keys = ("shape", "rows", "dim", "B", "S", "H", "H_kv", "D",
-            "head_major", "leaves", "elements", "count", "schedule",
+    keys = ("shape", "rows", "dim", "B", "S", "V", "S_used", "H", "H_kv",
+            "D", "head_major", "leaves", "elements", "count", "schedule",
             "clip_norm", "clipped", "weight_decay", "dtype", "add", "design",
             "cuda_launches_per_call", "max_abs_err", "limit_use",
             "max_ulp_vs_plain", "dg_max_ulp_vs_plain", "du_max_ulp_vs_plain",
             "bit_equal_to_plain", "bit_equal_launches",
-            "graph_replay_bit_equal", "inputs_unchanged", "kernel_ms",
-            "update_ms", "plain_ms", "plain_autograd_ms", "library",
-            "library_ms", "bound_ms", "bound_by")
+            "graph_replay_bit_equal", "inputs_unchanged", "rel_err",
+            "kernel_ms", "update_ms", "plain_ms", "plain_autograd_ms",
+            "library", "library_ms", "kernel_fwd_bwd_ms", "plain_fwd_bwd_ms",
+            "library_fwd_bwd_ms", "bound_ms", "bound_by")
     return {
         "name": name, "route": "cuda",
         "source": f"tpu_operator_libs_torch/csrc/{source}",
@@ -3602,7 +3996,8 @@ def main(argv) -> int:
     attention_rows, append_rows, rope_rows = phase_decode_kernels(card)
     norm_rows, norm_bwd_rows, gate_rows, gate_bwd_rows = \
         phase_norm_gate_kernels(card)
-    rope_qk_rows, rope_bwd_rows, adamw_rows = phase_train_kernels(card)
+    (rope_qk_rows, rope_bwd_rows, adamw_rows, loss_rows, loss_bwd_rows,
+     global_norm_rows) = phase_train_kernels(card)
 
     params = init_llama_params(CONFIG_277M, param_dtype=torch.bfloat16,
                                seed=SEED, device="cuda")
@@ -3618,6 +4013,7 @@ def main(argv) -> int:
     # the training path, likewise
     reset_launch_counts()
     state, optimizer, step, train_losses = phase_train(params, card)
+    phase_train_clipped(params, card, train_losses[0])
     phase_checkpoint(state, optimizer, step, card)
     training = launch_counts()
     del state, params
@@ -3629,7 +4025,7 @@ def main(argv) -> int:
              ["flash_attention_fwd", "int8_matmul", "rms_norm", "swiglu"]
              + DECODE_KERNELS),
             ("training", training,
-             FLASH_KERNELS + BLOCK_KERNELS + TRAIN_KERNELS),
+             FLASH_KERNELS + BLOCK_KERNELS + TRAIN_KERNELS + CLIP_KERNELS),
             ("ring chain", chain, ["flash_attention_fwd", "attention_fold"]),
             ("multichip", multi,
              ["int8_matmul"] + DECODE_KERNELS + BLOCK_KERNELS
@@ -3764,6 +4160,30 @@ def main(argv) -> int:
             {path: counts["adamw"] for path, counts in paths.items()},
             "llama-277M's 39 leaves, 277M elements, bf16, a constant rate "
             "(the train step's)", card),
+        block_entry(
+            "cross_entropy", "cross_entropy.cu",
+            "tpu_operator_libs/examples/llama.py:331-341 (next_token_loss: "
+            "log_softmax of the f32 logits, take_along_axis, the mean; "
+            "fused by XLA, no pallas_call)", loss_rows,
+            {path: counts["cross_entropy"] for path, counts in paths.items()},
+            "B=16 S=1024 V=2048 bf16, 1023 positions a row with a target "
+            "(the train step's)", card),
+        block_entry(
+            "cross_entropy_bwd", "cross_entropy.cu",
+            "the gradient of tpu_operator_libs/examples/llama.py:331-341 "
+            "(jax.grad through XLA; no pallas_call)", loss_bwd_rows,
+            {path: counts["cross_entropy_bwd"]
+             for path, counts in paths.items()},
+            "B=16 S=1024 V=2048 bf16, dlogits of the whole logits (the "
+            "train step's)", card),
+        block_entry(
+            "global_norm", "adamw.cu",
+            "optax.global_norm under clip_by_global_norm, "
+            "tpu_operator_libs/examples/llama.py:400-404 (fused by XLA; no "
+            "pallas_call)", global_norm_rows,
+            {path: counts["global_norm"] for path, counts in paths.items()},
+            "llama-277M's 39 gradient leaves, 277M elements, bf16 (the "
+            "clipped train step's)", card),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
                                  "count": torch.cuda.device_count()}})

@@ -44,7 +44,8 @@ COPY_OPS = ("aten.clone", "aten._to_copy", "aten.copy_", "aten.index_copy_")
 BATCH, CONTEXT, PROMPT, NEW_TOKENS = 8, 1024, 64, 960
 #: the port's kernels that a cached step may launch
 PORT_KERNELS = ("int8_matmul", "decode_attention", "rope_kv_append",
-                "kv_append", "rms_norm", "swiglu", "rope", "adamw")
+                "kv_append", "rms_norm", "swiglu", "rope", "adamw",
+                "cross_entropy", "global_norm")
 
 
 def port_kernel(key: str):

@@ -1,7 +1,8 @@
 """The CUDA kernels (flash attention, the ring-attention fold, the
 int8-weight matmul, the decode step's attention and cache write, the
 norm with its residual add, the gate and the batch forward's RoPE,
-forward and backward, and the AdamW update) against their plain
+forward and backward, the next-token loss, forward and backward, the
+clip's global norm and the AdamW update) against their plain
 versions, on the card, the
 ring's block chain against the whole-sequence kernels, the
 graph-replayed decode loop against the host loop on one card and on
@@ -33,7 +34,9 @@ from tpu_operator_libs_torch.examples.ring_attention import (
 )
 from tpu_operator_libs_torch.kernels import WRAPPERS
 from tpu_operator_libs_torch.kernels import adamw as amod
+from tpu_operator_libs_torch.kernels import cross_entropy as lossmod
 from tpu_operator_libs_torch.kernels import decode_attention as dmod
+from tpu_operator_libs_torch.kernels import global_norm as nmod
 from tpu_operator_libs_torch.kernels import int8_matmul as imod
 from tpu_operator_libs_torch.kernels import kv_append as kmod
 from tpu_operator_libs_torch.kernels import rms_norm as rmod
@@ -1020,7 +1023,8 @@ def test_decode_step_launches_the_norm_and_the_gate(cuda):
                                     "rope_kv_append", "int8_matmul",
                                     "rms_norm", "rms_norm_bwd", "swiglu",
                                     "swiglu_bwd", "rope", "rope_bwd",
-                                    "adamw"])
+                                    "adamw", "cross_entropy",
+                                    "global_norm"])
 def test_kernel_build_failure_raises(cuda, monkeypatch, module):
     """A kernel whose build fails raises on CUDA tensors: the wrapper
     never returns its plain version's result instead."""
@@ -1030,7 +1034,8 @@ def test_kernel_build_failure_raises(cuda, monkeypatch, module):
     mod = {"decode_attention": dmod, "kv_append": kmod,
            "rope_kv_append": kmod, "int8_matmul": imod, "rms_norm": rmod,
            "rms_norm_bwd": rmod, "swiglu": smod, "swiglu_bwd": smod,
-           "rope": ropemod, "rope_bwd": ropemod, "adamw": amod}[module]
+           "rope": ropemod, "rope_bwd": ropemod, "adamw": amod,
+           "cross_entropy": lossmod, "global_norm": nmod}[module]
     monkeypatch.setattr(mod, "_lib", None)
     monkeypatch.setattr(mod, "_library", broken)
     q, entry = decode_operands(cuda, 2, 1, 4, 2, 16, 8, torch.bfloat16,
@@ -1057,6 +1062,11 @@ def test_kernel_build_failure_raises(cuda, monkeypatch, module):
             amod.adamw_update([x], {"count": torch.zeros(
                 (), dtype=torch.int32, device=cuda), "mu": [x], "nu": [x]},
                 [x], lr=1e-3, weight_decay=1e-4)
+        elif module == "cross_entropy":
+            lossmod.cross_entropy(x.reshape(2, 1, 32), torch.zeros(
+                (2, 1), dtype=torch.int64, device=cuda))
+        elif module == "global_norm":
+            nmod.sum_of_squares([x], norm=True)
         elif module == "decode_attention":
             decode_attention(q, entry, 3)
         elif module == "kv_append":
@@ -1074,8 +1084,8 @@ def test_kernel_build_failure_raises(cuda, monkeypatch, module):
 
 def same_bits(got, want) -> bool:
     return all(a.dtype == b.dtype and a.shape == b.shape
-               and torch.equal(a.contiguous().view(torch.uint8),
-                               b.contiguous().view(torch.uint8))
+               and torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                               b.reshape(-1).contiguous().view(torch.uint8))
                for a, b in zip(got, want))
 
 
@@ -1221,6 +1231,147 @@ def test_train_step_launches_rope_and_adamw(cuda):
         assert launched == ({"rope": 2, "rope_bwd": 2, "adamw": 1}
                             if device.type == "cuda" else
                             dict.fromkeys(before, 0))
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+
+
+@pytest.mark.parametrize(
+    "label,batch,seq,vocab,dtype,used,gradient",
+    [shape[:7] for shape in chip_smoke.LOSS_SHAPES],
+    ids=[shape[0] for shape in chip_smoke.LOSS_SHAPES])
+def test_cross_entropy_kernels_match_plain_versions(cuda, label, batch, seq,
+                                                    vocab, dtype, used,
+                                                    gradient):
+    """The loss's forward and backward kernels at phase 3g's shapes
+    against the plain version and its autograd: the loss within
+    chip_smoke.LOSS_RTOL, bf16 dlogits within one ulp (f32 within
+    chip_smoke's f32 limit), 0 past S_used; one launch each a call; the
+    autograd Function's gradient the backward kernel's."""
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    logits = (3.0 * torch.randn((batch, seq, vocab), generator=gen,
+                                device=cuda)).to(dtype)
+    targets = torch.randint(0, vocab, (batch, used), generator=gen,
+                            device=cuda)
+    grad = torch.tensor(gradient, device=cuda)
+    before = (WRAPPERS["cross_entropy"].launches,
+              WRAPPERS["cross_entropy_bwd"].launches)
+    loss, stats = lossmod.cross_entropy_fwd(logits, targets)
+    dlogits = lossmod.cross_entropy_bwd(logits, targets, stats, grad)
+    assert (WRAPPERS["cross_entropy"].launches,
+            WRAPPERS["cross_entropy_bwd"].launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    x = logits.clone().requires_grad_()
+    want = lossmod.next_token_loss_reference(x, targets)
+    (dwant,) = torch.autograd.grad(want, x, grad)
+    assert abs(float(loss) - float(want)) <= \
+        chip_smoke.LOSS_RTOL * abs(float(want))
+    assert not dlogits[:, used:].any()
+    if dtype == torch.bfloat16:
+        assert chip_smoke.max_ulp(dlogits, dwant) <= 1
+    else:
+        gp = gradient / targets.numel()
+        limit = (chip_smoke.DLOGITS_F32_RTOL * dwant.abs()
+                 + chip_smoke.DLOGITS_F32_GP_ATOL * gp)
+        assert bool(((dlogits - dwant).abs() <= limit).all())
+    y = logits.clone().requires_grad_()
+    (got,) = torch.autograd.grad(lossmod.cross_entropy(y, targets), y, grad)
+    assert same_bits([got], [dlogits])
+
+
+def test_cross_entropy_launches_and_replays_bit_equal(cuda):
+    """At the train step's shape: two launches of each kernel and a
+    graph-replayed one give the same bits (the mean's partials added in
+    order, no float atomics), the ticket counter back at 0."""
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    logits = torch.randn((16, 1024, 2048), generator=gen,
+                         device=cuda).bfloat16()
+    targets = torch.randint(0, 2048, (16, 1023), generator=gen, device=cuda)
+    grad = torch.ones((), device=cuda)
+    first = lossmod.cross_entropy_fwd(logits, targets)
+    again = lossmod.cross_entropy_fwd(logits, targets)
+    assert same_bits(first, again)
+    d_first = lossmod.cross_entropy_bwd(logits, targets, first[1], grad)
+    assert same_bits([d_first], [lossmod.cross_entropy_bwd(
+        logits, targets, first[1], grad)])
+    assert chip_smoke.graph_replay_equal(
+        lambda: chip_smoke.flat_bytes(
+            *lossmod.cross_entropy_fwd(logits, targets)),
+        chip_smoke.flat_bytes(*first))
+    assert chip_smoke.graph_replay_equal(
+        lambda: lossmod.cross_entropy_bwd(logits, targets, first[1], grad),
+        d_first)
+    torch.cuda.synchronize()
+    assert all(not c.any() for c in lossmod._counters.values())
+
+
+def test_cross_entropy_target_outside_the_vocabulary_gives_nan(cuda):
+    logits = torch.randn((2, 5, 16), device=cuda)
+    targets = torch.zeros((2, 4), dtype=torch.int64, device=cuda)
+    targets[1, 2] = 16
+    assert torch.isnan(lossmod.cross_entropy(logits, targets))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_leaves,norm", [(39, True), (50, False),
+                                            (50, True)],
+                         ids=["39_leaves_norm", "50_leaves_two_launches",
+                              "50_leaves_norm"])
+def test_global_norm_kernel_matches_plain_version(cuda, dtype, n_leaves,
+                                                  norm):
+    """Each leaf's sum of squares (one empty leaf among them) and the
+    norm within chip_smoke.GLOBAL_NORM_RTOL of the plain version, one
+    launch for every 48 leaves, two launches bit-equal."""
+    grads, _, _, _ = adamw_operands(cuda, dtype, n_leaves)
+    grads[5] = grads[5][:0]
+    before = WRAPPERS["global_norm"].launches
+    sums, total = nmod.sum_of_squares(grads, norm=norm)
+    assert WRAPPERS["global_norm"].launches == before + (
+        1 if n_leaves <= nmod.MAX_LEAVES else 2)
+    plain = torch.stack(nmod.sum_of_squares_reference(grads))
+    assert float(sums[5]) == 0.0
+    rel = ((sums - plain).abs() / plain.clamp_min(1e-30)).max()
+    assert float(rel) <= chip_smoke.GLOBAL_NORM_RTOL
+    if norm:
+        want = torch.sqrt(sum(nmod.sum_of_squares_reference(grads)))
+        assert abs(float(total) - float(want)) <= \
+            chip_smoke.GLOBAL_NORM_RTOL * float(want)
+        assert same_bits([total], [nmod.sum_of_squares(grads,
+                                                       norm=True)[1]])
+    else:
+        assert total is None
+    assert same_bits([sums], [nmod.sum_of_squares(grads, norm=norm)[0]])
+
+
+def test_clipped_train_step_launches_the_loss_and_the_norm(cuda):
+    """One flash train step of a narrow Llama in the clipped trainer
+    configuration on the card: RoPE and its backward once a layer, the
+    loss and its backward once, the global norm and AdamW once; the loss
+    within 1e-4 relative of the same step on the CPU (the plain
+    versions)."""
+    cfg = tllama.LlamaConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
+                             n_kv_heads=2, d_ff=512, seq_len=64,
+                             attention_impl="flash", grad_clip_norm=0.5,
+                             warmup_steps=2, total_steps=100)
+    names = ("rope", "rope_bwd", "cross_entropy", "cross_entropy_bwd",
+             "adamw", "global_norm")
+    losses = {}
+    for device in (cuda, torch.device("cpu")):
+        optimizer, step = tllama.make_train_step(cfg, device=device)
+        params = tllama.init_llama_params(cfg, seed=2, device="cpu")
+        params = {k: v.to(device) if torch.is_tensor(v) else
+                  [{n: t.to(device) for n, t in layer.items()}
+                   for layer in v] for k, v in params.items()}
+        state = {"params": params, "opt": optimizer.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=device)}
+        before = {n: WRAPPERS[n].launches for n in names}
+        _, loss = step(state, tllama.make_token_batch(0, cfg, device="cpu"))
+        losses[device.type] = float(loss)
+        launched = {n: WRAPPERS[n].launches - before[n] for n in names}
+        assert launched == ({"rope": 2, "rope_bwd": 2, "cross_entropy": 1,
+                             "cross_entropy_bwd": 1, "adamw": 1,
+                             "global_norm": 1}
+                            if device.type == "cuda" else
+                            dict.fromkeys(names, 0))
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
 
 

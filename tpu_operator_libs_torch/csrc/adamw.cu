@@ -37,10 +37,31 @@
 // dtype's -lr) are read through pointers, so no value comes back to the
 // host; divisions are IEEE (PyTorch divides by a 0-d device tensor, not
 // by a reciprocal) and the square root correctly rounded.
+//
+// global_norm: the clip's sums of squares, sum_i g_i^2 in float32 for
+// every gradient leaf, and sqrt of their sum. Replaces optax.global_norm
+// under optax.clip_by_global_norm (tpu_operator_libs/examples/llama.py:
+// 400-404; XLA-fused, no Pallas source); the port's plain version,
+// kernels/global_norm.py::sum_of_squares_reference, is
+// torch.sum(g.float() ** 2) a leaf (three kernels a leaf through float32
+// copies). Bound: bytes, each gradient read once (554 MB for llama-277M
+// in bfloat16, 0.165 ms at 3.35 TB/s), two float32 operations an element.
+// The launch takes the AdamW update's table (one pointer a leaf) and its
+// blocks take chunks of kThreads x kNormVectors 16-byte vectors, every
+// load issued before the sum; a chunk's squares (fused multiply-adds, in
+// float32) add up a thread, then in a fixed order over the block into the
+// chunk's partial. The block that draws the last ticket (ticket.cuh) adds
+// each leaf's partials in a fixed order (a warp a leaf, its lanes over
+// strided chunks, then a butterfly), then the leaves' sums in leaf order
+// from 0, as the plain version's Python sum does, and takes the correctly
+// rounded square root. No float atomics: launches and replays give the
+// same bits. Against the plain version the sums take another order, so
+// they agree within 1e-5 relative, not bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ticket.cuh"
 #include "vector_io.cuh"
 
 namespace {
@@ -60,11 +81,47 @@ struct Leaf {
   long long n;
 };
 
-struct Table {
-  Leaf leaf[kMaxLeaves];
+// The leaves of one launch (up to kMaxLeaves, their pointers in the
+// launch's parameters) and the chunks of their joint index space: the
+// AdamW update's and the global norm's
+template <typename LeafT>
+struct LeafTable {
+  LeafT leaf[kMaxLeaves];
   // the first chunk of each leaf, and the chunks in all at [count]
   int first_chunk[kMaxLeaves + 1];
   int count;
+
+  // The leaf of a block's chunk: the last leaf whose first chunk is at or
+  // before it (a binary search of the prefix sums)
+  __device__ __forceinline__ int leaf_of(int chunk) const {
+    int lo = 0, hi = count;
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) / 2;
+      if (first_chunk[mid] <= chunk) {
+        lo = mid;
+      } else {
+        hi = mid;
+      }
+    }
+    return lo;
+  }
+
+  // first_chunk from the leaves' sizes in chunks of `chunk` elements (the
+  // leaves set first); false if one is empty or the chunks overflow an int
+  bool set_chunks(long long chunk) {
+    long long chunks = 0;
+    for (int i = 0; i < count; ++i) {
+      if (leaf[i].n < 1) return false;
+      first_chunk[i] = static_cast<int>(chunks);
+      chunks += (leaf[i].n + chunk - 1) / chunk;
+      if (chunks > 0x7fffffffLL) return false;
+    }
+    first_chunk[count] = static_cast<int>(chunks);
+    return true;
+  }
+};
+
+struct Table : LeafTable<Leaf> {
   int dtype;  // 0 float32, 1 bfloat16
   // 0-d tensors of dtype (keep: bool); lr_t and norm null when unused
   const void* bias1;
@@ -141,16 +198,7 @@ __global__ void __launch_bounds__(kThreads)
     adamw_kernel(const __grid_constant__ Table t) {
   constexpr long long kChunk = kThreads * kVectorsPerThread * kVec;
   const int chunk = blockIdx.x;
-  // the last leaf whose first chunk is at or before this one
-  int lo = 0, hi = t.count;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) / 2;
-    if (t.first_chunk[mid] <= chunk) {
-      lo = mid;
-    } else {
-      hi = mid;
-    }
-  }
+  const int lo = t.leaf_of(chunk);
   const Leaf& leaf = t.leaf[lo];
   const long long start = (chunk - t.first_chunk[lo]) * kChunk;
   const long long end = min(start + kChunk, leaf.n);
@@ -181,6 +229,151 @@ __global__ void __launch_bounds__(kThreads)
       // the leaf's last elements, past its last whole vector
       for (long long e = i; e < end; ++e) update_at<1>(leaf, e, s, dtype);
     }
+  }
+}
+
+// The global norm's vectors a thread: a chunk is kThreads x kNormVectors
+// vectors (16,384 bfloat16 or 8,192 float32 elements where vectors are 16
+// bytes)
+constexpr int kNormVectors = 8;
+constexpr int kWarps = kThreads / 32;
+
+struct NormLeaf {
+  const void* g;
+  long long n;
+};
+
+struct NormTable : LeafTable<NormLeaf> {
+  int dtype;        // 0 float32, 1 bfloat16
+  int first;        // the launch's first leaf among all the leaves
+  float* partials;  // a float a chunk: the chunk's sum of squares
+  float* sums;      // every leaf's sum of squares; this launch's from first
+  float* norm;      // 0-d: sqrt of every leaf's sum (the last launch), or
+                    // null
+  int* counter;     // one ticket counter, 0 between launches
+};
+static_assert(sizeof(NormTable) <= 4096,
+              "the table must fit the parameters");
+
+// x summed over the warp in a fixed butterfly: every lane gets the same
+// bits (each pair adds the same two values)
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// x summed over the block, warps in order (thread 0's result is the
+// block's; `scratch` holds a float a warp)
+__device__ __forceinline__ float block_sum(float x, float* scratch) {
+  x = warp_sum(x);
+  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = x;
+  __syncthreads();
+  float total = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kWarps; ++w) total += scratch[w];
+  }
+  return total;
+}
+
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+    global_norm_kernel(const __grid_constant__ NormTable t) {
+  constexpr long long kChunk = kThreads * kNormVectors * kVec;
+  __shared__ float scratch[kMaxLeaves > kWarps ? kMaxLeaves : kWarps];
+  __shared__ int ticket;
+  const int chunk = blockIdx.x;
+  const int lo = t.leaf_of(chunk);
+  const NormLeaf& leaf = t.leaf[lo];
+  const long long start = (chunk - t.first_chunk[lo]) * kChunk;
+  const long long end = min(start + kChunk, leaf.n);
+  const int dtype = t.dtype;
+  float acc = 0.0f;
+  if constexpr (kVec == 8) {
+    // bfloat16 (the only dtype of 8-element vectors), kept packed until
+    // its arithmetic: half the registers of the widened values, so more
+    // blocks, and more loads, in flight on each SM
+    const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(leaf.g);
+    uint4 raw[kNormVectors];
+#pragma unroll
+    for (int r = 0; r < kNormVectors; ++r) {
+      const long long i = start + (static_cast<long long>(r) * kThreads
+                                   + threadIdx.x) * kVec;
+      raw[r] = i + kVec <= end ? *reinterpret_cast<const uint4*>(g + i)
+                               : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int r = 0; r < kNormVectors; ++r) {
+      const uint32_t w[4] = {raw[r].x, raw[r].y, raw[r].z, raw[r].w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        // a bfloat16 is the high half of the float32 with the same bits
+        const float lo = __uint_as_float(w[c] << 16);
+        const float hi = __uint_as_float(w[c] & 0xffff0000u);
+        acc = __fmaf_rn(hi, hi, __fmaf_rn(lo, lo, acc));
+      }
+    }
+    // the leaf's last elements, past its last whole vector
+#pragma unroll
+    for (int r = 0; r < kNormVectors; ++r) {
+      const long long i = start + (static_cast<long long>(r) * kThreads
+                                   + threadIdx.x) * kVec;
+      for (long long e = i; e < end && i + kVec > end; ++e) {
+        const float v = __bfloat162float(g[e]);
+        acc = __fmaf_rn(v, v, acc);
+      }
+    }
+  } else {
+    float x[kNormVectors][kVec];
+#pragma unroll
+    for (int r = 0; r < kNormVectors; ++r) {
+      const long long i = start + (static_cast<long long>(r) * kThreads
+                                   + threadIdx.x) * kVec;
+      if (i + kVec <= end) {
+        vector_io::load<kVec>(leaf.g, i, dtype, x[r]);
+      } else {
+        // the leaf's last elements, past its last whole vector
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          float one[1] = {0.0f};
+          if (i + e < end) vector_io::load<1>(leaf.g, i + e, dtype, one);
+          x[r][e] = one[0];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kNormVectors; ++r) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc = __fmaf_rn(x[r][e], x[r][e], acc);
+    }
+  }
+  acc = block_sum(acc, scratch);
+  if (threadIdx.x == 0) t.partials[chunk] = acc;
+  if (!tickets::last(t.counter, gridDim.x, &ticket)) return;
+  // the last block: each leaf's partials, a warp a leaf
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int l = warp; l < t.count; l += kWarps) {
+    float sum = 0.0f;
+    for (int c = t.first_chunk[l] + lane; c < t.first_chunk[l + 1]; c += 32) {
+      sum += t.partials[c];
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      t.sums[t.first + l] = sum;
+      scratch[l] = sum;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (t.norm != nullptr) {
+      // the earlier launches' leaves (written before this launch began),
+      // then this one's, in leaf order
+      float total = 0.0f;
+      for (int l = 0; l < t.first; ++l) total = __fadd_rn(total, t.sums[l]);
+      for (int l = 0; l < t.count; ++l) total = __fadd_rn(total, scratch[l]);
+      *t.norm = __fsqrt_rn(total);
+    }
+    *t.counter = 0;
   }
 }
 
@@ -226,11 +419,8 @@ extern "C" int adamw(const void* const* pointers, const long long* sizes,
     t.weight_decay = weight_decay;
     t.clip = clip;
     t.neg_lr = neg_lr;
-    long long chunks = 0;
     for (int i = 0; i < t.count; ++i) {
       const void* const* ptr = pointers + 7LL * (first + i);
-      const long long n = sizes[first + i];
-      if (n < 1) return cudaErrorInvalidValue;
       for (int j = 0; j < 7; ++j) {
         if (ptr[j] == nullptr || !vector_io::aligned(ptr[j], vec, dtype)) {
           return cudaErrorInvalidValue;
@@ -243,13 +433,10 @@ extern "C" int adamw(const void* const* pointers, const long long* sizes,
                        const_cast<void*>(ptr[4]),
                        const_cast<void*>(ptr[5]),
                        const_cast<void*>(ptr[6]),
-                       n};
-      t.first_chunk[i] = static_cast<int>(chunks);
-      chunks += (n + chunk - 1) / chunk;
-      if (chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
+                       sizes[first + i]};
     }
-    t.first_chunk[t.count] = static_cast<int>(chunks);
-    const unsigned blocks = static_cast<unsigned>(chunks);
+    if (!t.set_chunks(chunk)) return cudaErrorInvalidValue;
+    const unsigned blocks = static_cast<unsigned>(t.first_chunk[t.count]);
     if (vec == 8) {
       adamw_kernel<8><<<blocks, kThreads, 0, s>>>(t);
     } else if (vec == 4) {
@@ -266,4 +453,58 @@ extern "C" int adamw(const void* const* pointers, const long long* sizes,
 // The text of a cudaError_t that adamw returned.
 extern "C" const char* adamw_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The sums of squares of n_leaves gradient leaves (g[i]: sizes[i] >= 1
+// elements, contiguous, of dtype: 0 float32, 1 bfloat16) into sums
+// (n_leaves floats), one launch for each kMaxLeaves leaves; with norm
+// also sqrt of their sum in leaf order into the 0-d float norm, in the
+// last launch. partials: n_partials floats of scratch, at least a
+// launch's chunks of kThreads x kNormVectors x vec elements (the launches
+// reuse it in stream order); counter: one int, 0, left 0. vec: 8 (bf16)
+// or 4 (f32) with every leaf 16-byte aligned, else 1. Returns the first
+// error.
+extern "C" int global_norm(const void* const* g, const long long* sizes,
+                           int n_leaves, float* partials,
+                           long long n_partials, float* sums, float* norm,
+                           int* counter, int dtype, int vec, void* stream) {
+  if (n_leaves < 1 || dtype < 0 || dtype > 1 || partials == nullptr
+      || sums == nullptr || counter == nullptr
+      || (vec != 1 && vec != 16 / (dtype == 0 ? 4 : 2))) {
+    return cudaErrorInvalidValue;
+  }
+  const long long chunk = static_cast<long long>(kThreads) * kNormVectors
+                          * vec;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int first = 0; first < n_leaves; first += kMaxLeaves) {
+    NormTable t{};
+    t.count = n_leaves - first < kMaxLeaves ? n_leaves - first : kMaxLeaves;
+    t.dtype = dtype;
+    t.first = first;
+    t.sums = sums;
+    t.norm = first + t.count == n_leaves ? norm : nullptr;
+    t.counter = counter;
+    t.partials = partials;
+    for (int i = 0; i < t.count; ++i) {
+      const void* ptr = g[first + i];
+      if (ptr == nullptr || !vector_io::aligned(ptr, vec, dtype)) {
+        return cudaErrorInvalidValue;
+      }
+      t.leaf[i] = NormLeaf{ptr, sizes[first + i]};
+    }
+    if (!t.set_chunks(chunk) || t.first_chunk[t.count] > n_partials) {
+      return cudaErrorInvalidValue;
+    }
+    const unsigned blocks = static_cast<unsigned>(t.first_chunk[t.count]);
+    if (vec == 8) {
+      global_norm_kernel<8><<<blocks, kThreads, 0, s>>>(t);
+    } else if (vec == 4) {
+      global_norm_kernel<4><<<blocks, kThreads, 0, s>>>(t);
+    } else {
+      global_norm_kernel<1><<<blocks, kThreads, 0, s>>>(t);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }

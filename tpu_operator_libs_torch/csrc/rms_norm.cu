@@ -100,6 +100,7 @@
 #include <type_traits>
 
 #include "dependent_launch.cuh"
+#include "ticket.cuh"
 #include "vector_io.cuh"
 
 namespace {
@@ -154,18 +155,6 @@ struct BwdParams {
   int rows, dim, threads_per_row, rows_per_block, blocks_per_group;
   int dy_dtype, x_dtype, w_dtype, ds_dtype;
 };
-
-// The ticket of a block: an atomic add with release semantics for the
-// block's partial (which its fence and barrier ordered before it) and
-// acquire semantics for the other blocks' partials, at the card's scope.
-__device__ __forceinline__ int take_ticket(int* counter) {
-  int old;
-  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
-               : "=r"(old)
-               : "l"(counter)
-               : "memory");
-  return old;
-}
 
 // The row's sum of v over its group of `warps` warps in a fixed order: a
 // butterfly within each warp (every lane gets the same bits), then the
@@ -544,24 +533,6 @@ __device__ __forceinline__ void sum_partials(const float* rows, int n,
   }
 }
 
-// Whether this block drew the last of n tickets of `counter`. The
-// block's barrier orders its threads' writes (its partial) before thread
-// 0's fence and ticket, whose release makes them visible at the card's
-// scope; the last ticket's acquire, and the barrier after it, order the
-// other blocks' writes before every thread's reads. One fence a block,
-// not one a thread: a fence in every thread measured slower on the
-// combine's chain at the train shape on the H100.
-__device__ __forceinline__ bool last_ticket(int* counter, int n,
-                                            int* ticket) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    *ticket = take_ticket(counter);
-  }
-  __syncthreads();
-  return *ticket == n - 1;
-}
-
 // The two-level combine of the blocks' partials (written before) into dw,
 // each level in a fixed order; every counter it takes is left at 0.
 __device__ __forceinline__ void combine(const BwdParams& p, int* ticket) {
@@ -571,7 +542,7 @@ __device__ __forceinline__ void combine(const BwdParams& p, int* ticket) {
   const int g = blockIdx.x / per;
   const int first = g * per;
   const int n = min(per, blocks - first);
-  if (!last_ticket(p.counters + g, n, ticket)) return;
+  if (!tickets::last(p.counters + g, n, ticket)) return;
   // the group's partials in block order: dw itself for a single group
   sum_partials(p.ws + static_cast<long long>(first) * p.dim, n, p.dim,
                groups == 1 ? nullptr
@@ -579,7 +550,7 @@ __device__ __forceinline__ void combine(const BwdParams& p, int* ticket) {
                p);
   if (threadIdx.x == 0) p.counters[g] = 0;
   if (groups == 1) return;
-  if (!last_ticket(p.counters + groups, groups, ticket)) return;
+  if (!tickets::last(p.counters + groups, groups, ticket)) return;
   // the groups' sums in group order
   sum_partials(p.ws + static_cast<long long>(blocks) * p.dim, groups, p.dim,
                nullptr, p);

@@ -13,9 +13,11 @@ residual add folded into the MLP's norm), the gate and the rotation of q
 and k (one launch a layer, which on the flash path writes q, k and v in
 the kernel's head-major layout) run the hand-written kernels of
 ``kernels/rms_norm.py``, ``kernels/swiglu.py`` and ``kernels/rope.py``,
-forward and backward, and the train step's AdamW update that of
-``kernels/adamw.py``; the layer's output add stays a plain add, the
-boundary that ``remat`` saves.
+forward and backward, the loss (the log-softmax at the targets and its
+mean, forward and backward, over the whole logits) that of
+``kernels/cross_entropy.py``, and the train step's global norm and AdamW
+update those of ``kernels/global_norm.py`` and ``kernels/adamw.py``; the
+layer's output add stays a plain add, the boundary that ``remat`` saves.
 
 Parameters are a nested dict of tensors in the JAX package's layout:
 weights are ``(in, out)`` and applied as ``x @ W``, so
@@ -52,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 from tpu_operator_libs_torch import resolve_device
 from tpu_operator_libs_torch.convert import shard_params
 from tpu_operator_libs_torch.examples.ring_attention import ring_attention
+from tpu_operator_libs_torch.kernels.cross_entropy import cross_entropy
 from tpu_operator_libs_torch.kernels.flash_attention import flash_attention
 from tpu_operator_libs_torch.kernels.rms_norm import (  # noqa: F401
     add_rms_norm,
@@ -277,11 +280,10 @@ def next_token_loss(params, tokens, config: LlamaConfig, mesh=None):
     sequence, on every sp rank)."""
     if config.attention_impl == "ring":
         return _ring_loss(params, tokens, config, mesh)
-    logits = forward(params, tokens, config, mesh)[:, :-1, :]
-    targets = tokens[:, 1:].long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    picked = torch.gather(logp, -1, targets[..., None])[..., 0]
-    return -torch.mean(picked)
+    # the whole logits: the kernels skip the last position, which has no
+    # target
+    logits = forward(params, tokens, config, mesh)
+    return cross_entropy(logits, tokens[:, 1:].long().contiguous())
 
 
 def _ring_loss(params, tokens, config: LlamaConfig, mesh):
@@ -295,11 +297,9 @@ def _ring_loss(params, tokens, config: LlamaConfig, mesh):
     after = ring_hop([tokens[:, :1]], mesh, "sp", shift=-1)[0]
     targets = torch.cat([tokens[:, 1:], after], dim=1).long()
     if sp_rank == sp - 1:
-        logits, targets = logits[:, :-1, :], targets[:, :-1]
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    picked = torch.gather(logp, -1, targets[..., None])[..., 0]
-    share = picked.numel() / (tokens.shape[0] * (tokens.shape[1] * sp - 1))
-    return reduce_from_sp(-torch.mean(picked) * share, mesh)
+        targets = targets[:, :-1].contiguous()
+    share = targets.numel() / (tokens.shape[0] * (tokens.shape[1] * sp - 1))
+    return reduce_from_sp(cross_entropy(logits, targets) * share, mesh)
 
 
 def config_for_mesh(tp: int) -> LlamaConfig:

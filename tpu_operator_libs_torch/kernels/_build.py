@@ -10,7 +10,7 @@ edited source is rebuilt and a built one is reused within a checkout.
 :func:`build_all` starts one ``nvcc`` per source at once. Nothing here
 runs when the module is imported, so the package imports on machines
 without ``nvcc``; only a kernel launch needs it. The wrappers share
-:func:`raise_on` and :func:`sm_count` too.
+:func:`raise_on`, :func:`sm_count` and :func:`zeroed_counters` too.
 """
 
 from __future__ import annotations
@@ -143,3 +143,24 @@ def sm_count(index: int) -> int:
     import torch
 
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def zeroed_counters(store: dict, device, stream, size: int, who: str):
+    """The ticket (or tile) counters that ``who``'s kernel takes on
+    ``stream``: ``size`` int32s kept in ``store`` by (device index,
+    stream), zeroed once, outside any graph capture; every launch leaves
+    them 0. A capture records their address, so they live as long as the
+    process."""
+    import torch
+
+    key = (device.index, stream.cuda_stream)
+    counters = store.get(key)
+    if counters is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{who}: the first call on a stream must not be captured "
+                "(its counters are zeroed then); run one eager call on the "
+                "capturing stream first")
+        counters = torch.zeros(size, dtype=torch.int32, device=device)
+        store[key] = counters
+    return counters

@@ -38,6 +38,16 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
 
+def clip_reference(grads, norm, clip_norm):
+    """Plain version of ``optax.clip_by_global_norm``'s scaling: the
+    leaves as they are where ``norm < clip_norm``, else each divided by
+    the norm cast to its dtype and multiplied by ``clip_norm``; ``norm``
+    a 0-d float32 tensor."""
+    keep = norm < clip_norm
+    return [torch.where(keep, g, g / norm.to(g.dtype) * clip_norm)
+            for g in grads]
+
+
 def adamw_update_reference(grads, state, params, *, lr, weight_decay,
                            clip_norm=0.0, norm=None):
     """Plain PyTorch version: ``(new params, new state)`` from lists of
@@ -47,9 +57,7 @@ def adamw_update_reference(grads, state, params, *, lr, weight_decay,
     with ``clip_norm > 0``, ``norm`` the gradients' global norm, a 0-d
     float32 tensor."""
     if clip_norm > 0.0:
-        keep = norm < clip_norm
-        grads = [torch.where(keep, g, g / norm.to(g.dtype) * clip_norm)
-                 for g in grads]
+        grads = clip_reference(grads, norm, clip_norm)
     mu = [(1 - B1) * g + B1 * m for g, m in zip(grads, state["mu"])]
     nu = [(1 - B2) * g * g + B2 * v for g, v in zip(grads, state["nu"])]
     count = state["count"] + 1

@@ -299,23 +299,6 @@ def output_dtype(q_dtype, cache_dtype) -> torch.dtype:
     return torch.promote_types(q_dtype, cache_dtype)
 
 
-def _ticket_counters(device: torch.device, stream) -> torch.Tensor:
-    """The split combine's ticket counters of ``stream``: COUNTERS ints,
-    zeroed once, outside any graph capture; every launch leaves them 0. A
-    capture records their address, so they live as long as the process."""
-    key = (device.index, stream.cuda_stream)
-    counters = _counters.get(key)
-    if counters is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "decode_attention: the first split call on a stream must not "
-                "be captured (its counters are zeroed then); run one eager "
-                "call on the capturing stream first")
-        counters = torch.zeros(COUNTERS, dtype=torch.int32, device=device)
-        _counters[key] = counters
-    return counters
-
-
 def decode_attention(q, entry, start_pos):
     """Attention of ``q`` (B, T, n_heads, head_dim), float32 or bfloat16,
     at positions ``start_pos .. start_pos + T - 1`` over one layer's
@@ -353,7 +336,8 @@ def decode_attention(q, entry, start_pos):
             # graph it comes from the graph's pool
             ws = torch.empty(p.groups * p.splits * (2 + dim) * MAX_ROWS,
                              dtype=torch.float32, device=q.device)
-            counters = _ticket_counters(q.device, stream)
+            counters = _build.zeroed_counters(
+                _counters, q.device, stream, COUNTERS, "decode_attention")
         err = lib.decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             entry["k_s"].data_ptr() if quant else None,

@@ -27,7 +27,11 @@ import dataclasses
 
 import torch
 
-from tpu_operator_libs_torch.kernels._build import load, sm_count
+from tpu_operator_libs_torch.kernels._build import (
+    load,
+    sm_count,
+    zeroed_counters,
+)
 
 #: the CUDA source under ``csrc/``
 SOURCE = "int8_matmul.cu"
@@ -140,24 +144,6 @@ def _library():
     return _lib
 
 
-def _tile_counters(device: torch.device, stream, sms: int) -> torch.Tensor:
-    """The split-K tile counters of ``stream``: ``sms`` ints (a product
-    that splits K has at most sms / 2 tiles), zeroed once, outside any
-    graph capture; every launch leaves them 0. A capture records their
-    address, so they live as long as the process."""
-    key = (device.index, stream.cuda_stream)
-    counters = _counters.get(key)
-    if counters is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "int8_matmul: the first split-K call on a stream must not be "
-                "captured (its counters are zeroed then); run one eager call "
-                "on the capturing stream first")
-        counters = torch.zeros(sms, dtype=torch.int32, device=device)
-        _counters[key] = counters
-    return counters
-
-
 def int8_matmul(x, q, s):
     """``(x @ q) * s`` in x's dtype: the kernel for CUDA tensors, the plain
     version for CPU ones. x (M, K) float32 or bfloat16, q (K, N) int8, s
@@ -183,7 +169,9 @@ def int8_matmul(x, q, s):
             # graph it comes from the graph's pool
             partial = torch.empty((p.splits, m, n), dtype=torch.float32,
                                   device=x.device)
-            counters = _tile_counters(x.device, stream, sms)
+            # a product that splits K has at most sms / 2 tiles
+            counters = zeroed_counters(_counters, x.device, stream,
+                                       sms, "int8_matmul")
         err = lib.int8_matmul(
             x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
             None if partial is None else partial.data_ptr(),

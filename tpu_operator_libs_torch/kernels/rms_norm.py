@@ -37,7 +37,12 @@ import math
 
 import torch
 
-from tpu_operator_libs_torch.kernels._build import load, raise_on, sm_count
+from tpu_operator_libs_torch.kernels._build import (
+    load,
+    raise_on,
+    sm_count,
+    zeroed_counters,
+)
 
 #: the CUDA source under ``csrc/``
 SOURCE = "rms_norm.cu"
@@ -357,25 +362,6 @@ def _launch_forward(h, delta, weight, eps, want_rstd):
     return s, y, rstd
 
 
-def _ticket_counters(device: torch.device, stream) -> torch.Tensor:
-    """The backward's ticket counters on ``stream``: ``COMBINE_GROUPS``
-    + 1 ints, zeroed once, outside any graph capture; every launch leaves
-    them 0. A capture records their address, so they live as long as the
-    process."""
-    key = (device.index, stream.cuda_stream)
-    counter = _counters.get(key)
-    if counter is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "rms_norm_bwd: the first call on a stream must not be "
-                "captured (its counter is zeroed then); run one eager call "
-                "on the capturing stream first")
-        counter = torch.zeros(COMBINE_GROUPS + 1, dtype=torch.int32,
-                              device=device)
-        _counters[key] = counter
-    return counter
-
-
 def rms_norm_bwd(dy, x, weight, rstd, ds=None):
     """``(dx, dw)`` of the norm from the gradient ``dy`` of its output,
     the normalised input ``x`` (..., dim), the weight (dim,), ``rstd``
@@ -408,7 +394,8 @@ def rms_norm_bwd(dy, x, weight, rstd, ds=None):
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device)
-        counters = _ticket_counters(x.device, stream)
+        counters = zeroed_counters(_counters, x.device, stream,
+                                   COMBINE_GROUPS + 1, "rms_norm_bwd")
         # the blocks' partial dw, then the combine groups' sums; allocated
         # here, so inside a captured graph it comes from the graph's pool
         ws = torch.empty((p.blocks + -(-p.blocks // p.blocks_per_group),

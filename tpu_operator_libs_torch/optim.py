@@ -28,7 +28,10 @@ takes it over the global arrays.
 
 The update itself is ``kernels/adamw.py``'s :func:`adamw_update`: one
 hand-written kernel launch over every leaf on the card, its plain
-version (this class's former body, op for op) on the CPU.
+version (this class's former body, op for op) on the CPU. With clipping
+the norm before it is ``kernels/global_norm.py``'s kernel on the card
+(one launch over every leaf without a tp mesh), its plain version on the
+CPU.
 """
 
 from __future__ import annotations
@@ -132,7 +135,8 @@ class AdamW:
         leaves in ``params``' order through
         :func:`~tpu_operator_libs_torch.kernels.adamw.adamw_update` (the
         kernel on the card, one launch a step; on the CPU its plain
-        version, ``adamw_update_reference``)."""
+        version, ``adamw_update_reference``), with clipping behind
+        ``parallel.global_norm`` (on one card one more launch)."""
         def leaves(tree):  # tree's leaves in params' order
             return tree_leaves(tree_map(lambda _, x: x, params, tree))
 

@@ -54,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_operator_libs_torch import resolve_device
+from tpu_operator_libs_torch.kernels.global_norm import sum_of_squares
 
 #: the dimension each tensor-parallel weight is split on, by its key:
 #: column-parallel weights over their output dim (1), row-parallel ones
@@ -374,17 +375,21 @@ def named_leaves(tree, key=None):
 def global_norm(grads, mesh=None):
     """optax's ``global_norm`` over a tree of tp shards: each sharded
     leaf's sum of squares is summed over tp, each replicated leaf counts
-    once, and the leaves add in tree order. Float32."""
-    keys, squares = [], []
-    for key, g in named_leaves(grads):
-        keys.append(key)
-        squares.append(torch.sum(g.float() ** 2))
-    if tp_of(mesh) > 1:
-        sharded = [i for i, k in enumerate(keys) if k in TP_SPLIT_DIM]
-        summed = torch.stack([squares[i] for i in sharded])
-        dist.all_reduce(summed, group=mesh.tp_group)
-        for i, value in zip(sharded, summed):
-            squares[i] = value
+    once, and the leaves add in tree order. Float32 (optax's is in the
+    leaves' dtype: bfloat16 for bfloat16 gradients; cast to it, as the
+    clip casts it, the port's is within one ulp of optax's). The sums of
+    squares are
+    ``kernels/global_norm.py``'s kernel on the card, without a tp mesh
+    with the norm in the same launch; the plain version on the CPU."""
+    keys, leaves = zip(*named_leaves(grads))
+    if tp_of(mesh) <= 1:
+        return sum_of_squares(list(leaves), norm=True)[1]
+    squares = list(sum_of_squares(list(leaves))[0])
+    sharded = [i for i, k in enumerate(keys) if k in TP_SPLIT_DIM]
+    summed = torch.stack([squares[i] for i in sharded])
+    dist.all_reduce(summed, group=mesh.tp_group)
+    for i, value in zip(sharded, summed):
+        squares[i] = value
     return torch.sqrt(sum(squares))
 
 
