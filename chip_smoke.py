@@ -24,9 +24,14 @@ exits non-zero without printing a result. Phases:
    row naming the design it ran and timed beside
    ``scaled_dot_product_attention`` on a pinned backend.
 3b. kernel_bwd: the dK/dV and dQ kernels against their plain version at
-   the train step's shape and four more (an odd length among them), two
-   launches bit-equal, each row naming the design it ran, timed beside
-   SDPA's backward alone.
+   the train step's shape and six more (an odd length among them; f32 at
+   head_dim 64, 128 and 16 through the 3xTF32 design), two launches
+   bit-equal, each row naming the design it ran, its grid as
+   torch.profiler recorded the launch (checked against the grid its
+   launcher reports) and its instance's registers and spills, timed
+   beside SDPA's backward alone; the 3xTF32 rows hold the tensor-core
+   bound of three TF32 products beside the f32 bound, and (c)'s and
+   f32_main's limit_use over 8 seeds.
 3c. ring_kernels, with the launch counts set to 0 just before its chain:
    the three flash kernels launched without the causal mask (a ring's
    past blocks) against plain and SDPA; the long-context shape (b) cut
@@ -274,6 +279,7 @@ from tpu_operator_libs_torch.kernels.flash_attention import (  # noqa: E402
     flash_backward,
     flash_forward,
     kernel_design,
+    launch_blocks,
 )
 from tpu_operator_libs_torch.optim import (  # noqa: E402
     AdamW,
@@ -287,8 +293,12 @@ from tpu_operator_libs_torch.parallel import (  # noqa: E402
 )
 from decode_step_profile import PORT_KERNELS, port_kernel  # noqa: E402
 
-#: H100 SXM published dense peaks (NVIDIA data sheet, no sparsity)
+#: H100 SXM published dense peaks (NVIDIA data sheet, no sparsity): bf16
+#: and f32 (CUDA cores) by dtype, and TF32 on the tensor cores
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12
+#: the backward's design for f32 and narrow bf16 (kernel_design's name)
+TF32_DESIGN = "3xTF32 mma.sync"
 PEAK_BYTES = 3.35e12
 
 #: llama-277M at bench.py's defaults (bench.py:551-555 with D=2048)
@@ -306,10 +316,12 @@ TRAIN_ROWS = TRAIN_BATCH * CONFIG_277M.seq_len
 #: f32: sums in another order over <= 8192 keys; 2e-5 is the tolerance
 #: the CPU test holds the plain version to against the Pallas kernel. The
 #: backward's dK/dV sum up to S * H / H_kv pair terms (4,000 at shape
-#: (c)), where their sound reading is 2.0e-5 and passes through the rtol
-#: term; wrong variants of the algorithm there (dK unscaled, a group head
-#: dropped, the ragged key tile dropped, inputs staged as bf16) are off
-#: by 1.4e-2 and more (tests/test_torch_flash_attention.py). Each row
+#: (c)), where their sound reading on an H100 80GB HBM3 at 700 W (2.0e-5
+#: for the scalar design, up to 6.0e-5 and a limit_use of 0.75 for the
+#: 3xTF32 one, PERF.md §6) passes through the rtol term; wrong variants of the algorithm there
+#: (dK unscaled, a group head dropped, the ragged key tile dropped,
+#: inputs staged as bf16, one TF32 product) are off by 1.4e-2 and more,
+#: or 10x the limit and more (tests/test_torch_flash_attention.py). Each row
 #: reports ``limit_use``, the largest share of its limit an element takes.
 KERNEL_TOL = {torch.bfloat16: (2.0 ** -7, 1e-3), torch.float32: (1e-5, 2e-5)}
 #: log-sum-exp, f32 on both sides
@@ -391,10 +403,10 @@ def phase_device():
 KERNEL_TEMPLATES = {
     "flash_fwd_kernel": ("flash_attention_fwd", None),
     "flash_fwd_wgmma_kernel": ("flash_attention_fwd", torch.bfloat16),
-    "flash_bwd_dkv_kernel": ("flash_attention_bwd_dkv", None),
+    "flash_bwd_dkv_tf32_kernel": ("flash_attention_bwd_dkv", None),
     "flash_bwd_dkv_wgmma_kernel": ("flash_attention_bwd_dkv",
                                    torch.bfloat16),
-    "flash_bwd_dq_kernel": ("flash_attention_bwd_dq", None),
+    "flash_bwd_dq_tf32_kernel": ("flash_attention_bwd_dq", None),
     "flash_bwd_dq_wgmma_kernel": ("flash_attention_bwd_dq", torch.bfloat16),
 }
 
@@ -612,7 +624,7 @@ def phase_build():
                            "dynamic_smem_bytes": 0}))
                 continue
             # the template's name follows its length in the mangled name
-            name = re.search(r"\d(flash_[a-z]+(?:_[a-z]+)*?_kernel)I"
+            name = re.search(r"\d(flash_[a-z]+(?:_[a-z0-9]+)*?_kernel)I"
                              r"(13__nv_bfloat16|f)?Li(\d+)E", block)
             if name is None:
                 raise RuntimeError(f"unrecognised ptxas entry: {block[:200]}")
@@ -712,22 +724,129 @@ def phase_kernel(card):
 
 
 def backward_bound_ms(products, batch, heads, kv_heads, seq, dim, dtype,
-                      outputs, causal=True):
+                      outputs, causal=True, peak=None):
     """Least time for one backward kernel on these inputs: ``products``
-    matrix products of 2*D FLOPs per visible pair over the dtype's peak,
-    against Q, K, V, dO, lse and di read once and ``outputs`` (the
-    element counts it writes) written once, over the memory rate."""
+    matrix products of 2*D FLOPs per visible pair over the dtype's peak
+    (or ``peak``), against Q, K, V, dO, lse and di read once and
+    ``outputs`` (the element counts it writes) written once, over the
+    memory rate."""
     flops = products * 2 * dim * batch * heads * visible_pairs(seq, seq,
                                                                 causal)
     esize = torch.finfo(dtype).bits // 8
     nbytes = (esize * (2 * batch * heads * seq * dim
                        + 2 * batch * kv_heads * seq * dim + sum(outputs))
               + 2 * 4 * batch * heads * seq)
-    t_flops = flops / PEAK_FLOPS[dtype]
+    t_flops = flops / (peak or PEAK_FLOPS[dtype])
     t_bytes = nbytes / PEAK_BYTES
     if t_flops >= t_bytes:
         return t_flops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
+
+
+def backward_bounds(products, kernel_ms, design, *shape, outputs, causal):
+    """A backward row's bounds: ``bound_ms`` on the dtype's rate (for
+    f32 the CUDA cores' 67 TFLOP/s, which the f32 function needs), and
+    for the 3xTF32 design on f32 inputs also the tensor cores' bound of
+    what it runs, three TF32 products for each at 495 TFLOP/s; the
+    row's ``bound_share`` (bound over kernel_ms) takes the latter where
+    there is one."""
+    bound, by = backward_bound_ms(products, *shape, outputs, causal)
+    row = {"bound_ms": bound, "bound_by": by}
+    if design == TF32_DESIGN and shape[-1] == torch.float32:
+        tc, tc_by = backward_bound_ms(3 * products, *shape, outputs, causal,
+                                      peak=PEAK_TF32)
+        row.update({"bound_3xtf32_ms": tc, "bound_3xtf32_by": tc_by,
+                    "bound_share": tc / kernel_ms,
+                    "bound_share_uses": "bound_3xtf32_ms"})
+    else:
+        row.update({"bound_share": bound / kernel_ms,
+                    "bound_share_uses": "bound_ms"})
+    return row
+
+
+def bwd_template(which, design) -> str:
+    """The C++ template of a backward kernel ("dkv" or "dq") in the
+    design ``kernel_design`` named."""
+    route = "tf32" if design == TF32_DESIGN else "wgmma"
+    return f"flash_bwd_{which}_{route}_kernel"
+
+
+def backward_grids(spec) -> dict:
+    """{label: {"dkv": blocks, "dq": blocks}} of one launch of each
+    backward kernel at each [label, B, H, H_kv, S, D, dtype, causal] of
+    ``spec``, as :func:`launched_blocks` reads them (None where the
+    profiler recorded none)."""
+    grids = {}
+    for label, batch, heads, kv_heads, seq, dim, dtype, causal in spec:
+        dtype = getattr(torch, dtype)
+        q, k, v, do = backward_inputs(SEED + 10, batch, heads, kv_heads,
+                                      seq, dim, dtype)
+        kw = {"causal": causal, "sm_scale": dim ** -0.5}
+        o, lse = flash_forward(q, k, v, **kw)
+        di = (o.float() * do.float()).sum(-1)
+        templates = {which: bwd_template(which, kernel_design(
+            f"flash_attention_bwd_{which}", dtype, dim)["design"])
+            for which in ("dkv", "dq")}
+        seen = launched_blocks(
+            lambda: (flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw),
+                     flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)),
+            list(templates.values()))
+        grids[label] = {which: (seen[template][0] if template in seen
+                                else None)
+                        for which, template in templates.items()}
+        del q, k, v, do, o, lse, di
+    return grids
+
+
+def measure_backward_grids(shapes) -> dict:
+    """:func:`backward_grids` of ``shapes`` ((label, B, H, H_kv, S, D,
+    dtype, causal) tuples) from a process of its own
+    (``chip_smoke.py --backward-grids SPEC``): in one process with the
+    card tests, the profiler sessions after a :func:`launched_blocks`
+    recorded no device event (NVIDIA H100 80GB HBM3, PERF.md §6)."""
+    spec = [[label, *dims, str(dtype).replace("torch.", ""), causal]
+            for label, *dims, dtype, causal in shapes]
+    run = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--backward-grids",
+         json.dumps(spec)], capture_output=True, text=True, timeout=600,
+        cwd=ROOT)
+    if run.returncode != 0:
+        raise RuntimeError(f"chip_smoke.py --backward-grids failed "
+                           f"({run.returncode}):\n{run.stderr[-4000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def launched_blocks(fn, kernels) -> dict:
+    """The blocks of each launch that one call of ``fn`` made of a kernel
+    whose name holds one of ``kernels``, as torch.profiler's trace of the
+    device records its grid: {kernel: [blocks, ...]}, {} where no session
+    of up to MAX_PROFILE_SESSIONS recorded a grid for each (a session can
+    lose a kernel's record, see :func:`cuda_launches`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(MAX_PROFILE_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+        found = {}
+        for event in events:
+            grid = event.get("args", {}).get("grid")
+            if event.get("cat") != "kernel" or not grid:
+                continue
+            for kernel in kernels:
+                if kernel in event.get("name", ""):
+                    found.setdefault(kernel, []).append(math.prod(grid))
+        if all(kernel in found for kernel in kernels):
+            return found
+    return {}
 
 
 def sdpa_backward_ms(q, k, v, do, scale, iters, causal=True):
@@ -748,18 +867,47 @@ def sdpa_backward_ms(q, k, v, do, scale, iters, causal=True):
     return ms
 
 
-def check_backward_shape(label, batch, heads, kv_heads, seq, dim, dtype,
-                         card, iters, causal=True):
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+def backward_inputs(seed, batch, heads, kv_heads, seq, dim, dtype):
+    """q, k, v and dO for a backward row, drawn on the card from
+    ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
 
-    q = randn(batch, heads, seq, dim)
-    k = randn(batch, kv_heads, seq, dim)
-    v = randn(batch, kv_heads, seq, dim)
-    do = randn(batch, heads, seq, dim)
+    return (randn(batch, heads, seq, dim), randn(batch, kv_heads, seq, dim),
+            randn(batch, kv_heads, seq, dim), randn(batch, heads, seq, dim))
+
+
+def backward_limit_use(seed, batch, heads, kv_heads, seq, dim, dtype,
+                       causal=True) -> dict:
+    """dq, dk and dv's limit_use under KERNEL_TOL, the kernels against
+    the plain backward, on inputs drawn from ``seed``."""
+    q, k, v, do = backward_inputs(seed, batch, heads, kv_heads, seq, dim,
+                                  dtype)
+    kw = {"causal": causal, "sm_scale": dim ** -0.5}
+    o, lse = flash_forward(q, k, v, **kw)
+    di = (o.float() * do.float()).sum(-1)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
+    refs = flash_attention_backward_reference(q, k, v, o, lse, do, **kw)
+    return {name: limit_use((got.float() - ref.float()).abs(), ref,
+                            *KERNEL_TOL[dtype])
+            for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                      refs)}
+
+
+def check_backward_shape(label, batch, heads, kv_heads, seq, dim, dtype,
+                         card, iters, causal=True, seeds=0, seen=None):
+    """A backward row at one shape: both kernels against the plain
+    backward on inputs from SEED + 10, two launches bit-equal, their
+    grids (``seen``: {"dkv": blocks, "dq": blocks} as
+    :func:`measure_backward_grids` saw them launched), times and bounds;
+    with ``seeds`` > 0 also their limit_use on inputs from that many more
+    seeds."""
+    q, k, v, do = backward_inputs(SEED + 10, batch, heads, kv_heads, seq,
+                                  dim, dtype)
     scale = dim ** -0.5
     o, lse = flash_forward(q, k, v, causal=causal, sm_scale=scale)
     di = (o.float() * do.float()).sum(-1)
@@ -790,6 +938,38 @@ def check_backward_shape(label, batch, heads, kv_heads, seq, dim, dtype,
             f"two launches of the backward kernels differ at {label}: "
             f"{bit_equal}")
     del refs
+    by_seed = {SEED + 10: use}
+    for seed in range(SEED + 11, SEED + 11 + seeds):
+        by_seed[seed] = backward_limit_use(seed, batch, heads, kv_heads,
+                                           seq, dim, dtype, causal)
+        if not max(by_seed[seed].values()) <= 1:
+            raise RuntimeError(f"the backward kernels exceed the limit at "
+                               f"{label}, seed {seed}: {by_seed[seed]}")
+    seeds_row = ({} if seeds == 0 else
+                 {"limit_use_by_seed": {str(seed): uses
+                                        for seed, uses in by_seed.items()},
+                  "limit_use_max_over_seeds": {
+                      name: max(u[name] for u in by_seed.values())
+                      for name in ("dq", "dk", "dv")}})
+    dkv_design = kernel_design("flash_attention_bwd_dkv", dtype, dim)
+    dq_design = kernel_design("flash_attention_bwd_dq", dtype, dim)
+    templates = {"dkv": bwd_template("dkv", dkv_design["design"]),
+                 "dq": bwd_template("dq", dq_design["design"])}
+    # the grids as the profiler saw them launched (``seen``), beside the
+    # grids the launchers report they take
+    grids = {}
+    for which in templates:
+        name = f"flash_attention_bwd_{which}"
+        reported = launch_blocks(name, q, k)
+        blocks = (seen or {}).get(which)
+        if blocks is not None and blocks != reported:
+            raise RuntimeError(
+                f"{name} at {label} launched {blocks} blocks where its "
+                f"launcher reports {reported}")
+        grids[which] = {"blocks": blocks,
+                        "blocks_from": "not recorded" if blocks is None
+                        else "torch.profiler's launch record",
+                        "launcher_blocks": reported}
     dkv_ms = cuda_ms(
         lambda: flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw), iters)
     dq_ms = cuda_ms(
@@ -800,11 +980,14 @@ def check_backward_shape(label, batch, heads, kv_heads, seq, dim, dtype,
         max(1, iters // 3), warmup=1)
     library_ms = sdpa_backward_ms(q, k, v, do, scale, iters, causal)
     kv_elems = batch * kv_heads * seq * dim
-    dkv_bound = backward_bound_ms(4, batch, heads, kv_heads, seq, dim,
-                                  dtype, [kv_elems, kv_elems], causal)
-    dq_bound = backward_bound_ms(3, batch, heads, kv_heads, seq, dim, dtype,
-                                 [batch * heads * seq * dim], causal)
+    shape = (batch, heads, kv_heads, seq, dim, dtype)
+    dkv_bound = backward_bounds(4, dkv_ms, dkv_design["design"], *shape,
+                                outputs=[kv_elems, kv_elems], causal=causal)
+    dq_bound = backward_bounds(3, dq_ms, dq_design["design"], *shape,
+                               outputs=[batch * heads * seq * dim],
+                               causal=causal)
     common = {"shape": label, "causal": causal, "B": batch, "H": heads,
+              **seeds_row,
               "H_kv": kv_heads,
               "S": seq, "D": dim, "dtype": str(dtype).replace("torch.", ""),
               "rtol": rtol, "atol": atol, "plain_ms": plain_ms,
@@ -814,17 +997,24 @@ def check_backward_shape(label, batch, heads, kv_heads, seq, dim, dtype,
               "card": card}
     rows = [
         {"phase": "kernel_bwd", "name": "flash_attention_bwd_dkv", **common,
-         **kernel_design("flash_attention_bwd_dkv", dtype, dim),
-         "max_abs_err": max(errors["dk"], errors["dv"]),
+         **dkv_design, "max_abs_err": max(errors["dk"], errors["dv"]),
          "dk_max_abs_err": errors["dk"], "dv_max_abs_err": errors["dv"],
          "limit_use": max(use["dk"], use["dv"]),
+         "dk_limit_use": use["dk"], "dv_limit_use": use["dv"],
          "bit_equal_launches": bit_equal["dkv"], "kernel_ms": dkv_ms,
-         "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1]},
+         **grids["dkv"],
+         "ptxas": instance_ptxas(
+             "flash_attention_bwd.cu", templates["dkv"],
+             dtype=str(dtype).replace("torch.", ""), head_dim=dim),
+         **dkv_bound},
         {"phase": "kernel_bwd", "name": "flash_attention_bwd_dq", **common,
-         **kernel_design("flash_attention_bwd_dq", dtype, dim),
-         "max_abs_err": errors["dq"], "limit_use": use["dq"],
+         **dq_design, "max_abs_err": errors["dq"], "limit_use": use["dq"],
          "bit_equal_launches": bit_equal["dq"], "kernel_ms": dq_ms,
-         "bound_ms": dq_bound[0], "bound_by": dq_bound[1]},
+         **grids["dq"],
+         "ptxas": instance_ptxas(
+             "flash_attention_bwd.cu", templates["dq"],
+             dtype=str(dtype).replace("torch.", ""), head_dim=dim),
+         **dq_bound},
     ]
     for row in rows:
         emit(row)
@@ -833,21 +1023,40 @@ def check_backward_shape(label, batch, heads, kv_heads, seq, dim, dtype,
     return rows
 
 
-def phase_kernel_bwd(card):
-    shapes = [
-        # the main path's call: the train step of llama-277M, batch 16
-        ("main", 16, 16, 16, 1024, 128, torch.bfloat16, 5),
-        ("b", 1, 16, 16, 8192, 128, torch.bfloat16, 3),
-        ("c", 2, 8, 2, 1000, 64, torch.float32, 10),
-        # GQA and a ragged last tile through the bf16 (wgmma) kernels
-        ("d", 2, 8, 2, 1000, 128, torch.bfloat16, 10),
-        # an odd length: lse and di rows that no 16-byte TMA row could
-        # carry, a ragged 64-query and 128-key tile
-        ("odd", 2, 8, 2, 997, 128, torch.bfloat16, 10),
-    ]
+#: the seeds beyond the first of phase 3b's (c) and f32_main rows
+F32_SEEDS = 7
+
+
+#: phase 3b's shapes: (label, B, H, H_kv, S, D, dtype, timed launches)
+BWD_SHAPES = [
+    # the main path's call: the train step of llama-277M, batch 16
+    ("main", 16, 16, 16, 1024, 128, torch.bfloat16, 5),
+    ("b", 1, 16, 16, 8192, 128, torch.bfloat16, 3),
+    ("c", 2, 8, 2, 1000, 64, torch.float32, 10),
+    # the per-layer call of phase 7's f32 gradients, and GQA and a ragged
+    # tile at the narrowest head_dim, through the 3xTF32 design
+    ("f32_main", 2, 16, 16, 1024, 128, torch.float32, 10),
+    ("f32_d16", 2, 8, 2, 1000, 16, torch.float32, 10),
+    # GQA and a ragged last tile through the bf16 (wgmma) kernels
+    ("d", 2, 8, 2, 1000, 128, torch.bfloat16, 10),
+    # an odd length: lse and di rows that no 16-byte TMA row could carry,
+    # a ragged 64-query and 128-key tile
+    ("odd", 2, 8, 2, 997, 128, torch.bfloat16, 10),
+]
+#: phase 3c's backward row: a ring's past block, no mask
+RING_BWD_SHAPE = ("ring_block", 1, 16, 16, 2048, 128, torch.bfloat16, 10)
+
+
+def phase_kernel_bwd(card, grids):
+    """Phase 3b's rows; ``grids``: :func:`measure_backward_grids` of
+    BWD_SHAPES."""
     rows = []
-    for s in shapes:
-        rows += check_backward_shape(*s[:7], card, s[7])
+    for s in BWD_SHAPES:
+        # the f32 rows' limit_use over more seeds than one: the 3xTF32
+        # kernels' margin under the limit (PERF.md §6)
+        more = F32_SEEDS if s[0] in ("c", "f32_main") else 0
+        rows += check_backward_shape(*s[:7], card, s[7], seeds=more,
+                                     seen=grids.get(s[0]))
     return rows
 
 
@@ -878,7 +1087,7 @@ def fold_bound_ms(rows, dim, o_dtype):
     return (rows * dim * (8 + esize) + rows * 12) / PEAK_BYTES * 1e3
 
 
-def phase_ring_kernels(card):
+def phase_ring_kernels(card, grids):
     """The kernels as the ring runs them, on one card: rows without the
     causal mask, the 4-block chain of the long-context shape, the fold
     kernel against its plain version, and the ring's backward schedule.
@@ -886,8 +1095,9 @@ def phase_ring_kernels(card):
     row, the chain's launches)."""
     fwd_rows = [check_kernel_shape("ring_block", 1, 16, 16, 2048, 128,
                                    torch.bfloat16, card, 10, causal=False)]
-    bwd_rows = check_backward_shape("ring_block", 1, 16, 16, 2048, 128,
-                                    torch.bfloat16, card, 10, causal=False)
+    bwd_rows = check_backward_shape(*RING_BWD_SHAPE[:7], card,
+                                    RING_BWD_SHAPE[7], causal=False,
+                                    seen=grids.get(RING_BWD_SHAPE[0]))
 
     batch, heads, seq, dim = RING_SHAPE
     dtype, n = torch.bfloat16, RING_BLOCKS
@@ -3080,10 +3290,35 @@ RING_KERNELS = FLASH_KERNELS + ["attention_fold"]
 def reset_launch_counts() -> None:
     for wrapper in KERNELS.values():
         wrapper.launches = 0
+        if hasattr(wrapper, "launches_by_design"):
+            wrapper.launches_by_design.clear()
 
 
 def launch_counts() -> "dict[str, int]":
     return {name: wrapper.launches for name, wrapper in KERNELS.items()}
+
+
+def design_launch_counts() -> "dict[str, dict[str, int]]":
+    """The backward kernels' launches since the last reset by the design
+    their instance ran (the wgmma one or the 3xTF32 one)."""
+    return {name: dict(KERNELS[name].launches_by_design)
+            for name in ("flash_attention_bwd_dkv",
+                         "flash_attention_bwd_dq")}
+
+
+def save_launch_counts():
+    """Every count, the backward's by design too, to set back after a
+    measurement (a measurement is not the path)."""
+    return launch_counts(), design_launch_counts()
+
+
+def restore_launch_counts(saved) -> None:
+    counts, designs = saved
+    for name, count in counts.items():
+        KERNELS[name].launches = count
+    for name, by_design in designs.items():
+        KERNELS[name].launches_by_design.clear()
+        KERNELS[name].launches_by_design.update(by_design)
 
 
 TRAIN_STEPS = 6
@@ -3215,7 +3450,7 @@ def time_update(optimizer, state, tokens, config) -> dict:
     its plain version on the same leaves, CUDA events; the update's
     launches checked, then every count set back (a measurement is not the
     path)."""
-    counts = launch_counts()
+    saved = save_launch_counts()
     _, grads = value_and_grad(next_token_loss, state["params"], tokens,
                               config)
     before = launch_counts()["adamw"]
@@ -3225,8 +3460,7 @@ def time_update(optimizer, state, tokens, config) -> dict:
     if launches != 12:  # 10 timed calls and 2 of warm-up
         raise RuntimeError(f"AdamW.update launched {launches} kernels over "
                            "12 calls, expected 12")
-    for name, count in counts.items():
-        KERNELS[name].launches = count
+    restore_launch_counts(saved)
     opt = state["opt"]
     plain_ms = cuda_ms(lambda: adamw_mod.adamw_update_reference(
         tree_leaves(grads), {"count": opt["count"],
@@ -3358,7 +3592,7 @@ def loss_device_time(tokens, step_profile) -> dict:
     the step's device time (the profiled step's, with the plain version's
     time in place of the kernels' for the plain share). The launch counts
     are set back after (a measurement is not the path)."""
-    counts = launch_counts()
+    saved = save_launch_counts()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
     x = (3.0 * torch.randn((*tokens.shape, CONFIG_277M.vocab),
                            generator=gen, device="cuda")) \
@@ -3376,8 +3610,7 @@ def loss_device_time(tokens, step_profile) -> dict:
 
     out = {"kernels": run(loss_mod.cross_entropy),
            "plain": run(loss_mod.next_token_loss_reference)}
-    for name, count in counts.items():
-        KERNELS[name].launches = count
+    restore_launch_counts(saved)
     busy = (step_profile or {}).get("device_busy_ms")
     kernels, plain = (out[k]["device_busy_ms"] for k in ("kernels", "plain"))
     if busy and kernels is not None and plain is not None:
@@ -3442,14 +3675,13 @@ def phase_train_clipped(params, card, first_loss):
                            f"not the unclipped run's {first_loss!r}")
     # the first step's norm and the clipped update's time: measurements,
     # so the counts are set back after
-    counts = launch_counts()
+    saved = save_launch_counts()
     _, grads = value_and_grad(next_token_loss, params, batches[0], config)
     norm = float(global_norm(grads))
     update_ms = cuda_ms(lambda: optimizer.update(grads, state["opt"],
                                                  state["params"]), 10)
     norm_ms = cuda_ms(lambda: global_norm(grads), 10)
-    for name, count in counts.items():
-        KERNELS[name].launches = count
+    restore_launch_counts(saved)
     del grads
     profile = profile_device(lambda: step(state, batches[0])[1].item(),
                              top=10)
@@ -3731,7 +3963,15 @@ def phase_multichip(card, train_losses=None, bench_tokens=None):
           "dtype": "float32"})
     emit({"phase": "multichip_serving", **common,
           **multichip_serving(n, card)})
-    return launches, first["launches_ring"]
+    # the backward kernels' launches by design, alike on every rank
+    by_design = {"multichip": first["launches_by_design"],
+                 "ring": first["launches_by_design_ring"]}
+    for rank in ranks:
+        if {"multichip": rank["launches_by_design"],
+                "ring": rank["launches_by_design_ring"]} != by_design:
+            raise RuntimeError("ranks disagree on the backward's launches "
+                               "by design")
+    return launches, first["launches_ring"], by_design
 
 
 #: the decode stage's dtypes: the label the ranks return, the line's name
@@ -3839,7 +4079,8 @@ def multichip_serving(n, card):
                       wall_s_with_start_up=wall_s)
 
 
-def kernel_entry(name, source, replaces, launches, rows, shape, card):
+def kernel_entry(name, source, replaces, launches, rows, shape, card,
+                 **extra):
     """The kernels line's entry; its times and bound are those of the
     first row, the shape that the most launches of the main paths had."""
     main_row = rows[0]
@@ -3855,12 +4096,15 @@ def kernel_entry(name, source, replaces, launches, rows, shape, card):
         "library": main_row["library"], "design": main_row["design"],
         "shape": shape,
         "shapes": [{k: r[k] for k in ("shape", "causal", "B", "H", "H_kv",
-                                      "S", "D", "dtype", "design",
-                                      "max_abs_err",
-                                      "limit_use", "kernel_ms", "plain_ms",
+                                      "S", "D", "dtype", "design", "blocks",
+                                      "blocks_from", "max_abs_err",
+                                      "limit_use", "limit_use_max_over_seeds",
+                                      "kernel_ms", "plain_ms",
                                       "library", "library_ms", "bound_ms",
-                                      "bound_by")} for r in rows],
-        "card": card}
+                                      "bound_by", "bound_3xtf32_ms",
+                                      "bound_share", "bound_share_uses")
+                    if k in r} for r in rows],
+        **extra, "card": card}
 
 
 def int8_entry(rows, serving, multi, card):
@@ -3972,6 +4216,9 @@ def block_entry(name, source, replaces, rows, launches, shape, card):
 
 
 def main(argv) -> int:
+    if len(argv) == 2 and argv[0] == "--backward-grids":
+        print(json.dumps(backward_grids(json.loads(argv[1]))))
+        return 0
     card = phase_device()
     phase_build()
     if len(argv) == 2 and argv[0] == "--train-turns":
@@ -3987,9 +4234,11 @@ def main(argv) -> int:
     if argv:
         raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     fwd_rows = phase_kernel(card)
-    bwd_rows = phase_kernel_bwd(card)
+    grids = measure_backward_grids(
+        [(*s[:7], True) for s in BWD_SHAPES] + [(*RING_BWD_SHAPE[:7], False)])
+    bwd_rows = phase_kernel_bwd(card, grids)
     # the ring's chain: counts at 0 just before it, read just after
-    ring_fwd, ring_bwd, fold_row, chain = phase_ring_kernels(card)
+    ring_fwd, ring_bwd, fold_row, chain = phase_ring_kernels(card, grids)
     fwd_rows += ring_fwd
     bwd_rows += ring_bwd
     int8_rows = phase_int8_matmul(card)
@@ -4008,6 +4257,7 @@ def main(argv) -> int:
     qparams = phase_decode(params, params32, card)
     bench_tokens = phase_serving(params, qparams, card)
     serving = launch_counts()
+    by_design = {"serving": design_launch_counts()}
     del params32, qparams
     torch.cuda.empty_cache()
     # the training path, likewise
@@ -4016,10 +4266,13 @@ def main(argv) -> int:
     phase_train_clipped(params, card, train_losses[0])
     phase_checkpoint(state, optimizer, step, card)
     training = launch_counts()
+    by_design["training"] = design_launch_counts()
     del state, params
     torch.cuda.empty_cache()
     # the multi-device path: its ranks set their counts to 0 before it
-    multi, ring = phase_multichip(card, train_losses, bench_tokens)
+    multi, ring, ranks_by_design = phase_multichip(card, train_losses,
+                                                   bench_tokens)
+    by_design.update(ranks_by_design)
     for path, counts, names in (
             ("serving", serving,
              ["flash_attention_fwd", "int8_matmul", "rms_norm", "swiglu"]
@@ -4035,6 +4288,14 @@ def main(argv) -> int:
         missing = [name for name in names if counts[name] < 1]
         if missing:
             raise RuntimeError(f"the {path} path never launched {missing}")
+    for path, designs in by_design.items():
+        counts = {"serving": serving, "training": training,
+                  "multichip": multi, "ring": ring}[path]
+        for name, by in designs.items():
+            if sum(by.values()) != counts[name]:
+                raise RuntimeError(f"the {path} path's {name} launches by "
+                                   f"design {by} do not add up to "
+                                   f"{counts[name]}")
 
     # the paths that run the norm and the gate
     paths = {"serving": serving, "training": training, "multichip": multi,
@@ -4061,7 +4322,13 @@ def main(argv) -> int:
              "multichip": multi["flash_attention_bwd_dkv"],
              "ring": ring["flash_attention_bwd_dkv"]},
             bwd_rows[0::2],
-            "B=16 H=16 S=1024 D=128 bf16 (train step of llama-277M)", card),
+            "B=16 H=16 S=1024 D=128 bf16 (train step of llama-277M)", card,
+            launches_by_design={
+                path: counts["flash_attention_bwd_dkv"]
+                for path, counts in by_design.items()},
+            launches_by_design_counted="the serving and training paths "
+            "of this process and the multichip and ring paths of rank 0 "
+            "(every rank's alike)"),
         kernel_entry(
             "flash_attention_bwd_dq", "flash_attention_bwd.cu",
             f"{pallas}:1456 (_flash_attention_bwd_dq, kernel :1146; "
@@ -4071,7 +4338,13 @@ def main(argv) -> int:
              "multichip": multi["flash_attention_bwd_dq"],
              "ring": ring["flash_attention_bwd_dq"]},
             bwd_rows[1::2],
-            "B=16 H=16 S=1024 D=128 bf16 (train step of llama-277M)", card),
+            "B=16 H=16 S=1024 D=128 bf16 (train step of llama-277M)", card,
+            launches_by_design={
+                path: counts["flash_attention_bwd_dq"]
+                for path, counts in by_design.items()},
+            launches_by_design_counted="the serving and training paths "
+            "of this process and the multichip and ring paths of rank 0 "
+            "(every rank's alike)"),
         {"name": "attention_fold", "route": "cuda",
          "source": "tpu_operator_libs_torch/csrc/attention_fold.cu",
          "replaces": "tpu_operator_libs/examples/ring_attention.py:25-57 "

@@ -4,7 +4,10 @@ interpret mode, the wrappers' contract, and the rule that the port
 imports nothing of JAX."""
 
 import ast
+import functools
+import json
 import math
+import subprocess
 from pathlib import Path
 
 import jax  # noqa: F401  (imported before torch work: tests/conftest.py pins it to the CPU)
@@ -17,6 +20,9 @@ from jax.experimental.pallas.ops.tpu.flash_attention import (
     flash_attention as pallas_flash_attention,
 )
 
+import chip_smoke
+import flash_backward_variants as fbv
+import tf32_hopper
 from chip_smoke import KERNEL_TOL, limit_use
 from tpu_operator_libs_torch.kernels.flash_attention import (
     flash_attention,
@@ -154,9 +160,10 @@ def wrong_variant_errors(seed=0):
 
 def test_backward_f32_limit_rejects_wrong_variants():
     """chip_smoke.py holds the f32 backward kernels to their plain
-    version within KERNEL_TOL; the kernels' sound reading at shape (c)
-    is 2.0e-5 (PERF.md). Every wrong variant lies outside that limit by
-    a wide margin, so the limit lies between the two readings."""
+    version within KERNEL_TOL; the 3xTF32 kernels' sound reading at shape
+    (c) is 6.0e-5, a limit_use of 0.75, on an H100 80GB HBM3 at 700 W
+    (PERF.md §6). Every wrong variant lies outside that limit by a
+    wide margin, so the limit lies between the two readings."""
     for name, (err, within) in wrong_variant_errors().items():
         assert not within and err > 100 * KERNEL_ATOL_F32, (name, err)
 
@@ -168,11 +175,50 @@ KEY_TILE = 64
 LOG2E = math.log2(math.e)
 
 
+def _tf32(x, rounded=True):
+    """x as the tensor cores read it in TF32, on the bit pattern: the f32
+    mantissa rounded to 10 bits, ties away from zero, as
+    cvt.rna.tf32.f32 rounds and as the 3xTF32 kernels round their hi
+    words by an integer add and mask, or with ``rounded`` False cut to
+    10 bits (a lo word the kernels pass unrounded)."""
+    bits = x.float().contiguous().view(torch.int32)
+    if rounded:
+        bits = bits + 0x1000
+    return (bits & -0x2000).view(torch.float32)
+
+
+#: the 3xTF32 kernels' products (``csrc/tf32_mma.cuh``) and the faults
+#: they can have: each mode's TF32 products of a = hi + lo and b = hi + lo
+TF32_PRODUCTS = {"3xtf32": ("hh", "hl", "lh"), "tf32": ("hh",),
+                 "3xtf32_no_lh": ("hh", "hl"), "3xtf32_no_hl": ("hh", "lh")}
+
+
+def _tf32_product(a, b, how):
+    """a @ b on the tensor cores as the TF32 products of ``how``
+    (:data:`TF32_PRODUCTS`): a_hi b_hi, plus the cross products the mode
+    keeps, each exact in f32 and summed in f32; lo = x - hi as the
+    tensor cores read it (``csrc/tf32_mma.cuh``)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi, False), _tf32(b - b_hi, False)
+    terms = {"hh": (a_hi, b_hi), "hl": (a_hi, b_lo), "lh": (a_lo, b_hi)}
+    cross = [terms[t][0] @ terms[t][1] for t in TF32_PRODUCTS[how][1:]]
+    return a_hi @ b_hi + (sum(cross) if cross else 0.0)
+
+
+def _first_product(a, b, how):
+    """a @ b of two inputs (S = Q K^T and the like): in f32 as the
+    wgmma kernels sum their bf16 inputs, or by :func:`_tf32_product`."""
+    return _tf32_product(a, b, how) if how in TF32_PRODUCTS else a @ b
+
+
 def _second_product(a, b, how):
     """a @ b for an f32 ``a`` as a wgmma kernel feeds it from registers:
     "split" as hi + lo, two bf16 values each run through the product;
     "round" rounded once to bf16, as the Pallas kernels do before P V and
-    dS K; "f32" as it is."""
+    dS K; "f32" as it is; a mode of :data:`TF32_PRODUCTS` as the 3xTF32
+    kernels run it."""
+    if how in TF32_PRODUCTS:
+        return _tf32_product(a, b.float(), how)
     if how == "f32":
         return a @ b
     hi = a.to(torch.bfloat16).float()
@@ -221,19 +267,22 @@ def tiled_forward(q, k, v, sm_scale, *, second="split", drop_alpha=False,
     return (acc / l[..., None]).to(q.dtype)
 
 
-def tiled_dq(q, k, v, o, lse, do, sm_scale, *, second="split",
+def tiled_dq(q, k, v, o, lse, do, sm_scale, *, second="split", first="f32",
              scaled=True, mask_shift=0, kv_head=None):
-    """The bf16 wgmma dQ's arithmetic: P = exp2(S * scale_log2 - lse *
+    """The dQ kernels' arithmetic: S = Q K^T and dP = dO V^T by
+    ``first`` (:func:`_first_product`), P = exp2(S * scale_log2 - lse *
     log2e), dS = P * (dP - di) in f32, dS into dS K by ``second``, dQ
     scaled by sm_scale at the end unless ``scaled`` is False (a fault);
-    ``mask_shift`` and ``kv_head`` as for :func:`tiled_forward`."""
+    ``mask_shift`` and ``kv_head`` as for :func:`tiled_forward`. The
+    wgmma dQ takes the defaults, the 3xTF32 one "3xtf32" for both."""
     heads, sq, sk = q.shape[1], q.shape[2], k.shape[2]
     kf = _kv_for_heads(k, heads, kv_head)
     vf = _kv_for_heads(v, heads, kv_head)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (sm_scale * LOG2E)
+    s = _first_product(q.float(), kf.transpose(-1, -2), first) \
+        * (sm_scale * LOG2E)
     p = torch.exp2(s - lse[..., None] * LOG2E)
     p = p.masked_fill(~_visible(sq, sk, mask_shift), 0.0)
-    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vf)
+    dp = _first_product(do.float(), vf.transpose(-1, -2), first)
     di = (o.float() * do.float()).sum(-1)
     dq = _second_product(p * (dp - di[..., None]), kf, second)
     return (dq * (sm_scale if scaled else 1.0)).to(q.dtype)
@@ -244,17 +293,22 @@ QUERY_TILE = 64
 
 
 def tiled_dkv(q, k, v, o, lse, do, sm_scale, *, second="split",
-              scaled=True, mask_shift=0, kv_head=None, group_sum=True,
-              dv_from_ds=False, lse_by_row=False):
-    """The bf16 wgmma dK/dV's arithmetic, transposed (keys as rows):
-    S^T = K Q^T, P^T = exp2(S^T * scale_log2 - lse * log2e) with lse read
+              first="f32", scaled=True, mask_shift=0, kv_head=None,
+              group_sum=True, dropped_head=None, dv_from_ds=False,
+              lse_by_row=False):
+    """The dK/dV kernels' arithmetic, transposed (keys as rows): S^T =
+    K Q^T and dP^T = V dO^T by ``first`` (:func:`_first_product`; the
+    3xTF32 kernel takes "3xtf32" for both products, the wgmma one the
+    defaults), P^T = exp2(S^T * scale_log2 - lse * log2e) with lse read
     by column (the query), dS^T = P^T * (dP^T - di) in f32; then
     dV += P^T dO and dK += dS^T Q over 64-query tiles, P^T and dS^T into
     the products by ``second`` (:func:`_second_product`); dK scaled by
     sm_scale at the end and both summed over each KV head's group. The
     faults a tensor-core kernel can have: ``scaled=False`` leaves dK
     unscaled, ``group_sum=False`` keeps only the group's last query head
-    (accumulators reset per head), ``dv_from_ds`` feeds dS^T to dV's
+    (accumulators reset per head), ``dropped_head`` leaves that head of
+    each group out of the sum (a partial the combine skips),
+    ``dv_from_ds`` feeds dS^T to dV's
     product for P^T, ``lse_by_row`` reads lse by the fragment's row (the
     key) instead of its column; ``mask_shift`` and ``kv_head`` as for
     :func:`tiled_forward`."""
@@ -263,11 +317,12 @@ def tiled_dkv(q, k, v, o, lse, do, sm_scale, *, second="split",
     group = heads // kv_heads
     kf = _kv_for_heads(k, heads, kv_head)
     vf = _kv_for_heads(v, heads, kv_head)
-    st = torch.einsum("bhkd,bhqd->bhkq", kf, q.float()) * (sm_scale * LOG2E)
+    st = _first_product(kf, q.float().transpose(-1, -2), first) \
+        * (sm_scale * LOG2E)
     lse_t = lse[..., :sk, None] if lse_by_row else lse[:, :, None]
     pt = torch.exp2(st - lse_t * LOG2E)
     pt = pt.masked_fill(~_visible(sq, sk, mask_shift).T, 0.0)
-    dpt = torch.einsum("bhkd,bhqd->bhkq", vf, do.float())
+    dpt = _first_product(vf, do.float().transpose(-1, -2), first)
     di = (o.float() * do.float()).sum(-1)
     dst = pt * (dpt - di[:, :, None])
     dk = torch.zeros(batch, heads, sk, dim)
@@ -279,6 +334,9 @@ def tiled_dkv(q, k, v, o, lse, do, sm_scale, *, second="split",
         dk += _second_product(dst[..., cols], q.float()[:, :, cols], second)
     dk = dk.reshape(batch, kv_heads, group, sk, dim)
     dv = dv.reshape(batch, kv_heads, group, sk, dim)
+    if dropped_head is not None:
+        kept = [i for i in range(group) if i != dropped_head]
+        dk, dv = dk[:, :, kept], dv[:, :, kept]
     dk, dv = (dk.sum(2), dv.sum(2)) if group_sum else (dk[:, :, -1],
                                                        dv[:, :, -1])
     return ((dk * (sm_scale if scaled else 1.0)).to(k.dtype),
@@ -401,6 +459,281 @@ def test_bf16_limit_rejects_dkv_faults(shape_d, fault, grad):
     dk, dv = tiled_dkv(*_dkv_args(shape_d), **{fault: wrong[fault]})
     got = {"dk": dk, "dv": dv}[grad]
     assert _bf16_limit_use(got, shape_d[grad]) >= 10
+
+
+@functools.cache
+def shape_f32(name):
+    """The f32 shapes of the 3xTF32 kernels: chip_smoke.py's "c", (2, 8
+    heads / 2 kv heads, 1000, 64), GQA and a ragged last tile, and "d128",
+    (1, 4 / 4, 1024, 128) at the model's head_dim; inputs from numpy
+    seed 1, the plain versions' out, lse and gradients."""
+    batch, heads, kv_heads, seq, dim = {
+        "c": (2, 8, 2, 1000, 64), "d128": (1, 4, 4, 1024, 128)}[name]
+    q, k, v = (torch.from_numpy(x) for x in _inputs(1, batch, heads,
+                                                     kv_heads, seq, dim))
+    do = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        q.shape).astype(np.float32))
+    kw = {"causal": True, "sm_scale": dim ** -0.5}
+    o, lse = flash_forward(q, k, v, **kw)
+    dq, dk, dv = flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                    **kw)
+    return {"q": q, "k": k, "v": v, "do": do, "o": o, "lse": lse, "dq": dq,
+            "dk": dk, "dv": dv, "sm_scale": kw["sm_scale"]}
+
+
+def _tf32_limit_use(name, how, **faults):
+    """limit_use of dq, dk and dv under the f32 limit at shape ``name``
+    for the 3xTF32 kernels' arithmetic with every product in mode
+    ``how``; ``faults`` go to :func:`tiled_dkv`."""
+    d = shape_f32(name)
+    args = _dkv_args(d)
+    dq = tiled_dq(*args, first=how, second=how)
+    dk, dv = tiled_dkv(*args, first=how, second=how, **faults)
+    return {grad: limit_use((got - d[grad]).abs(), d[grad], KERNEL_RTOL_F32,
+                            KERNEL_ATOL_F32)
+            for grad, got in (("dq", dq), ("dk", dk), ("dv", dv))}
+
+
+@pytest.mark.parametrize("name", ["c", "d128"])
+def test_3xtf32_arithmetic_holds_the_f32_limit(name):
+    """Every product as three TF32 products (S^T, dP^T and the second
+    products of dK/dV, S, dP and dS K of dQ), as the f32 backward kernels
+    run them, summed in f32 with rounding to nearest: dq, dk and dv
+    within half the f32 limit that chip_smoke.py holds the kernels to,
+    at (c) and at head_dim 128. The tensor cores' own accumulation takes
+    more of it (test_3xtf32_on_the_tensor_cores_holds_the_f32_limit)."""
+    for grad, use in _tf32_limit_use(name, "3xtf32").items():
+        assert use <= 0.5, (grad, use)
+
+
+@pytest.mark.parametrize("name,how", [
+    ("c", "tf32"), ("d128", "tf32"), ("c", "3xtf32_no_lh"),
+    ("c", "3xtf32_no_hl"),
+])
+def test_f32_limit_rejects_fewer_tf32_products(name, how):
+    """One TF32 product, or three without either cross product (a_lo b_hi
+    or a_hi b_lo), puts dq, dk and dv more than 10x beyond the f32 limit:
+    the limit tells the 3xTF32 kernels from these faults."""
+    for grad, use in _tf32_limit_use(name, how).items():
+        assert use > 10, (grad, use)
+
+
+@pytest.mark.parametrize("c,products,want", [
+    # 0.75 ulp(1) above 1: rounded toward zero, not to nearest
+    (1.0, [0.75 * 2.0 ** -23], 1.0),
+    (-1.0, [-0.75 * 2.0 ** -23], -1.0),
+    # eight products of 2^-26 (one ulp of 1 in all) each cut to 0 on
+    # the grid of 2^-25 that c = 1 sets
+    (1.0, [2.0 ** -26] * 8, 1.0),
+    # a product of 2^-25 stays on the grid: six make 1.5 ulp, rounded
+    # toward zero to one
+    (1.0, [2.0 ** -25] * 6, 1.0 + 2.0 ** -23),
+    # 1 - 2^-25 lies halfway between 1 - 2^-24 and 1: toward zero, the
+    # former (to nearest, ties to even, would give 1)
+    (1.0, [-(2.0 ** -25)], 1.0 - 2.0 ** -24),
+])
+def test_tensor_core_step_cuts_and_rounds_toward_zero(c, products, want):
+    """The model of one TF32 mma step (tests/tf32_hopper.py, held to the
+    card bit for bit by tests/test_torch_gpu.py): c and the products cut
+    toward zero to a multiple of 2^(e - 25) for the largest exponent e
+    among them, the sum rounded toward zero to f32. Each product is
+    a_k * 1.0 with a_k exact in TF32."""
+    a = torch.zeros(1, 1, 8)
+    b = torch.zeros(1, 8, 1)
+    a[0, 0, :len(products)] = torch.tensor(products)
+    b[0, :len(products), 0] = 1.0
+    got = tf32_hopper.mma(torch.tensor([[[c]]]), a, b).item()
+    assert got == torch.tensor(want, dtype=torch.float32).item(), \
+        (got, want)
+
+
+def test_3xtf32_on_the_tensor_cores_holds_the_f32_limit():
+    """The 3xTF32 kernels' arithmetic with the tensor cores' own
+    accumulation (tests/tf32_hopper.py: every mma step cut and rounded
+    toward zero) on the first KV head's group of shape (c), batch 0:
+    dq, dk and dv within the f32 limit, and dk and dv further from the
+    plain backward than the same products summed to nearest. On the
+    card the kernels read what this emulation reads on these inputs to
+    within 0.05 of the limit
+    (tests/test_torch_gpu.py::test_tf32_backward_reads_as_modelled)."""
+    d = shape_f32("c")
+    q, do, o, lse = (d[x][:1, :4].contiguous() for x in ("q", "do", "o",
+                                                         "lse"))
+    k, v = (d[x][:1, :1].contiguous() for x in ("k", "v"))
+    di = (o * do).sum(-1)
+    want = flash_attention_backward_reference(q, k, v, o, lse, do,
+                                              causal=True,
+                                              sm_scale=d["sm_scale"])
+    got = tf32_hopper.tf32_backward(q, k, v, do, lse, di, d["sm_scale"])
+    nearest = (tiled_dq(q, k, v, o, lse, do, d["sm_scale"], first="3xtf32",
+                        second="3xtf32"),
+               *tiled_dkv(q, k, v, o, lse, do, d["sm_scale"],
+                          first="3xtf32", second="3xtf32"))
+    uses = {}
+    for name, g, n, w in zip(("dq", "dk", "dv"), got, nearest, want):
+        uses[name] = [limit_use((x - w).abs(), w, KERNEL_RTOL_F32,
+                                KERNEL_ATOL_F32) for x in (g, n)]
+    assert all(use <= 1 for use, _ in uses.values()), uses
+    assert all(uses[g][0] > uses[g][1] for g in ("dk", "dv")), uses
+
+
+def test_f32_limit_rejects_a_dropped_group_head():
+    """A GQA combine that leaves one query head's dK/dV partial out of
+    its group's sum puts dk and dv more than 10x beyond the f32 limit at
+    (c)."""
+    uses = _tf32_limit_use("c", "3xtf32", dropped_head=1)
+    assert uses["dk"] > 10 and uses["dv"] > 10, uses
+
+
+#: ptxas's report of one kernel instance, as the build phase reads it
+PTXAS_BLOCK = """ for 'sm_90a'
+ptxas info    : Function properties for {name}
+    0 bytes stack frame, {spill} bytes spill stores, 0 bytes spill loads
+ptxas info    : Used {regs} registers, used 1 barriers, 16 bytes smem
+"""
+#: mangled names of backward instances as nvcc 12.9 emits them
+BWD_PREFIX = "_ZN55_GLOBAL__N__f030bcd0_22_flash_attention_bwd_cu_6b12611e"
+BWD_INSTANCES = [
+    (f"{BWD_PREFIX}25flash_bwd_dkv_tf32_kernelIfLi128EEEvPKT_S3_S3_S3_PKfS5_"
+     "PS1_S6_PfPiiiiiiiff", "flash_bwd_dkv_tf32_kernel", "float32", 128, 253),
+    (f"{BWD_PREFIX}24flash_bwd_dq_tf32_kernelI13__nv_bfloat16Li16EEEvPKT_S4_"
+     "S4_S4_PKfS6_PS2_iiiiiiff", "flash_bwd_dq_tf32_kernel", "bfloat16", 16,
+     106),
+    (f"{BWD_PREFIX}4sm9026flash_bwd_dkv_wgmma_kernelILi64EEEv14CUtensorMap_st"
+     "S2_S2_S2_PKfS4_P13__nv_bfloat16S6_iiiiiff",
+     "flash_bwd_dkv_wgmma_kernel", "bfloat16", 64, 168),
+]
+
+
+def test_build_phase_reads_the_backward_instances(monkeypatch, capsys):
+    """The build phase names each backward instance by its template (the
+    3xTF32 kernels' names hold digits), dtype and head_dim, and phase 3b
+    finds its registers and spills by them."""
+    report = "".join("Compiling entry function" + PTXAS_BLOCK.format(
+        name=name, spill=0, regs=regs)
+        for name, _, _, _, regs in BWD_INSTANCES)
+
+    class Built:
+        ptxas_report, build_seconds = report, 1.0
+
+    monkeypatch.setattr(chip_smoke, "SOURCES", ["flash_attention_bwd.cu"])
+    monkeypatch.setattr(chip_smoke._build, "build_all",
+                        lambda sources: [Built()])
+    monkeypatch.setattr(chip_smoke, "BUILT_INSTANCES", {})
+    monkeypatch.setattr(
+        chip_smoke, "kernel_design",
+        lambda name, dtype, dim: {
+            "design": "sm90 wgmma" if dtype == torch.bfloat16 and dim >= 64
+            else chip_smoke.TF32_DESIGN, "dynamic_smem_bytes": 0})
+    chip_smoke.phase_build()
+    capsys.readouterr()
+    for _, kernel, dtype, dim, regs in BWD_INSTANCES:
+        design = ("sm90 wgmma" if "wgmma" in kernel
+                  else chip_smoke.TF32_DESIGN)
+        which = "dkv" if "dkv" in kernel else "dq"
+        assert chip_smoke.bwd_template(which, design) == kernel
+        assert chip_smoke.instance_ptxas(
+            "flash_attention_bwd.cu", kernel, dtype=dtype,
+            head_dim=dim) == {"registers": regs, "spill_store_bytes": 0,
+                              "stack_bytes": 0}
+
+
+def test_backward_rows_report_the_tensor_core_bound_and_the_grid(
+        monkeypatch):
+    """Phase 3b's f32 rows of the 3xTF32 design hold the f32 CUDA-core
+    bound as bound_ms and three TF32 products for each at 495 TFLOP/s
+    beside it, which their share uses; their ``blocks`` is each launch's
+    grid as torch.profiler's trace records it (here a trace written as
+    the profiler writes one), the product of its three sizes."""
+    shape = (2, 8, 2, 1000, 64, torch.float32)
+    kv = 2 * 2 * 1000 * 64
+    tf32 = chip_smoke.backward_bounds(4, 0.1, chip_smoke.TF32_DESIGN,
+                                      *shape, outputs=[kv, kv], causal=True)
+    flops = 4 * 2 * 64 * 2 * 8 * chip_smoke.visible_pairs(1000, 1000)
+    assert tf32["bound_by"] == tf32["bound_3xtf32_by"] == "operations"
+    assert math.isclose(tf32["bound_ms"], flops / 67e12 * 1e3)
+    assert math.isclose(tf32["bound_3xtf32_ms"], 3 * flops / 495e12 * 1e3)
+    assert tf32["bound_share_uses"] == "bound_3xtf32_ms"
+    assert math.isclose(tf32["bound_share"], tf32["bound_3xtf32_ms"] / 0.1)
+    wgmma = chip_smoke.backward_bounds(
+        4, 0.1, "sm90 wgmma", 2, 8, 2, 1000, 128, torch.bfloat16,
+        outputs=[2 * kv, 2 * kv], causal=True)
+    assert "bound_3xtf32_ms" not in wgmma
+    assert wgmma["bound_share_uses"] == "bound_ms"
+    trace = [
+        {"ph": "X", "cat": "kernel", "args": {"grid": [256, 1, 1]},
+         "name": "void (anonymous namespace)::flash_bwd_dkv_tf32_kernel"
+                 "<float, 64>(float const*, ...)"},
+        {"ph": "X", "cat": "kernel", "args": {"grid": [8, 2, 2]},
+         "name": "void (anonymous namespace)::flash_bwd_dq_tf32_kernel"
+                 "<float, 64>(float const*, ...)"},
+        {"ph": "X", "cat": "cpu_op", "args": {},
+         "name": "flash_bwd_dkv_tf32_kernel"},
+        {"ph": "X", "cat": "gpu_memset", "args": {}, "name": "Memset"},
+    ]
+    sessions = []
+
+    class Profile:
+        def __init__(self, activities):
+            sessions.append(activities)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def export_chrome_trace(self, path):
+            Path(path).write_text(json.dumps({"traceEvents": trace}))
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    kernels = ["flash_bwd_dkv_tf32_kernel", "flash_bwd_dq_tf32_kernel"]
+    assert chip_smoke.launched_blocks(lambda: calls.append(1), kernels) \
+        == {kernels[0]: [256], kernels[1]: [32]}
+    assert len(sessions) == 1 and len(calls) == 2  # a warm-up call first
+    # a session that lost a kernel's record is run again, and after
+    # MAX_PROFILE_SESSIONS of them the grids are unknown
+    del trace[1]
+    sessions.clear()
+    assert chip_smoke.launched_blocks(lambda: None, kernels) == {}
+    assert len(sessions) == chip_smoke.MAX_PROFILE_SESSIONS
+
+
+def test_backward_grids_come_from_a_process_of_their_own(monkeypatch,
+                                                         capsys):
+    """Phase 3b reads the backward's grids in a child process,
+    ``chip_smoke.py --backward-grids SPEC``, whose last line is the
+    grids by label; main answers that argument before it touches the
+    card."""
+    calls = []
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(
+            cmd, 0, stdout='built\n{"c": {"dkv": 256, "dq": 256}}\n',
+            stderr="")
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+    grids = chip_smoke.measure_backward_grids(
+        [("c", 2, 8, 2, 1000, 64, torch.float32, True)])
+    assert grids == {"c": {"dkv": 256, "dq": 256}}
+    (cmd,) = calls
+    assert cmd[1].endswith("chip_smoke.py") and cmd[2] == "--backward-grids"
+    assert json.loads(cmd[3]) == [["c", 2, 8, 2, 1000, 64, "float32", True]]
+    spec = []
+    monkeypatch.setattr(chip_smoke, "backward_grids",
+                        lambda s: spec.append(s) or {"c": None})
+    monkeypatch.setattr(chip_smoke, "phase_device", None)  # not reached
+    assert chip_smoke.main(["--backward-grids", cmd[3]]) == 0
+    assert spec == [json.loads(cmd[3])]
+    assert capsys.readouterr().out == '{"c": null}\n'
+
+
+def test_variants_script_exits_without_cuda(capsys):
+    assert fbv.main([]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
 
 
 def test_lse_is_the_log_sum_exp_of_the_masked_scores():

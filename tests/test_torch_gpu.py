@@ -16,7 +16,9 @@ Without CUDA every test here skips (decided in a fixture, not at import,
 so that every pytest-xdist worker collects the same tests).
 """
 
+import ctypes
 import dataclasses
+import subprocess
 
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ import torch
 
 import chip_smoke
 import test_torch_rank_workers as workers
+import tf32_hopper
 from tpu_operator_libs_torch.examples import llama as tllama
 from tpu_operator_libs_torch.examples import llama_decode as tdecode
 from tpu_operator_libs_torch.examples import llama_serving_job as serving
@@ -33,9 +36,11 @@ from tpu_operator_libs_torch.examples.ring_attention import (
     _schedule,
 )
 from tpu_operator_libs_torch.kernels import WRAPPERS
+from tpu_operator_libs_torch.kernels import _build
 from tpu_operator_libs_torch.kernels import adamw as amod
 from tpu_operator_libs_torch.kernels import cross_entropy as lossmod
 from tpu_operator_libs_torch.kernels import decode_attention as dmod
+from tpu_operator_libs_torch.kernels import flash_attention as fmod
 from tpu_operator_libs_torch.kernels import global_norm as nmod
 from tpu_operator_libs_torch.kernels import int8_matmul as imod
 from tpu_operator_libs_torch.kernels import kv_append as kmod
@@ -70,6 +75,7 @@ from tpu_operator_libs_torch.kernels.flash_attention import (
     flash_backward,
     flash_forward,
     kernel_design,
+    launch_blocks,
 )
 from tpu_operator_libs_torch.parallel import run_ranks
 
@@ -128,40 +134,256 @@ def test_kernel_matches_plain_version(cuda, batch, heads, kv_heads, seq,
     # a ring's past block: no mask
     (1, 16, 16, 2048, 128, torch.bfloat16, False),
     (2, 8, 2, 1000, 64, torch.float32, False),
+    # the 3xTF32 design: phase 7's f32 per-layer call, GQA and a ragged
+    # tile at the narrow head_dims, f32 and bf16
+    (2, 16, 16, 1024, 128, torch.float32, True),
+    (2, 8, 2, 1000, 16, torch.float32, True),
+    (2, 8, 2, 1000, 32, torch.float32, True),
+    (2, 8, 2, 1000, 16, torch.bfloat16, True),
+    (2, 8, 2, 1000, 32, torch.bfloat16, True),
 ], ids=["main_train_step_bf16", "c_gqa_ragged_f32", "d_gqa_ragged_bf16",
         "d64_gqa_ragged_bf16", "odd_gqa_ragged_bf16",
         "d_non_causal_bf16", "ring_block_non_causal_bf16",
-        "c_non_causal_f32"])
+        "c_non_causal_f32", "f32_main", "d16_gqa_ragged_f32",
+        "d32_gqa_ragged_f32", "d16_gqa_ragged_bf16", "d32_gqa_ragged_bf16"])
 def test_backward_kernels_match_plain_version(cuda, batch, heads, kv_heads,
                                               seq, dim, dtype, causal):
     """dK/dV and dQ against flash_attention_backward_reference on the
     forward kernel's out and lse; two launches give bit-equal results
-    (no atomics, a fixed order of every sum); bf16 at head_dim 64 and 128
-    runs both on the tensor cores."""
+    (no atomics, a fixed order of every sum, the GQA partials added in
+    head order with the ticket counters left at 0); bf16 at head_dim 64
+    and 128 runs both on the tensor cores by wgmma, every other instance
+    by mma.sync as three TF32 products, each launch counted under its
+    design."""
     wgmma = dtype == torch.bfloat16 and dim in (64, 128)
+    design = "sm90 wgmma" if wgmma else "3xTF32 mma.sync"
     for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
-        assert kernel_design(name, dtype, dim)["design"] == (
-            "sm90 wgmma" if wgmma else "scalar")
+        assert kernel_design(name, dtype, dim)["design"] == design
     gen = torch.Generator(device=cuda).manual_seed(1)
     q, k, v, do = (torch.randn((batch, h, seq, dim), generator=gen,
                                device=cuda).to(dtype)
                    for h in (heads, kv_heads, kv_heads, heads))
     kw = {"causal": causal, "sm_scale": dim ** -0.5}
     out, lse = flash_forward(q, k, v, **kw)
-    before = (flash_attention_bwd_dkv.launches,
-              flash_attention_bwd_dq.launches)
+    wrappers = (flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    before = [(w.launches, w.launches_by_design.get(design, 0))
+              for w in wrappers]
     got = flash_backward(q, k, v, out, lse, do, **kw)
     again = flash_backward(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
-    assert (flash_attention_bwd_dkv.launches,
-            flash_attention_bwd_dq.launches) == (before[0] + 2,
-                                                 before[1] + 2)
+    assert [(w.launches, w.launches_by_design.get(design, 0))
+            for w in wrappers] == [(n + 2, m + 2) for n, m in before]
+    for store in fmod._counters.values():
+        for counters in store.values():
+            assert int(counters.abs().sum()) == 0
     want = flash_attention_backward_reference(q, k, v, out, lse, do, **kw)
     rtol, atol = TOL[dtype]
     for g, a, w in zip(got, again, want):
         assert g.dtype == dtype and torch.equal(g, a)
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
                                    atol=atol)
+
+
+def test_gqa_backward_graph_replay_equals_eager(cuda):
+    """The 3xTF32 dK/dV's GQA combine draws tickets from counters kept per
+    stream: after the stream's first (eager) call, a CUDA graph of the
+    backward replays the eager gradients bit for bit, three times (each
+    launch leaves its counters at 0), and a capture on a stream with no
+    eager call raises before it launches."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, do = (torch.randn((2, h, 300, 64), generator=gen, device=cuda)
+                   for h in (8, 2, 2, 8))
+    kw = {"causal": True, "sm_scale": 0.125}
+    out, lse = flash_forward(q, k, v, **kw)
+    eager = flash_backward(q, k, v, out, lse, do, **kw)
+    fresh = torch.cuda.Stream()
+    fresh.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(fresh):
+        with pytest.raises(RuntimeError, match="must not be captured"):
+            with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
+                flash_backward(q, k, v, out, lse, do, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_backward(q, k, v, out, lse, do, **kw)  # the eager call
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            got = flash_backward(q, k, v, out, lse, do, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(3):
+        for g in got:
+            g.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, e in zip(got, eager):
+            assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("dtype,dim,dkv_blocks", [
+    (torch.float32, 64, 256), (torch.bfloat16, 128, 32)])
+def test_backward_grids_as_launched(cuda, dtype, dim, dkv_blocks):
+    """At (2, 8 / 2, 1000) the grids the launchers report are the grids
+    torch.profiler records launched (in a process of their own, as
+    chip_smoke.py reads them); the 3xTF32 dK/dV spreads each KV head's
+    4 query heads over blocks of their own (256 where a block a (64-key
+    tile, KV head, batch) would be 64), the wgmma dK/dV takes a block a
+    (128-key tile, KV head, batch)."""
+    seen = chip_smoke.measure_backward_grids(
+        [("c", 2, 8, 2, 1000, dim, dtype, True)])["c"]
+    q = torch.empty((2, 8, 1000, dim), dtype=dtype, device=cuda)
+    k = torch.empty((2, 2, 1000, dim), dtype=dtype, device=cuda)
+    for which in ("dkv", "dq"):
+        assert seen[which] == launch_blocks(f"flash_attention_bwd_{which}",
+                                            q, k)
+    assert seen["dkv"] == dkv_blocks
+
+
+#: one warp a trial: d = a b + c by one mma.m16n8k8 tf32 (a 16 x 8
+#: row-major, b 8 x 8 as [k][n], c and d 16 x 8 row-major), the fragments
+#: as csrc/tf32_mma.cuh lays them out
+MMA_PROBE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void probe(const float* A, const float* B, const float* C,
+                      float* D) {
+  const float* a = A + blockIdx.x * 128;
+  const float* b = B + blockIdx.x * 64;
+  const float* c = C + blockIdx.x * 128;
+  float* d = D + blockIdx.x * 128;
+  const int g = threadIdx.x / 4, t = threadIdx.x % 4;
+  const int r[4] = {g * 8 + 2 * t, g * 8 + 2 * t + 1, (g + 8) * 8 + 2 * t,
+                    (g + 8) * 8 + 2 * t + 1};
+  uint32_t ar[4] = {__float_as_uint(a[g * 8 + t]),
+                    __float_as_uint(a[(g + 8) * 8 + t]),
+                    __float_as_uint(a[g * 8 + t + 4]),
+                    __float_as_uint(a[(g + 8) * 8 + t + 4])};
+  uint32_t br[2] = {__float_as_uint(b[t * 8 + g]),
+                    __float_as_uint(b[(t + 4) * 8 + g])};
+  float acc[4] = {c[r[0]], c[r[1]], c[r[2]], c[r[3]]};
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+      : "r"(ar[0]), "r"(ar[1]), "r"(ar[2]), "r"(ar[3]), "r"(br[0]),
+        "r"(br[1]));
+  for (int i = 0; i < 4; ++i) d[r[i]] = acc[i];
+}
+extern "C" int run(const float* A, const float* B, const float* C, float* D,
+                   int trials) {
+  probe<<<trials, 32>>>(A, B, C, D);
+  return cudaDeviceSynchronize();
+}
+"""
+
+
+@pytest.mark.parametrize("case", ["spread_4", "spread_12", "c_zero",
+                                  "k_scaled", "raw_bits"])
+def test_tf32_mma_accumulates_as_modelled(cuda, tmp_path, case):
+    """One mma.sync m16n8k8 TF32 step on the card gives, bit for bit,
+    what tests/tf32_hopper.py's model of it gives (operands cut to TF32,
+    c and the products cut toward zero to 2^(e - 25), the sum rounded
+    toward zero), on 2048 trials of random signs and exponents: spread
+    over +-4 or +-12 octaves, c = 0, the products' sizes spread over 30
+    octaves along k, or operands with all 23 mantissa bits set."""
+    source = tmp_path / "mma_probe.cu"
+    source.write_text(MMA_PROBE)
+    lib_path = tmp_path / "mma_probe.so"
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                    str(lib_path), str(source)], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    rng = np.random.default_rng(7)
+    trials = 2048
+
+    def rand(shape, octaves, exact=True):
+        x = torch.from_numpy((rng.uniform(1, 2, shape)
+                              * np.exp2(rng.integers(-octaves, octaves + 1,
+                                                     shape))
+                              * rng.choice([-1, 1], shape))
+                             .astype(np.float32))
+        return tf32_hopper.tf32_hi(x) if exact else x
+
+    a_shape, b_shape, c_shape = (trials, 16, 8), (trials, 8, 8), \
+        (trials, 16, 8)
+    if case in ("spread_4", "spread_12"):
+        octaves = int(case.split("_")[1])
+        a, b = rand(a_shape, octaves), rand(b_shape, octaves)
+        c = rand(c_shape, octaves, exact=False)
+    elif case == "c_zero":
+        a, b, c = rand(a_shape, 6), rand(b_shape, 6), torch.zeros(c_shape)
+    elif case == "k_scaled":
+        a = rand(a_shape, 0) * torch.from_numpy(np.exp2(
+            -rng.integers(0, 30, (trials, 1, 8))).astype(np.float32))
+        b = rand(b_shape, 0).abs()
+        c = torch.from_numpy(rng.uniform(-4, 4, c_shape).astype(np.float32))
+    else:
+        a, b = rand(a_shape, 3, False), rand(b_shape, 3, False)
+        c = rand(c_shape, 3, False)
+    on_card = [x.contiguous().to(cuda) for x in (a, b, c)]
+    d = torch.empty_like(on_card[2])
+    assert lib.run(*(ctypes.c_void_p(x.data_ptr())
+                     for x in (*on_card, d)), trials) == 0
+    want = tf32_hopper.mma(c, a, b)
+    assert torch.equal(d.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_tf32_backward_reads_as_modelled(cuda):
+    """The 3xTF32 kernels' dq, dk and dv on the first KV head's group of
+    shape (c), batch 0 (1, 4 / 1, 1000, 64), numpy seed 1 as
+    tests/test_torch_flash_attention.py draws it, against
+    tests/tf32_hopper.py's emulation of their arithmetic on the same
+    inputs, lse and di: within a tenth of the f32 limit of each other
+    everywhere, and each as far from the plain backward as the other to
+    within 0.05 of the limit."""
+    rng = np.random.default_rng(1)
+    shapes = ((2, 8, 1000, 64), (2, 2, 1000, 64), (2, 2, 1000, 64))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32)) for shape in shapes)
+    do = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        q.shape).astype(np.float32))
+    q, do = q[:1, :4].contiguous(), do[:1, :4].contiguous()
+    k, v = k[:1, :1].contiguous(), v[:1, :1].contiguous()
+    kw = {"causal": True, "sm_scale": 0.125}
+    x = [t.to(cuda) for t in (q, k, v, do)]
+    out, lse = flash_forward(*x[:3], **kw)
+    di = (out * x[3]).sum(-1)
+    dk, dv = flash_attention_bwd_dkv(*x, lse, di, **kw)
+    dq = flash_attention_bwd_dq(*x, lse, di, **kw)
+    want = flash_attention_backward_reference(*x[:3], out, lse, x[3], **kw)
+    model = tf32_hopper.tf32_backward(q, k, v, do, lse.cpu(), di.cpu(),
+                                      kw["sm_scale"])
+    rtol, atol = TOL[torch.float32]
+    for got, emulated, w in zip((dq, dk, dv), model, want):
+        got, w = got.cpu(), w.cpu()
+        assert chip_smoke.limit_use((got - emulated).abs(), emulated, rtol,
+                                    atol) <= 0.1
+        uses = [chip_smoke.limit_use((y - w).abs(), w, rtol, atol)
+                for y in (got, emulated)]
+        assert uses[0] <= 1 and abs(uses[0] - uses[1]) <= 0.05, uses
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "do"])
+def test_tf32_backward_refuses_unaligned_rows(cuda, operand):
+    """The 3xTF32 kernels stage rows by 16-byte cp.async: a contiguous
+    f32 view whose first element is 4 bytes off a 16-byte boundary is
+    refused with an error (the launch never runs), not read misaligned."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    shapes = {"q": (1, 2, 64, 16), "k": (1, 1, 64, 16), "do": (1, 2, 64, 16)}
+    x = {name: torch.randn(shape, generator=gen, device=cuda)
+         for name, shape in shapes.items()}
+    x["v"] = torch.randn(shapes["k"], generator=gen, device=cuda)
+    kw = {"causal": True, "sm_scale": 0.25}
+    out, lse = flash_forward(x["q"], x["k"], x["v"], **kw)
+    di = (out * x["do"]).sum(-1)
+    flat = torch.empty(x[operand].numel() + 1, device=cuda)
+    shifted = flat[1:].view(shapes[operand])
+    shifted.copy_(x[operand])
+    x[operand] = shifted
+    args = (x["q"], x["k"], x["v"], x["do"], lse, di)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        flash_attention_bwd_dkv(*args, **kw)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        flash_attention_bwd_dq(*args, **kw)
 
 
 @pytest.mark.parametrize("batch,heads,kv_heads,seq,dim,dtype", [

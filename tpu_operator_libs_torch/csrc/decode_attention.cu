@@ -75,6 +75,8 @@
 
 #include <type_traits>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -152,31 +154,6 @@ __device__ __forceinline__ void load_values(const unsigned char* row, int c,
   } else {
     f[0] = to_f32(reinterpret_cast<const T*>(row)[c]);
   }
-}
-
-// 16 (or 4) bytes from global to shared memory; with `valid` false no
-// byte is read and the destination is filled with zeros.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid = true) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool valid = true) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Waits for the ring's oldest tile: all but the newest stages - 2 groups.

@@ -18,15 +18,22 @@
 // Bound on an H100 SXM, per call at the model's shapes (S >= 1024, D = 128):
 // dK/dV does four products (Q K^T, dO V^T, P^T dO, dS^T Q) and dQ three
 // (Q K^T, dO V^T, dS K) of 2*D FLOPs per visible (query, key) pair, at 989
-// TFLOP/s for bf16 inputs (67 TFLOP/s f32), against Q, K, V, dO, lse and di
-// read and the gradients written once at 3.35 TB/s: the FLOPs bound both.
+// TFLOP/s for bf16 inputs, against Q, K, V, dO, lse and di read and the
+// gradients written once at 3.35 TB/s: the FLOPs bound both. For f32
+// inputs the f32 CUDA-core rate (67 TFLOP/s) bounds the function; the tf32
+// design below runs three TF32 products for each (495 TFLOP/s dense), an
+// effective 165 TFLOP/s.
 //
 // Both kernels take one of two designs, chosen by (dtype, head_dim) at
 // compile time (sm90::kTakesWgmma): bf16 at D = 64 and 128 runs every
 // product on the tensor cores (wgmma) over tiles that a producer stages
-// by TMA (flash_attention_sm90.cuh); f32 at every D, and bf16 at
-// D = 16 and 32, keep the scalar design, f32 FMAs on the CUDA cores, which
-// holds the f32 kernels to 2e-5 (TF32 products would not).
+// by TMA (flash_attention_sm90.cuh); f32 at every D, and bf16 at D = 16
+// and 32, run every product on the tensor cores by mma.sync as three TF32
+// products (tf32_mma.cuh), which holds the f32 kernels to their 2e-5 limit
+// where one TF32 product would miss it a hundredfold
+// (tests/test_torch_flash_attention.py). A bf16 input is exact in TF32, so
+// its lo word is 0 and the products with it are one (Q K^T, dO V^T) or two
+// (P^T dO, dS^T Q, dS K) mma.sync, not three.
 //
 // dK/dV:
 // - bf16 at D = 64 and 128, flash_bwd_dkv_wgmma_kernel: one block of 384
@@ -59,13 +66,27 @@
 //   atomics and K/V are read narrow (the Pallas call needs them repeated to
 //   H heads and a sum afterwards). Blocks of the first key tiles, which see
 //   the most queries, are scheduled first.
-// - otherwise flash_bwd_dkv_kernel: the scalar design on the forward's
-//   layout (flash_attention_common.cuh): 256 threads, four per row, each
-//   row's vectors split in float4 chunks over its four threads, dot
-//   products finished by an xor shuffle. One block per (64-key tile, KV
-//   head, batch) holds its keys' K and V rows and the dK and dV
-//   accumulators in registers and walks the group's query heads and tiles
-//   as above, staging Q, dO, lse and di in shared memory as f32.
+// - otherwise flash_bwd_dkv_tf32_kernel: one block of 8 warps per (64-key
+//   tile, query head, batch), so that a GQA group's heads spread over
+//   blocks (256 blocks at (2, 8 / 2, 1000), where a block per KV head gave
+//   64). K and V of the block's keys are staged once and each 64-query
+//   tile's Q, dO, lse and di pass through a two-stage ring by 16-byte (lse
+//   and di 4-byte) cp.async, the next tile's loads in flight under this
+//   tile's products. Warp w owns keys 16 (w % 4) + [0, 16) and queries
+//   32 (w / 4) + [0, 32) of each tile: S^T = K Q^T and dP^T = V dO^T into
+//   16 x 32 accumulators, P^T and dS^T on them in f32, then dV += P^T dO
+//   and dK += dS^T Q with P^T and dS^T split from the accumulators as A
+//   operands (tf32_mma.cuh's permuted k slots: no exchange between lanes)
+//   and dO, Q read by the lanes from shared memory untransposed. Rows are
+//   padded by 16 bytes, so every fragment load is free of bank conflicts.
+//   The two warps of a key slice add their halves in a fixed order at the
+//   end. Where the group is 1 the block writes dK and dV; otherwise each
+//   block writes its head's f32 partials and the group's last block to
+//   finish (csrc/ticket.cuh) adds them in head order, so two launches give
+//   the same bits with no float atomics. The partials take 2 * B * H * Sk
+//   * D f32, twice dK and dV in f32 times the group: 8 MB at (2, 8 / 2,
+//   1000, 64), 4.3 GB at (16, 32 / 8, 8192, 128). Key tiles are scheduled
+//   heaviest first (the first tiles see the most queries).
 //
 // dQ:
 // - bf16 at D = 64 and 128, flash_bwd_dq_wgmma_kernel: the wgmma forward's
@@ -78,11 +99,15 @@
 //   registers and K from shared memory (MN-major). dS is carried as hi + lo
 //   for the same reason; the Pallas kernel rounds it once
 //   (flash_attention.py:1258). dQ is scaled by sm_scale in the epilogue.
-// - otherwise flash_bwd_dq_kernel: the scalar design, one block per
-//   (64-query tile, head, batch) holding its rows' Q, dO and dQ in
-//   registers with lse and di, walking the K/V tiles up to the diagonal,
-//   staged in shared memory as f32.
-// Every sum runs in a fixed order and nothing is accumulated across blocks,
+// - otherwise flash_bwd_dq_tf32_kernel: the dK/dV tf32 block turned
+//   round, one block of 8 warps per (64-query tile, head, batch), longest
+//   causal rows first: Q and dO staged once, the K/V tiles of 64 keys up to
+//   the diagonal through the two-stage cp.async ring; warp w owns queries
+//   16 (w % 4) + [0, 16) with their lse and di in registers and keys
+//   32 (w / 4) + [0, 32) of each tile: S = Q K^T and dP = dO V^T, then
+//   dQ += dS K, the two warps of a query slice adding their halves in a
+//   fixed order at the end.
+// Every sum runs in a fixed order and no float is accumulated by atomics,
 // so two launches on the same inputs give bit-equal results.
 // What the wgmma designs leave on the table: each warpgroup waits on its
 // first two products before the elementwise work and on the second
@@ -90,219 +115,511 @@
 // other); the second products run twice (hi and lo), 1.5x the function's
 // tensor-core work for dK/dV and 1.33x for dQ; dK/dV's grid is
 // (S / 128, H_kv, B), which leaves SMs idle where H_kv * B is small (32
-// blocks at (2, 8 / 2, 1000)), and splitting the group across blocks would
-// need a reduction across them; the gradients are stored from registers
-// rather than through shared memory by TMA.
+// blocks at (2, 8 / 2, 1000)); the gradients are stored from registers
+// rather than through shared memory by TMA. What the tf32 design leaves:
+// mma.sync, not wgmma (which takes TF32 only with both operands K-major in
+// shared memory, so dO, Q and K would need transposed copies); every
+// operand is split again by each warp that reads it; at D = 128 f32 a
+// block takes 199 KB of shared memory, one block (8 warps) an SM.
+#include <limits.h>
 #include <math.h>
 
+#include "cp_async.cuh"
 #include "flash_attention_common.cuh"
 #include "flash_attention_sm90.cuh"
+#include "tf32_mma.cuh"
+#include "ticket.cuh"
 
 namespace {
 
-// q, dout: (B, H, Sq, D); k, v: (B, Hkv, Sk, D); lse, di: (B, H, Sq) f32;
-// dk, dv: (B, Hkv, Sk, D). scale_log2 = sm_scale * log2(e).
+namespace tf32 {
+
+// The block: kWarps warps over kRows rows of its own (keys for dK/dV,
+// queries for dQ), and the streamed tiles of kRows rows (queries for
+// dK/dV, keys for dQ) through kStages stages. Warp w owns the own rows
+// 16 (w % 4) + [0, 16) and the half kHalf (w / 4) + [0, kHalf) of each
+// streamed tile.
+constexpr int kRows = 64;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 2;
+constexpr int kHalf = kRows / 2;
+// Columns of the first products' depth (head_dim) unrolled at once: a
+// whole unrolled loop at D = 128 took 255 registers and spilled; 32 at a
+// time does not (PERF.md §6).
+template <int D>
+__host__ __device__ constexpr int chunk() {
+  return D < 32 ? D : 32;
+}
+
+// A tile's row stride in elements: 16 bytes of padding, which keeps every
+// fragment load free of bank conflicts and every row 16-byte aligned.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ di, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Hkv, int Sq, int Sk,
-                     int causal, float scale_log2, float sm_scale) {
-  constexpr int kVecs = D / 4;                  // float4 per row
-  constexpr int kChunks = kVecs / kRowThreads;  // float4 per thread
-  extern __shared__ float4 smem[];
-  float4* q_tile = smem;                        // [kBlockM][kVecs]
-  float4* do_tile = smem + kBlockM * kVecs;     // [kBlockM][kVecs]
-  __shared__ float lse_tile[kBlockM];           // lse * log2(e)
-  __shared__ float di_tile[kBlockM];
+__host__ __device__ constexpr int stride() {
+  return D + 16 / static_cast<int>(sizeof(T));
+}
 
-  const int tile = blockIdx.x;  // the first key tiles see the most queries
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
+template <typename T, int D>
+__host__ __device__ constexpr int tile_bytes() {
+  return kRows * stride<T, D>() * static_cast<int>(sizeof(T));
+}
+
+// dK/dV: K and V, kStages stages of Q and dO, and of lse and di (f32).
+template <typename T, int D>
+__host__ __device__ constexpr int dkv_smem_bytes() {
+  return (2 + 2 * kStages) * tile_bytes<T, D>() + 2 * kStages * kRows * 4;
+}
+
+// dQ: Q and dO, kStages stages of K and V.
+template <typename T, int D>
+__host__ __device__ constexpr int dq_smem_bytes() {
+  return (2 + 2 * kStages) * tile_bytes<T, D>();
+}
+
+// Either kernel's grid, flattened: a block per (kRows own rows, head,
+// batch), with H query heads for dK/dV too (a group's heads on blocks of
+// their own).
+inline long long blocks(int B, int H, int rows) {
+  return static_cast<long long>((rows + kRows - 1) / kRows) * H * B;
+}
+
+// Rows [r0, r0 + kRows) of a (rows x D) row-major plane in global memory
+// into a padded tile, by 16-byte cp.async; rows at or past `rows` are
+// zeros.
+template <typename T, int D>
+__device__ __forceinline__ void stage_tile(T* dst, const T* plane, int r0,
+                                           int rows) {
+  constexpr int kPerChunk = 16 / static_cast<int>(sizeof(T));
+  constexpr int kChunks = D / kPerChunk;  // a row
+  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
+    const int r = c / kChunks;
+    const int x = c % kChunks * kPerChunk;
+    const bool valid = r0 + r < rows;
+    cp_async16(dst + r * stride<T, D>() + x,
+               plane + static_cast<size_t>(valid ? r0 + r : 0) * D + x,
+               valid);
+  }
+}
+
+// Warps w and w + 4 hold partial sums of the same accumulator rows, each
+// over its half of the streamed rows. The second half's warps `put` theirs
+// into shared memory that is free by then, and after a barrier the first
+// half's `add` them to their own, first half first; `slot` picks one of a
+// warp's accumulators.
+template <int N>
+__device__ __forceinline__ float* exchange_slot(float* xch, int slot,
+                                                int slots) {
+  return xch + ((threadIdx.x / 32 % 4) * slots + slot) * N * 4 * 32;
+}
+
+template <int N>
+__device__ __forceinline__ void put(const float (&acc)[N][4], float* dst) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dst[(4 * n + e) * 32 + threadIdx.x % 32] = acc[n][e];
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void add(float (&acc)[N][4], const float* src) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[n][e] += src[(4 * n + e) * 32 + threadIdx.x % 32];
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The rows of an accumulator fragment (row0 + 8 r, r = 0, 1) and its
+// columns 8 n + 2 (lane % 4) + [0, 2) into a row-major (rows x D) array
+// from row `row0`'s element 0 on, times `scale`; rows at or past `rows`
+// are not written.
+template <int N, typename T>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[N][4],
+                                           int row0, int rows, float scale) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row0 + 8 * r >= rows) continue;
+    T* row = out + static_cast<size_t>(8 * r) * (N * 8) + 2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      store2(row + 8 * n, acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+    }
+  }
+}
+
+}  // namespace tf32
+
+// q, dout: (B, H, Sq, D); k, v: (B, Hkv, Sk, D); lse, di: (B, H, Sq) f32;
+// dk, dv: (B, Hkv, Sk, D). Where H > Hkv, `partials` holds 2 * B * H * Sk
+// * D f32 (each query head's dK, then dV, unscaled) and `counters`
+// ceil(Sk / 64) * Hkv * B ints, 0 before the launch and after it.
+// scale_log2 = sm_scale * log2(e).
+template <typename T, int D>
+__global__ void __launch_bounds__(tf32::kThreads, 1)
+flash_bwd_dkv_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ di, T* __restrict__ dk,
+                          T* __restrict__ dv, float* __restrict__ partials,
+                          int* __restrict__ counters, int B, int H, int Hkv,
+                          int Sq, int Sk, int causal, float scale_log2,
+                          float sm_scale) {
+  using namespace tf32;
+  constexpr bool kLo = std::is_same<T, float>::value;  // inputs' lo words
+  constexpr int kStride = stride<T, D>();
+  constexpr int kTile = kRows * kStride;
+  constexpr int kN = D / 8;  // the accumulators' 8-column tiles
+  constexpr int kChunk = chunk<D>();
+  static_assert(4 * 2 * kN * 4 * 32 * 4 <= 2 * kStages * tile_bytes<T, D>(),
+                "the halves' exchange must fit the stages");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* k_s = reinterpret_cast<T*>(smem_raw);
+  T* v_s = k_s + kTile;
+  T* q_s = v_s + kTile;               // [kStages][kTile]
+  T* do_s = q_s + kStages * kTile;    // [kStages][kTile]
+  float* lse_s = reinterpret_cast<float*>(do_s + kStages * kTile);
+  float* di_s = lse_s + kStages * kRows;  // each [kStages][kRows]
+  __shared__ int ticket;
+
+  // The heaviest key tiles (the first: they see the most queries) first;
+  // a group's heads side by side.
+  const int tile = blockIdx.x / (H * B);
+  const int b = blockIdx.x % (H * B) / H;
+  const int h = blockIdx.x % H;
   const int group = H / Hkv;
-  const int row = threadIdx.x / kRowThreads;
-  const int sub = threadIdx.x % kRowThreads;
-  const int kj = tile * kBlockN + row;
-  const bool key_valid = kj < Sk;
-  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk;
-
-  float4 kr[kChunks], vr[kChunks], dk_acc[kChunks], dv_acc[kChunks];
-#pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int c = sub + kRowThreads * i;
-    float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 vx = kx;
-    if (key_valid) {
-      kx = load4(k + (kv_base + kj) * D + 4 * c);
-      vx = load4(v + (kv_base + kj) * D + 4 * c);
-    }
-    kr[i] = scale4(kx, scale_log2);
-    vr[i] = vx;
-    dk_acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    dv_acc[i] = dk_acc[i];
-  }
-
+  const int hk = h / group;
+  const int k0 = tile * kRows;
+  const size_t q_plane = (static_cast<size_t>(b) * H + h) * Sq;
+  const size_t kv_plane = (static_cast<size_t>(b) * Hkv + hk) * Sk;
   // Query i sees key j iff j <= i: the query tiles before the one holding
-  // this tile's first key see none of its keys.
-  const int q_first = causal ? (tile * kBlockN) / kBlockM : 0;
-  const int n_qtiles = (Sq + kBlockM - 1) / kBlockM;
+  // the block's first key see none of its keys and are never loaded.
+  const int qt0 = causal ? k0 / kRows : 0;
+  const int n_qtiles = (Sq + kRows - 1) / kRows;
 
-  for (int hh = 0; hh < group; ++hh) {
-    const size_t q_base = (static_cast<size_t>(b) * H + hk * group + hh) * Sq;
-    for (int t = q_first; t < n_qtiles; ++t) {
-      const int q0 = t * kBlockM;
-      __syncthreads();  // every thread is done with the previous tile
-      for (int e = threadIdx.x; e < kBlockM * kVecs; e += kThreads) {
-        const int r = e / kVecs;
-        const int c = e % kVecs;
-        float4 qx = make_float4(0.f, 0.f, 0.f, 0.f);
-        float4 dx = qx;
-        if (q0 + r < Sq) {
-          const size_t off = (q_base + q0 + r) * D + 4 * c;
-          qx = load4(q + off);
-          dx = load4(dout + off);
-        }
-        q_tile[e] = qx;
-        do_tile[e] = dx;
-      }
-      if (threadIdx.x < kBlockM) {
-        const int qi = q0 + threadIdx.x;
-        lse_tile[threadIdx.x] = qi < Sq ? lse[q_base + qi] * kLog2e : 0.f;
-        di_tile[threadIdx.x] = qi < Sq ? di[q_base + qi] : 0.f;
-      }
-      __syncthreads();
+  auto stage = [&](int s, int qt) {
+    stage_tile<T, D>(q_s + s * kTile, q + q_plane * D, qt * kRows, Sq);
+    stage_tile<T, D>(do_s + s * kTile, dout + q_plane * D, qt * kRows, Sq);
+    if (threadIdx.x < 2 * kRows) {
+      const int qi = qt * kRows + threadIdx.x % kRows;
+      const bool is_lse = threadIdx.x < kRows;
+      cp_async4((is_lse ? lse_s : di_s) + s * kRows + threadIdx.x % kRows,
+                (is_lse ? lse : di) + q_plane + (qi < Sq ? qi : 0), qi < Sq);
+    }
+  };
+  stage_tile<T, D>(k_s, k + kv_plane * D, k0, Sk);
+  stage_tile<T, D>(v_s, v + kv_plane * D, k0, Sk);
+  if (qt0 < n_qtiles) stage(0, qt0);
+  cp_async_commit();
 
-#pragma unroll 2
-      for (int i = 0; i < kBlockM; ++i) {
-        const float4* q_row = q_tile + i * kVecs + sub;
-        const float4* do_row = do_tile + i * kVecs + sub;
-        float s = 0.f;
-        float dp = 0.f;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int side = warp / 4;
+  const int key0 = k0 + 16 * (warp % 4);  // the warp's first key
+  const int row0 = key0 + lane / 4;  // this thread's keys: row0, row0 + 8
+  const T* k_w = k_s + 16 * (warp % 4) * kStride;
+  const T* v_w = v_s + 16 * (warp % 4) * kStride;
+
+  float dk_acc[kN][4], dv_acc[kN][4];
 #pragma unroll
-        for (int c = 0; c < kChunks; ++c) {
-          s = dot4(kr[c], q_row[kRowThreads * c], s);
-          dp = dot4(vr[c], do_row[kRowThreads * c], dp);
-        }
-        s = row_sum(s);
-        dp = row_sum(dp);
-        const int qi = q0 + i;
-        const bool visible = key_valid && qi < Sq && (!causal || kj <= qi);
-        const float p = visible ? exp2f(s - lse_tile[i]) : 0.f;
-        const float ds = p * (dp - di_tile[i]);
+  for (int n = 0; n < kN; ++n) {
 #pragma unroll
-        for (int c = 0; c < kChunks; ++c) {
-          dv_acc[c] = axpy4(p, do_row[kRowThreads * c], dv_acc[c]);
-          dk_acc[c] = axpy4(ds, q_row[kRowThreads * c], dk_acc[c]);
-        }
-      }
+    for (int e = 0; e < 4; ++e) {
+      dk_acc[n][e] = 0.f;
+      dv_acc[n][e] = 0.f;
     }
   }
 
-  if (!key_valid) return;
+  for (int qt = qt0; qt < n_qtiles; ++qt) {
+    const int s = (qt - qt0) % kStages;
+    if (qt + 1 < n_qtiles) stage((qt + 1 - qt0) % kStages, qt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's group has landed
+    __syncthreads();
+
+    const int q0 = qt * kRows + kHalf * side;  // the warp's first query
+    if (!((causal && key0 > q0 + kHalf - 1) || key0 >= Sk || q0 >= Sq)) {
+      const T* q_w = q_s + s * kTile + kHalf * side * kStride;
+      const T* do_w = do_s + s * kTile + kHalf * side * kStride;
+      const float* lse_w = lse_s + s * kRows + kHalf * side;
+      const float* di_w = di_s + s * kRows + kHalf * side;
+      // S^T = K Q^T and dP^T = V dO^T, 16 keys x kHalf queries
+      float st[kHalf / 8][4], dpt[kHalf / 8][4];
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const size_t off = (kv_base + kj) * D + 4 * (sub + kRowThreads * i);
-    store4(dk + off, scale4(dk_acc[i], sm_scale));
-    store4(dv + off, dv_acc[i]);
+      for (int j = 0; j < kHalf / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[j][e] = 0.f;
+          dpt[j][e] = 0.f;
+        }
+      }
+#pragma unroll 1
+      for (int c0 = 0; c0 < D; c0 += kChunk) {
+#pragma unroll
+        for (int c = c0; c < c0 + kChunk; c += 8) {
+          const FragA ka = a_rows<kLo>(k_w, kStride, c, lane);
+          const FragA va = a_rows<kLo>(v_w, kStride, c, lane);
+#pragma unroll
+          for (int j = 0; j < kHalf / 8; ++j) {
+            mma3<kLo, kLo>(st[j], ka, b_cols<kLo>(q_w + 8 * j * kStride,
+                                                  kStride, c, lane));
+            mma3<kLo, kLo>(dpt[j], va, b_cols<kLo>(do_w + 8 * j * kStride,
+                                                   kStride, c, lane));
+          }
+        }
+      }
+      // P^T and dS^T in place of S^T and dP^T: a fragment's row is a key
+      // and its column a query, so lse and di are read by column.
+      const bool masked = (causal && key0 + 15 > q0) || key0 + 16 > Sk
+                          || q0 + kHalf > Sq;
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j) {
+        const int col = 8 * j + 2 * (lane % 4);
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_w + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(di_w + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool visible = true;
+          if (masked) {
+            const int key = row0 + 8 * (e / 2);
+            const int qi = q0 + col + e % 2;
+            visible = key < Sk && qi < Sq && (!causal || key <= qi);
+          }
+          const float p =
+              visible ? exp2f(fmaf(st[j][e], scale_log2,
+                                   -((e % 2 ? l2.y : l2.x) * kLog2e)))
+                      : 0.f;
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - (e % 2 ? d2.y : d2.x));
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q over the warp's queries
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j) {
+        const FragA pa = a_from_acc<true>(st[j]);
+        const FragA dsa = a_from_acc<true>(dpt[j]);
+        const T* do_j = do_w + 8 * j * kStride;
+        const T* q_j = q_w + 8 * j * kStride;
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          mma3<true, kLo>(dv_acc[n], pa,
+                          b_rows_pair<kLo>(do_j, kStride, 8 * n, lane));
+          mma3<true, kLo>(dk_acc[n], dsa,
+                          b_rows_pair<kLo>(q_j, kStride, 8 * n, lane));
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage s before its refill
   }
+  cp_async_wait<0>();  // nothing in flight (K and V where no tile ran)
+  __syncthreads();
+
+  float* xch = reinterpret_cast<float*>(q_s);
+  if (side == 1) {
+    put(dk_acc, exchange_slot<kN>(xch, 0, 2));
+    put(dv_acc, exchange_slot<kN>(xch, 1, 2));
+  }
+  __syncthreads();
+  if (side == 0) {
+    add(dk_acc, exchange_slot<kN>(xch, 0, 2));
+    add(dv_acc, exchange_slot<kN>(xch, 1, 2));
+    if (group == 1) {
+      const size_t off = (kv_plane + row0) * D;
+      store_rows(dk + off, dk_acc, row0, Sk, sm_scale);
+      store_rows(dv + off, dv_acc, row0, Sk, 1.f);
+    } else {  // this head's partials, unscaled
+      const size_t off = ((static_cast<size_t>(b) * H + h) * Sk + row0) * D;
+      store_rows(partials + off, dk_acc, row0, Sk, 1.f);
+      store_rows(partials + static_cast<size_t>(B) * H * Sk * D + off,
+                 dv_acc, row0, Sk, 1.f);
+    }
+  }
+  if (group == 1) return;
+
+  // The group's last block to finish adds its heads' partials in head
+  // order, scales dK and writes both.
+  const int n_ktiles = (Sk + kRows - 1) / kRows;
+  int* counter = counters + (static_cast<size_t>(b) * Hkv + hk) * n_ktiles
+                 + tile;
+  if (!tickets::last(counter, group, &ticket)) return;
+  const size_t head = static_cast<size_t>(Sk) * D / 4;  // float4s a head
+  const float4* pk = reinterpret_cast<const float4*>(partials)
+                     + ((static_cast<size_t>(b) * H + hk * group) * Sk + k0)
+                       * D / 4;
+  const float4* pv = pk + static_cast<size_t>(B) * H * head;
+  const int n = min(kRows, Sk - k0) * D / 4;
+  for (int i = threadIdx.x; i < n; i += tf32::kThreads) {
+    float4 sk = __ldcg(pk + i);
+    float4 sv = __ldcg(pv + i);
+    for (int g = 1; g < group; ++g) {
+      const float4 xk = __ldcg(pk + g * head + i);
+      const float4 xv = __ldcg(pv + g * head + i);
+      sk = make_float4(sk.x + xk.x, sk.y + xk.y, sk.z + xk.z, sk.w + xk.w);
+      sv = make_float4(sv.x + xv.x, sv.y + xv.y, sv.z + xv.z, sv.w + xv.w);
+    }
+    const size_t off = (kv_plane + k0) * D + 4 * static_cast<size_t>(i);
+    store4(dk + off, scale4(sk, sm_scale));
+    store4(dv + off, sv);
+  }
+  if (threadIdx.x == 0) *counter = 0;
 }
 
 // dq: (B, H, Sq, D); the other arguments as for the dK/dV kernel.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ di, T* __restrict__ dq, int H,
-                    int Hkv, int Sq, int Sk, int causal, float scale_log2,
-                    float sm_scale) {
-  constexpr int kVecs = D / 4;
-  constexpr int kChunks = kVecs / kRowThreads;
-  extern __shared__ float4 smem[];
-  float4* k_tile = smem;                        // [kBlockN][kVecs]
-  float4* v_tile = smem + kBlockN * kVecs;      // [kBlockN][kVecs]
+__global__ void __launch_bounds__(tf32::kThreads, 1)
+flash_bwd_dq_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ di, T* __restrict__ dq,
+                         int B, int H, int Hkv, int Sq, int Sk, int causal,
+                         float scale_log2, float sm_scale) {
+  using namespace tf32;
+  constexpr bool kLo = std::is_same<T, float>::value;
+  constexpr int kStride = stride<T, D>();
+  constexpr int kTile = kRows * kStride;
+  constexpr int kN = D / 8;
+  constexpr int kChunk = chunk<D>();
+  static_assert(4 * kN * 4 * 32 * 4 <= 2 * kStages * tile_bytes<T, D>(),
+                "the halves' exchange must fit the stages");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* do_s = q_s + kTile;
+  T* k_s = do_s + kTile;              // [kStages][kTile]
+  T* v_s = k_s + kStages * kTile;     // [kStages][kTile]
 
-  const int tile = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int n_qtiles = (Sq + kRows - 1) / kRows;
+  const int tile = n_qtiles - 1 - blockIdx.x / (H * B);  // longest rows first
+  const int b = blockIdx.x % (H * B) / H;
+  const int h = blockIdx.x % H;
   const int hk = h / (H / Hkv);
-  const int row = threadIdx.x / kRowThreads;
-  const int sub = threadIdx.x % kRowThreads;
-  const int qi = tile * kBlockM + row;
-  const bool row_valid = qi < Sq;
-  const size_t q_base = (static_cast<size_t>(b) * H + h) * Sq;
-  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk;
-
-  float4 qr[kChunks], dor[kChunks], acc[kChunks];
-#pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int c = sub + kRowThreads * i;
-    float4 qx = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 dx = qx;
-    if (row_valid) {
-      qx = load4(q + (q_base + qi) * D + 4 * c);
-      dx = load4(dout + (q_base + qi) * D + 4 * c);
-    }
-    qr[i] = scale4(qx, scale_log2);
-    dor[i] = dx;
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  const float lse2 = row_valid ? lse[q_base + qi] * kLog2e : 0.f;
-  const float di_row = row_valid ? di[q_base + qi] : 0.f;
-
+  const int m0 = tile * kRows;
+  const size_t q_plane = (static_cast<size_t>(b) * H + h) * Sq;
+  const size_t kv_plane = (static_cast<size_t>(b) * Hkv + hk) * Sk;
   // Keys past the tile's last query row are masked for every row of it.
-  const int kv_end = causal ? min(Sk, (tile + 1) * kBlockM) : Sk;
-  const int n_tiles = (kv_end + kBlockN - 1) / kBlockN;
+  const int kv_end = causal ? min(Sk, m0 + kRows) : Sk;
+  const int n_ktiles = (kv_end + kRows - 1) / kRows;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockN;
-    __syncthreads();
-    for (int e = threadIdx.x; e < kBlockN * kVecs; e += kThreads) {
-      const int r = e / kVecs;
-      const int c = e % kVecs;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vx = kx;
-      if (k0 + r < Sk) {
-        const size_t off = (kv_base + k0 + r) * D + 4 * c;
-        kx = load4(k + off);
-        vx = load4(v + off);
-      }
-      k_tile[e] = kx;
-      v_tile[e] = vx;
-    }
-    __syncthreads();
+  auto stage = [&](int s, int kt) {
+    stage_tile<T, D>(k_s + s * kTile, k + kv_plane * D, kt * kRows, Sk);
+    stage_tile<T, D>(v_s + s * kTile, v + kv_plane * D, kt * kRows, Sk);
+  };
+  stage_tile<T, D>(q_s, q + q_plane * D, m0, Sq);
+  stage_tile<T, D>(do_s, dout + q_plane * D, m0, Sq);
+  if (n_ktiles > 0) stage(0, 0);
+  cp_async_commit();
 
-#pragma unroll 2
-    for (int j = 0; j < kBlockN; ++j) {
-      const float4* k_row = k_tile + j * kVecs + sub;
-      const float4* v_row = v_tile + j * kVecs + sub;
-      float s = 0.f;
-      float dp = 0.f;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int side = warp / 4;
+  const int qrow0 = m0 + 16 * (warp % 4);  // the warp's first query
+  const int row0 = qrow0 + lane / 4;  // this thread's rows: row0, row0 + 8
+  const T* q_w = q_s + 16 * (warp % 4) * kStride;
+  const T* do_w = do_s + 16 * (warp % 4) * kStride;
+  float lse2[2], di_row[2];
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        s = dot4(qr[c], k_row[kRowThreads * c], s);
-        dp = dot4(dor[c], v_row[kRowThreads * c], dp);
-      }
-      s = row_sum(s);
-      dp = row_sum(dp);
-      const int kj = k0 + j;
-      const bool visible = row_valid && kj < Sk && (!causal || kj <= qi);
-      const float p = visible ? exp2f(s - lse2) : 0.f;
-      const float ds = p * (dp - di_row);
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse2[r] = row < Sq ? lse[q_plane + row] * kLog2e : 0.f;
+    di_row[r] = row < Sq ? di[q_plane + row] : 0.f;
+  }
+  float acc[kN][4];
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        acc[c] = axpy4(ds, k_row[kRowThreads * c], acc[c]);
-      }
-    }
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   }
 
-  if (!row_valid) return;
+  for (int kt = 0; kt < n_ktiles; ++kt) {
+    const int s = kt % kStages;
+    if (kt + 1 < n_ktiles) stage((kt + 1) % kStages, kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const int c0 = kt * kRows + kHalf * side;  // the warp's first key
+    if (!((causal && c0 > qrow0 + 15) || c0 >= Sk || qrow0 >= Sq)) {
+      const T* k_w = k_s + s * kTile + kHalf * side * kStride;
+      const T* v_w = v_s + s * kTile + kHalf * side * kStride;
+      // S = Q K^T and dP = dO V^T, 16 queries x kHalf keys
+      float sc[kHalf / 8][4], dp[kHalf / 8][4];
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    store4(dq + (q_base + qi) * D + 4 * (sub + kRowThreads * i),
-           scale4(acc[i], sm_scale));
+      for (int j = 0; j < kHalf / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = 0.f;
+          dp[j][e] = 0.f;
+        }
+      }
+#pragma unroll 1
+      for (int c0 = 0; c0 < D; c0 += kChunk) {
+#pragma unroll
+        for (int c = c0; c < c0 + kChunk; c += 8) {
+          const FragA qa = a_rows<kLo>(q_w, kStride, c, lane);
+          const FragA doa = a_rows<kLo>(do_w, kStride, c, lane);
+#pragma unroll
+          for (int j = 0; j < kHalf / 8; ++j) {
+            mma3<kLo, kLo>(sc[j], qa, b_cols<kLo>(k_w + 8 * j * kStride,
+                                                  kStride, c, lane));
+            mma3<kLo, kLo>(dp[j], doa, b_cols<kLo>(v_w + 8 * j * kStride,
+                                                   kStride, c, lane));
+          }
+        }
+      }
+      const bool masked = (causal && c0 + kHalf - 1 > qrow0)
+                          || c0 + kHalf > Sk || qrow0 + 16 > Sq;
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          bool visible = true;
+          if (masked) {
+            const int col = c0 + 8 * j + 2 * (lane % 4) + e % 2;
+            const int row = row0 + 8 * r;
+            visible = col < Sk && row < Sq && (!causal || col <= row);
+          }
+          const float p =
+              visible ? exp2f(fmaf(sc[j][e], scale_log2, -lse2[r])) : 0.f;
+          dp[j][e] = p * (dp[j][e] - di_row[r]);
+        }
+      }
+      // dQ += dS K over the warp's keys
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j) {
+        const FragA dsa = a_from_acc<true>(dp[j]);
+        const T* k_j = k_w + 8 * j * kStride;
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          mma3<true, kLo>(acc[n], dsa,
+                          b_rows_pair<kLo>(k_j, kStride, 8 * n, lane));
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float* xch = reinterpret_cast<float*>(k_s);
+  if (side == 1) put(acc, exchange_slot<kN>(xch, 0, 1));
+  __syncthreads();
+  if (side == 0) {
+    add(acc, exchange_slot<kN>(xch, 0, 1));
+    store_rows(dq + (q_plane + row0) * D, acc, row0, Sq, sm_scale);
   }
 }
 
@@ -322,6 +639,11 @@ constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
 static_assert(2 * kConsumerRegs + kProducerRegs <= 3 * 168,
               "setmaxnreg would wait for registers the block does not have");
+
+// The dK/dV grid: a block per (kKeyTile keys, KV head, batch).
+inline dim3 dkv_grid(int B, int Hkv, int Sk) {
+  return dim3((Sk + kKeyTile - 1) / kKeyTile, Hkv, B);
+}
 
 // Dynamic shared memory of the wgmma dK/dV: the block's K and V tiles and
 // kStages Q and dO tiles, plus the 1024 bytes of alignment slack.
@@ -563,12 +885,17 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       flash_bwd_dkv_wgmma_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sk + kKeyTile - 1) / kKeyTile, Hkv, B);
+  const dim3 grid = dkv_grid(B, Hkv, Sk);
   flash_bwd_dkv_wgmma_kernel<D><<<grid, kDkvThreads, smem, stream>>>(
       q_map, k_map, v_map, do_map, lse, di, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), H, Hkv, Sq, Sk, causal,
       sm_scale * kLog2e, sm_scale);
   return cudaGetLastError();
+}
+
+// The dQ grid: a block per (kBlockM queries, head, batch).
+inline dim3 dq_grid(int B, int H, int Sq) {
+  return dim3((Sq + kBlockM - 1) / kBlockM, H, B);
 }
 
 // Dynamic shared memory of the wgmma dQ: the Q and dO tiles and kStages K
@@ -754,7 +1081,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       flash_bwd_dq_wgmma_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBlockM - 1) / kBlockM, H, B);
+  const dim3 grid = dq_grid(B, H, Sq);
   flash_bwd_dq_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
       q_map, k_map, v_map, do_map, lse, di, static_cast<__nv_bfloat16*>(dq),
       H, Hkv, Sq, Sk, causal, sm_scale * kLog2e, sm_scale);
@@ -763,45 +1090,64 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 
 }  // namespace sm90
 
-// Both scalar kernels stage two 64-row tiles of f32 (64 KB at D = 128,
-// above the 48 KB default, hence the attribute).
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The tf32 kernels read and write 16 bytes at a time and stage up to
+// 199 KB of shared memory (above the 48 KB default, hence the attribute).
 template <typename T, int D>
-cudaError_t launch_dkv_scalar(const void* q, const void* k, const void* v,
-                              const void* dout, const float* lse,
-                              const float* di, void* dk, void* dv, int B,
-                              int H, int Hkv, int Sq, int Sk, int causal,
-                              float sm_scale, cudaStream_t stream) {
-  const int smem = 2 * kBlockM * D * static_cast<int>(sizeof(float));
+cudaError_t launch_dkv_tf32(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* di, void* dk, void* dv,
+                            float* partials, int* counters, int B, int H,
+                            int Hkv, int Sq, int Sk, int causal,
+                            float sm_scale, cudaStream_t stream) {
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout)
+      || !aligned16(dk) || !aligned16(dv)
+      || (H > Hkv && (partials == nullptr || !aligned16(partials)
+                      || counters == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int smem = tf32::dkv_smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
+      flash_bwd_dkv_tf32_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sk + kBlockN - 1) / kBlockN, Hkv, B);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Sq, Sk, causal,
-      sm_scale * kLog2e, sm_scale);
+  const long long blocks = tf32::blocks(B, H, Sk);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  flash_bwd_dkv_tf32_kernel<T, D>
+      <<<static_cast<int>(blocks), tf32::kThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
+          static_cast<T*>(dk), static_cast<T*>(dv), partials, counters, B, H,
+          Hkv, Sq, Sk, causal, sm_scale * kLog2e, sm_scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch_dq_scalar(const void* q, const void* k, const void* v,
-                             const void* dout, const float* lse,
-                             const float* di, void* dq, int B, int H,
-                             int Hkv, int Sq, int Sk, int causal,
-                             float sm_scale, cudaStream_t stream) {
-  const int smem = 2 * kBlockN * D * static_cast<int>(sizeof(float));
+cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* di, void* dq, int B, int H, int Hkv,
+                           int Sq, int Sk, int causal, float sm_scale,
+                           cudaStream_t stream) {
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout)
+      || !aligned16(dq)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int smem = tf32::dq_smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_dq_tf32_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBlockM - 1) / kBlockM, H, B);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
-      static_cast<T*>(dq), H, Hkv, Sq, Sk, causal, sm_scale * kLog2e,
-      sm_scale);
+  const long long blocks = tf32::blocks(B, H, Sq);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  flash_bwd_dq_tf32_kernel<T, D>
+      <<<static_cast<int>(blocks), tf32::kThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
+          static_cast<T*>(dq), B, H, Hkv, Sq, Sk, causal, sm_scale * kLog2e,
+          sm_scale);
   return cudaGetLastError();
 }
 
@@ -810,15 +1156,16 @@ cudaError_t launch_dq_scalar(const void* q, const void* k, const void* v,
 template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* di,
-                       void* dk, void* dv, int B, int H, int Hkv, int Sq,
-                       int Sk, int causal, float sm_scale,
-                       cudaStream_t stream) {
+                       void* dk, void* dv, float* partials, int* counters,
+                       int B, int H, int Hkv, int Sq, int Sk, int causal,
+                       float sm_scale, cudaStream_t stream) {
   if constexpr (sm90::kTakesWgmma<T, D>) {
     return sm90::launch_dkv<D>(q, k, v, dout, lse, di, dk, dv, B, H, Hkv, Sq,
                                Sk, causal, sm_scale, stream);
   } else {
-    return launch_dkv_scalar<T, D>(q, k, v, dout, lse, di, dk, dv, B, H, Hkv,
-                                   Sq, Sk, causal, sm_scale, stream);
+    return launch_dkv_tf32<T, D>(q, k, v, dout, lse, di, dk, dv, partials,
+                                 counters, B, H, Hkv, Sq, Sk, causal,
+                                 sm_scale, stream);
   }
 }
 
@@ -831,8 +1178,31 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
     return sm90::launch_dq<D>(q, k, v, dout, lse, di, dq, B, H, Hkv, Sq, Sk,
                               causal, sm_scale, stream);
   } else {
-    return launch_dq_scalar<T, D>(q, k, v, dout, lse, di, dq, B, H, Hkv, Sq,
-                                  Sk, causal, sm_scale, stream);
+    return launch_dq_tf32<T, D>(q, k, v, dout, lse, di, dq, B, H, Hkv, Sq,
+                                Sk, causal, sm_scale, stream);
+  }
+}
+
+// The blocks each launcher's grid holds.
+long long grid_size(dim3 grid) {
+  return static_cast<long long>(grid.x) * grid.y * grid.z;
+}
+
+template <typename T, int D>
+long long dkv_blocks(int B, int H, int Hkv, int Sk) {
+  if constexpr (sm90::kTakesWgmma<T, D>) {
+    return grid_size(sm90::dkv_grid(B, Hkv, Sk));
+  } else {
+    return tf32::blocks(B, H, Sk);
+  }
+}
+
+template <typename T, int D>
+long long dq_blocks(int B, int H, int Sq) {
+  if constexpr (sm90::kTakesWgmma<T, D>) {
+    return grid_size(sm90::dq_grid(B, H, Sq));
+  } else {
+    return tf32::blocks(B, H, Sq);
   }
 }
 
@@ -840,24 +1210,31 @@ bool valid_shape(int B, int H, int Hkv, int Sq, int Sk) {
   return B >= 1 && H >= 1 && Hkv >= 1 && H % Hkv == 0 && Sq >= 1 && Sk >= 1;
 }
 
+// Design codes of the _design queries.
+constexpr int kDesignWgmma = 1;
+constexpr int kDesignTf32 = 2;
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns a cudaError_t (0 =
-// launched).
+// launched). partials and counters: the scratch that
+// flash_attention_bwd_dkv_scratch asks for (null where it asks for none).
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* di,
-                                       void* dk, void* dv, int B, int H,
-                                       int Hkv, int Sq, int Sk, int D,
-                                       int dtype, int causal, float sm_scale,
+                                       void* dk, void* dv, void* partials,
+                                       void* counters, int B, int H, int Hkv,
+                                       int Sq, int Sk, int D, int dtype,
+                                       int causal, float sm_scale,
                                        void* stream) {
   if (!valid_shape(B, H, Hkv, Sq, Sk)) return cudaErrorInvalidValue;
   const cudaError_t err = dispatch(dtype, D, [&](auto tag, auto dim) {
     using T = typename decltype(tag)::type;
     return launch_dkv<T, decltype(dim)::value>(
         q, k, v, dout, static_cast<const float*>(lse),
-        static_cast<const float*>(di), dk, dv, B, H, Hkv, Sq, Sk, causal,
-        sm_scale, static_cast<cudaStream_t>(stream));
+        static_cast<const float*>(di), dk, dv, static_cast<float*>(partials),
+        static_cast<int*>(counters), B, H, Hkv, Sq, Sk, causal, sm_scale,
+        static_cast<cudaStream_t>(stream));
   });
   return static_cast<int>(err);
 }
@@ -880,20 +1257,41 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
+// The scratch a dK/dV launch takes: f32 partials (each query head's dK and
+// dV) and int ticket counters, both 0 where the instance's design or a
+// group of 1 needs none; the counters must be 0 before the launch (it
+// leaves them 0).
+extern "C" int flash_attention_bwd_dkv_scratch(int B, int H, int Hkv,
+                                               int Sk, int D, int dtype,
+                                               long long* partial_floats,
+                                               long long* counters) {
+  if (!valid_shape(B, H, Hkv, 1, Sk)) return cudaErrorInvalidValue;
+  const cudaError_t err = dispatch(dtype, D, [&](auto tag, auto dim) {
+    using T = typename decltype(tag)::type;
+    const bool partial = !sm90::kTakesWgmma<T, decltype(dim)::value>
+                         && H > Hkv;
+    *partial_floats = partial ? 2LL * B * H * Sk * D : 0;
+    // a counter per (key tile, KV head, batch)
+    *counters = partial ? tf32::blocks(B, Hkv, Sk) : 0;
+    return cudaSuccess;
+  });
+  return static_cast<int>(err);
+}
+
 // The design the (dtype, D) instance of each kernel takes (1 = sm90 wgmma,
-// 0 = scalar) and its dynamic shared memory in bytes; a cudaError_t for an
-// instance that is not built.
+// 2 = 3xTF32 mma.sync) and its dynamic shared memory in bytes; a
+// cudaError_t for an instance that is not built.
 extern "C" int flash_attention_bwd_dkv_design(int D, int dtype, int* design,
                                               int* smem_bytes) {
   const cudaError_t err = dispatch(dtype, D, [&](auto tag, auto dim) {
     using T = typename decltype(tag)::type;
     constexpr int kD = decltype(dim)::value;
     if constexpr (sm90::kTakesWgmma<T, kD>) {
-      *design = 1;
+      *design = kDesignWgmma;
       *smem_bytes = sm90::dkv_smem_bytes<kD>();
     } else {
-      *design = 0;
-      *smem_bytes = 2 * kBlockM * kD * static_cast<int>(sizeof(float));
+      *design = kDesignTf32;
+      *smem_bytes = tf32::dkv_smem_bytes<T, kD>();
     }
     return cudaSuccess;
   });
@@ -906,12 +1304,39 @@ extern "C" int flash_attention_bwd_dq_design(int D, int dtype, int* design,
     using T = typename decltype(tag)::type;
     constexpr int kD = decltype(dim)::value;
     if constexpr (sm90::kTakesWgmma<T, kD>) {
-      *design = 1;
+      *design = kDesignWgmma;
       *smem_bytes = sm90::dq_smem_bytes<kD>();
     } else {
-      *design = 0;
-      *smem_bytes = 2 * kBlockN * kD * static_cast<int>(sizeof(float));
+      *design = kDesignTf32;
+      *smem_bytes = tf32::dq_smem_bytes<T, kD>();
     }
+    return cudaSuccess;
+  });
+  return static_cast<int>(err);
+}
+
+// The blocks a launch of each kernel at (B, H, Hkv, Sq, Sk) runs, from the
+// grid its launcher takes; a cudaError_t for an instance that is not built
+// or a shape the launch refuses.
+extern "C" int flash_attention_bwd_dkv_blocks(int B, int H, int Hkv, int Sq,
+                                              int Sk, int D, int dtype,
+                                              long long* blocks) {
+  if (!valid_shape(B, H, Hkv, Sq, Sk)) return cudaErrorInvalidValue;
+  const cudaError_t err = dispatch(dtype, D, [&](auto tag, auto dim) {
+    using T = typename decltype(tag)::type;
+    *blocks = dkv_blocks<T, decltype(dim)::value>(B, H, Hkv, Sk);
+    return cudaSuccess;
+  });
+  return static_cast<int>(err);
+}
+
+extern "C" int flash_attention_bwd_dq_blocks(int B, int H, int Hkv, int Sq,
+                                             int Sk, int D, int dtype,
+                                             long long* blocks) {
+  if (!valid_shape(B, H, Hkv, Sq, Sk)) return cudaErrorInvalidValue;
+  const cudaError_t err = dispatch(dtype, D, [&](auto tag, auto dim) {
+    using T = typename decltype(tag)::type;
+    *blocks = dq_blocks<T, decltype(dim)::value>(B, H, Sq);
     return cudaSuccess;
   });
   return static_cast<int>(err);

@@ -1,9 +1,10 @@
-// Tile shape and element access shared by the flash-attention forward
-// (flash_attention_fwd.cu) and backward (flash_attention_bwd.cu) kernels.
-// Four threads share one row of a 64-row tile; each holds a quarter of the
-// row's head_dim as float4 chunks, interleaved so that the four read
-// neighbouring shared-memory words. Inputs are f32 or bf16 and every sum is
-// f32.
+// Tile shape and element access of the scalar flash-attention forward
+// (flash_attention_fwd.cu), and the (dtype, head_dim) dispatch and vector
+// stores it shares with the backward (flash_attention_bwd.cu) and the ring
+// fold (attention_fold.cu). Four threads share one row of a 64-row tile;
+// each holds a quarter of the row's head_dim as float4 chunks, interleaved
+// so that the four read neighbouring shared-memory words. Inputs are f32 or
+// bf16 and every sum is f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,27 +48,8 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// acc += s * x
-__device__ __forceinline__ float4 axpy4(float s, float4 x, float4 acc) {
-  return make_float4(fmaf(s, x.x, acc.x), fmaf(s, x.y, acc.y),
-                     fmaf(s, x.z, acc.z), fmaf(s, x.w, acc.w));
-}
-
 __device__ __forceinline__ float4 scale4(float4 x, float s) {
   return make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
-}
-
-// The four threads of a row end with the same sum (xor butterfly).
-__device__ __forceinline__ float row_sum(float part) {
-  part += __shfl_xor_sync(0xffffffffu, part, 1);
-  return part + __shfl_xor_sync(0xffffffffu, part, 2);
 }
 
 template <typename T>

@@ -20,9 +20,18 @@ library):
 - bfloat16 at head_dim 64 and 128 (the model's): all three kernels are
   the Hopper design, products on the tensor cores (``wgmma``) over Q, K,
   V and dO tiles that TMA stages in a ring of shared-memory buffers;
-- float32 at every head_dim, and bfloat16 at 16 and 32: the scalar
-  design, f32 FMAs on the CUDA cores, which keeps the f32 kernels within
-  2e-5 of the plain version.
+- float32 at every head_dim, and bfloat16 at 16 and 32: the forward is
+  the scalar design, f32 FMAs on the CUDA cores; the backward runs every
+  product on the tensor cores (``mma.sync``) as three TF32 products
+  (``csrc/tf32_mma.cuh``), which keeps the f32 kernels within 2e-5 of
+  the plain version, over tiles staged by ``cp.async``, with a GQA
+  group's query heads spread over blocks whose dK/dV partials the
+  group's last block adds in head order (ticket counters kept per device
+  and stream, as :func:`_build.zeroed_counters` keeps them: the first
+  GQA backward on a stream, and the first to need more counters than
+  the earlier ones, must not be captured in a CUDA graph). The partials
+  are allocated on each GQA call, 2 * B * H * S_kv * D f32 (8 MB at
+  (2, 8 / 2, 1000, 64), 4.3 GB at (16, 32 / 8, 8192, 128)).
 
 The sources' design notes say what bounds each kernel and what it leaves
 for later. :func:`flash_forward` and :func:`flash_backward` take the
@@ -37,8 +46,16 @@ as they are and the dK/dV kernel sums each group's gradients itself.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+
+from tpu_operator_libs_torch.kernels._build import (
+    bind,
+    build_all,
+    raise_on,
+    zeroed_counters,
+)
 
 #: head_dim values the kernel is compiled for: the model's 128 and the
 #: narrow widths the tests use.
@@ -104,65 +121,70 @@ def _check_inputs(q, k, v) -> None:
 
 _POINTER = ctypes.c_void_p
 _INT = ctypes.c_int
-#: C signature of each kernel entry point: pointers, then B, H, Hkv, Sq,
-#: Sk, D, dtype, causal, sm_scale and the stream; each has a
-#: ``<entry point>_design`` query beside it (:func:`kernel_design`)
+_LAUNCH_TAIL = [_INT] * 8 + [ctypes.c_float, _POINTER]
+#: (D, dtype, *design, *smem_bytes), see kernel_design
+_DESIGN_QUERY = [_INT, _INT] + [ctypes.POINTER(_INT)] * 2
+#: the C entries of each source: a launch takes its pointers, then B, H,
+#: Hkv, Sq, Sk, D, dtype, causal, sm_scale and the stream; each launch
+#: has a ``<entry>_design`` query beside it (:func:`kernel_design`)
 _ENTRY_POINTS = {
     "flash_attention_fwd.cu": {
-        "flash_attention_fwd": [_POINTER] * 5,
+        "flash_attention_fwd": [_POINTER] * 5 + _LAUNCH_TAIL,
+        "flash_attention_fwd_design": _DESIGN_QUERY,
     },
     "flash_attention_bwd.cu": {
-        "flash_attention_bwd_dkv": [_POINTER] * 8,
-        "flash_attention_bwd_dq": [_POINTER] * 7,
+        # q, k, v, do, lse, di, dk, dv, then the partials and counters
+        # that flash_attention_bwd_dkv_scratch asks for
+        "flash_attention_bwd_dkv": [_POINTER] * 10 + _LAUNCH_TAIL,
+        "flash_attention_bwd_dq": [_POINTER] * 7 + _LAUNCH_TAIL,
+        "flash_attention_bwd_dkv_design": _DESIGN_QUERY,
+        "flash_attention_bwd_dq_design": _DESIGN_QUERY,
+        # (B, H, Hkv, Sk, D, dtype, *partial_floats, *counters)
+        "flash_attention_bwd_dkv_scratch":
+            [_INT] * 6 + [ctypes.POINTER(ctypes.c_longlong)] * 2,
+        # (B, H, Hkv, Sq, Sk, D, dtype, *blocks), see launch_blocks
+        "flash_attention_bwd_dkv_blocks":
+            [_INT] * 7 + [ctypes.POINTER(ctypes.c_longlong)],
+        "flash_attention_bwd_dq_blocks":
+            [_INT] * 7 + [ctypes.POINTER(ctypes.c_longlong)],
     },
 }
+_ERROR_STRING = "flash_attention_error_string"
 _libs: "dict[str, ctypes.CDLL]" = {}
+#: the dK/dV tickets by their count (a power of two), each kept per
+#: (device, stream) by _build.zeroed_counters
+_counters: "dict[int, dict]" = {}
 
 
 def _library(source: str):
     if source not in _libs:
-        from tpu_operator_libs_torch.kernels._build import build_all
-
         # the first launch builds every kernel source, in parallel
         for name, built in zip(SOURCES, build_all(SOURCES)):
-            lib = built.lib
-            for fn_name, pointers in _ENTRY_POINTS[name].items():
-                fn = getattr(lib, fn_name)
-                fn.argtypes = (pointers + [_INT] * 8
-                               + [ctypes.c_float, _POINTER])
-                fn.restype = _INT
-                # (D, dtype, *design, *smem_bytes), see kernel_design
-                query = getattr(lib, f"{fn_name}_design")
-                query.argtypes = [_INT, _INT] + [ctypes.POINTER(_INT)] * 2
-                query.restype = _INT
-            err_fn = lib.flash_attention_error_string
-            err_fn.argtypes = [_INT]
-            err_fn.restype = ctypes.c_char_p
-            _libs[name] = lib
+            _libs[name] = bind(built.lib, _ENTRY_POINTS[name], _ERROR_STRING)
     return _libs[source]
 
 
 def _call(source: str, fn_name: str, pointers, q, k, causal: bool,
           sm_scale: float) -> None:
-    """Launch ``fn_name`` on q's device and current stream; raise if the
-    launch was refused."""
+    """Launch ``fn_name`` on q's device and current stream with the data
+    pointers of ``pointers`` (None: a null pointer); raise if the launch
+    was refused."""
     lib = _library(source)
     batch, heads, sq, dim = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, fn_name)(
-            *(t.data_ptr() for t in pointers), batch, heads, k.shape[1],
-            sq, k.shape[2], dim, _DTYPE_CODES[q.dtype], int(causal),
-            float(sm_scale), stream)
-    if err != 0:
-        message = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"{fn_name} launch failed: {message} ({err})")
+            *(None if t is None else t.data_ptr() for t in pointers), batch,
+            heads, k.shape[1], sq, k.shape[2], dim, _DTYPE_CODES[q.dtype],
+            int(causal), float(sm_scale), stream)
+    raise_on(err, getattr(lib, _ERROR_STRING), fn_name)
 
 
 #: what :func:`kernel_design` reports for each design code
-DESIGNS = {0: "scalar", 1: "sm90 wgmma"}
+DESIGNS = {0: "scalar", 1: "sm90 wgmma", 2: "3xTF32 mma.sync"}
 
 
+@functools.cache
 def kernel_design(name: str, dtype: torch.dtype, head_dim: int) -> dict:
     """The design the built library runs for the entry point ``name``
     (e.g. ``"flash_attention_bwd_dq"``) at (dtype, head_dim) and the
@@ -175,11 +197,35 @@ def kernel_design(name: str, dtype: torch.dtype, head_dim: int) -> dict:
         head_dim, _DTYPE_CODES[dtype], ctypes.byref(design),
         ctypes.byref(smem))
     if err != 0:
-        message = lib.flash_attention_error_string(err).decode()
+        message = getattr(lib, _ERROR_STRING)(err).decode()
         raise ValueError(f"{name} has no instance for {dtype}, head_dim "
                          f"{head_dim}: {message}")
     return {"design": DESIGNS[design.value],
             "dynamic_smem_bytes": smem.value}
+
+
+def launch_blocks(name: str, q, k) -> int:
+    """The blocks a launch of the backward kernel ``name`` (e.g.
+    ``"flash_attention_bwd_dkv"``) runs on q (B, H, Sq, D) and k (B, H_kv,
+    Sk, D), from the grid its launcher takes; builds the libraries first
+    if needed (so it needs ``nvcc``)."""
+    lib = _library(SOURCES[1])
+    batch, heads, sq, dim = q.shape
+    blocks = ctypes.c_longlong()
+    err = getattr(lib, f"{name}_blocks")(
+        batch, heads, k.shape[1], sq, k.shape[2], dim, _DTYPE_CODES[q.dtype],
+        ctypes.byref(blocks))
+    raise_on(err, getattr(lib, _ERROR_STRING), name)
+    return blocks.value
+
+
+def _count(wrapper, dtype, head_dim) -> None:
+    """One launch of ``wrapper``'s kernel, counted in all and by the
+    design its (dtype, head_dim) instance runs."""
+    wrapper.launches += 1
+    design = kernel_design(wrapper.__name__, dtype, head_dim)["design"]
+    wrapper.launches_by_design[design] = \
+        wrapper.launches_by_design.get(design, 0) + 1
 
 
 def _launch(q, k, v, causal: bool, sm_scale: float):
@@ -265,6 +311,30 @@ def _require_cuda(q) -> None:
             "flash_backward takes the plain version on the CPU")
 
 
+def _dkv_scratch(q, k):
+    """The dK/dV launch's f32 partials and zeroed ticket counters (None
+    where its instance needs none)."""
+    batch, heads, _, dim = q.shape
+    floats, count = ctypes.c_longlong(), ctypes.c_longlong()
+    lib = _library(SOURCES[1])
+    err = lib.flash_attention_bwd_dkv_scratch(
+        batch, heads, k.shape[1], k.shape[2], dim, _DTYPE_CODES[q.dtype],
+        ctypes.byref(floats), ctypes.byref(count))
+    raise_on(err, getattr(lib, _ERROR_STRING), "flash_attention_bwd_dkv")
+    if floats.value == 0:
+        return None, None
+    # allocated here, so inside a captured graph from the graph's pool
+    partials = torch.empty(floats.value, dtype=torch.float32,
+                           device=q.device)
+    size = 1 << max(10, (count.value - 1).bit_length())
+    with torch.cuda.device(q.device):
+        counters = zeroed_counters(
+            _counters.setdefault(size, {}), q.device,
+            torch.cuda.current_stream(q.device), size,
+            "flash_attention_bwd_dkv")
+    return partials, counters
+
+
 def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool,
                             sm_scale: float):
     """(dk, dv) from the dK/dV kernel, for CUDA tensors that
@@ -273,9 +343,11 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool,
     _require_cuda(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _call(SOURCES[1], "flash_attention_bwd_dkv", (q, k, v, do, lse, di, dk,
-                                                  dv), q, k, causal, sm_scale)
-    flash_attention_bwd_dkv.launches += 1
+    partials, counters = _dkv_scratch(q, k)
+    _call(SOURCES[1], "flash_attention_bwd_dkv",
+          (q, k, v, do, lse, di, dk, dv, partials, counters), q, k, causal,
+          sm_scale)
+    _count(flash_attention_bwd_dkv, q.dtype, q.shape[3])
     return dk, dv
 
 
@@ -287,7 +359,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool,
     dq = torch.empty_like(q)
     _call(SOURCES[1], "flash_attention_bwd_dq", (q, k, v, do, lse, di, dq),
           q, k, causal, sm_scale)
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, q.dtype, q.shape[3])
     return dq
 
 
@@ -335,10 +407,14 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale: float):
     return _FlashAttention.apply(q, k, v, causal, sm_scale)
 
 
-#: Kernel launches since the last reset (the plain CPU path adds none).
+#: Kernel launches since the last reset (the plain CPU path adds none);
+#: the backward's also by the design their instance runs
+#: (:func:`kernel_design`'s names)
 flash_attention.launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches_by_design = {}
+flash_attention_bwd_dq.launches_by_design = {}
 #: every kernel's wrapper, by the name its launch count reports under
 WRAPPERS = {"flash_attention_fwd": flash_attention,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,

@@ -197,7 +197,9 @@ def run_stages(mesh, config, ckpt_dir, *, param_dtype=None,
     all with one ``ckpt_dir``). Every check raises on failure. Returns
     the numbers each stage measured; ``launches`` counts this rank's
     kernel launches over stages 1-4 (set to 0 just before the first),
-    ``launches_ring`` those of the ring stage (likewise). The decode
+    ``launches_ring`` those of the ring stage (likewise), and
+    ``launches_by_design`` and ``launches_by_design_ring`` the backward
+    kernels' among them by design. The decode
     stage returns both loops' tokens and this rank's
     ``generate_on_device.last_call`` for each; ``decode_bench``, a
     (global prompt, new tokens) pair, also times the two loops there
@@ -211,8 +213,7 @@ def run_stages(mesh, config, ckpt_dir, *, param_dtype=None,
     state = _state(params, optimizer, device)
     batches = [make_token_batch(i, config, batch_per_shard, mesh=mesh)
                for i in range(train_steps + 1)]
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
+    _reset_launches()
     losses, step_ms = [], []
     for tokens in batches[:train_steps]:
         _sync(device)
@@ -299,6 +300,7 @@ def run_stages(mesh, config, ckpt_dir, *, param_dtype=None,
                                     rounds=rounds)
         out["bandwidth"] = dataclasses.asdict(bw)
     out["launches"] = _launches()
+    out["launches_by_design"] = _launches_by_design()
     out.update(_parallel_stages(mesh, shapes, param_dtype))
     return out
 
@@ -335,8 +337,23 @@ def _decode_bench(params, config, param_dtype, mesh, prompt,
     return cells
 
 
+def _reset_launches() -> None:
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+        if hasattr(wrapper, "launches_by_design"):
+            wrapper.launches_by_design.clear()
+
+
 def _launches() -> "dict[str, int]":
     return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+
+
+def _launches_by_design() -> "dict[str, dict[str, int]]":
+    """The backward kernels' launches by the design their instance ran
+    (``kernel_design``'s names)."""
+    return {name: dict(wrapper.launches_by_design)
+            for name, wrapper in WRAPPERS.items()
+            if hasattr(wrapper, "launches_by_design")}
 
 
 def _parallel_stages(mesh, shapes: ParallelShapes, param_dtype) -> dict:
@@ -346,8 +363,7 @@ def _parallel_stages(mesh, shapes: ParallelShapes, param_dtype) -> dict:
     out = {}
 
     # 5. ring attention against dense attention
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
+    _reset_launches()
     sp_mesh = make_mesh(shape={"sp": n}, device=device)
     batch, seq, heads, head_dim = RING_SHAPE
     q, k, v = (_randn((batch, seq * n, heads, head_dim), seed, device)
@@ -362,6 +378,7 @@ def _parallel_stages(mesh, shapes: ParallelShapes, param_dtype) -> dict:
         out["ring"]["llama"] = _ring_llama(n, shapes.ring_llama,
                                            param_dtype, device)
     out["launches_ring"] = _launches()
+    out["launches_by_design_ring"] = _launches_by_design()
 
     # 6. the GPipe schedule against the layers in order
     pp_mesh = make_mesh(shape={"pp": n}, device=device)
