@@ -216,6 +216,8 @@ from tpu_operator_libs_torch.kernels import (  # noqa: E402
     SOURCES,
     WRAPPERS,
     _build,
+    restore_launches,
+    save_launches,
 )
 from tpu_operator_libs_torch.kernels.attention_fold import (  # noqa: E402
     attention_fold,
@@ -362,17 +364,18 @@ def visible_pairs(sq, sk, causal=True) -> int:
 
 
 def attention_bound_ms(batch, heads, kv_heads, sq, sk, dim, dtype,
-                       causal=True):
+                       causal=True, peak=None, passes=1):
     """Least time for the work these inputs need: the larger of the
-    FLOPs of the visible (query, key) pairs over the dtype's peak and
-    Q, K, V, O and the lse moved once over the memory rate."""
+    FLOPs of the visible (query, key) pairs, each product run ``passes``
+    times, over the dtype's peak (or ``peak``) and Q, K, V, O and the
+    lse moved once over the memory rate."""
     # QK^T and PV, 2 FLOPs/MAC
-    flops = 4 * batch * heads * dim * visible_pairs(sq, sk, causal)
+    flops = passes * 4 * batch * heads * dim * visible_pairs(sq, sk, causal)
     esize = torch.finfo(dtype).bits // 8
     nbytes = (esize * (2 * batch * heads * sq * dim
                        + 2 * batch * kv_heads * sk * dim)
               + 4 * batch * heads * sq)
-    t_flops = flops / PEAK_FLOPS[dtype]
+    t_flops = flops / (peak or PEAK_FLOPS[dtype])
     t_bytes = nbytes / PEAK_BYTES
     if t_flops >= t_bytes:
         return t_flops * 1e3, "operations"
@@ -401,7 +404,7 @@ def phase_device():
 #: each C++ kernel template's wrapper name and the dtype of its instances
 #: when the template takes none (the wgmma kernels are bf16 only)
 KERNEL_TEMPLATES = {
-    "flash_fwd_kernel": ("flash_attention_fwd", None),
+    "flash_fwd_tf32_kernel": ("flash_attention_fwd", None),
     "flash_fwd_wgmma_kernel": ("flash_attention_fwd", torch.bfloat16),
     "flash_bwd_dkv_tf32_kernel": ("flash_attention_bwd_dkv", None),
     "flash_bwd_dkv_wgmma_kernel": ("flash_attention_bwd_dkv",
@@ -647,20 +650,52 @@ def limit_use(err, ref, rtol, atol) -> float:
     return (err / (atol + rtol * ref.float().abs())).max().item()
 
 
-def check_kernel_shape(label, batch, heads, kv_heads, seq, dim, dtype,
-                       card, iters, causal=True):
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+def forward_inputs(seed, batch, heads, kv_heads, seq, dim, dtype):
+    """q, k and v for a forward row, drawn on the card from ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
 
-    q = randn(batch, heads, seq, dim)
-    k = randn(batch, kv_heads, seq, dim)
-    v = randn(batch, kv_heads, seq, dim)
+    return (randn(batch, heads, seq, dim), randn(batch, kv_heads, seq, dim),
+            randn(batch, kv_heads, seq, dim))
+
+
+def forward_limit_use(seed, batch, heads, kv_heads, seq, dim, dtype,
+                      causal=True) -> dict:
+    """The forward kernel's limit_use under KERNEL_TOL and its lse's
+    max|err| against the plain version, on inputs drawn from ``seed``."""
+    q, k, v = forward_inputs(seed, batch, heads, kv_heads, seq, dim, dtype)
+    kw = {"causal": causal, "sm_scale": dim ** -0.5}
+    out, lse = flash_forward(q, k, v, **kw)
+    ref, ref_lse = flash_attention_reference(q, k, v, **kw)
+    return {"o": limit_use((out.float() - ref.float()).abs(), ref,
+                           *KERNEL_TOL[dtype]),
+            "lse_max_abs_err": (lse - ref_lse).abs().max().item()}
+
+
+def fwd_template(design) -> str:
+    """The C++ template of the forward kernel in the design
+    ``kernel_design`` named."""
+    return ("flash_fwd_tf32_kernel" if design == TF32_DESIGN
+            else "flash_fwd_wgmma_kernel")
+
+
+def check_kernel_shape(label, batch, heads, kv_heads, seq, dim, dtype,
+                       card, iters, causal=True, seeds=0):
+    """A forward row at one shape: the kernel against the plain version
+    on inputs from SEED, two launches bit-equal, times and bounds; with
+    ``seeds`` > 0 also its limit_use on inputs from that many more
+    seeds."""
+    q, k, v = forward_inputs(SEED, batch, heads, kv_heads, seq, dim, dtype)
     scale = dim ** -0.5
     out, lse = flash_forward(q, k, v, causal=causal, sm_scale=scale)
     torch.cuda.synchronize()
+    out2, lse2 = flash_forward(q, k, v, causal=causal, sm_scale=scale)
+    torch.cuda.synchronize()
+    bit_equal = bool(torch.equal(out, out2) and torch.equal(lse, lse2))
+    del out2, lse2
     ref, ref_lse = flash_attention_reference(q, k, v, causal=causal,
                                              sm_scale=scale)
     rtol, atol = KERNEL_TOL[dtype]
@@ -674,7 +709,22 @@ def check_kernel_shape(label, batch, heads, kv_heads, seq, dim, dtype,
             f"flash_attention_fwd disagrees with its plain version at "
             f"{label}: max|err| {max_err} (rtol {rtol}, atol {atol}), "
             f"lse max|err| {lse_err} (atol {LSE_ATOL})")
+    if not bit_equal:
+        raise RuntimeError(f"two launches of flash_attention_fwd differ at "
+                           f"{label}")
     del ref, ref_lse, err
+    by_seed = {SEED: {"o": use, "lse_max_abs_err": lse_err}}
+    for seed in range(SEED + 1, SEED + 1 + seeds):
+        by_seed[seed] = forward_limit_use(seed, batch, heads, kv_heads, seq,
+                                          dim, dtype, causal)
+        if not (by_seed[seed]["o"] <= 1
+                and by_seed[seed]["lse_max_abs_err"] <= LSE_ATOL):
+            raise RuntimeError(f"flash_attention_fwd exceeds the limit at "
+                               f"{label}, seed {seed}: {by_seed[seed]}")
+    seeds_row = ({} if seeds == 0 else
+                 {"limit_use_by_seed": {str(s): u for s, u in by_seed.items()},
+                  "limit_use_max_over_seeds": max(
+                      u["o"] for u in by_seed.values())})
     kernel_ms = cuda_ms(
         lambda: flash_forward(q, k, v, causal=causal, sm_scale=scale), iters)
     plain_ms = cuda_ms(
@@ -689,18 +739,22 @@ def check_kernel_shape(label, batch, heads, kv_heads, seq, dim, dtype,
         library_ms = cuda_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k_full, v_full, is_causal=causal, scale=scale), iters)
-    bound_ms, bound_by = attention_bound_ms(batch, heads, kv_heads, seq,
-                                            seq, dim, dtype, causal)
+    design = kernel_design("flash_attention_fwd", dtype, dim)
     row = {"phase": "kernel", "name": "flash_attention_fwd",
            "shape": label, "causal": causal, "B": batch, "H": heads,
            "H_kv": kv_heads,
            "S": seq, "D": dim, "dtype": str(dtype).replace("torch.", ""),
-           **kernel_design("flash_attention_fwd", dtype, dim),
+           **design, **seeds_row,
            "max_abs_err": max_err, "rtol": rtol, "atol": atol,
            "limit_use": use, "lse_max_abs_err": lse_err,
+           "bit_equal_launches": bit_equal,
            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "library": f"sdpa[{backend_name}]",
-           "bound_ms": bound_ms, "bound_by": bound_by,
+           "ptxas": instance_ptxas(
+               "flash_attention_fwd.cu", fwd_template(design["design"]),
+               dtype=str(dtype).replace("torch.", ""), head_dim=dim),
+           **forward_bounds(kernel_ms, design["design"], batch, heads,
+                            kv_heads, seq, seq, dim, dtype, causal=causal),
            "card": card}
     emit(row)
     del q, k, v, k_full, v_full, out, lse
@@ -708,19 +762,35 @@ def check_kernel_shape(label, batch, heads, kv_heads, seq, dim, dtype,
     return row
 
 
+#: phase 3's shapes: (label, B, H, H_kv, S, D, dtype, timed launches,
+#: causal)
+FWD_SHAPES = [
+    # the main paths' calls: the train step of llama-277M (batch 16)
+    # and its serving forward (batch 2), S 1024
+    ("train", 16, 16, 16, 1024, 128, torch.bfloat16, 5, True),
+    ("main", 2, 16, 16, 1024, 128, torch.bfloat16, 20, True),
+    ("a", 8, 16, 16, 1024, 128, torch.bfloat16, 10, True),
+    ("b", 1, 16, 16, 8192, 128, torch.bfloat16, 5, True),
+    ("c", 2, 8, 2, 1000, 64, torch.float32, 20, True),
+    # the per-layer call of phases 4 and 7's f32 forward, and GQA and a
+    # ragged tile at the narrowest head_dim, f32 and bf16, through the
+    # 3xTF32 design; (c) without the mask
+    ("f32_main", 2, 16, 16, 1024, 128, torch.float32, 20, True),
+    ("f32_d16", 2, 8, 2, 1000, 16, torch.float32, 20, True),
+    ("bf16_d16", 2, 8, 2, 1000, 16, torch.bfloat16, 20, True),
+    ("c_non_causal", 2, 8, 2, 1000, 64, torch.float32, 20, False),
+    # GQA and a ragged last tile through the bf16 (wgmma) design
+    ("d", 2, 8, 2, 1000, 128, torch.bfloat16, 20, True),
+]
+
+
 def phase_kernel(card):
-    shapes = [
-        # the main paths' calls: the train step of llama-277M (batch 16)
-        # and its serving forward (batch 2), S 1024
-        ("train", 16, 16, 16, 1024, 128, torch.bfloat16, 5),
-        ("main", 2, 16, 16, 1024, 128, torch.bfloat16, 20),
-        ("a", 8, 16, 16, 1024, 128, torch.bfloat16, 10),
-        ("b", 1, 16, 16, 8192, 128, torch.bfloat16, 5),
-        ("c", 2, 8, 2, 1000, 64, torch.float32, 20),
-        # GQA and a ragged last tile through the bf16 (wgmma) design
-        ("d", 2, 8, 2, 1000, 128, torch.bfloat16, 20),
-    ]
-    return [check_kernel_shape(*s[:7], card, s[7]) for s in shapes]
+    """Phase 3's rows; the f32 rows' limit_use over F32_SEEDS more seeds
+    at (c) and f32_main: the 3xTF32 forward's margin under the limit."""
+    return [check_kernel_shape(
+        *s[:7], card, s[7], causal=s[8],
+        seeds=F32_SEEDS if s[0] in ("c", "f32_main") else 0)
+        for s in FWD_SHAPES]
 
 
 def backward_bound_ms(products, batch, heads, kv_heads, seq, dim, dtype,
@@ -743,25 +813,43 @@ def backward_bound_ms(products, batch, heads, kv_heads, seq, dim, dtype,
     return t_bytes * 1e3, "bytes"
 
 
-def backward_bounds(products, kernel_ms, design, *shape, outputs, causal):
-    """A backward row's bounds: ``bound_ms`` on the dtype's rate (for
-    f32 the CUDA cores' 67 TFLOP/s, which the f32 function needs), and
-    for the 3xTF32 design on f32 inputs also the tensor cores' bound of
-    what it runs, three TF32 products for each at 495 TFLOP/s; the
-    row's ``bound_share`` (bound over kernel_ms) takes the latter where
-    there is one."""
-    bound, by = backward_bound_ms(products, *shape, outputs, causal)
-    row = {"bound_ms": bound, "bound_by": by}
-    if design == TF32_DESIGN and shape[-1] == torch.float32:
-        tc, tc_by = backward_bound_ms(3 * products, *shape, outputs, causal,
-                                      peak=PEAK_TF32)
+def design_bounds(kernel_ms, design, dtype, bound):
+    """A flash row's bounds: ``bound_ms`` on the dtype's rate (for f32
+    the CUDA cores' 67 TFLOP/s, which the f32 function needs), and for
+    the 3xTF32 design on f32 inputs also the tensor cores' bound of what
+    it runs, three TF32 products for each at 495 TFLOP/s; the row's
+    ``bound_share`` (bound over kernel_ms) takes the latter where there
+    is one. ``bound(passes, peak)``: (ms, by) of the work with each
+    product run ``passes`` times at ``peak`` (None: the dtype's)."""
+    bound_ms, by = bound(1, None)
+    row = {"bound_ms": bound_ms, "bound_by": by}
+    if design == TF32_DESIGN and dtype == torch.float32:
+        tc, tc_by = bound(3, PEAK_TF32)
         row.update({"bound_3xtf32_ms": tc, "bound_3xtf32_by": tc_by,
                     "bound_share": tc / kernel_ms,
                     "bound_share_uses": "bound_3xtf32_ms"})
     else:
-        row.update({"bound_share": bound / kernel_ms,
+        row.update({"bound_share": bound_ms / kernel_ms,
                     "bound_share_uses": "bound_ms"})
     return row
+
+
+def backward_bounds(products, kernel_ms, design, *shape, outputs, causal):
+    """:func:`design_bounds` of a backward kernel of ``products`` products
+    a pair (:func:`backward_bound_ms`)."""
+    return design_bounds(
+        kernel_ms, design, shape[-1],
+        lambda passes, peak: backward_bound_ms(passes * products, *shape,
+                                               outputs, causal, peak=peak))
+
+
+def forward_bounds(kernel_ms, design, *shape, causal):
+    """:func:`design_bounds` of the forward (:func:`attention_bound_ms`;
+    ``shape``: B, H, H_kv, Sq, Sk, D, dtype)."""
+    return design_bounds(
+        kernel_ms, design, shape[-1],
+        lambda passes, peak: attention_bound_ms(*shape, causal, peak=peak,
+                                                passes=passes))
 
 
 def bwd_template(which, design) -> str:
@@ -3299,26 +3387,10 @@ def launch_counts() -> "dict[str, int]":
 
 
 def design_launch_counts() -> "dict[str, dict[str, int]]":
-    """The backward kernels' launches since the last reset by the design
+    """The flash kernels' launches since the last reset by the design
     their instance ran (the wgmma one or the 3xTF32 one)."""
     return {name: dict(KERNELS[name].launches_by_design)
-            for name in ("flash_attention_bwd_dkv",
-                         "flash_attention_bwd_dq")}
-
-
-def save_launch_counts():
-    """Every count, the backward's by design too, to set back after a
-    measurement (a measurement is not the path)."""
-    return launch_counts(), design_launch_counts()
-
-
-def restore_launch_counts(saved) -> None:
-    counts, designs = saved
-    for name, count in counts.items():
-        KERNELS[name].launches = count
-    for name, by_design in designs.items():
-        KERNELS[name].launches_by_design.clear()
-        KERNELS[name].launches_by_design.update(by_design)
+            for name in FLASH_KERNELS}
 
 
 TRAIN_STEPS = 6
@@ -3450,7 +3522,7 @@ def time_update(optimizer, state, tokens, config) -> dict:
     its plain version on the same leaves, CUDA events; the update's
     launches checked, then every count set back (a measurement is not the
     path)."""
-    saved = save_launch_counts()
+    saved = save_launches()
     _, grads = value_and_grad(next_token_loss, state["params"], tokens,
                               config)
     before = launch_counts()["adamw"]
@@ -3460,7 +3532,7 @@ def time_update(optimizer, state, tokens, config) -> dict:
     if launches != 12:  # 10 timed calls and 2 of warm-up
         raise RuntimeError(f"AdamW.update launched {launches} kernels over "
                            "12 calls, expected 12")
-    restore_launch_counts(saved)
+    restore_launches(saved)
     opt = state["opt"]
     plain_ms = cuda_ms(lambda: adamw_mod.adamw_update_reference(
         tree_leaves(grads), {"count": opt["count"],
@@ -3592,7 +3664,7 @@ def loss_device_time(tokens, step_profile) -> dict:
     the step's device time (the profiled step's, with the plain version's
     time in place of the kernels' for the plain share). The launch counts
     are set back after (a measurement is not the path)."""
-    saved = save_launch_counts()
+    saved = save_launches()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
     x = (3.0 * torch.randn((*tokens.shape, CONFIG_277M.vocab),
                            generator=gen, device="cuda")) \
@@ -3610,7 +3682,7 @@ def loss_device_time(tokens, step_profile) -> dict:
 
     out = {"kernels": run(loss_mod.cross_entropy),
            "plain": run(loss_mod.next_token_loss_reference)}
-    restore_launch_counts(saved)
+    restore_launches(saved)
     busy = (step_profile or {}).get("device_busy_ms")
     kernels, plain = (out[k]["device_busy_ms"] for k in ("kernels", "plain"))
     if busy and kernels is not None and plain is not None:
@@ -3675,13 +3747,13 @@ def phase_train_clipped(params, card, first_loss):
                            f"not the unclipped run's {first_loss!r}")
     # the first step's norm and the clipped update's time: measurements,
     # so the counts are set back after
-    saved = save_launch_counts()
+    saved = save_launches()
     _, grads = value_and_grad(next_token_loss, params, batches[0], config)
     norm = float(global_norm(grads))
     update_ms = cuda_ms(lambda: optimizer.update(grads, state["opt"],
                                                  state["params"]), 10)
     norm_ms = cuda_ms(lambda: global_norm(grads), 10)
-    restore_launch_counts(saved)
+    restore_launches(saved)
     del grads
     profile = profile_device(lambda: step(state, batches[0])[1].item(),
                              top=10)
@@ -4312,7 +4384,13 @@ def main(argv) -> int:
              "ring_kernels": chain["flash_attention_fwd"],
              "ring": ring["flash_attention_fwd"]}, fwd_rows,
             "B=16 H=16 S=1024 D=128 bf16 (the train step's forward of "
-            "llama-277M; B=2 serves)", card),
+            "llama-277M; B=2 serves)", card,
+            launches_by_design={
+                path: counts["flash_attention_fwd"]
+                for path, counts in by_design.items()},
+            launches_by_design_counted="the serving and training paths "
+            "of this process and the multichip and ring paths of rank 0 "
+            "(every rank's alike)"),
         kernel_entry(
             "flash_attention_bwd_dkv", "flash_attention_bwd.cu",
             f"{pallas}:1121 (_flash_attention_bwd_dkv, kernel :796; "

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu import flash_attention as pallas_fa
 from jax.experimental.pallas.ops.tpu.flash_attention import (
     flash_attention as pallas_flash_attention,
 )
@@ -23,7 +24,7 @@ from jax.experimental.pallas.ops.tpu.flash_attention import (
 import chip_smoke
 import flash_backward_variants as fbv
 import tf32_hopper
-from chip_smoke import KERNEL_TOL, limit_use
+from chip_smoke import KERNEL_TOL, LSE_ATOL, limit_use
 from tpu_operator_libs_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_backward_reference,
@@ -585,6 +586,83 @@ def test_f32_limit_rejects_a_dropped_group_head():
     assert uses["dk"] > 10 and uses["dv"] > 10, uses
 
 
+#: the 3xTF32 forward's inputs by shape_f32 name: its first (query heads,
+#: KV heads) of batch 0, (c)'s first KV head's group and two heads of
+#: "d128"
+FWD_GROUPS = {"c": (4, 1), "d128": (2, 2)}
+
+
+@functools.cache
+def tf32_forward_at(name, single=None):
+    """(q, k, v, sm_scale) of FWD_GROUPS[name] and tests/tf32_hopper.py's
+    3xTF32 forward on them, ``single`` as it takes it."""
+    d = shape_f32(name)
+    heads, kv_heads = FWD_GROUPS[name]
+    q = d["q"][:1, :heads].contiguous()
+    k, v = (d[x][:1, :kv_heads].contiguous() for x in ("k", "v"))
+    return (q, k, v, d["sm_scale"]), tf32_hopper.tf32_forward(
+        q, k, v, d["sm_scale"], single=single)
+
+
+def _f32_limit_use(got, want):
+    return limit_use((got - want).abs(), want, KERNEL_RTOL_F32,
+                     KERNEL_ATOL_F32)
+
+
+@pytest.mark.parametrize("name", ["c", "d128"])
+def test_3xtf32_forward_on_the_tensor_cores_holds_the_f32_limit(name):
+    """The 3xTF32 forward's arithmetic as the kernel runs it, with the
+    tensor cores' own accumulation (tests/tf32_hopper.py: both products
+    as three TF32 mma steps each cut and rounded toward zero, the online
+    softmax over each warp's 32-key half of a tile, the halves merged at
+    the end): out within KERNEL_TOL[float32] and lse within LSE_ATOL of
+    the plain version at (c)'s first group and at head_dim 128. On the
+    card the kernel reads what this emulation reads to within 0.05 of
+    the limit (tests/test_torch_gpu.py::test_tf32_forward_reads_as_modelled)."""
+    (q, k, v, scale), (out, lse) = tf32_forward_at(name)
+    want, want_lse = flash_attention_reference(q, k, v, causal=True,
+                                               sm_scale=scale)
+    assert _f32_limit_use(out, want) <= 1
+    assert (lse - want_lse).abs().max().item() <= LSE_ATOL
+
+
+def test_3xtf32_forward_holds_the_f32_limit_against_pallas():
+    """At (c)'s first group the same holds against JAX's Pallas forward
+    run in interpret mode, its lse taken as m + log(l) from the
+    residuals its custom_vjp saves. The Pallas kernel takes a key length
+    that 128 divides, so K and V are padded with zero keys to 1024: every
+    query row below 1000 has them masked by causality, and rows past
+    1000 are dropped."""
+    (q, k, v, scale), (out, lse) = tf32_forward_at("c")
+    seq, pad = q.shape[2], 1024
+
+    def padded(x):
+        x = np.repeat(x.numpy(), q.shape[1] // x.shape[1], axis=1)
+        return jnp.asarray(np.pad(x, ((0, 0), (0, 0), (0, pad - seq),
+                                      (0, 0))))
+
+    sizes = pallas_fa.BlockSizes.get_default(1, q.shape[1], pad, pad,
+                                             q.shape[3])
+    with pltpu.force_tpu_interpret_mode():
+        want, l, m = pallas_fa._flash_attention(
+            padded(q), padded(k), padded(v), None, None, True, True, scale,
+            sizes, False)
+    want = torch.from_numpy(np.array(want)[:, :, :seq])
+    want_lse = torch.from_numpy(np.array(m + jnp.log(l))[:, :, :seq])
+    assert _f32_limit_use(out, want) <= 1
+    assert (lse - want_lse).abs().max().item() <= LSE_ATOL
+
+
+@pytest.mark.parametrize("single", ["s", "pv"])
+def test_f32_limit_rejects_a_single_tf32_product_in_the_forward(single):
+    """One TF32 product in place of three, in S = Q K^T or in P V, puts
+    the forward's out more than 10x beyond the f32 limit at (c)'s first
+    group: the limit tells the 3xTF32 forward from that fault."""
+    (q, k, v, scale), (out, _) = tf32_forward_at("c", single)
+    want, _ = flash_attention_reference(q, k, v, causal=True, sm_scale=scale)
+    assert _f32_limit_use(out, want) > 10
+
+
 #: ptxas's report of one kernel instance, as the build phase reads it
 PTXAS_BLOCK = """ for 'sm_90a'
 ptxas info    : Function properties for {name}
@@ -605,18 +683,31 @@ BWD_INSTANCES = [
 ]
 
 
-def test_build_phase_reads_the_backward_instances(monkeypatch, capsys):
-    """The build phase names each backward instance by its template (the
-    3xTF32 kernels' names hold digits), dtype and head_dim, and phase 3b
-    finds its registers and spills by them."""
+#: mangled names of forward instances, as nvcc 12.9 would emit them
+FWD_PREFIX = "_ZN55_GLOBAL__N__0c5bd3a1_22_flash_attention_fwd_cu_6b12611e"
+FWD_INSTANCES = [
+    (f"{FWD_PREFIX}21flash_fwd_tf32_kernelIfLi128EEEvPKT_S3_S3_PS1_Pfiiiiiif",
+     "flash_fwd_tf32_kernel", "float32", 128, 168),
+    (f"{FWD_PREFIX}21flash_fwd_tf32_kernelI13__nv_bfloat16Li16EEEvPKT_S4_S4_"
+     "PS2_Pfiiiiiif", "flash_fwd_tf32_kernel", "bfloat16", 16, 90),
+    (f"{FWD_PREFIX}4sm9022flash_fwd_wgmma_kernelILi128EEEv14CUtensorMap_stS2_"
+     "S2_P13__nv_bfloat16Pfiiiiif", "flash_fwd_wgmma_kernel", "bfloat16",
+     128, 168),
+]
+
+
+def _check_build_phase(monkeypatch, capsys, source, instances):
+    """The build phase names each flash instance of ``source`` by its
+    template (the 3xTF32 kernels' names hold digits), dtype and head_dim,
+    and phases 3 and 3b find its registers and spills by them."""
     report = "".join("Compiling entry function" + PTXAS_BLOCK.format(
         name=name, spill=0, regs=regs)
-        for name, _, _, _, regs in BWD_INSTANCES)
+        for name, _, _, _, regs in instances)
 
     class Built:
         ptxas_report, build_seconds = report, 1.0
 
-    monkeypatch.setattr(chip_smoke, "SOURCES", ["flash_attention_bwd.cu"])
+    monkeypatch.setattr(chip_smoke, "SOURCES", [source])
     monkeypatch.setattr(chip_smoke._build, "build_all",
                         lambda sources: [Built()])
     monkeypatch.setattr(chip_smoke, "BUILT_INSTANCES", {})
@@ -627,15 +718,28 @@ def test_build_phase_reads_the_backward_instances(monkeypatch, capsys):
             else chip_smoke.TF32_DESIGN, "dynamic_smem_bytes": 0})
     chip_smoke.phase_build()
     capsys.readouterr()
-    for _, kernel, dtype, dim, regs in BWD_INSTANCES:
+    for _, kernel, dtype, dim, regs in instances:
         design = ("sm90 wgmma" if "wgmma" in kernel
                   else chip_smoke.TF32_DESIGN)
-        which = "dkv" if "dkv" in kernel else "dq"
-        assert chip_smoke.bwd_template(which, design) == kernel
+        if "fwd" in kernel:
+            assert chip_smoke.fwd_template(design) == kernel
+        else:
+            which = "dkv" if "dkv" in kernel else "dq"
+            assert chip_smoke.bwd_template(which, design) == kernel
         assert chip_smoke.instance_ptxas(
-            "flash_attention_bwd.cu", kernel, dtype=dtype,
+            source, kernel, dtype=dtype,
             head_dim=dim) == {"registers": regs, "spill_store_bytes": 0,
                               "stack_bytes": 0}
+
+
+def test_build_phase_reads_the_backward_instances(monkeypatch, capsys):
+    _check_build_phase(monkeypatch, capsys, "flash_attention_bwd.cu",
+                       BWD_INSTANCES)
+
+
+def test_build_phase_reads_the_forward_instances(monkeypatch, capsys):
+    _check_build_phase(monkeypatch, capsys, "flash_attention_fwd.cu",
+                       FWD_INSTANCES)
 
 
 def test_backward_rows_report_the_tensor_core_bound_and_the_grid(
@@ -699,6 +803,29 @@ def test_backward_rows_report_the_tensor_core_bound_and_the_grid(
     sessions.clear()
     assert chip_smoke.launched_blocks(lambda: None, kernels) == {}
     assert len(sessions) == chip_smoke.MAX_PROFILE_SESSIONS
+
+
+def test_forward_rows_report_the_tensor_core_bound():
+    """Phase 3's f32 rows of the 3xTF32 design hold the f32 CUDA-core
+    bound of the forward's two products as bound_ms and three TF32
+    products for each at 495 TFLOP/s beside it, which their share uses;
+    the wgmma rows have no such bound."""
+    shape = (2, 8, 2, 1000, 1000, 64, torch.float32)
+    flops = 2 * 2 * 64 * 2 * 8 * chip_smoke.visible_pairs(1000, 1000)
+    tf32 = chip_smoke.forward_bounds(0.05, chip_smoke.TF32_DESIGN, *shape,
+                                     causal=True)
+    assert tf32["bound_by"] == tf32["bound_3xtf32_by"] == "operations"
+    assert math.isclose(tf32["bound_ms"], flops / 67e12 * 1e3)
+    assert math.isclose(tf32["bound_3xtf32_ms"], 3 * flops / 495e12 * 1e3)
+    assert tf32["bound_share_uses"] == "bound_3xtf32_ms"
+    assert math.isclose(tf32["bound_share"], tf32["bound_3xtf32_ms"] / 0.05)
+    assert math.isclose(
+        tf32["bound_ms"], chip_smoke.attention_bound_ms(*shape)[0])
+    wgmma = chip_smoke.forward_bounds(
+        0.05, "sm90 wgmma", 2, 8, 2, 1000, 1000, 128, torch.bfloat16,
+        causal=False)
+    assert "bound_3xtf32_ms" not in wgmma
+    assert wgmma["bound_share_uses"] == "bound_ms"
 
 
 def test_backward_grids_come_from_a_process_of_their_own(monkeypatch,

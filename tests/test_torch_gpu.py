@@ -95,26 +95,50 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("batch,heads,kv_heads,seq,dim,dtype", [
-    (8, 16, 16, 1024, 128, torch.bfloat16),   # llama-277M forward
-    (2, 8, 2, 1000, 64, torch.float32),       # GQA and a ragged tile
+@pytest.mark.parametrize("batch,heads,kv_heads,seq,dim,dtype,causal", [
+    (8, 16, 16, 1024, 128, torch.bfloat16, True),   # llama-277M forward
+    (2, 8, 2, 1000, 64, torch.float32, True),       # GQA and a ragged tile
     # GQA and a ragged tile through the bf16 (wgmma) design
-    (2, 8, 2, 1000, 128, torch.bfloat16),
-    (2, 8, 2, 1000, 64, torch.bfloat16),
+    (2, 8, 2, 1000, 128, torch.bfloat16, True),
+    (2, 8, 2, 1000, 64, torch.bfloat16, True),
+    # the 3xTF32 design: phases 4 and 7's f32 per-layer call, GQA and a
+    # ragged tile at the narrow head_dims, f32 and bf16, and (c) without
+    # the mask
+    (2, 16, 16, 1024, 128, torch.float32, True),
+    (2, 8, 2, 1000, 16, torch.float32, True),
+    (2, 8, 2, 1000, 32, torch.float32, True),
+    (2, 8, 2, 1000, 16, torch.bfloat16, True),
+    (2, 8, 2, 1000, 32, torch.bfloat16, True),
+    (2, 8, 2, 1000, 64, torch.float32, False),
 ], ids=["a_full_width_bf16", "c_gqa_ragged_f32", "d_gqa_ragged_bf16",
-        "d64_gqa_ragged_bf16"])
+        "d64_gqa_ragged_bf16", "f32_main", "d16_gqa_ragged_f32",
+        "d32_gqa_ragged_f32", "d16_gqa_ragged_bf16", "d32_gqa_ragged_bf16",
+        "c_non_causal_f32"])
 def test_kernel_matches_plain_version(cuda, batch, heads, kv_heads, seq,
-                                      dim, dtype):
+                                      dim, dtype, causal):
+    """The forward against flash_attention_reference: bf16 at head_dim
+    64 and 128 runs the wgmma design, every other instance both products
+    on the tensor cores by mma.sync as three TF32 products; two launches
+    give bit-equal out and lse, each counted under its design."""
+    wgmma = dtype == torch.bfloat16 and dim in (64, 128)
+    design = "sm90 wgmma" if wgmma else "3xTF32 mma.sync"
+    assert kernel_design("flash_attention_fwd", dtype, dim)["design"] \
+        == design
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn((batch, h, seq, dim), generator=gen,
                            device=cuda).to(dtype)
                for h in (heads, kv_heads, kv_heads))
-    before = flash_attention.launches
-    out, lse = flash_forward(q, k, v, causal=True, sm_scale=dim ** -0.5)
+    kw = {"causal": causal, "sm_scale": dim ** -0.5}
+    before = (flash_attention.launches,
+              flash_attention.launches_by_design.get(design, 0))
+    out, lse = flash_forward(q, k, v, **kw)
+    out2, lse2 = flash_forward(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
-    ref, ref_lse = flash_attention_reference(q, k, v, causal=True,
-                                             sm_scale=dim ** -0.5)
+    assert (flash_attention.launches,
+            flash_attention.launches_by_design.get(design, 0)) \
+        == (before[0] + 2, before[1] + 2)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref, ref_lse = flash_attention_reference(q, k, v, **kw)
     rtol, atol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
                                atol=atol)
@@ -362,11 +386,41 @@ def test_tf32_backward_reads_as_modelled(cuda):
         assert uses[0] <= 1 and abs(uses[0] - uses[1]) <= 0.05, uses
 
 
+def test_tf32_forward_reads_as_modelled(cuda):
+    """The 3xTF32 forward's out and lse on the first KV head's group of
+    shape (c), batch 0 (1, 4 / 1, 1000, 64), numpy seed 1 as
+    tests/test_torch_flash_attention.py draws it, against
+    tests/tf32_hopper.py's emulation of its arithmetic on the same
+    inputs: out within a tenth of the f32 limit of each other everywhere
+    and each as far from the plain version as the other to within 0.05
+    of the limit; both lse within 1e-4 of the plain version's."""
+    rng = np.random.default_rng(1)
+    shapes = ((2, 8, 1000, 64), (2, 2, 1000, 64), (2, 2, 1000, 64))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32)) for shape in shapes)
+    q = q[:1, :4].contiguous()
+    k, v = k[:1, :1].contiguous(), v[:1, :1].contiguous()
+    kw = {"causal": True, "sm_scale": 0.125}
+    out, lse = flash_forward(*(t.to(cuda) for t in (q, k, v)), **kw)
+    want, want_lse = flash_attention_reference(q, k, v, **kw)
+    model, model_lse = tf32_hopper.tf32_forward(q, k, v, kw["sm_scale"])
+    out, lse = out.cpu(), lse.cpu()
+    rtol, atol = TOL[torch.float32]
+    assert chip_smoke.limit_use((out - model).abs(), model, rtol,
+                                atol) <= 0.1
+    uses = [chip_smoke.limit_use((y - want).abs(), want, rtol, atol)
+            for y in (out, model)]
+    assert uses[0] <= 1 and abs(uses[0] - uses[1]) <= 0.05, uses
+    for x in (lse, model_lse):
+        assert (x - want_lse).abs().max().item() <= 1e-4
+
+
 @pytest.mark.parametrize("operand", ["q", "k", "do"])
 def test_tf32_backward_refuses_unaligned_rows(cuda, operand):
     """The 3xTF32 kernels stage rows by 16-byte cp.async: a contiguous
     f32 view whose first element is 4 bytes off a 16-byte boundary is
-    refused with an error (the launch never runs), not read misaligned."""
+    refused with an error (the launch never runs), not read misaligned,
+    by the backward kernels and, for q and k, by the forward."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     shapes = {"q": (1, 2, 64, 16), "k": (1, 1, 64, 16), "do": (1, 2, 64, 16)}
     x = {name: torch.randn(shape, generator=gen, device=cuda)
@@ -384,6 +438,9 @@ def test_tf32_backward_refuses_unaligned_rows(cuda, operand):
         flash_attention_bwd_dkv(*args, **kw)
     with pytest.raises(RuntimeError, match="launch failed"):
         flash_attention_bwd_dq(*args, **kw)
+    if operand != "do":
+        with pytest.raises(RuntimeError, match="launch failed"):
+            flash_forward(x["q"], x["k"], x["v"], **kw)
 
 
 @pytest.mark.parametrize("batch,heads,kv_heads,seq,dim,dtype", [

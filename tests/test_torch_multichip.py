@@ -8,7 +8,7 @@ import pytest
 import torch
 
 import test_torch_rank_workers as workers
-from tpu_operator_libs_torch import multichip
+from tpu_operator_libs_torch import kernels, multichip
 from tpu_operator_libs_torch.examples import training_job as job
 from tpu_operator_libs_torch.health.checkpoint_gate import (
     CheckpointDurabilityGate,
@@ -97,3 +97,17 @@ def test_checkpoint_at_tp2_restores_every_shard(tmp_path):
                        "opt.nu.layers.1.w_down"):
             assert f"{prefix}@tp{tp_rank}" in keys
     assert "params.embed" in keys  # replicated: one copy, its own key
+
+
+def test_restore_launches_sets_counts_and_designs_back():
+    """A yardstick run between save_launches and restore_launches (as the
+    ring Llama's flash forward is) leaves no trace in either count: the
+    ring stage's launches by design must add up to its launches."""
+    wrapper = kernels.WRAPPERS["flash_attention_fwd"]
+    saved = kernels.save_launches()
+    wrapper.launches += 4
+    wrapper.launches_by_design["sm90 wgmma"] = \
+        wrapper.launches_by_design.get("sm90 wgmma", 0) + 4
+    kernels.restore_launches(saved)
+    assert kernels.save_launches() == saved
+    assert (multichip._launches(), multichip._launches_by_design()) == saved

@@ -1,5 +1,6 @@
-"""The float32 flash backward's 3xTF32 kernels (``csrc/flash_attention_bwd.cu``
-over ``csrc/tf32_mma.cuh``) emulated in plain PyTorch on the CPU, with the
+"""The float32 flash forward's and backward's 3xTF32 kernels
+(``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu`` over
+``csrc/tf32_mma.cuh``) emulated in plain PyTorch on the CPU, with the
 tensor cores' own accumulation. Imports nothing of JAX, so the card's
 tests (``tests/test_torch_gpu.py``) take it too.
 
@@ -19,7 +20,8 @@ holds this bit for bit to the card's mma on random inputs. Each step
 rounds toward zero, so a long f32 sum shrinks by some half an ulp a step:
 the kernels' dK, dV and dQ, each a sum over the sequence of three such
 steps every 8 rows, take more of the f32 limit than the same products
-summed with rounding to nearest.
+summed with rounding to nearest; the forward's O, rescaled as the row
+max moves, sums its P V steps the same way.
 """
 
 from __future__ import annotations
@@ -29,8 +31,9 @@ import math
 import torch
 
 LOG2E = math.log2(math.e)
-#: the f32 value of csrc/flash_attention_common.cuh's kLog2e
+#: the f32 values of csrc/flash_attention_common.cuh's kLog2e and kLn2
 KLOG2E = torch.tensor(LOG2E, dtype=torch.float32).item()
+KLN2 = torch.tensor(math.log(2.0), dtype=torch.float32).item()
 #: the kernels' rows a block owns and streams, and a warp's half of them
 ROWS, HALF = 64, 32
 
@@ -165,3 +168,73 @@ def tf32_backward(q, k, v, do, lse, di, sm_scale, causal=True):
     ds = p * (product(do, vf.transpose(-1, -2), depth) - di[..., None])
     halves = [product(ds, kf, half_chunks(sk, side)) for side in (0, 1)]
     return (halves[0] + halves[1]) * scale, grads["dk"], grads["dv"]
+
+
+def _step(c, a, b, products):
+    """c + a @ b as one tensor-core step of each TF32 product: three
+    (:func:`mma3` of the split words) or, a fault, one (a_hi b_hi)."""
+    if products == 3:
+        return mma3(c, split(a), split(b))
+    return mma(c, tf32_hi(a), tf32_hi(b))
+
+
+def tf32_forward(q, k, v, sm_scale, causal=True, single=None):
+    """(out, lse) of f32 inputs as the 3xTF32 forward kernel computes
+    them. Each 64-key tile is cut into the two warps' halves of 32 keys;
+    a half whose keys all lie after a row is not visited for it (the
+    kernel's warps skip it), and every row that visits a half sees its
+    first key. Per half: S = Q K^T by tensor-core steps over head_dim by
+    8, times scale_log2 in f32, masked to -inf; the half's running max
+    m, sum l and accumulator take the online softmax in f32 (alpha =
+    exp2(m - m_new), P = exp2(S - m_new)); then acc * alpha and P V by
+    steps over the half's keys by 8. The two halves' (m, l, acc) are
+    merged at the end, O = acc / l and lse = (m + log2 l) ln 2.
+    ``single`` ("s" or "pv") runs that product as one TF32 product, a
+    fault the f32 limit has to catch."""
+    batch, heads, sq, dim = q.shape
+    sk = k.shape[2]
+    group = heads // k.shape[1]
+    q = q.float()
+    kf = k.float().repeat_interleave(group, 1)
+    vf = v.float().repeat_interleave(group, 1)
+    scale_log2 = (torch.tensor(sm_scale, dtype=torch.float32)
+                  * torch.tensor(KLOG2E, dtype=torch.float32))
+    s_products = 1 if single == "s" else 3
+    pv_products = 1 if single == "pv" else 3
+    halves = []
+    for side in (0, 1):
+        m = torch.full((batch, heads, sq), float("-inf"))
+        l = torch.zeros(batch, heads, sq)
+        acc = torch.zeros(batch, heads, sq, dim)
+        for c0 in range(HALF * side, sk, ROWS):
+            keys = torch.arange(c0, min(c0 + HALF, sk))
+            r0 = c0 if causal else 0  # the rows that visit the half
+            if r0 >= sq:
+                break
+            rows = torch.arange(r0, sq)
+            sc = torch.zeros(batch, heads, sq - r0, len(keys))
+            for ks in depth_chunks(dim):
+                sc = _step(sc, q[:, :, r0:, ks],
+                           kf[:, :, keys][..., ks].transpose(-1, -2),
+                           s_products)
+            x = sc * scale_log2
+            if causal:
+                x = x.masked_fill(keys[None] > rows[:, None], float("-inf"))
+            m_new = torch.maximum(m[..., r0:], x.amax(-1))
+            alpha = torch.exp2(m[..., r0:] - m_new)
+            p = torch.exp2(x - m_new[..., None])
+            l[..., r0:] = l[..., r0:] * alpha + p.sum(-1)
+            m[..., r0:] = m_new
+            o = acc[..., r0:, :] * alpha[..., None]
+            for j in range(0, len(keys), 8):
+                o = _step(o, p[..., j:j + 8], vf[:, :, keys[j:j + 8]],
+                          pv_products)
+            acc[..., r0:, :] = o
+        halves.append((m, l, acc))
+    (m0, l0, acc0), (m1, l1, acc1) = halves
+    m = torch.maximum(m0, m1)
+    a0, a1 = torch.exp2(m0 - m), torch.exp2(m1 - m)
+    l = l0 * a0 + l1 * a1
+    out = (acc0 * a0[..., None] + acc1 * a1[..., None]) \
+        * (1.0 / l)[..., None]
+    return out, (m + torch.log2(l)) * KLN2

@@ -1,10 +1,8 @@
-// Tile shape and element access of the scalar flash-attention forward
-// (flash_attention_fwd.cu), and the (dtype, head_dim) dispatch and vector
-// stores it shares with the backward (flash_attention_bwd.cu) and the ring
-// fold (attention_fold.cu). Four threads share one row of a 64-row tile;
-// each holds a quarter of the row's head_dim as float4 chunks, interleaved
-// so that the four read neighbouring shared-memory words. Inputs are f32 or
-// bf16 and every sum is f32.
+// What the flash-attention forward (flash_attention_fwd.cu), backward
+// (flash_attention_bwd.cu) and the ring fold (attention_fold.cu) share: the
+// (dtype, head_dim) dispatch, the base-2 constants and four-element loads
+// and stores of f32 or bf16 rows. Inputs are f32 or bf16 and every sum is
+// f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,10 +13,6 @@
 
 namespace {
 
-constexpr int kBlockM = 64;      // query rows per tile
-constexpr int kBlockN = 64;      // key rows per tile
-constexpr int kRowThreads = 4;   // threads sharing one row
-constexpr int kThreads = kBlockM * kRowThreads;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
 

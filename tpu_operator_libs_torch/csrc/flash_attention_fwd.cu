@@ -10,11 +10,13 @@
 // log-sum-exp in f32 that the backward kernels and a ring fold read.
 //
 // Bound on an H100 SXM: 2*B*H*S^2*D FLOPs for the causal half (QK^T and PV)
-// at 989 TFLOP/s for bf16 inputs (67 TFLOP/s f32), against Q, K, V and O
-// read or written once at 3.35 TB/s. For bf16 at S = 1024, D = 128 the two
-// are within 20% of each other and the bytes are the larger (0.0101 against
-// 0.0087 ms at (2, 16, 1024, 128)); the FLOPs bound it from S ~ 1200 up
-// and at every f32 shape.
+// at 989 TFLOP/s for bf16 inputs (67 TFLOP/s for f32 on the CUDA cores,
+// the rate the f32 function needs; the tf32 design below runs three TF32
+// products for each, 495 TFLOP/s dense, an effective 165 TFLOP/s), against
+// Q, K, V and O read or written once at 3.35 TB/s. For bf16 at S = 1024,
+// D = 128 the two are within 20% of each other and the bytes are the
+// larger (0.0101 against 0.0087 ms at (2, 16, 1024, 128)); the FLOPs bound
+// it from S ~ 1200 up and at every f32 shape.
 //
 // Two designs, chosen by (dtype, head_dim) at compile time
 // (sm90::kTakesWgmma):
@@ -35,153 +37,250 @@
 //   loop stops at the diagonal, masks only the diagonal and ragged tiles,
 //   skips a warpgroup's wholly masked tile, and the longest query tiles
 //   are scheduled first. O is normalised in the epilogue.
-// - f32 at every D, and bf16 at D = 16 and 32, flash_fwd_kernel: the
-//   scalar design, one block of 256 threads per (64-query tile, head,
-//   batch); four threads share a query row, each holding a quarter of its
-//   head_dim in registers as float4 chunks; K/V tiles of 64 keys are staged
-//   synchronously in shared memory as f32 (2 * 64 * D * 4 bytes) and every
-//   product is an f32 FMA on the CUDA cores, which keeps the f32 kernels
-//   exact to 2e-5 (TF32 tensor-core products would not).
+// - f32 at every D, and bf16 at D = 16 and 32, flash_fwd_tf32_kernel:
+//   both products on the tensor cores by mma.sync.m16n8k8 as three TF32
+//   products (tf32_mma.cuh: each f32 operand split as hi + lo, hi by an
+//   integer add and mask, a * b as a_lo b_hi + a_hi b_lo + a_hi b_hi),
+//   which holds the f32 kernels within their 2e-5 limit where one TF32
+//   product misses it more than tenfold (tests/test_torch_flash_attention.py).
+//   A bf16 input is exact in TF32, so S = Q K^T takes one mma a step and
+//   P V two (P's lo is kept). The block (tf32_block.cuh, the backward's dQ
+//   block): 8 warps per (64-query tile, head, batch), longest causal rows
+//   first, Q staged once and the K/V tiles of 64 keys up to the diagonal
+//   through a two-stage ring of 16-byte cp.async, the next tile's loads
+//   in flight under this tile's products; rows padded by 16 bytes, so
+//   every fragment load is free of bank conflicts. Warp w
+//   owns queries 16 (w % 4) + [0, 16) and keys 32 (w / 4) + [0, 32) of
+//   each tile: S from Q (A, from shared memory) and K (B, its rows as
+//   columns), head_dim unrolled whole, the
+//   online softmax on S's accumulator fragments in base-2 units (a
+//   thread holds rows g and g + 8; the quad reduces each row's max with
+//   two shuffles a tile), then O += P V with P split from the accumulator
+//   as A (tf32_mma.cuh's permuted k slots: no exchange between lanes) and
+//   V's rows read untransposed. A warp skips a tile-half that lies wholly
+//   after its rows; only the diagonal and ragged tiles are masked. Each
+//   warp keeps its own running max, sum and accumulator over its half of
+//   the keys, and the two warps of a query slice merge theirs in a fixed
+//   order at the end, so two launches give bit-equal O and lse. Not wgmma:
+//   TF32 wgmma takes both operands K-major, and V as B of P V is
+//   MN-major, so it would need a transposed copy of V.
 // Both read GQA natively (kv head = h / (H / Hkv)) and write the lse.
 // What the wgmma design leaves on the table: each warpgroup waits on its
 // own S product before the softmax and on P V before the next tile (no
 // overlap of one tile's softmax with the next tile's products inside a
 // warpgroup, only across the two), the second product runs twice (hi and
 // lo), and O is stored from registers rather than through shared memory by
-// TMA.
+// TMA. What the tf32 design leaves: mma.sync, not wgmma; K and V split
+// again by each of the four warps that read a tile-half; at D = 128 f32
+// a block takes 165 KB of shared memory, and at D = 64 f32 132 registers
+// a thread, one block (8 warps) an SM.
+#include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
+#include "cp_async.cuh"
 #include "flash_attention_common.cuh"
 #include "flash_attention_sm90.cuh"
+#include "tf32_block.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
+
+namespace tf32 {
+
+// Q and kStages stages of K and V.
+template <typename T, int D>
+__host__ __device__ constexpr int fwd_smem_bytes() {
+  return (1 + 2 * kStages) * tile_bytes<T, D>();
+}
+
+}  // namespace tf32
 
 // q, o: (B, H, Sq, D); k, v: (B, Hkv, Sk, D); lse: (B, H, Sq) f32.
 // scale_log2 = sm_scale * log2(e): scores are kept in base-2 units so the
 // exponentials are exp2f.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
-                 int causal, float scale_log2) {
-  constexpr int kVecs = D / 4;                  // float4 per row
-  constexpr int kChunks = kVecs / kRowThreads;  // float4 per thread
-  extern __shared__ float4 smem[];
-  float4* k_tile = smem;                        // [kBlockN][kVecs]
-  float4* v_tile = smem + kBlockN * kVecs;      // [kBlockN][kVecs]
+__global__ void __launch_bounds__(tf32::kThreads, 1)
+flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, int B, int H, int Hkv, int Sq,
+                      int Sk, int causal, float scale_log2) {
+  using namespace tf32;
+  constexpr bool kLo = std::is_same<T, float>::value;  // inputs' lo words
+  constexpr int kStride = stride<T, D>();
+  constexpr int kTile = kRows * kStride;
+  constexpr int kN = D / 8;           // O's 8-column tiles
+  constexpr int kCols = kHalf / 8;    // S's 8-key tiles
+  // the second half's accumulators, then its running max and sum
+  static_assert((4 * kN + 4) * 4 * 32 * 4 <= 2 * kStages * tile_bytes<T, D>(),
+                "the halves' exchange must fit the stages");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* k_s = q_s + kTile;               // [kStages][kTile]
+  T* v_s = k_s + kStages * kTile;     // [kStages][kTile]
 
-  const int tile = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int n_qtiles = (Sq + kRows - 1) / kRows;
+  const int tile = n_qtiles - 1 - blockIdx.x / (H * B);  // longest rows first
+  const int b = blockIdx.x % (H * B) / H;
+  const int h = blockIdx.x % H;
   const int hk = h / (H / Hkv);
-  const int row = threadIdx.x / kRowThreads;
-  const int sub = threadIdx.x % kRowThreads;
-  const int qi = tile * kBlockM + row;
-  const bool row_valid = qi < Sq;
-
-  const size_t q_base = (static_cast<size_t>(b) * H + h) * Sq;
-  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk;
-
-  float4 qr[kChunks];
-  float4 acc[kChunks];
-#pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int c = sub + kRowThreads * i;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row_valid) x = load4(q + (q_base + qi) * D + 4 * c);
-    qr[i] = make_float4(x.x * scale_log2, x.y * scale_log2,
-                        x.z * scale_log2, x.w * scale_log2);
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = -INFINITY;
-  float l = 0.f;
-
+  const int m0 = tile * kRows;
+  const size_t q_plane = (static_cast<size_t>(b) * H + h) * Sq;
+  const size_t kv_plane = (static_cast<size_t>(b) * Hkv + hk) * Sk;
   // Keys past the tile's last query row are masked for every row of it.
-  const int kv_end = causal ? min(Sk, (tile + 1) * kBlockM) : Sk;
-  const int n_tiles = (kv_end + kBlockN - 1) / kBlockN;
+  const int kv_end = causal ? min(Sk, m0 + kRows) : Sk;
+  const int n_ktiles = (kv_end + kRows - 1) / kRows;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockN;
-    __syncthreads();  // every thread is done with the previous tile
-    for (int e = threadIdx.x; e < kBlockN * kVecs; e += kThreads) {
-      const int r = e / kVecs;
-      const int c = e % kVecs;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vx = kx;
-      if (k0 + r < Sk) {
-        const size_t off = (kv_base + k0 + r) * D + 4 * c;
-        kx = load4(k + off);
-        vx = load4(v + off);
-      }
-      k_tile[e] = kx;
-      v_tile[e] = vx;
-    }
+  auto stage = [&](int s, int kt) {
+    stage_tile<T, D>(k_s + s * kTile, k + kv_plane * D, kt * kRows, Sk);
+    stage_tile<T, D>(v_s + s * kTile, v + kv_plane * D, kt * kRows, Sk);
+  };
+  stage_tile<T, D>(q_s, q + q_plane * D, m0, Sq);
+  stage(0, 0);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int side = warp / 4;
+  const int qrow0 = m0 + 16 * (warp % 4);  // the warp's first query
+  const int row0 = qrow0 + lane / 4;  // this thread's rows: row0, row0 + 8
+  const T* q_w = q_s + 16 * (warp % 4) * kStride;
+  float acc[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  for (int kt = 0; kt < n_ktiles; ++kt) {
+    const int s = kt % kStages;
+    if (kt + 1 < n_ktiles) stage((kt + 1) % kStages, kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
 
-    float s[kBlockN];
-    float tile_max = -INFINITY;
+    const int c0 = kt * kRows + kHalf * side;  // the warp's first key
+    // Every row of a warp that does not skip the half sees its key c0, so
+    // m is finite after the warp's first half and alpha = exp2(-inf) = 0
+    // there.
+    if (!((causal && c0 > qrow0 + 15) || c0 >= Sk || qrow0 >= Sq)) {
+      const T* k_w = k_s + s * kTile + kHalf * side * kStride;
+      const T* v_w = v_s + s * kTile + kHalf * side * kStride;
+      // S = Q K^T, 16 queries x kHalf keys, head_dim unrolled whole
+      // (unlike the backward's two first products, one fits the registers:
+      // 158 at D = 128 f32, no spill; 3% faster at (c), PERF.md §6)
+      float sc[kCols][4];
 #pragma unroll
-    for (int j = 0; j < kBlockN; ++j) {
-      float part = 0.f;
+      for (int j = 0; j < kCols; ++j) {
 #pragma unroll
-      for (int i = 0; i < kChunks; ++i) {
-        const float4 kx = k_tile[j * kVecs + sub + kRowThreads * i];
-        part = fmaf(qr[i].x, kx.x, part);
-        part = fmaf(qr[i].y, kx.y, part);
-        part = fmaf(qr[i].z, kx.z, part);
-        part = fmaf(qr[i].w, kx.w, part);
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
       }
-      // the four threads of a row end with the same sum (xor butterfly)
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      const int kj = k0 + j;
-      const bool visible = kj < Sk && (!causal || kj <= qi);
-      s[j] = visible ? part : -INFINITY;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    // Key 0 is visible to every row, so m is finite after the first tile
-    // and alpha = exp2(-inf) = 0 there.
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = exp2f(m - m_new);
-    float p_sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kBlockN; ++j) {
-      s[j] = exp2f(s[j] - m_new);
-      p_sum += s[j];
-    }
-    l = l * alpha + p_sum;
-    m = m_new;
+      for (int c = 0; c < D; c += 8) {
+        const FragA qa = a_rows<kLo>(q_w, kStride, c, lane);
 #pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      acc[i].x *= alpha;
-      acc[i].y *= alpha;
-      acc[i].z *= alpha;
-      acc[i].w *= alpha;
-    }
+        for (int j = 0; j < kCols; ++j) {
+          mma3<kLo, kLo>(sc[j], qa, b_cols<kLo>(k_w + 8 * j * kStride,
+                                                kStride, c, lane));
+        }
+      }
+      const bool masked = (causal && c0 + kHalf - 1 > qrow0) || c0 + kHalf > Sk;
+      float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < kBlockN; ++j) {
+      for (int j = 0; j < kCols; ++j) {
 #pragma unroll
-      for (int i = 0; i < kChunks; ++i) {
-        const float4 vx = v_tile[j * kVecs + sub + kRowThreads * i];
-        acc[i].x = fmaf(s[j], vx.x, acc[i].x);
-        acc[i].y = fmaf(s[j], vx.y, acc[i].y);
-        acc[i].z = fmaf(s[j], vx.z, acc[i].z);
-        acc[i].w = fmaf(s[j], vx.w, acc[i].w);
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[j][e] * scale_log2;
+          if (masked) {
+            const int col = c0 + 8 * j + 2 * (lane % 4) + e % 2;
+            const int row = row0 + 8 * (e / 2);
+            if (col >= Sk || (causal && col > row)) x = -INFINITY;
+          }
+          sc[j][e] = x;
+          tile_max[e / 2] = fmaxf(tile_max[e / 2], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], sm90::quad_max(tile_max[r]));
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = exp2f(sc[j][e] - m[e / 2]);  // P
+          l[e / 2] += sc[j][e];
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e / 2];
+      }
+      // O += P V over the warp's keys
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const FragA pa = a_from_acc<true>(sc[j]);
+        const T* v_j = v_w + 8 * j * kStride;
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          mma3<true, kLo>(acc[n], pa,
+                          b_rows_pair<kLo>(v_j, kStride, 8 * n, lane));
+        }
       }
     }
+    __syncthreads();
   }
+  cp_async_wait<0>();
+  __syncthreads();
 
-  if (!row_valid) return;
-  const float inv_l = 1.f / l;
-#pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int c = sub + kRowThreads * i;
-    store4(o + (q_base + qi) * D + 4 * c,
-           make_float4(acc[i].x * inv_l, acc[i].y * inv_l,
-                       acc[i].z * inv_l, acc[i].w * inv_l));
+  // The second half's warps hand their (acc, m, l) to the first half's,
+  // which merge them after their own.
+  float* xch = reinterpret_cast<float*>(k_s);
+  float* ml = xch + 4 * kN * 4 * 32 + (warp % 4) * 4 * 32 + lane;
+  if (side == 1) {
+    put(acc, exchange_slot<kN>(xch, 0, 1));
+    ml[0] = m[0];
+    ml[32] = m[1];
+    ml[64] = l[0];
+    ml[96] = l[1];
   }
-  if (sub == 0) lse[q_base + qi] = (m + log2f(l)) * kLn2;
+  __syncthreads();
+  if (side == 1) return;
+  float a0[2], a1[2], inv_l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m1 = ml[32 * r];
+    const float m_all = fmaxf(m[r], m1);
+    a0[r] = exp2f(m[r] - m_all);
+    a1[r] = exp2f(m1 - m_all);
+    m[r] = m_all;
+    l[r] = sm90::quad_sum(l[r] * a0[r] + ml[64 + 32 * r] * a1[r]);
+    inv_l[r] = 1.f / l[r];
+  }
+  const float* other = exchange_slot<kN>(xch, 0, 1);
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = other[(4 * n + e) * 32 + lane];
+      acc[n][e] = (acc[n][e] * a0[e / 2] + x * a1[e / 2]) * inv_l[e / 2];
+    }
+  }
+  store_rows(o + (q_plane + row0) * D, acc, row0, Sq, 1.f);
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < Sq) lse[q_plane + row] = (m[r] + log2f(l[r])) * kLn2;
+    }
+  }
 }
 
 namespace sm90 {
@@ -385,21 +484,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace sm90
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The tf32 kernel reads rows 16 bytes at a time and stages up to 165 KB of
+// shared memory (above the 48 KB default, hence the attribute).
 template <typename T, int D>
-cudaError_t launch_scalar(const void* q, const void* k, const void* v,
-                          void* o, float* lse, int B, int H, int Hkv,
-                          int Sq, int Sk, int causal, float sm_scale,
-                          cudaStream_t stream) {
-  const int smem = 2 * kBlockN * D * static_cast<int>(sizeof(float));
+cudaError_t launch_tf32(const void* q, const void* k, const void* v,
+                        void* o, float* lse, int B, int H, int Hkv, int Sq,
+                        int Sk, int causal, float sm_scale,
+                        cudaStream_t stream) {
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int smem = tf32::fwd_smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_tf32_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBlockM - 1) / kBlockM, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Hkv, Sq, Sk,
-      causal, sm_scale * kLog2e);
+  const long long blocks = tf32::blocks(B, H, Sq);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  flash_fwd_tf32_kernel<T, D>
+      <<<static_cast<int>(blocks), tf32::kThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(o), lse, B, H, Hkv, Sq,
+          Sk, causal, sm_scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -412,8 +522,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     return sm90::launch<D>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal,
                            sm_scale, stream);
   } else {
-    return launch_scalar<T, D>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal,
-                               sm_scale, stream);
+    return launch_tf32<T, D>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal,
+                             sm_scale, stream);
   }
 }
 
@@ -438,8 +548,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// The design the (dtype, D) instance takes (1 = sm90 wgmma, 0 = scalar)
-// and its dynamic shared memory in bytes; a cudaError_t for an instance
+// The design the (dtype, D) instance takes (1 = sm90 wgmma, 2 = 3xTF32
+// mma.sync, the codes of flash_attention_bwd.cu) and its dynamic shared
+// memory in bytes; a cudaError_t for an instance
 // that is not built. Each kernel's <entry point>_design has this
 // signature.
 extern "C" int flash_attention_fwd_design(int D, int dtype, int* design,
@@ -451,8 +562,8 @@ extern "C" int flash_attention_fwd_design(int D, int dtype, int* design,
       *design = 1;
       *smem_bytes = sm90::fwd_smem_bytes<kD>();
     } else {
-      *design = 0;
-      *smem_bytes = 2 * kBlockN * kD * static_cast<int>(sizeof(float));
+      *design = 2;
+      *smem_bytes = tf32::fwd_smem_bytes<T, kD>();
     }
     return cudaSuccess;
   });

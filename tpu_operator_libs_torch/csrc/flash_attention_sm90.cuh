@@ -37,8 +37,9 @@ constexpr int kThreads = kConsumers + 32;  // + the producer warp
 constexpr int kBoxCols = 64;  // bf16 columns in one 128-byte swizzled row
 
 // bf16 at D = 64 and 128 takes this design; f32, and bf16 at D = 16 and
-// 32, take the forward's scalar kernel (flash_attention_common.cuh) and
-// the backward's 3xTF32 mma.sync kernels (flash_attention_bwd.cu).
+// 32, take the 3xTF32 mma.sync kernels of the forward
+// (flash_attention_fwd.cu) and the backward (flash_attention_bwd.cu), on
+// the block of tf32_block.cuh.
 template <typename T, int D>
 constexpr bool kTakesWgmma =
     std::is_same<T, __nv_bfloat16>::value && (D == 64 || D == 128);

@@ -33,3 +33,23 @@ WRAPPERS = {**flash_attention.WRAPPERS, **attention_fold.WRAPPERS,
             **kv_append.WRAPPERS, **rms_norm.WRAPPERS, **swiglu.WRAPPERS,
             **rope.WRAPPERS, **adamw.WRAPPERS, **cross_entropy.WRAPPERS,
             **global_norm.WRAPPERS}
+
+
+def save_launches():
+    """Every wrapper's launch count, and the flash kernels' by design, to
+    set back by :func:`restore_launches` after a measurement (a
+    measurement is not the path)."""
+    return ({name: w.launches for name, w in WRAPPERS.items()},
+            {name: dict(w.launches_by_design) for name, w in WRAPPERS.items()
+             if hasattr(w, "launches_by_design")})
+
+
+def restore_launches(saved) -> None:
+    """Set every count, in all and by design, back to ``saved``, what
+    :func:`save_launches` read."""
+    counts, by_design = saved
+    for name, count in counts.items():
+        WRAPPERS[name].launches = count
+    for name, by in by_design.items():
+        WRAPPERS[name].launches_by_design.clear()
+        WRAPPERS[name].launches_by_design.update(by)

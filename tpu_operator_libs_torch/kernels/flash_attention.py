@@ -20,13 +20,14 @@ library):
 - bfloat16 at head_dim 64 and 128 (the model's): all three kernels are
   the Hopper design, products on the tensor cores (``wgmma``) over Q, K,
   V and dO tiles that TMA stages in a ring of shared-memory buffers;
-- float32 at every head_dim, and bfloat16 at 16 and 32: the forward is
-  the scalar design, f32 FMAs on the CUDA cores; the backward runs every
-  product on the tensor cores (``mma.sync``) as three TF32 products
-  (``csrc/tf32_mma.cuh``), which keeps the f32 kernels within 2e-5 of
-  the plain version, over tiles staged by ``cp.async``, with a GQA
-  group's query heads spread over blocks whose dK/dV partials the
-  group's last block adds in head order (ticket counters kept per device
+- float32 at every head_dim, and bfloat16 at 16 and 32: all three run
+  every product on the tensor cores (``mma.sync``) as three TF32
+  products (``csrc/tf32_mma.cuh``), which keeps the f32 kernels within
+  2e-5 of the plain version, over tiles staged by ``cp.async``
+  (``csrc/tf32_block.cuh``); the forward's online softmax runs on the
+  accumulator fragments of S, and the backward spreads a GQA group's
+  query heads over blocks whose dK/dV partials the group's last block
+  adds in head order (ticket counters kept per device
   and stream, as :func:`_build.zeroed_counters` keeps them: the first
   GQA backward on a stream, and the first to need more counters than
   the earlier ones, must not be captured in a CUDA graph). The partials
@@ -181,7 +182,7 @@ def _call(source: str, fn_name: str, pointers, q, k, causal: bool,
 
 
 #: what :func:`kernel_design` reports for each design code
-DESIGNS = {0: "scalar", 1: "sm90 wgmma", 2: "3xTF32 mma.sync"}
+DESIGNS = {1: "sm90 wgmma", 2: "3xTF32 mma.sync"}
 
 
 @functools.cache
@@ -219,11 +220,13 @@ def launch_blocks(name: str, q, k) -> int:
     return blocks.value
 
 
-def _count(wrapper, dtype, head_dim) -> None:
-    """One launch of ``wrapper``'s kernel, counted in all and by the
-    design its (dtype, head_dim) instance runs."""
+def _count(name, dtype, head_dim) -> None:
+    """One launch of the entry point ``name``'s kernel, counted on its
+    wrapper (:data:`WRAPPERS`) in all and by the design its (dtype,
+    head_dim) instance runs."""
+    wrapper = WRAPPERS[name]
     wrapper.launches += 1
-    design = kernel_design(wrapper.__name__, dtype, head_dim)["design"]
+    design = kernel_design(name, dtype, head_dim)["design"]
     wrapper.launches_by_design[design] = \
         wrapper.launches_by_design.get(design, 0) + 1
 
@@ -235,7 +238,7 @@ def _launch(q, k, v, causal: bool, sm_scale: float):
                       device=q.device)
     _call(SOURCES[0], "flash_attention_fwd", (q, k, v, out, lse), q, k,
           causal, sm_scale)
-    flash_attention.launches += 1
+    _count("flash_attention_fwd", q.dtype, q.shape[3])
     return out, lse
 
 
@@ -347,7 +350,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool,
     _call(SOURCES[1], "flash_attention_bwd_dkv",
           (q, k, v, do, lse, di, dk, dv, partials, counters), q, k, causal,
           sm_scale)
-    _count(flash_attention_bwd_dkv, q.dtype, q.shape[3])
+    _count("flash_attention_bwd_dkv", q.dtype, q.shape[3])
     return dk, dv
 
 
@@ -359,7 +362,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool,
     dq = torch.empty_like(q)
     _call(SOURCES[1], "flash_attention_bwd_dq", (q, k, v, do, lse, di, dq),
           q, k, causal, sm_scale)
-    _count(flash_attention_bwd_dq, q.dtype, q.shape[3])
+    _count("flash_attention_bwd_dq", q.dtype, q.shape[3])
     return dq
 
 
@@ -407,12 +410,13 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale: float):
     return _FlashAttention.apply(q, k, v, causal, sm_scale)
 
 
-#: Kernel launches since the last reset (the plain CPU path adds none);
-#: the backward's also by the design their instance runs
-#: (:func:`kernel_design`'s names)
+#: Kernel launches since the last reset (the plain CPU path adds none),
+#: in all and by the design their instance runs (:func:`kernel_design`'s
+#: names)
 flash_attention.launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention.launches_by_design = {}
 flash_attention_bwd_dkv.launches_by_design = {}
 flash_attention_bwd_dq.launches_by_design = {}
 #: every kernel's wrapper, by the name its launch count reports under

@@ -83,7 +83,11 @@ from tpu_operator_libs_torch.examples.ring_attention import (
     dense_reference,
     make_ring_attention,
 )
-from tpu_operator_libs_torch.kernels import WRAPPERS
+from tpu_operator_libs_torch.kernels import (
+    WRAPPERS,
+    restore_launches,
+    save_launches,
+)
 from tpu_operator_libs_torch.parallel import (
     dp_tp_split,
     gather_rows,
@@ -198,7 +202,7 @@ def run_stages(mesh, config, ckpt_dir, *, param_dtype=None,
     the numbers each stage measured; ``launches`` counts this rank's
     kernel launches over stages 1-4 (set to 0 just before the first),
     ``launches_ring`` those of the ring stage (likewise), and
-    ``launches_by_design`` and ``launches_by_design_ring`` the backward
+    ``launches_by_design`` and ``launches_by_design_ring`` the flash
     kernels' among them by design. The decode
     stage returns both loops' tokens and this rank's
     ``generate_on_device.last_call`` for each; ``decode_bench``, a
@@ -349,7 +353,7 @@ def _launches() -> "dict[str, int]":
 
 
 def _launches_by_design() -> "dict[str, dict[str, int]]":
-    """The backward kernels' launches by the design their instance ran
+    """The flash kernels' launches by the design their instance ran
     (``kernel_design``'s names)."""
     return {name: dict(wrapper.launches_by_design)
             for name, wrapper in WRAPPERS.items()
@@ -437,12 +441,11 @@ def _ring_llama(n, config, param_dtype, device) -> dict:
         ring, fwd_ms = _timed(
             lambda: forward(params, local_seq(tokens, mesh), long, mesh),
             device)
-        before = _launches()
+        before = save_launches()
         flash = local_seq(forward(
             params, tokens, dataclasses.replace(long, attention_impl="flash")),
             mesh)
-        for name, count in before.items():
-            WRAPPERS[name].launches = count  # the yardstick is not the path
+        restore_launches(before)  # the yardstick is not the path
     rel = ((ring.float() - flash.float()).abs().max()
            / flash.float().abs().max()).item()
     if not rel <= RING_LOGITS_REL_TOL:
