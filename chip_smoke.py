@@ -106,16 +106,35 @@ exits non-zero without printing a result. Phases:
    global norm over the 39 leaves in bf16 and f32 within 1e-5 relative,
    the launch contract, timed beside the plain version and
    ``torch._foreach_norm``.
+3h. token_pick: the decode step's token-pick kernel against its plain
+   version (``pick_reference``) at the bench decode's (8, 2048) in bf16
+   and f32, greedy, sampled at the decode contract's settings
+   (temperature 1.0, top-k 50, top-p 0.9) with and without the logprob,
+   and at the served temperature alone, the prefill's strided
+   ``logits[:, -1, :]``, vocabularies of 1001 (4 rows) and 128,256 (2
+   rows, a cluster of 8 blocks a row), and edge settings over planted
+   rows (top-k 1
+   and V, top-p 1e-9 and 1.0, temperature 0.05; tied maxima, -inf):
+   greedy tokens bit-equal, sampled tokens equal over several noise
+   draws but where either token's nucleus decision rests on a mass
+   within 1e-5 of top-p (the exempt rows counted), logprobs within 1e-5
+   relative plus 1e-6, the launch contract, timed in CUDA graphs beside
+   the plain version (its launches counted) and, greedy,
+   ``torch.argmax``.
 4-6. the serving path, with the launch counts set to 0 just before it:
    ``forward`` of llama-277M with ``attention_impl="flash"`` against
    ``"xla"``; the decode contract (stepwise cache == batch forward, host
    loop == graph-replayed device loop in bf16, int8 weights + int8 KV
    and a sampled case with eos and logprobs; each call's graph launches
    and capture ms; decode_attention and rope_kv_append launched once a
-   layer a forward, the norm 2L + 1 times and the gate L times,
-   kv_append never);
+   layer a forward, the norm 2L + 1 times and the gate L times, the
+   token pick once a forward of a decode, kv_append never);
    a ``DecodeServer`` burst with a mid-burst drain, then decode at the
-   bench's shape through the graph and the host loop.
+   bench's shape through the graph and the host loop, greedy and
+   sampled (the decode contract's settings, with logprobs, and what
+   ``DecodeServer(temperature=)`` sends, the temperature alone: graph ==
+   host loop bit for bit), each with its tok/s and device events a
+   token.
 7-8. the training path, with the launch counts set to 0 just before it:
    6 steps of ``make_train_step`` (flash, batch 16, seq 1024, bf16; RoPE
    and its backward once a layer, the loss and its backward and AdamW
@@ -176,6 +195,11 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
+from decode_step_profile import (  # noqa: E402
+    SAMPLED_CELLS,
+    SAMPLING,
+    SERVED_SAMPLING,
+)
 from tpu_operator_libs_torch.examples.llama import (  # noqa: E402
     LlamaConfig,
     forward,
@@ -263,6 +287,9 @@ from tpu_operator_libs_torch.kernels import (  # noqa: E402
     global_norm as gnorm_mod,
 )
 from tpu_operator_libs_torch.kernels import rope as rope_mod  # noqa: E402
+from tpu_operator_libs_torch.kernels import (  # noqa: E402
+    token_pick as pick_mod,
+)
 from tpu_operator_libs_torch.kernels.rope import (  # noqa: E402
     rope_bwd,
     rope_qk,
@@ -609,6 +636,19 @@ def phase_build():
                     block, gn.group(1), "any", None,
                     {"design": global_norm_design(int(gn.group(2))),
                      "dynamic_smem_bytes": 0}), "vec": int(gn.group(2))})
+                continue
+            tk = re.search(r"\d(token_pick_(?:block|wide)_kernel)ILi(\d)E"
+                           r"Lb([01])E", block)
+            if tk is not None:
+                vec = int(tk.group(2))
+                entries.append({**ptxas_entry(
+                    block, tk.group(1), "any", None,
+                    {"design": pick_design(
+                        2048 if "block" in tk.group(1) else 4096, vec)
+                     + (", sampled" if tk.group(3) == "1" else ", greedy"),
+                     "dynamic_smem_bytes": 0 if "block" in tk.group(1)
+                     else None}), "vec": vec,
+                    "sample": tk.group(3) == "1"})
                 continue
             ak = re.search(r"\d(adamw_kernel)ILi(\d)E", block)
             if ak is not None:
@@ -3049,6 +3089,248 @@ def phase_train_kernels(card):
             loss_rows[1::2], norm_rows)
 
 
+#: phase 3h's pick settings: greedy; the decode contract's sampling
+#: (SAMPLING); what ``DecodeServer(temperature=)`` sends (SERVED_SAMPLING:
+#: the temperature alone)
+GREEDY = {"temperature": 0.0, "top_k": None, "top_p": None,
+          "want_logprob": False}
+
+
+def pick_settings(sampling):
+    """phase 3h's settings of a pick made under ``generate``'s sampling
+    keywords, without the logprob (a case asks for it apart)."""
+    return {"temperature": sampling["temperature"],
+            "top_k": sampling["top_k"], "top_p": sampling["top_p"],
+            "want_logprob": False}
+
+
+PICK_SAMPLED = pick_settings(SAMPLING)
+PICK_SERVED = pick_settings(SERVED_SAMPLING)
+#: (label, B, V, dtype, settings, logits, draws, iters) of phase 3h: the
+#: bench decode's step (8, 2048) greedy (what the bench cells and the
+#: serving burst pick: the kernels line's row), sampled at the decode
+#: contract's settings, with and without the logprob, bf16 and f32, and
+#: at the served temperature alone; the prefill pick's strided
+#: ``logits[:, -1, :]`` view; an odd vocabulary (1001: element loads) and
+#: a Llama-3 one (128,256: a cluster of blocks a row); and
+#: edge settings over planted rows (ties at the top, half a row -inf, a
+#: row of three finite logits, equal pairs, a uniform row). ``logits``:
+#: "randn" (3 x a standard normal), "strided" (the last position of (B,
+#: 64, V)) or "planted"; ``draws``: noise draws whose tokens are compared
+PICK_CASES = [
+    ("bench_greedy", 8, 2048, torch.bfloat16, GREEDY, "randn", 1, 200),
+    ("bench_greedy_logprob", 8, 2048, torch.bfloat16,
+     {**GREEDY, "want_logprob": True}, "randn", 1, 200),
+    ("bench_sampled", 8, 2048, torch.bfloat16, PICK_SAMPLED, "randn", 16,
+     200),
+    ("bench_sampled_logprob", 8, 2048, torch.bfloat16,
+     {**PICK_SAMPLED, "want_logprob": True}, "randn", 16, 200),
+    ("bench_served", 8, 2048, torch.bfloat16, PICK_SERVED, "randn", 16,
+     200),
+    ("f32_greedy_logprob", 8, 2048, torch.float32,
+     {**GREEDY, "want_logprob": True}, "randn", 1, 200),
+    ("f32_sampled_logprob", 8, 2048, torch.float32,
+     {**PICK_SAMPLED, "want_logprob": True}, "randn", 16, 200),
+    ("prefill_view_sampled_logprob", 8, 2048, torch.bfloat16,
+     {**PICK_SAMPLED, "want_logprob": True}, "strided", 4, 200),
+    ("prefill_view_greedy", 8, 2048, torch.bfloat16, GREEDY, "strided", 1,
+     200),
+    ("vocab_1001_greedy", 4, 1001, torch.bfloat16, GREEDY, "randn", 1, 200),
+    ("vocab_1001_sampled_logprob", 4, 1001, torch.bfloat16,
+     {**PICK_SAMPLED, "want_logprob": True}, "randn", 16, 200),
+    ("vocab_128256_greedy", 2, 128256, torch.bfloat16,
+     {**GREEDY, "want_logprob": True}, "randn", 1, 50),
+    ("vocab_128256_sampled", 2, 128256, torch.bfloat16,
+     {**PICK_SAMPLED, "want_logprob": True}, "randn", 4, 50),
+    ("vocab_128256_served", 2, 128256, torch.bfloat16, PICK_SERVED,
+     "randn", 4, 50),
+    ("edge_greedy_ties_inf", 8, 2048, torch.bfloat16,
+     {**GREEDY, "want_logprob": True}, "planted", 1, 50),
+    ("edge_top_k_1", 8, 2048, torch.bfloat16,
+     {**GREEDY, "temperature": 1.0, "top_k": 1}, "planted", 8, 50),
+    ("edge_top_k_V", 8, 2048, torch.bfloat16,
+     {**GREEDY, "temperature": 1.0, "top_k": 2048, "want_logprob": True},
+     "planted", 8, 50),
+    ("edge_top_p_1e-9", 8, 2048, torch.bfloat16,
+     {**GREEDY, "temperature": 1.0, "top_p": 1e-9}, "planted", 8, 50),
+    ("edge_top_p_1", 8, 2048, torch.bfloat16,
+     {**GREEDY, "temperature": 1.0, "top_p": 1.0, "want_logprob": True},
+     "planted", 8, 50),
+    ("edge_t_0.05", 8, 2048, torch.bfloat16,
+     {**PICK_SAMPLED, "temperature": 0.05, "want_logprob": True},
+     "planted", 8, 50),
+]
+#: a sampled row is held to the plain version's token unless the kernel's
+#: or the plain version's token is one whose nucleus decision rests on a
+#: mass within this of top_p (:func:`nucleus_uncertain`: the plain
+#: version's exclusive cumulative mass in descending order): the
+#: kernel adds the probabilities in another order than torch.cumsum, so
+#: such a token may be kept by one and masked by the other
+NUCLEUS_EXEMPT = 1e-5
+#: logprobs: the untempered log-softmax, the row's sum of exps in another
+#: order (a few float32 ulps of the sum: its log moves by ~1e-7, which is
+#: the whole value for a logprob near 0, hence the absolute term)
+LOGPROB_RTOL, LOGPROB_ATOL = 1e-5, 1e-6
+
+
+def pick_design(vocab, vec) -> str:
+    if vocab <= pick_mod.ROW_ELEMS:
+        return (f"a block a row of up to 2,048 in shared memory, {vec} "
+                "elements a load; top-k and top-p by bisection over the "
+                "bit patterns, a barrier a pass, no sort")
+    return (f"a cluster of {pick_mod.CLUSTER_BLOCKS} blocks a row, each "
+            f"holding an eighth of it in shared memory, {vec} elements a "
+            "load; top-k and top-p by bisection over the bit patterns, "
+            "each pass's partials across the cluster's shared memory, no "
+            "sort")
+
+
+def nucleus_uncertain(logits, temperature: float, top_k, top_p,
+                      within: float):
+    """(B, V) bool: the tokens whose nucleus decision in
+    ``pick_reference`` rests on a mass within ``within`` of ``top_p``:
+    the exclusive cumulative mass in descending order at the first of
+    the token's value (the mass strictly above it, which the kernel sums
+    in another order) lies that close. The row's maximum (mass above it
+    exactly 0 on both sides) never does; none without top-p. A sampled
+    token of the kernel and of the plain version can differ only where
+    one of the two is such a token."""
+    batch, vocab = logits.shape
+    if temperature <= 0.0 or top_p is None:
+        return torch.zeros((batch, vocab), dtype=torch.bool,
+                           device=logits.device)
+    logits_f = logits.float()
+    if top_k is not None:
+        logits_f = pick_mod.top_k_masked(logits_f, top_k)
+    probs, sp, exclusive = pick_mod.descending_masses(logits_f, temperature)
+    # the descending position of the first of each token's value: the
+    # count of larger values
+    above = vocab - torch.searchsorted(sp.flip(-1), probs, right=True)
+    mass = torch.gather(exclusive, -1, above)
+    return ((mass - top_p).abs() <= within) & (above > 0)
+
+
+def pick_logits(gen, batch, vocab, dtype, kind):
+    """Phase 3h's (B, V) logits of ``kind`` (see PICK_CASES) on the card."""
+    if kind == "strided":
+        full = 3.0 * torch.randn((batch, 64, vocab), generator=gen,
+                                 device="cuda")
+        return full.to(dtype)[:, -1, :]
+    x = 3.0 * torch.randn((batch, vocab), generator=gen, device="cuda")
+    if kind == "planted":
+        x[0, :3] = x[0].max() + 1.0  # three tied maxima
+        x[1, vocab // 2:] = float("-inf")
+        x[2, 3:] = float("-inf")  # three finite logits
+        x[3, 1::2] = x[3, 0::2]  # equal pairs
+        x[4] = 0.0  # uniform
+    return x.to(dtype)
+
+
+def pick_agreement(label, batch, vocab, dtype, settings, kind, draws):
+    """The token pick's kernel against its plain version
+    (``pick_reference``, what the decode path ran before) at one case of
+    PICK_CASES: greedy tokens bit-equal, sampled tokens equal over
+    ``draws`` noise draws on every row but those where either token is
+    one whose nucleus decision lies within NUCLEUS_EXEMPT of top_p,
+    logprobs within LOGPROB_RTOL and LOGPROB_ATOL; raises otherwise.
+    Returns (logits, the last draw's noise, the rows exempted over the
+    draws, the largest logprob error, its largest share of the
+    limit)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    x = pick_logits(gen, batch, vocab, dtype, kind)
+    sample = settings["temperature"] > 0.0
+    args = (settings["temperature"], settings["top_k"], settings["top_p"],
+            settings["want_logprob"])
+    uncertain = nucleus_uncertain(x, *args[:3], NUCLEUS_EXEMPT)
+    exempt_rows, lp_err, lp_use = 0, 0.0, 0.0
+    for draw in range(draws):
+        u = (torch.rand((batch, vocab), generator=gen, device="cuda")
+             if sample else None)
+        got = pick_mod.pick(x, u, *args)
+        want = pick_mod.pick_reference(x, u, *args)
+        torch.cuda.synchronize()
+        exempt = (uncertain.gather(-1, got[0][:, None])
+                  | uncertain.gather(-1, want[0][:, None]))[:, 0]
+        exempt_rows += int(exempt.sum())
+        if not bool(((got[0] == want[0]) | exempt).all()):
+            raise RuntimeError(
+                f"token_pick at {label}, draw {draw}: tokens "
+                f"{got[0].tolist()} against {want[0].tolist()} (exempt "
+                f"{exempt.tolist()})")
+        if settings["want_logprob"]:
+            err = (got[1] - want[1]).abs()
+            limit = LOGPROB_ATOL + LOGPROB_RTOL * want[1].abs()
+            finite = torch.isfinite(want[1])
+            if not bool(torch.equal(finite, torch.isfinite(got[1]))):
+                raise RuntimeError(f"token_pick at {label}: logprobs "
+                                   f"{got[1].tolist()} against "
+                                   f"{want[1].tolist()}")
+            if bool(finite.any()):
+                lp_err = max(lp_err, float(err[finite].max()))
+                lp_use = max(lp_use, float((err / limit)[finite].max()))
+            if lp_use > 1.0:
+                raise RuntimeError(f"token_pick at {label}: logprob error "
+                                   f"{lp_err} (limit use {lp_use})")
+    return x, u, exempt_rows, lp_err, lp_use
+
+
+def check_pick_case(label, batch, vocab, dtype, settings, kind, draws, iters,
+                    card):
+    """:func:`pick_agreement` at one case of PICK_CASES, the launch
+    contract, and times in CUDA graphs beside the plain version and,
+    greedy, ``torch.argmax``: the case's row."""
+    x, u, exempt_rows, lp_err, lp_use = pick_agreement(
+        label, batch, vocab, dtype, settings, kind, draws)
+    sample = settings["temperature"] > 0.0
+    args = (settings["temperature"], settings["top_k"], settings["top_p"],
+            settings["want_logprob"])
+
+    def call():
+        return pick_mod.pick(x, u, *args)
+
+    def plain():
+        return pick_mod.pick_reference(x, u, *args)
+
+    out, again = call(), call()
+    vec = pick_mod.vector_width(x, u)
+    wide = vocab > pick_mod.ROW_ELEMS
+    row = {"phase": "token_pick", "name": "token_pick", "shape": label,
+           "B": batch, "V": vocab, "dtype": dtype_name(dtype),
+           "logits": kind, "strided": kind == "strided", **settings,
+           "vec": vec,
+           **check_launch_contract("token_pick", label, call, out, again),
+           "design": pick_design(vocab, vec),
+           "dynamic_smem_bytes": 4 * vec * -(-vocab // (
+               pick_mod.CLUSTER_BLOCKS * vec)) if wide else 0,
+           "ptxas": instance_ptxas(
+               "token_pick.cu", "token_pick_wide_kernel" if wide
+               else "token_pick_block_kernel", vec=vec, sample=sample),
+           "draws": draws, "rows_checked": draws * batch,
+           "exempt_rows": exempt_rows,
+           "nucleus_exempt_within": NUCLEUS_EXEMPT,
+           "tokens_equal_outside_exempt": True,
+           "max_abs_err": lp_err, "logprob_limit_use": lp_use,
+           "logprob_rtol_atol": [LOGPROB_RTOL, LOGPROB_ATOL],
+           "kernel_ms": graph_ms(call, iters),
+           "plain_ms": graph_ms(plain, max(2, iters // 5)),
+           "plain_cuda_launches": cuda_launches(plain),
+           "library": "torch.argmax over the rows" if not sample else None,
+           "library_ms": graph_ms(lambda: torch.argmax(x, dim=-1), iters)
+           if not sample else None, "card": card}
+    outputs = batch * (8 + (4 if settings["want_logprob"] else 0))
+    row["bound_ms"], row["bound_by"] = bytes_bound_ms(
+        batch * vocab * x.element_size() + tensor_bytes(u) + outputs)
+    emit(row)
+    del x, u, out, again
+    return row
+
+
+def phase_token_pick(card):
+    """Phase 3h: the token pick's rows; the first is the kernels line's
+    (the bench decode's greedy pick)."""
+    return [check_pick_case(*case, card) for case in PICK_CASES]
+
+
 def cast_params(params, dtype):
     if isinstance(params, dict):
         return {k: cast_params(v, dtype) for k, v in params.items()}
@@ -3133,7 +3415,7 @@ def phase_decode(params, params32, card):
         before = launch_counts()
         step = stepwise_logits(params, tokens, torch.bfloat16)
         result["decode_kernel_launches_stepwise"] = expect_decode_launches(
-            before, tokens.shape[1], "the stepwise bf16 decode")
+            before, tokens.shape[1], "the stepwise bf16 decode", picks=0)
         rel = rel_err(step, full)
         full32 = forward(params32, tokens, CONFIG_277M)
         step32 = stepwise_logits(params32, tokens, torch.float32)
@@ -3180,11 +3462,6 @@ def expect_graph(run, new_tokens, what):
         raise RuntimeError(f"{what}: the device loop ran {run}, expected "
                            f"1 eager step and {new_tokens - 2} graph "
                            "launches")
-
-
-#: the decode contract's sampling settings
-SAMPLING = {"temperature": 1.0, "top_k": 50, "top_p": 0.9,
-            "return_logprobs": True}
 
 
 def sampled_contract(qparams, prompt):
@@ -3266,7 +3543,7 @@ def phase_serving(params, qparams, card):
 
     # the bench's decode cell: batch 8, prompt 64, 960 new, context 1024
     prompt = bench_prompt()
-    cells, graph_tokens = {}, {}
+    cells, graph_tokens, sampled = {}, {}, {}
     for label, p, kw in (("bf16", params, {}),
                          ("int8_weights_int8_kv", qparams,
                           {"quantize_kv": True})):
@@ -3300,9 +3577,70 @@ def phase_serving(params, qparams, card):
         cell["graph_over_host"] = (cell["graph"]["tok_per_s"]
                                    / cell["host"]["tok_per_s"])
         cells[label] = cell
+        sampled[label] = {
+            name: sampled_bench_cell(f"{label}, {name}", p, prompt, kw,
+                                     sampling)
+            for name, sampling in SAMPLED_CELLS.items()}
     emit({"phase": "decode_bench_shape", "batch": 8, "prompt": 64,
-          "new_tokens": BENCH_NEW_TOKENS, "cells": cells, "card": card})
+          "new_tokens": BENCH_NEW_TOKENS, "cells": cells,
+          "sampled": {"settings": SAMPLED_CELLS, "cells": sampled},
+          "card": card})
     return graph_tokens
+
+
+def sampled_bench_cell(label, params, prompt, kw, sampling):
+    """The bench decode cell sampled under ``sampling`` (SAMPLED_CELLS:
+    the decode contract's settings, or the served temperature alone):
+    the graph-replayed device loop, then the host loop, from equally
+    seeded generators, tokens (and logprobs, where asked for) bit for
+    bit, each timed and profiled over 64 tokens (the device events a
+    token, the pick's rand among them)."""
+    want_logprobs = sampling["return_logprobs"]
+
+    def run(fn, new_tokens):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+        out = fn(params, prompt, CONFIG_277M, new_tokens,
+                 param_dtype=torch.bfloat16, generator=gen, **sampling,
+                 **kw)
+        return out if want_logprobs else (out, None)
+
+    cell = {}
+    for loop, fn in (("graph", generate_on_device), ("host", generate)):
+        run(fn, 8)
+        before = launch_counts()
+        start = time.perf_counter()
+        out, lps = run(fn, BENCH_NEW_TOKENS)
+        out = out.cpu()
+        lps = lps.cpu() if want_logprobs else None
+        seconds = time.perf_counter() - start
+        check_bench_tokens(out, f"sampled {label}, {loop}")
+        cell[loop] = {"seconds": seconds,
+                      "tok_per_s": 8 * BENCH_NEW_TOKENS / seconds,
+                      "decode_kernel_launches": expect_decode_launches(
+                          before, BENCH_NEW_TOKENS,
+                          f"sampled bench-shape decode ({label}, {loop})")}
+        if loop == "graph":
+            run_info = dict(generate_on_device.last_call)
+            expect_graph(run_info, BENCH_NEW_TOKENS,
+                         f"sampled bench-shape decode ({label})")
+            cell[loop]["device_loop"] = run_info
+            tokens, logprobs = out, lps
+        elif not (torch.equal(out, tokens)
+                  and (not want_logprobs or torch.equal(lps, logprobs))):
+            raise RuntimeError(f"sampled bench-shape decode: host and graph "
+                               f"loops differ ({label})")
+        if want_logprobs and not bool(torch.isfinite(lps).all()):
+            raise RuntimeError(f"sampled bench-shape decode ({label}, "
+                               f"{loop}): logprobs not finite")
+        profile = profile_device(lambda: run(fn, 64)[0].cpu())
+        if profile is not None:
+            profile["device_events_per_token"] = \
+                profile["device_events"] / 64
+        cell[loop]["profile_64_steps"] = profile
+    cell["graph_over_host"] = (cell["graph"]["tok_per_s"]
+                               / cell["host"]["tok_per_s"])
+    cell["host_equals_graph"] = True
+    return cell
 
 
 def check_bench_tokens(out, what):
@@ -3361,10 +3699,13 @@ def profile_device(fn, top: int = 6):
 
 def profile_decode(fn, params, prompt, kw):
     """profile_device over a 64-token decode by ``fn`` (the device loop
-    or the host loop)."""
-    return profile_device(lambda: fn(
+    or the host loop), with the device events a token."""
+    profile = profile_device(lambda: fn(
         params, prompt, CONFIG_277M, 64, param_dtype=torch.bfloat16,
         **kw).cpu())
+    if profile is not None:
+        profile["device_events_per_token"] = profile["device_events"] / 64
+    return profile
 
 
 #: every kernel's wrapper, by the name its launch counter reports under
@@ -3401,16 +3742,17 @@ REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-6
 
 
 def expect_launches(delta, fwd, bwd, what, fold=0, int8=0, decode=0,
-                    blocks=None, train=None):
+                    blocks=None, train=None, picks=0):
     """``decode``: the launches of each decode kernel (decode_attention
     and rope_kv_append run once a layer a forward_with_cache call; the
     rotation-free kv_append never); ``blocks``: the norm's and the gate's
     (:func:`block_launches`; none by default); ``train``: RoPE's and
-    AdamW's (:func:`train_launches`; none by default)."""
+    AdamW's (:func:`train_launches`; none by default); ``picks``: the
+    token pick's (once a pick of a decode)."""
     want = {"flash_attention_fwd": fwd, "flash_attention_bwd_dkv": bwd,
             "flash_attention_bwd_dq": bwd, "attention_fold": fold,
             "int8_matmul": int8, "decode_attention": decode,
-            "rope_kv_append": decode, "kv_append": 0,
+            "rope_kv_append": decode, "kv_append": 0, "token_pick": picks,
             **(blocks or block_launches(0)),
             **(train or train_launches(0))}
     if delta != want:
@@ -3462,16 +3804,18 @@ def train_launches(forwards, backwards=0, updates=0, remat=False,
 DECODE_KERNELS = ["decode_attention", "rope_kv_append"]
 
 
-def expect_decode_launches(before, forwards, what) -> int:
+def expect_decode_launches(before, forwards, what, picks=None) -> int:
     """Each decode kernel launched once a layer for each of ``forwards``
     forward_with_cache calls since the counts ``before`` (a replayed
     graph's launches counted), the norm 2L + 1 times and the gate L times
-    a call, their backward kernels, the rotation-free kv_append, the
-    batch forward's RoPE and AdamW never; returns the decode kernels'
-    count."""
+    a call, the token pick ``picks`` times (by default once a call: a
+    decode picks after its prefill and after every step), their backward
+    kernels, the rotation-free kv_append, the batch forward's RoPE and
+    AdamW never; returns the decode kernels' count."""
     after = launch_counts()
     want = forwards * CONFIG_277M.n_layers
     expected = {**dict.fromkeys(DECODE_KERNELS, want), "kv_append": 0,
+                "token_pick": forwards if picks is None else picks,
                 **block_launches(forwards), **train_launches(0)}
     got = {name: after[name] - before[name] for name in expected}
     if got != expected:
@@ -3961,7 +4305,8 @@ def phase_multichip(card, train_losses=None, bench_tokens=None):
                   if config.attention_impl == "flash" else 0)
     int8 = (2 * (MULTI_NEW_TOKENS + BENCH_NEW_TOKENS)
             * (7 * config.n_layers + 1))
-    # both dtypes' loops: the decode kernels once a layer a forward
+    # both dtypes' loops: the decode kernels once a layer a forward, the
+    # token pick once a forward
     forwards = 2 * 2 * (MULTI_NEW_TOKENS + BENCH_NEW_TOKENS)
     decode = forwards * config.n_layers
     # the norm and the gate in every train step (the train stage's and
@@ -3971,7 +4316,7 @@ def phase_multichip(card, train_losses=None, bench_tokens=None):
     for rank in ranks:
         expect_launches(rank["launches"], per_kernel, per_kernel,
                         f"multichip rank path at tp={tp}", int8=int8,
-                        decode=decode,
+                        decode=decode, picks=forwards,
                         blocks=block_launches(steps + forwards, steps),
                         train=train_launches(steps, steps, steps))
         if rank["losses"] != first["losses"]:
@@ -4068,7 +4413,8 @@ def multichip_decode_line(ranks, common, launches):
             "prompt": 64, "new_tokens": MULTI_NEW_TOKENS,
             "int8_matmul_launches": launches["int8_matmul"],
             **{f"{name}_launches": launches[name]
-               for name in DECODE_KERNELS + BLOCK_KERNELS + TRAIN_KERNELS}}
+               for name in DECODE_KERNELS + BLOCK_KERNELS + TRAIN_KERNELS
+               + ["token_pick"]}}
     equal_ranks = True
     for label, name in DECODE_LABELS:
         key = f"decode_{label}"
@@ -4254,15 +4600,18 @@ def decode_entry(name, source, rows, serving, multi, replaces, card,
 
 
 def block_entry(name, source, replaces, rows, launches, shape, card):
-    """The kernels line's entry of a norm, gate, RoPE, AdamW, loss or
-    global-norm kernel; its times and bound are its first phase 3f or 3g
-    row's
-    (``phase_norm_gate_kernels``, ``phase_train_kernels``)."""
+    """The kernels line's entry of a norm, gate, RoPE, AdamW, loss,
+    global-norm or token-pick kernel; its times and bound are its first
+    phase 3f, 3g or 3h row's (``phase_norm_gate_kernels``,
+    ``phase_train_kernels``, ``phase_token_pick``)."""
     main_row = rows[0]
     keys = ("shape", "rows", "dim", "B", "S", "V", "S_used", "H", "H_kv",
             "D", "head_major", "leaves", "elements", "count", "schedule",
-            "clip_norm", "clipped", "weight_decay", "dtype", "add", "design",
-            "cuda_launches_per_call", "max_abs_err", "limit_use",
+            "clip_norm", "clipped", "weight_decay", "dtype", "add",
+            "strided", "temperature", "top_k", "top_p", "want_logprob",
+            "design", "cuda_launches_per_call", "plain_cuda_launches",
+            "rows_checked", "exempt_rows", "logprob_limit_use",
+            "max_abs_err", "limit_use",
             "max_ulp_vs_plain", "dg_max_ulp_vs_plain", "du_max_ulp_vs_plain",
             "bit_equal_to_plain", "bit_equal_launches",
             "graph_replay_bit_equal", "inputs_unchanged", "rel_err",
@@ -4319,6 +4668,7 @@ def main(argv) -> int:
         phase_norm_gate_kernels(card)
     (rope_qk_rows, rope_bwd_rows, adamw_rows, loss_rows, loss_bwd_rows,
      global_norm_rows) = phase_train_kernels(card)
+    pick_rows = phase_token_pick(card)
 
     params = init_llama_params(CONFIG_277M, param_dtype=torch.bfloat16,
                                seed=SEED, device="cuda")
@@ -4347,13 +4697,13 @@ def main(argv) -> int:
     by_design.update(ranks_by_design)
     for path, counts, names in (
             ("serving", serving,
-             ["flash_attention_fwd", "int8_matmul", "rms_norm", "swiglu"]
-             + DECODE_KERNELS),
+             ["flash_attention_fwd", "int8_matmul", "rms_norm", "swiglu",
+              "token_pick"] + DECODE_KERNELS),
             ("training", training,
              FLASH_KERNELS + BLOCK_KERNELS + TRAIN_KERNELS + CLIP_KERNELS),
             ("ring chain", chain, ["flash_attention_fwd", "attention_fold"]),
             ("multichip", multi,
-             ["int8_matmul"] + DECODE_KERNELS + BLOCK_KERNELS
+             ["int8_matmul", "token_pick"] + DECODE_KERNELS + BLOCK_KERNELS
              + TRAIN_KERNELS),
             ("multichip ring", ring,
              RING_KERNELS + BLOCK_KERNELS + TRAIN_KERNELS)):
@@ -4535,6 +4885,15 @@ def main(argv) -> int:
             {path: counts["global_norm"] for path, counts in paths.items()},
             "llama-277M's 39 gradient leaves, 277M elements, bf16 (the "
             "clipped train step's)", card),
+        block_entry(
+            "token_pick", "token_pick.cu",
+            "tpu_operator_libs/examples/llama_decode.py:288-333 (_pick_next: "
+            "argmax, or top-k, the top-p nucleus and "
+            "jax.random.categorical, and the logprob; fused by XLA, no "
+            "pallas_call)", pick_rows,
+            {path: counts["token_pick"] for path, counts in paths.items()},
+            "B=8 V=2048 bf16, greedy (the bench decode's and the serving "
+            "burst's pick)", card),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
                                  "count": torch.cuda.device_count()}})

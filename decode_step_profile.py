@@ -15,9 +15,17 @@ bench cell (prompt 64, 960 new tokens): tok/s and the call's wall ms a
 step, and prints a SHA-256 digest of its tokens, which two trees that
 decode the same bits share.
 
+With ``--sampled`` the step is the cached step with its token pick
+(``llama_decode._pick_next``), the pick is also profiled alone, and the
+graph decode samples from a seeded generator (its tokens and its
+logprobs each get a digest), each under two settings (SAMPLED_CELLS):
+the decode contract's (temperature 1.0, top-k 50, top-p 0.9, with the
+logprob) and what ``DecodeServer(temperature=)`` sends (the temperature
+alone).
+
 Run from the root of a checkout on a machine with a card:
 
-    python3 decode_step_profile.py [--tree DIR] [--label NAME]
+    python3 decode_step_profile.py [--tree DIR] [--label NAME] [--sampled]
 
 ``--tree`` imports ``tpu_operator_libs_torch`` from another checkout of
 the port, so that two commits can be profiled in turns on one card.
@@ -45,7 +53,18 @@ BATCH, CONTEXT, PROMPT, NEW_TOKENS = 8, 1024, 64, 960
 #: the port's kernels that a cached step may launch
 PORT_KERNELS = ("int8_matmul", "decode_attention", "rope_kv_append",
                 "kv_append", "rms_norm", "swiglu", "rope", "adamw",
-                "cross_entropy", "global_norm")
+                "cross_entropy", "global_norm", "token_pick")
+#: the decode contract's sampling settings (``chip_smoke.py``'s phase 6
+#: and ``--sampled`` read them from here)
+SAMPLING = {"temperature": 1.0, "top_k": 50, "top_p": 0.9,
+            "return_logprobs": True}
+#: what ``DecodeServer(temperature=)`` sends: the temperature alone, no
+#: top-k, no top-p, no logprob
+SERVED_SAMPLING = {"temperature": 1.0, "top_k": None, "top_p": None,
+                   "return_logprobs": False}
+#: ``--sampled``'s settings, by the name its cells carry
+SAMPLED_CELLS = {"contract": SAMPLING, "served": SERVED_SAMPLING}
+SAMPLING_SEED = 6
 
 
 def port_kernel(key: str):
@@ -84,37 +103,61 @@ class CopyBytes(TorchDispatchMode):
         return out
 
 
-def step_profile(forward_with_cache, params, cache, config) -> dict:
-    """One eager step at position CONTEXT - 1 (the position on the
-    device, as the captured step has it), after two warm-up steps."""
+def device_us(event):
+    return getattr(event, "device_time_total",
+                   getattr(event, "cuda_time_total", 0.0))
+
+
+def device_events(fn):
+    """The device kernels (and copies and sets) of one eager call of
+    ``fn``, by device time, from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=device_us, reverse=True)
+
+
+def kernel_rows(events):
+    return [{"name": e.key[:120], "calls": e.count,
+             "device_ms": device_us(e) / 1e3} for e in events]
+
+
+def step_profile(forward_with_cache, params, cache, config,
+                 pick=None) -> dict:
+    """One eager step at position CONTEXT - 1 (the position on the
+    device, as the captured step has it), after two warm-up steps; with
+    ``pick`` (a function of the step's (B, vocab) last logits) the step
+    picks its token too, and the pick is profiled alone as well."""
     tokens = torch.zeros((BATCH, 1), dtype=torch.long, device="cuda")
     pos = torch.tensor(CONTEXT - 1, device="cuda")
 
     def step():
-        forward_with_cache(params, tokens, cache, pos, config)
+        logits, _ = forward_with_cache(params, tokens, cache, pos, config)
+        if pick is not None:
+            pick(logits[:, -1, :])
+        return logits
 
     step()
-    step()
+    logits = step()
     torch.cuda.synchronize()
     with CopyBytes() as copies:
         step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-
-    def device_us(event):
-        return getattr(event, "device_time_total",
-                       getattr(event, "cuda_time_total", 0.0))
-
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA),
-                    key=device_us, reverse=True)
+    events = device_events(step)
     copy_events = [e for e in events if "copy" in e.key.lower()]
+    extra = {}
+    if pick is not None:
+        alone = device_events(lambda: pick(logits[:, -1, :]))
+        extra["pick_alone"] = {
+            "device_events": sum(e.count for e in alone),
+            "device_ms": sum(device_us(e) for e in alone) / 1e3,
+            "kernels": kernel_rows(alone)}
     return {
         # the port's own kernels, by their instances' whole names
         "port_kernels": {
@@ -132,8 +175,60 @@ def step_profile(forward_with_cache, params, cache, config) -> dict:
                      "bytes": dict(copies.bytes),
                      "total_bytes": sum(copies.bytes.values())},
         # every kernel, copy and set the step ran, by device time
-        "kernels": [{"name": e.key[:120], "calls": e.count,
-                     "device_ms": device_us(e) / 1e3} for e in events]}
+        "kernels": kernel_rows(events), **extra}
+
+
+def profile_cell(params, prompt, config, quantize_kv, sampling) -> dict:
+    """One cell: the cached step (with its pick under ``sampling``, the
+    keywords of ``generate``; greedy and no pick where empty) profiled,
+    then the graph decode at the bench cell timed and digested."""
+    from tpu_operator_libs_torch.examples.llama_decode import (
+        _pick_next,
+        forward_with_cache,
+        generate_on_device,
+        init_kv_cache,
+    )
+
+    cache = init_kv_cache(config, BATCH, CONTEXT, torch.bfloat16,
+                          quantize_kv=quantize_kv, device="cuda")
+    pick = None
+    if sampling:
+        pick_gen = torch.Generator(device="cuda").manual_seed(SAMPLING_SEED)
+
+        def pick(logits_last):
+            return _pick_next(logits_last, sampling["temperature"],
+                              sampling["top_k"], pick_gen,
+                              sampling["top_p"], sampling["return_logprobs"])
+    cell = {"step": step_profile(forward_with_cache, params, cache, config,
+                                 pick)}
+    del cache
+
+    def decode(new_tokens):
+        gen = (torch.Generator(device="cuda").manual_seed(SAMPLING_SEED)
+               if sampling else None)
+        return generate_on_device(params, prompt, config, new_tokens,
+                                  param_dtype=torch.bfloat16,
+                                  quantize_kv=quantize_kv, generator=gen,
+                                  **sampling)
+
+    decode(8)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = decode(NEW_TOKENS)
+    if sampling.get("return_logprobs"):
+        tokens, logprobs = out[0].cpu(), out[1].cpu()
+    else:
+        tokens, logprobs = out.cpu(), None
+    seconds = time.perf_counter() - start
+    cell["graph_tok_per_s"] = BATCH * NEW_TOKENS / seconds
+    # the call's wall time a token step (prefill and readback in it)
+    cell["graph_ms_per_step"] = seconds / NEW_TOKENS * 1e3
+    cell["graph_tokens_sha256"] = hashlib.sha256(
+        tokens.numpy().tobytes()).hexdigest()
+    if logprobs is not None:
+        cell["graph_logprobs_sha256"] = hashlib.sha256(
+            logprobs.numpy().tobytes()).hexdigest()
+    return cell
 
 
 def main(argv=None) -> int:
@@ -141,6 +236,10 @@ def main(argv=None) -> int:
     parser.add_argument("--tree", default=os.path.dirname(
         os.path.abspath(__file__)))
     parser.add_argument("--label", default=None)
+    parser.add_argument("--sampled", action="store_true",
+                        help="profile the step with its sampled pick and "
+                             "time the sampled graph decode, under each "
+                             "of SAMPLED_CELLS")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("decode_step_profile: CUDA is not available", file=sys.stderr)
@@ -151,9 +250,6 @@ def main(argv=None) -> int:
         init_llama_params,
     )
     from tpu_operator_libs_torch.examples.llama_decode import (
-        forward_with_cache,
-        generate_on_device,
-        init_kv_cache,
         quantize_params_int8,
     )
 
@@ -174,25 +270,13 @@ def main(argv=None) -> int:
     for label, p, quantize_kv in (
             ("bf16", params, False),
             ("int8_weights_int8_kv", quantize_params_int8(params), True)):
-        cache = init_kv_cache(config, BATCH, CONTEXT, torch.bfloat16,
-                              quantize_kv=quantize_kv, device="cuda")
-        cell = {"step": step_profile(forward_with_cache, p, cache, config)}
-        del cache
-        kw = {"param_dtype": torch.bfloat16, "quantize_kv": quantize_kv}
-        generate_on_device(p, prompt, config, 8, **kw)
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        tokens = generate_on_device(p, prompt, config, NEW_TOKENS,
-                                    **kw).cpu()
-        seconds = time.perf_counter() - start
-        cell["graph_tok_per_s"] = BATCH * NEW_TOKENS / seconds
-        # the call's wall time a token step (prefill and readback in it)
-        cell["graph_ms_per_step"] = seconds / NEW_TOKENS * 1e3
-        cell["graph_tokens_sha256"] = hashlib.sha256(
-            tokens.numpy().tobytes()).hexdigest()
-        cells[label] = cell
+        for name, sampling in (SAMPLED_CELLS.items() if args.sampled
+                               else [(None, {})]):
+            cells[label if name is None else f"{label}/{name}"] = \
+                profile_cell(p, prompt, config, quantize_kv, sampling)
     print(json.dumps({"label": args.label or args.tree,
                       "tree": os.path.abspath(args.tree),
+                      "sampled": SAMPLED_CELLS if args.sampled else None,
                       "card": smi.stdout.strip().splitlines()[0],
                       "batch": BATCH, "context": CONTEXT,
                       "new_tokens": NEW_TOKENS, "cells": cells}),

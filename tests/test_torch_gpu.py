@@ -2,8 +2,8 @@
 int8-weight matmul, the decode step's attention and cache write, the
 norm with its residual add, the gate and the batch forward's RoPE,
 forward and backward, the next-token loss, forward and backward, the
-clip's global norm and the AdamW update) against their plain
-versions, on the card, the
+clip's global norm, the AdamW update and the token pick) against their
+plain versions, on the card, the
 ring's block chain against the whole-sequence kernels, the
 graph-replayed decode loop against the host loop on one card and on
 NCCL meshes of one and two ranks, and the serving pod over NCCL.
@@ -47,6 +47,7 @@ from tpu_operator_libs_torch.kernels import kv_append as kmod
 from tpu_operator_libs_torch.kernels import rms_norm as rmod
 from tpu_operator_libs_torch.kernels import rope as ropemod
 from tpu_operator_libs_torch.kernels import swiglu as smod
+from tpu_operator_libs_torch.kernels import token_pick as pmod
 from tpu_operator_libs_torch.kernels.attention_fold import (
     attention_fold,
     attention_fold_reference,
@@ -1303,7 +1304,7 @@ def test_decode_step_launches_the_norm_and_the_gate(cuda):
                                     "rms_norm", "rms_norm_bwd", "swiglu",
                                     "swiglu_bwd", "rope", "rope_bwd",
                                     "adamw", "cross_entropy",
-                                    "global_norm"])
+                                    "global_norm", "token_pick"])
 def test_kernel_build_failure_raises(cuda, monkeypatch, module):
     """A kernel whose build fails raises on CUDA tensors: the wrapper
     never returns its plain version's result instead."""
@@ -1314,7 +1315,8 @@ def test_kernel_build_failure_raises(cuda, monkeypatch, module):
            "rope_kv_append": kmod, "int8_matmul": imod, "rms_norm": rmod,
            "rms_norm_bwd": rmod, "swiglu": smod, "swiglu_bwd": smod,
            "rope": ropemod, "rope_bwd": ropemod, "adamw": amod,
-           "cross_entropy": lossmod, "global_norm": nmod}[module]
+           "cross_entropy": lossmod, "global_norm": nmod,
+           "token_pick": pmod}[module]
     monkeypatch.setattr(mod, "_lib", None)
     monkeypatch.setattr(mod, "_library", broken)
     q, entry = decode_operands(cuda, 2, 1, 4, 2, 16, 8, torch.bfloat16,
@@ -1346,6 +1348,8 @@ def test_kernel_build_failure_raises(cuda, monkeypatch, module):
                 (2, 1), dtype=torch.int64, device=cuda))
         elif module == "global_norm":
             nmod.sum_of_squares([x], norm=True)
+        elif module == "token_pick":
+            pmod.pick(x, None, 0.0)
         elif module == "decode_attention":
             decode_attention(q, entry, 3)
         elif module == "kv_append":
@@ -1697,6 +1701,7 @@ def test_graph_decode_equals_host_loop(cuda, case):
     before_decode = (decode_attention.launches, rope_kv_append.launches,
                      kv_append.launches)
     before_blocks = (rmod.add_rms_norm.launches, smod.swiglu.launches)
+    before_picks = pmod.pick.launches
     dev = run(tdecode.generate_on_device)
     torch.cuda.synchronize()
     assert tdecode.generate_on_device.last_call["eager_steps"] == 1
@@ -1715,6 +1720,8 @@ def test_graph_decode_equals_host_loop(cuda, case):
             smod.swiglu.launches - before_blocks[1]) == (
                 new * (2 * DECODE_CFG.n_layers + 1),
                 new * DECODE_CFG.n_layers)
+    # every token is the token pick's: after prefill and after each step
+    assert pmod.pick.launches - before_picks == new
     if "return_logprobs" in kw:
         (host, host_lp), (dev, dev_lp) = host, dev
         assert torch.equal(host_lp, dev_lp)
@@ -1755,7 +1762,7 @@ def test_mesh_graph_decode_equals_host_loop(cuda, case, ranks):
             "rope_kv_append": new * DECODE_CFG.n_layers, "kv_append": 0,
             "rms_norm": new * (2 * DECODE_CFG.n_layers + 1),
             "swiglu": new * DECODE_CFG.n_layers, "rope": 0, "rope_bwd": 0,
-            "adamw": 0}
+            "adamw": 0, "token_pick": new}
         np.testing.assert_array_equal(rank["device"], rank["host"])
         np.testing.assert_array_equal(rank["device"], first["device"])
         if "device_logprobs" in rank:
@@ -1782,3 +1789,85 @@ def test_mesh_pod_over_nccl_drains_without_drops(cuda, ranks):
     for follower in pod[1:]:
         assert follower["follower_generations"] == generations
         assert follower["graph_launches"] == (new - 2) * generations
+
+
+@pytest.mark.parametrize("case", chip_smoke.PICK_CASES,
+                         ids=[c[0] for c in chip_smoke.PICK_CASES])
+def test_token_pick_matches_plain_version(cuda, case):
+    """Phase 3h's cases: greedy tokens bit-equal to ``pick_reference``,
+    sampled tokens equal but where either token's nucleus decision lies
+    within ``chip_smoke.NUCLEUS_EXEMPT`` of top_p, logprobs within
+    ``LOGPROB_RTOL`` and ``LOGPROB_ATOL`` (``pick_agreement`` raises
+    otherwise); one launch a pick."""
+    label, batch, vocab, dtype, settings, kind, draws, _ = case
+    before = pmod.pick.launches
+    _, _, exempt_rows, _, use = chip_smoke.pick_agreement(
+        label, batch, vocab, dtype, settings, kind, draws)
+    assert pmod.pick.launches - before == draws
+    assert use <= 1.0
+    assert exempt_rows < draws * batch  # the check held most rows
+
+
+@pytest.mark.parametrize("settings", [
+    chip_smoke.GREEDY, {**chip_smoke.PICK_SAMPLED, "want_logprob": True}],
+    ids=["greedy", "sampled_logprob"])
+def test_token_pick_graph_replay_equals_eager(cuda, settings):
+    """The pick captured in a CUDA graph and replayed gives the eager
+    launch's tokens and logprobs bit for bit, and so does a second
+    launch; the prefill's strided view too."""
+    gen = torch.Generator(device=cuda).manual_seed(51)
+    for kind in ("randn", "strided"):
+        x = chip_smoke.pick_logits(gen, 8, 2048, torch.bfloat16, kind)
+        u = torch.rand((8, 2048), generator=gen, device=cuda)
+        args = tuple(settings[k] for k in ("temperature", "top_k", "top_p",
+                                           "want_logprob"))
+        eager = pmod.pick(x, u, *args)
+        assert same_bits([t for t in pmod.pick(x, u, *args) if t is not None],
+                         [t for t in eager if t is not None])
+        assert chip_smoke.graph_replay_equal(
+            lambda: chip_smoke.flat_bytes(*pmod.pick(x, u, *args)),
+            chip_smoke.flat_bytes(*eager))
+
+
+def test_token_pick_sampled_draws_follow_the_generator_in_a_graph(cuda):
+    """``_pick_next`` captured with its generator registered: each replay
+    draws at the generator's next offsets, as eager picks from an equally
+    seeded generator do, token for token."""
+    gen = torch.Generator(device=cuda).manual_seed(52)
+    x = chip_smoke.pick_logits(gen, 8, 2048, torch.bfloat16, "randn")
+    eager_gen = torch.Generator(device=cuda).manual_seed(7)
+    want = [tdecode._pick_next(x, 1.0, 50, eager_gen, 0.9, True)
+            for _ in range(4)]
+    graph_gen = torch.Generator(device=cuda).manual_seed(7)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(graph_gen)
+    with torch.cuda.stream(side):
+        first = tdecode._pick_next(x, 1.0, 50, graph_gen, 0.9, True)
+        graph.capture_begin()
+        out = tdecode._pick_next(x, 1.0, 50, graph_gen, 0.9, True)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    got = [first]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        got.append(tuple(t.clone() for t in out))
+    for (tok, lp), (want_tok, want_lp) in zip(got, want):
+        assert torch.equal(tok, want_tok) and torch.equal(lp, want_lp)
+
+
+def test_token_pick_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((2, 16), device=cuda)
+    with pytest.raises(ValueError, match="u is on"):
+        pmod.pick(x, torch.rand((2, 16)), 1.0)  # noise on the CPU
+    with pytest.raises(ValueError, match="uniforms"):
+        pmod.pick(x, None, 1.0)
+    with pytest.raises(ValueError, match="top_k"):
+        pmod.pick(x, torch.rand((2, 16), device=cuda), 1.0, top_k=17)
+    # wider than a cluster's shared memory holds
+    wide = torch.zeros((1, pmod.WIDE_ELEMS + 8), dtype=torch.bfloat16,
+                       device=cuda)
+    with pytest.raises(ValueError, match="columns"):
+        pmod.pick(wide, None, 0.0)

@@ -310,7 +310,8 @@ def mesh_graph_decode_rank(mesh, case, config_kw, batch, prompt_len,
     (``case``: ``greedy_bf16``, ``greedy_int8_weights_int8_kv`` or
     ``sampled_int8_eos_logprobs``): both loops' tokens (and logprobs),
     this rank's device loop and its int8 kernel launches (and the decode
-    kernels', the norm's and the gate's) over the device loop. Every rank
+    kernels', the norm's, the gate's and the token pick's) over the device
+    loop. Every rank
     draws the same bf16 weights and prompt."""
     from tpu_operator_libs_torch.kernels import WRAPPERS
     from tpu_operator_libs_torch.kernels.int8_matmul import int8_matmul
@@ -343,7 +344,8 @@ def mesh_graph_decode_rank(mesh, case, config_kw, batch, prompt_len,
     host = run(llama_decode.generate)
     before = int8_matmul.launches
     decode_kernels = ("decode_attention", "rope_kv_append", "kv_append",
-                      "rms_norm", "swiglu", "rope", "rope_bwd", "adamw")
+                      "rms_norm", "swiglu", "rope", "rope_bwd", "adamw",
+                      "token_pick")
     before_decode = {name: WRAPPERS[name].launches for name in decode_kernels}
     dev = run(llama_decode.generate_on_device)
     torch.cuda.synchronize(device)

@@ -17,15 +17,17 @@ of preallocated buffers written in place, and :func:`forward_with_cache`
 returns the same list. Sampling draws Gumbel noise from an explicit
 ``torch.Generator`` instead of splitting a ``jax.random`` key; the host
 and device loops consume it in the same order, so they draw the same
-tokens. Five hand-written kernels do what XLA fuses on the TPU (none
+tokens. Six hand-written kernels do what XLA fuses on the TPU (none
 has a Pallas source): the int8-weight matmul (``kernels/int8_matmul.py``)
 reads the codes as int8; the cache write (``kernels/kv_append.py``'s
 ``rope_kv_append``) rotates the step's queries and keys and quantizes
 and writes the new keys and values at the step's position; the cached
 attention (``kernels/decode_attention.py``) reads the float or int8
 cache in place and folds its scales; the norm (``kernels/rms_norm.py``)
-takes every residual add with it, and the gate (``kernels/swiglu.py``)
-is one launch. On the CPU each runs its plain PyTorch version.
+takes every residual add with it, the gate (``kernels/swiglu.py``) is
+one launch, and so is the token pick (``kernels/token_pick.py``: greedy,
+or top-k, top-p and the draw, and the logprob). On the CPU each runs its
+plain PyTorch version.
 
 On the card, :func:`generate_on_device` replays one decode step from a
 captured CUDA graph where JAX runs a ``lax.scan``: the step reads and
@@ -64,6 +66,7 @@ from tpu_operator_libs_torch.kernels.kv_append import (  # noqa: F401
 )
 from tpu_operator_libs_torch.kernels.rms_norm import add_rms_norm
 from tpu_operator_libs_torch.kernels.swiglu import swiglu
+from tpu_operator_libs_torch.kernels.token_pick import pick
 from tpu_operator_libs_torch.parallel import (
     TP_SPLIT_DIM,
     any_rank,
@@ -205,16 +208,6 @@ def forward_with_cache(params, tokens, cache, start_pos, config,
     return gather_from_tp(_mm(h, params["lm_head"]), mesh), cache
 
 
-def _categorical(logits, generator):
-    """One draw per row from softmax(logits) by the Gumbel-max trick,
-    with noise from ``generator`` (the same recipe as
-    ``jax.random.categorical``, not the same bits)."""
-    u = torch.rand(logits.shape, generator=generator, dtype=torch.float32,
-                   device=logits.device)
-    u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
-
-
 def _pick_next(logits_last, temperature: float, top_k, generator,
                top_p=None, want_logprob: bool = False):
     """(B, vocab) logits -> ((B, 1) int64 next tokens, logprob or None).
@@ -222,31 +215,19 @@ def _pick_next(logits_last, temperature: float, top_k, generator,
     temperature 0 = greedy argmax (no generator needed). Otherwise
     sample from softmax(logits/temperature), optionally truncated to the
     ``top_k`` highest-logit tokens and then to the ``top_p`` nucleus
-    (ties at the nucleus boundary are kept)."""
-    if temperature <= 0.0:
-        choice = torch.argmax(logits_last, dim=-1)
-    else:
-        logits_f = logits_last.float()
-        if top_k is not None:
-            kth = torch.sort(logits_f, dim=-1).values[:, -top_k][:, None]
-            logits_f = logits_f.masked_fill(logits_f < kth, float("-inf"))
-        if top_p is not None:
-            # find the smallest kept probability p* (sorted cumulative
-            # mass exclusive of self < top_p), then mask below it
-            probs = torch.softmax(logits_f / temperature, dim=-1)
-            sp = torch.flip(torch.sort(probs, dim=-1).values, dims=[-1])
-            csum = torch.cumsum(sp, dim=-1)
-            kept = (csum - sp) < top_p  # first token always kept
-            pstar = torch.where(kept, sp, float("inf")) \
-                .amin(dim=-1, keepdim=True)
-            logits_f = logits_f.masked_fill(probs < pstar, float("-inf"))
-        choice = _categorical(logits_f / temperature, generator)
-    if not want_logprob:
-        return choice[:, None], None
-    # logprob of the chosen token under the MODEL's (untempered,
-    # untruncated) distribution — what serving APIs report
-    lp = torch.log_softmax(logits_last.float(), dim=-1)
-    return choice[:, None], torch.gather(lp, -1, choice[:, None])[:, 0]
+    (ties at the nucleus boundary are kept), by the Gumbel-max trick on
+    (B, vocab) uniforms drawn from ``generator`` (the recipe of
+    ``jax.random.categorical``, not its bits). One
+    :func:`~tpu_operator_libs_torch.kernels.token_pick.pick`: a kernel
+    launch on the card (behind the one ``torch.rand`` of a sampled pick),
+    its plain version on the CPU."""
+    u = None
+    if temperature > 0.0:
+        u = torch.rand(logits_last.shape, generator=generator,
+                       dtype=torch.float32, device=logits_last.device)
+    choice, lp = pick(logits_last, u, temperature, top_k, top_p,
+                      want_logprob)
+    return choice[:, None], lp
 
 
 def _prefill(step, params, prompt, cache, prefill_chunk):

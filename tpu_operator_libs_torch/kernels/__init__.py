@@ -2,9 +2,9 @@
 version: flash attention (forward, dK/dV, dQ), the ring-attention block
 fold, the decode path's int8-weight matmul, cache write and cached
 attention, the Llama block's RMSNorm (with the residual add), SwiGLU gate
-and the batch forward's RoPE, forward and backward, and the training
+and the batch forward's RoPE, forward and backward, the training
 step's next-token loss (forward and backward), the clip's global norm
-and the AdamW update."""
+and the AdamW update, and the decode step's token pick."""
 
 from tpu_operator_libs_torch.kernels import (
     adamw,
@@ -18,6 +18,7 @@ from tpu_operator_libs_torch.kernels import (
     rms_norm,
     rope,
     swiglu,
+    token_pick,
 )
 
 #: every CUDA source under ``csrc/`` that a kernel of the port is built from
@@ -26,13 +27,14 @@ SOURCES = flash_attention.SOURCES + (attention_fold.SOURCE,
                                      decode_attention.SOURCE,
                                      kv_append.SOURCE, rms_norm.SOURCE,
                                      swiglu.SOURCE, rope.SOURCE,
-                                     adamw.SOURCE, cross_entropy.SOURCE)
+                                     adamw.SOURCE, cross_entropy.SOURCE,
+                                     token_pick.SOURCE)
 #: every kernel's wrapper, by the name its launch count reports under
 WRAPPERS = {**flash_attention.WRAPPERS, **attention_fold.WRAPPERS,
             **int8_matmul.WRAPPERS, **decode_attention.WRAPPERS,
             **kv_append.WRAPPERS, **rms_norm.WRAPPERS, **swiglu.WRAPPERS,
             **rope.WRAPPERS, **adamw.WRAPPERS, **cross_entropy.WRAPPERS,
-            **global_norm.WRAPPERS}
+            **global_norm.WRAPPERS, **token_pick.WRAPPERS}
 
 
 def save_launches():
