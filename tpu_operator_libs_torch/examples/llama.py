@@ -51,7 +51,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from tpu_operator_libs_torch import resolve_device
+from tpu_operator_libs_torch import resolve_device, tracing
 from tpu_operator_libs_torch.convert import shard_params
 from tpu_operator_libs_torch.examples.ring_attention import ring_attention
 from tpu_operator_libs_torch.kernels.cross_entropy import cross_entropy
@@ -329,7 +329,9 @@ def make_train_step(config: LlamaConfig, *, device=None, mesh=None):
     batch's mean, the clip takes the norm of the whole model
     (``parallel.global_norm``), and AdamW runs on the shards. On a dp x
     sp mesh (``"ring"``) each rank's gradients are its sequence block's
-    part, summed over sp before the dp mean."""
+    part, summed over sp before the dp mean. A step is a ``train.step``
+    span (``tracing``) around ``train.forward``, ``train.backward`` and
+    ``train.update``, the last three device spans."""
     if config.total_steps < 0 or config.warmup_steps < 0:
         raise ValueError(
             f"total_steps={config.total_steps} / warmup_steps="
@@ -355,14 +357,17 @@ def make_train_step(config: LlamaConfig, *, device=None, mesh=None):
                       total_steps=config.total_steps, mesh=mesh)
 
     def train_step(state, tokens):
-        loss, grads = value_and_grad(next_token_loss, state["params"],
-                                     tokens.to(device), config, mesh)
-        if mesh is not None:
-            loss = mean_over_dp(loss, mesh)
-            grads = tree_map(
-                lambda g: mean_over_dp(sum_over(g, mesh, "sp"), mesh), grads)
-        params, opt = optimizer.update(grads, state["opt"],
-                                       state["params"])
+        with tracing.span("train.step"):
+            loss, grads = value_and_grad(next_token_loss, state["params"],
+                                         tokens.to(device), config, mesh)
+            if mesh is not None:
+                loss = mean_over_dp(loss, mesh)
+                grads = tree_map(
+                    lambda g: mean_over_dp(sum_over(g, mesh, "sp"), mesh),
+                    grads)
+            with tracing.span("train.update", device=device):
+                params, opt = optimizer.update(grads, state["opt"],
+                                               state["params"])
         return {"params": params, "opt": opt,
                 "step": state["step"] + 1}, loss
 

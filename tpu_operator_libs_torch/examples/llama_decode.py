@@ -47,12 +47,11 @@ seeded generator.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import torch
 import torch.distributed as dist
 
-from tpu_operator_libs_torch import resolve_device
+from tpu_operator_libs_torch import resolve_device, tracing
 from tpu_operator_libs_torch.kernels import WRAPPERS
 from tpu_operator_libs_torch.kernels.decode_attention import (
     _promoted,
@@ -275,9 +274,10 @@ def _start(params, prompt, config, max_new_tokens, param_dtype,
     device = params["embed"].device
     prompt = torch.as_tensor(prompt, device=device).long()
     batch, prompt_len = prompt.shape
-    cache = init_kv_cache(config, batch, prompt_len + max_new_tokens,
-                          param_dtype, quantize_kv=quantize_kv,
-                          device=device, mesh=mesh)
+    with tracing.span("decode.cache_alloc"):
+        cache = init_kv_cache(config, batch, prompt_len + max_new_tokens,
+                              param_dtype, quantize_kv=quantize_kv,
+                              device=device, mesh=mesh)
     return local_rows(prompt, mesh), cache
 
 
@@ -407,7 +407,7 @@ def _replay_steps(step, steps: int, generator, device, mesh=None) -> dict:
     graph, so every replay draws at the next offsets of the caller's
     generator, as the eager steps would. Capture is thread-local: other
     threads' work on the card does not break it. Returns once the
-    replays have run: the graph and its memory pool die with the call.
+    replays have run and the graph and its memory pool are freed.
 
     With a ``mesh`` every rank makes the same calls. Its tp collectives
     are NCCL kernels on the process group's stream, joined to the
@@ -427,35 +427,40 @@ def _replay_steps(step, steps: int, generator, device, mesh=None) -> dict:
     if generator is not None:
         graph.register_generator_state(generator)
     with torch.cuda.stream(side):
-        step()
+        with tracing.span("decode.eager_step"):
+            step()
         captured = {name: w.launches for name, w in WRAPPERS.items()}
-        start = time.perf_counter()
-        try:
-            # not torch.cuda.graph: it would also synchronise the card and
-            # empty the allocator's cache before every capture (0.5 s after
-            # the allocations of a kernel benchmark, on the H100)
-            graph.capture_begin(capture_error_mode="thread_local")
+        with tracing.span("decode.capture") as capture:
             try:
-                step()
-            finally:
-                graph.capture_end()
-        except Exception:
-            any_rank(True, mesh)  # the peers must not replay alone
-            raise
-        capture_ms = (time.perf_counter() - start) * 1e3
+                # not torch.cuda.graph: it would also synchronise the card
+                # and empty the allocator's cache before every capture
+                # (0.5 s after the allocations of a kernel benchmark, on
+                # the H100)
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    step()
+                finally:
+                    graph.capture_end()
+            except Exception:
+                any_rank(True, mesh)  # the peers must not replay alone
+                raise
     if any_rank(False, mesh):
         raise RuntimeError("a peer rank failed to capture its decode step")
-    main.wait_stream(side)
-    with torch.cuda.stream(main):
-        for _ in range(steps - 1):
-            graph.replay()
-    main.synchronize()
+    with tracing.span("decode.replay"):
+        main.wait_stream(side)
+        with torch.cuda.stream(main):
+            for _ in range(steps - 1):
+                graph.replay()
+    with tracing.span("decode.wait"):
+        main.synchronize()
+    with tracing.span("decode.release"):
+        del graph
     # the wrappers ran once, at capture: their counts stand for the first
     # replay, and each further replay launches the same kernels again
     for name, wrapper in WRAPPERS.items():
         wrapper.launches += (wrapper.launches - captured[name]) * (steps - 2)
     return {"eager_steps": 1, "graph_launches": steps - 1,
-            "capture_ms": capture_ms}
+            "capture_ms": (capture.end - capture.start) / 1e6}
 
 
 def generate_on_device(params, prompt, config, max_new_tokens: int,
@@ -484,57 +489,64 @@ def generate_on_device(params, prompt, config, max_new_tokens: int,
     gathered once, after the loop. ``generate_on_device.last_call``
     records this rank's eager steps, graph launches and capture
     milliseconds of the latest call."""
-    capture = _captures(params["embed"].device, mesh)
-    prompt, cache = _start(params, prompt, config, max_new_tokens,
-                           param_dtype, temperature, generator,
-                           quantize_kv, top_p, mesh)
-    batch, prompt_len = prompt.shape
-    device = prompt.device
-    _check_prefill_chunk(prefill_chunk)
-    if prefill_chunk is not None and prefill_chunk >= prompt_len:
-        prefill_chunk = None
+    with tracing.span("decode.generate"):
+        capture = _captures(params["embed"].device, mesh)
+        prompt, cache = _start(params, prompt, config, max_new_tokens,
+                               param_dtype, temperature, generator,
+                               quantize_kv, top_p, mesh)
+        batch, prompt_len = prompt.shape
+        device = prompt.device
+        _check_prefill_chunk(prefill_chunk)
+        if prefill_chunk is not None and prefill_chunk >= prompt_len:
+            prefill_chunk = None
 
-    def pick(logits):
-        return _pick_next(logits[:, -1, :], temperature, top_k, generator,
-                          top_p, return_logprobs)
+        def pick(logits):
+            return _pick_next(logits[:, -1, :], temperature, top_k,
+                              generator, top_p, return_logprobs)
 
-    out = torch.empty((batch, prompt_len + max_new_tokens),
-                      dtype=torch.long, device=device)
-    out[:, :prompt_len] = prompt
-    logprobs = (torch.empty((batch, max_new_tokens), dtype=torch.float32,
-                            device=device)
-                if return_logprobs else None)
+        out = torch.empty((batch, prompt_len + max_new_tokens),
+                          dtype=torch.long, device=device)
+        out[:, :prompt_len] = prompt
+        logprobs = (torch.empty((batch, max_new_tokens),
+                                dtype=torch.float32, device=device)
+                    if return_logprobs else None)
 
-    logits, cache = _prefill(
-        lambda p, t, c, pos: forward_with_cache(p, t, c, pos, config, mesh),
-        params, prompt, cache, prefill_chunk)
-    last, lp = pick(logits)
-    out[:, prompt_len] = last[:, 0]
-    if return_logprobs:
-        logprobs[:, 0] = lp
-    done = last[:, 0] == eos_id if eos_id is not None else None
-    state = _DecodeState(
-        last=last, done=done, out=out, logprobs=logprobs,
-        pos=torch.tensor(prompt_len, dtype=torch.long, device=device),
-        cache=cache)
+        with tracing.span("decode.prefill"):
+            logits, cache = _prefill(
+                lambda p, t, c, pos: forward_with_cache(p, t, c, pos, config,
+                                                        mesh),
+                params, prompt, cache, prefill_chunk)
+        with tracing.span("decode.first_pick"):
+            last, lp = pick(logits)
+            out[:, prompt_len] = last[:, 0]
+            if return_logprobs:
+                logprobs[:, 0] = lp
+            done = last[:, 0] == eos_id if eos_id is not None else None
+            state = _DecodeState(
+                last=last, done=done, out=out, logprobs=logprobs,
+                pos=torch.tensor(prompt_len, dtype=torch.long, device=device),
+                cache=cache)
 
-    def step():
-        _decode_step(state, params, config, mesh, pick, eos_id, prompt_len)
+        def step():
+            _decode_step(state, params, config, mesh, pick, eos_id,
+                         prompt_len)
 
-    steps = max_new_tokens - 1
-    if capture and steps > 1:
-        run = _replay_steps(step, steps,
-                            generator if temperature > 0.0 else None, device,
-                            mesh)
-    else:
-        for _ in range(steps):
-            step()
-        run = {"eager_steps": steps, "graph_launches": 0, "capture_ms": 0.0}
-    generate_on_device.last_call = run
-    out = gather_rows(out, mesh)
-    if return_logprobs:
-        return out, gather_rows(logprobs, mesh)
-    return out
+        steps = max_new_tokens - 1
+        if capture and steps > 1:
+            run = _replay_steps(step, steps,
+                                generator if temperature > 0.0 else None,
+                                device, mesh)
+        else:
+            with tracing.span("decode.steps"):
+                for _ in range(steps):
+                    step()
+            run = {"eager_steps": steps, "graph_launches": 0,
+                   "capture_ms": 0.0}
+        generate_on_device.last_call = run
+        out = gather_rows(out, mesh)
+        if return_logprobs:
+            return out, gather_rows(logprobs, mesh)
+        return out
 
 
 #: what this rank's latest call ran: eager steps, graph launches, capture

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpu_operator_libs_torch import resolve_device
+from tpu_operator_libs_torch import resolve_device, tracing
 from tpu_operator_libs_torch.parallel import any_rank, run_ranks, \
     spawn_context
 
@@ -91,7 +91,9 @@ class DecodeServer:
         #: this rank's decode steps replayed from a CUDA graph, over every
         #: generation (``generate_on_device.last_call``)
         self.graph_launches = 0
-        #: wall seconds of each served request, admission to readback
+        #: wall seconds of each served request, from the wait for the
+        #: dispatch lock to the readback (the ``serve.queue`` span's start
+        #: to the ``serve.readback`` span's end)
         self.request_seconds: "list[float]" = []
         self._lock = threading.Lock()
         # One generation on the device(s) at a time: the card (or the
@@ -142,41 +144,53 @@ class DecodeServer:
     def handle(self, prompt, generator=None, seed=None):
         """Serve one request of (B, prompt_len) tokens. ``generator`` (one
         rank) or ``seed`` (any number of ranks: each makes an equally
-        seeded generator) drives sampling when ``temperature`` > 0."""
+        seeded generator) drives sampling when ``temperature`` > 0. The
+        request is a ``serve.request`` span (``tracing``) around
+        ``serve.admit``, ``serve.queue``, the generation and
+        ``serve.readback``."""
         if self.mesh is not None and generator is not None:
             raise ValueError("a pod of several ranks samples from a seed, "
                              "not a generator")
-        if seed is not None and self.mesh is None:
-            generator = torch.Generator(device=self.device).manual_seed(seed)
-        if not self.endpoint.try_begin():
-            with self._lock:
-                self.parked += 1
-            return None
-        start = time.perf_counter()
-        try:
-            with self._dispatch_lock:
-                if self.mesh is None:
-                    out = self._generate(prompt, generator)
-                else:
-                    go, out = (False, None) if self._stopped else \
-                        self._round(_GENERATE, np.asarray(prompt), seed)
-                    if not go:
-                        # the pod is stopping: this generation is lost
-                        self.endpoint.kill()
-                        return None
-                tokens = out.cpu().numpy()  # the one readback
-            with self._lock:
-                self.request_seconds.append(time.perf_counter() - start)
-            return tokens
-        finally:
+        with tracing.span("serve.request", request=True):
+            if seed is not None and self.mesh is None:
+                generator = torch.Generator(
+                    device=self.device).manual_seed(seed)
+            with tracing.span("serve.admit"):
+                admitted = self.endpoint.try_begin()
+            if not admitted:
+                with self._lock:
+                    self.parked += 1
+                return None
             try:
-                self.endpoint.finish()
-            except RuntimeError:
-                # the endpoint was kill()ed (eviction) while this
-                # generation ran: its loss is already counted in
-                # ``dropped``, and the finish of that dead epoch must
-                # not crash the worker thread during shutdown
-                pass
+                with tracing.span("serve.queue") as queued:
+                    self._dispatch_lock.acquire()
+                try:
+                    if self.mesh is None:
+                        out = self._generate(prompt, generator)
+                    else:
+                        go, out = (False, None) if self._stopped else \
+                            self._round(_GENERATE, np.asarray(prompt), seed)
+                        if not go:
+                            # the pod is stopping: this generation is lost
+                            self.endpoint.kill()
+                            return None
+                    with tracing.span("serve.readback") as readback:
+                        tokens = out.cpu().numpy()  # the one readback
+                finally:
+                    self._dispatch_lock.release()
+                with self._lock:
+                    self.request_seconds.append(
+                        (readback.end - queued.start) / 1e9)
+                return tokens
+            finally:
+                try:
+                    self.endpoint.finish()
+                except RuntimeError:
+                    # the endpoint was kill()ed (eviction) while this
+                    # generation ran: its loss is already counted in
+                    # ``dropped``, and the finish of that dead epoch must
+                    # not crash the worker thread during shutdown
+                    pass
 
     def serve(self) -> int:
         """A follower rank's loop: take rounds until rank 0 says stop (or

@@ -40,6 +40,7 @@ import math
 
 import torch
 
+from tpu_operator_libs_torch import tracing
 from tpu_operator_libs_torch.kernels.adamw import (  # noqa: F401
     B1,  # optax.adamw's defaults, which make_train_step takes as they are
     B2,
@@ -70,13 +71,18 @@ def tree_leaves(tree) -> "list[torch.Tensor]":
 def value_and_grad(loss_fn, params, *args):
     """(loss, grads) of ``loss_fn(params, *args)``, a scalar, with
     respect to every leaf of ``params``; grads have the params'
-    nesting and dtypes, and both are detached."""
+    nesting and dtypes, and both are detached. The loss is the
+    ``train.forward`` span and the gradients the ``train.backward`` span
+    (``tracing``), device spans on the parameters' device."""
     with torch.enable_grad():
         leaves = tree_leaves(params)
         inputs = [leaf.detach().requires_grad_() for leaf in leaves]
+        device = inputs[0].device
         it = iter(inputs)
-        loss = loss_fn(tree_map(lambda _: next(it), params), *args)
-        grads = iter(torch.autograd.grad(loss, inputs))
+        with tracing.span("train.forward", device=device):
+            loss = loss_fn(tree_map(lambda _: next(it), params), *args)
+        with tracing.span("train.backward", device=device):
+            grads = iter(torch.autograd.grad(loss, inputs))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
 
