@@ -509,6 +509,22 @@ def phase_build():
                                                 + int(mf.group(2)) * 64 * 4)},
                     serialized))
                 continue
+            ms = re.search(r"\d(int8_matmul_streamk_kernel)ILi(\d)ELi(\d)E",
+                           block)
+            if ms is not None:
+                rows, boxes = 8 * int(ms.group(2)), int(ms.group(3))
+                # 4 stages of 16 KB of codes and the x boxes of their
+                # 16384 / (128 boxes) rows of K, from a 1024-byte boundary
+                stage_k = 16384 // (128 * boxes)
+                entries.append(ptxas_entry(
+                    block, ms.group(1), torch.bfloat16, None,
+                    {"design": f"stream_k: {rows} x {128 * boxes} tiles, "
+                               "TMA ring, persistent grid, tickets by "
+                               "tile and warp",
+                     "dynamic_smem_bytes": 1024 + 4 * (
+                         16384 + stage_k // 64 * rows * 128)},
+                    serialized))
+                continue
             mm = re.search(r"\d(int8_matmul_mma_kernel)ILb([01])ELi(\d)E",
                            block)
             if mm is not None:
@@ -1499,7 +1515,8 @@ def int8_limit(ref, pre_scale, dtype):
 #: of an H100), ragged prefill M (64, 100, 500), an N that TMA cannot
 #: take at M 512, and K and N that leave the wgmma design a ragged last
 #: tile (TMA's zero fill past K, a partial code box and masked columns
-#: past N)
+#: past N); and the served DeepSeek-7B's decode products at 16 rows (the
+#: benchmark's chat cell: q, k, v and o, gate and up, down, the head)
 INT8_SHAPES = [
     ("decode_qkvo_lm_head", 8, 2048, 2048, torch.bfloat16, 200),
     ("decode_gate_up", 8, 2048, 8192, torch.bfloat16, 200),
@@ -1526,6 +1543,10 @@ INT8_SHAPES = [
     ("prefill_unaligned_n", 512, 2048, 1000, torch.bfloat16, 20),
     ("prefill_k_ragged_tile", 512, 2040, 2048, torch.bfloat16, 50),
     ("prefill_n_ragged_tile", 512, 2048, 1040, torch.bfloat16, 50),
+    ("chat_qkvo", 16, 4096, 4096, torch.bfloat16, 200),
+    ("chat_gate_up", 16, 4096, 11008, torch.bfloat16, 100),
+    ("chat_down", 16, 11008, 4096, torch.bfloat16, 100),
+    ("chat_head", 16, 4096, 102400, torch.bfloat16, 20),
 ]
 
 
@@ -1611,8 +1632,9 @@ def check_int8_shape(label, m, k, n, dtype, iters, card):
     row = {"phase": "int8_matmul", "name": "int8_matmul", "shape": label,
            "M": m, "K": k, "N": n, "dtype": str(dtype).replace("torch.", ""),
            "design": p.design,
-           "plan": {"block_m": p.block_m, "splits": p.splits,
-                    "k_per_split": p.k_per_split},
+           "plan": {"block_m": p.block_m, "block_n": p.block_n,
+                    "splits": p.splits, "k_per_split": p.k_per_split,
+                    "blocks": p.blocks},
            "cuda_launches_per_call": launches,
            "max_abs_err": err.max().item(),
            "limit": "atol + rtol * (|ref| + |round(x @ q) * s|)",
@@ -4546,10 +4568,12 @@ def int8_entry(rows, serving, multi, card):
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "library": main_row["library"],
-        "design": "wgmma over converted code tiles (bf16 prefill); "
-                  "mma.sync with the weight as A (the rest of bf16); f32 "
-                  "FMAs on the CUDA cores (f32); split-K added in split "
-                  "order inside the launch",
+        "design": "wgmma over converted code tiles (bf16 prefill); a "
+                  "persistent stream-K grid fed by TMA, mma.sync with the "
+                  "weight as A (the rest of bf16 with TMA's alignment); "
+                  "mma.sync over a cp.async ring (unaligned bf16); f32 "
+                  "FMAs on the CUDA cores (f32); cut tiles added in a "
+                  "fixed order inside the launch",
         "shape": "M=8 K=2048 N=2048 bf16 x int8 (decode at the bench "
                  "shape: wq, wk, wv, wo, lm_head)",
         # one bench-shape decode step's 29 products (wq, wk, wv, wo of 4

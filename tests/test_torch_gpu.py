@@ -650,6 +650,73 @@ def test_int8_matmul_graph_replay_equals_eager(cuda, m, k, n, dtype):
     assert torch.equal(int8_matmul(x, q, s), eager)
 
 
+#: (K, N) of the served DeepSeek-7B's decode products (the benchmark's
+#: chat cell): q, k, v and o; gate and up; down; the head
+CHAT_PRODUCTS = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 102400)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17, 32, 63])
+@pytest.mark.parametrize("k,n", CHAT_PRODUCTS,
+                         ids=["qkvo", "gate_up", "down", "head"])
+def test_int8_matmul_stream_k_at_the_chat_products(cuda, m, k, n):
+    """The stream-K design at the chat cell's products and rows around
+    its 16 (each row tile of 8, 16 and 32, and two of 32): within the
+    plain version's limit, two launches bit-equal, a graph's replays
+    bit-equal to the eager launch (the cut tiles' counters back at 0
+    after each), and every launch counted under its design."""
+    x, q, s = int8_operands(cuda, m, k, n, torch.bfloat16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert imod.plan(m, k, n, torch.bfloat16, sms).design == "stream_k"
+    before = int8_matmul.launches_by_design.get("stream_k", 0)
+    got = int8_matmul(x, q, s)
+    again = int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches_by_design["stream_k"] == before + 2
+    assert torch.equal(got, again)
+    want = int8_matmul_reference(x, q, s)
+    pre_scale = (x @ q.to(torch.bfloat16)).float().abs() \
+        * s.to(torch.bfloat16).float()
+    rtol, atol = TOL[torch.bfloat16]
+    limit = atol + rtol * (want.float().abs() + pre_scale)
+    assert ((got.float() - want.float()).abs() <= limit).all()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        int8_matmul(x, q, s)  # the stream's first call is eager
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            out = int8_matmul(x, q, s)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
+    assert all(int(c.abs().sum()) == 0 for c in imod._counters.values())
+
+
+def test_int8_matmul_unaligned_views_take_the_cp_async_design(cuda):
+    """TMA takes 16-byte aligned bases: codes viewed from an odd offset
+    run the cp.async design of the same shape, within the limit."""
+    x, q, s = int8_operands(cuda, 16, 4097, 4096, torch.bfloat16)
+    x = x[:, :4096].contiguous()
+    q_view = torch.as_strided(q.view(-1)[1:], (4096, 4096), (4096, 1))
+    assert q_view.data_ptr() % 16 and q_view.is_contiguous()
+    before = int8_matmul.launches_by_design.get("mma_sync", 0)
+    got = int8_matmul(x, q_view, s)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches_by_design["mma_sync"] == before + 1
+    want = int8_matmul_reference(x, q_view, s)
+    pre_scale = (x @ q_view.to(torch.bfloat16)).float().abs() \
+        * s.to(torch.bfloat16).float()
+    rtol, atol = TOL[torch.bfloat16]
+    limit = atol + rtol * (want.float().abs() + pre_scale)
+    assert ((got.float() - want.float()).abs() <= limit).all()
+
+
 #: (B, T, n_heads, n_kv_heads, S, start_pos, head_dim, q dtype, cache
 #: dtype) of the decode kernels: chip_smoke.py phase 3e's dtype pairs and
 #: shapes at B 2: decode at the last and a middle position, a prefill

@@ -129,10 +129,23 @@ H100_SMS = 132
 def check_plan(p, m, k, n, sms):
     """The invariants of a plan: the split-K designs cover K once with
     whole ring stages within one wave of blocks; the wgmma design takes
-    all of K in 64- or 128-row tiles."""
+    all of K in 64- or 128-row tiles; the stream-K design's blocks take
+    every (tile, stage) unit once, in contiguous runs in block order,
+    equal to within one stage, within one wave."""
     if p.design == "wgmma":
         assert (p.splits, p.k_per_split) == (1, k)
         assert p.block_m in (64, 128)
+        return
+    if p.design == "stream_k":
+        assert (p.splits, p.k_per_split) == (1, k)
+        assert p.block_m == kmod.stream_k_rows(m)
+        assert p.block_n in (128, 256)
+        units = kmod.stream_k_units(m, k, n, p.block_m, p.block_n)
+        ranges = kmod.stream_ranges(p, m, k, n)
+        assert [u for r in ranges for u in r] == list(range(units))
+        assert all(len(r) >= 1 for r in ranges)
+        assert max(map(len, ranges)) - min(map(len, ranges)) <= 1
+        assert 1 <= p.blocks <= min(sms, units)
         return
     assert p.block_m == {"mma_sync": kmod.mma_rows(m),
                          "cuda_cores": kmod.m_tile(m)}[p.design]
@@ -156,42 +169,69 @@ class TestSplitPlan:
         for dtype in (torch.bfloat16, torch.float32):
             check_plan(plan(m, k, n, dtype, sms), m, k, n, sms)
 
-    def test_decode_shapes_split_k_on_an_h100(self):
+    @pytest.mark.parametrize("m,k,n,dtype,want", [
         # the bench shape's decode products have 16 or 64 column strips
-        # for 132 SMs: K is split; prefill takes wgmma
-        bf16 = torch.bfloat16
-        assert plan(8, 2048, 2048, bf16, 132) == Plan("mma_sync", 8, 8, 256)
-        assert plan(8, 2048, 8192, bf16, 132) == Plan("mma_sync", 8, 2, 1024)
-        assert plan(8, 8192, 2048, bf16, 132) == Plan("mma_sync", 8, 8, 1024)
-        assert plan(512, 2048, 2048, bf16, 132) == Plan("wgmma", 64, 1, 2048)
-        assert plan(8, 2048, 2048, torch.float32, 132) \
-            == Plan("cuda_cores", 8, 8, 256)
+        # for 132 SMs: 128 blocks, each a tile's run of K
+        (8, 2048, 2048, torch.bfloat16,
+         Plan("stream_k", 8, 1, 2048, 128, 128)),
+        (8, 2048, 8192, torch.bfloat16,
+         Plan("stream_k", 8, 1, 2048, 128, 128)),
+        (8, 8192, 2048, torch.bfloat16,
+         Plan("stream_k", 8, 1, 8192, 128, 128)),
+        # the chat cell's products at 16 rows: q, k, v, o and down split
+        # K over 4 and 8 blocks a 128-column tile; gate and up take
+        # 256-column tiles, 3 blocks each; the head streams 800 tiles
+        # over every SM
+        (16, 4096, 4096, torch.bfloat16,
+         Plan("stream_k", 16, 1, 4096, 128, 128)),
+        (16, 4096, 11008, torch.bfloat16,
+         Plan("stream_k", 16, 1, 4096, 129, 256)),
+        (16, 11008, 4096, torch.bfloat16,
+         Plan("stream_k", 16, 1, 11008, 128, 128)),
+        (16, 4096, 102400, torch.bfloat16,
+         Plan("stream_k", 16, 1, 4096, 132, 256)),
+        # codes TMA cannot take still split K over the cp.async ring
+        (8, 2048, 1000, torch.bfloat16, Plan("mma_sync", 8, 16, 128)),
+        # prefill takes wgmma, f32 the CUDA cores
+        (512, 2048, 2048, torch.bfloat16, Plan("wgmma", 64, 1, 2048)),
+        (8, 2048, 2048, torch.float32, Plan("cuda_cores", 8, 8, 256))],
+        ids=["bench_qkvo", "bench_gate_up", "bench_down", "chat_qkvo",
+             "chat_gate_up", "chat_down", "chat_head", "unaligned_n",
+             "prefill", "f32"])
+    def test_decode_shapes_split_k_on_an_h100(self, m, k, n, dtype, want):
+        p = plan(m, k, n, dtype, 132)
+        assert p == want
+        check_plan(p, m, k, n, 132)
 
     @pytest.mark.parametrize("m,want", [(1, 1), (2, 2), (3, 4), (4, 4),
                                         (5, 8), (512, 8)])
     def test_m_tile(self, m, want):
         assert kmod.m_tile(m) == want
 
-    @pytest.mark.parametrize("m,want", [(1, 8), (8, 8), (9, 32), (63, 32),
-                                        (512, 32)])
-    def test_mma_rows(self, m, want):
-        # decode fills one mma's n of 8; more rows share each converted
-        # code among 32
+    @pytest.mark.parametrize("m,want,tile", [
+        (1, 8, 8), (8, 8, 8), (9, 32, 16), (16, 32, 16), (17, 32, 32),
+        (32, 32, 32), (63, 32, 32), (512, 32, 32)])
+    def test_mma_rows(self, m, want, tile):
+        # the cp.async design: decode fills one mma's n of 8, more rows
+        # share each converted code among 32; the stream-K design's tile
+        # is the fewest of 8, 16 and 32 rows that hold m, so 16 rows run
+        # 2 mma a converted fragment, not 4
         assert kmod.mma_rows(m) == want
+        assert kmod.stream_k_rows(m) == tile
 
 
 class TestPlan:
     @pytest.mark.parametrize("m,n,want", [
-        (1, 2048, "mma_sync"), (8, 2048, "mma_sync"),
-        (62, 8192, "mma_sync"), (63, 8192, "mma_sync"),
+        (1, 2048, "stream_k"), (8, 2048, "stream_k"),
+        (62, 8192, "stream_k"), (63, 8192, "stream_k"),
         (64, 8192, "wgmma"), (65, 8192, "wgmma"),
         # at N 2048 the 64-row tiles fill a quarter of 132 SMs from 129
         # rows on (3 x 16 of them)
-        (64, 2048, "mma_sync"), (100, 2048, "mma_sync"),
-        (128, 2048, "mma_sync"), (129, 2048, "wgmma"),
+        (64, 2048, "stream_k"), (100, 2048, "stream_k"),
+        (128, 2048, "stream_k"), (129, 2048, "wgmma"),
         (500, 2048, "wgmma"), (512, 2048, "wgmma"), (4096, 2048, "wgmma"),
         # never below WGMMA_MIN_M rows, however wide
-        (32, 65536, "mma_sync")])
+        (32, 65536, "stream_k")])
     def test_bf16_takes_wgmma_from_the_threshold(self, m, n, want):
         p = plan(m, 2048, n, torch.bfloat16, H100_SMS)
         assert p.design == want
@@ -201,7 +241,7 @@ class TestPlan:
         # a quarter of 66 SMs is 16.5 tiles: 2 x 16 at N 2048
         assert plan(65, 2048, 2048, torch.bfloat16, 66).design == "wgmma"
         assert plan(64, 2048, 2048, torch.bfloat16, 66).design \
-            == "mma_sync"
+            == "stream_k"
 
     @pytest.mark.parametrize("m", [1, 8, 64, 512])
     def test_f32_stays_on_the_cuda_cores(self, m):
@@ -251,12 +291,15 @@ class TestPlan:
             assert p.design == "cuda_cores"
         else:
             assert p.design == ("wgmma" if m >= kmod.WGMMA_MIN_M and aligned
-                                and 4 * tiles >= H100_SMS else "mma_sync")
+                                and 4 * tiles >= H100_SMS else "stream_k"
+                                if aligned else "mma_sync")
 
     def test_a_function_of_the_shape_dtype_and_card_alone(self):
         args = (8, 2048, 2048, torch.bfloat16, H100_SMS)
         assert plan(*args) == plan(*args)
         assert plan(8, 2048, 2048, torch.bfloat16, 66) \
+            == Plan("stream_k", 8, 1, 2048, 64, 128)
+        assert kmod.split_plan(8, 2048, 2048, torch.bfloat16, 66) \
             == Plan("mma_sync", 8, 4, 512)
 
 
@@ -323,6 +366,46 @@ def cuda_core_sums(x, q, p):
     return total
 
 
+def stream_k_sums(x, q, p):
+    """The stream-K design's f32 sums of x @ q in the kernel's order
+    (``csrc/int8_matmul.cu::int8_matmul_streamk_kernel``), in numpy:
+    ``p`` its plan. Each block walks its run of (tile, stage) units in
+    order, adding each 16-row k-step of a stage to its f32 sums of the
+    tile as one mma (the 16 exact products summed, one rounding, as in
+    :func:`mma_sums`); a tile cut between blocks is each block's sums
+    added in block order."""
+    m, k = x.shape
+    n = q.shape[1]
+    stage_k = kmod.stream_k_stage_k(p.block_n)
+    stages = -(-k // stage_k)
+    m_tiles = -(-m // p.block_m)
+    x64 = x.astype(np.float64)
+    q64 = q.astype(np.float64)
+    parts = {}  # tile -> {block: its f32 sums}
+    for b, units in enumerate(kmod.stream_ranges(p, m, k, n)):
+        for u in units:
+            tile, stage = divmod(u, stages)
+            n_tile, m_tile = divmod(tile, m_tiles)
+            rows = slice(m_tile * p.block_m, min(m, (m_tile + 1) * p.block_m))
+            cols = slice(n_tile * p.block_n, min(n, (n_tile + 1) * p.block_n))
+            acc = parts.setdefault(tile, {}).setdefault(
+                b, np.zeros((rows.stop - rows.start, cols.stop - cols.start),
+                            np.float32))
+            for r0 in range(stage * stage_k, min(k, (stage + 1) * stage_k),
+                            16):
+                acc += (x64[rows, r0:r0 + 16] @ q64[r0:r0 + 16, cols]
+                        ).astype(np.float32)
+    out = np.zeros((m, n), np.float32)
+    for tile, by_block in parts.items():
+        n_tile, m_tile = divmod(tile, m_tiles)
+        total = None
+        for b in sorted(by_block):
+            total = by_block[b] if total is None else total + by_block[b]
+        out[m_tile * p.block_m:(m_tile + 1) * p.block_m,
+            n_tile * p.block_n:(n_tile + 1) * p.block_n] = total
+    return out
+
+
 def epilogue(sums, s, dtype):
     """The kernels' two roundings: the f32 sum to x's dtype, then its
     product with the scale rounded to x's dtype."""
@@ -343,7 +426,8 @@ class TestSumOrder:
     def test_mma_sync_bf16_matches_jax_within_one_ulp(self, m, k, n, sms):
         x, q, s = operands(m, k, n, seed=3)
         xb = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
-        p = plan(m, k, n, torch.bfloat16, sms)
+        # the cp.async design's plan, which unaligned shapes take
+        p = kmod.split_plan(m, k, n, torch.bfloat16, sms)
         assert p.design == "mma_sync"
         got = epilogue(mma_sums(xb, q, p), s, torch.bfloat16)
         want = jax_mm(x, q, s, jnp.bfloat16)
@@ -360,7 +444,7 @@ class TestSumOrder:
         # int8_limit, an rtol for each rounding, and so is this
         x, q, s = operands(m, k, n, seed=3)
         xb = torch.from_numpy(x).to(torch.bfloat16)
-        p = plan(m, k, n, torch.bfloat16, H100_SMS)
+        p = kmod.split_plan(m, k, n, torch.bfloat16, H100_SMS)
         assert (p.design, p.splits) == ("mma_sync", splits)
         got = epilogue(mma_sums(xb.float().numpy(), q, p), s,
                        torch.bfloat16)
@@ -404,6 +488,97 @@ class TestSumOrder:
         for part in parts[1:]:
             in_order = in_order + part
         assert np.array_equal(cuda_core_sums(x, q, p), in_order)
+        reverse = parts[-1]
+        for part in parts[-2::-1]:
+            reverse = reverse + part
+        assert not np.array_equal(in_order, reverse)
+
+
+class TestStreamK:
+    """The stream-K design's plan and its sums' order (the kernel itself
+    runs on the card: ``tests/test_torch_gpu.py``)."""
+
+    #: (M, K, N) of the chat cell's products at 16 rows
+    CHAT = [(16, 4096, 4096), (16, 4096, 11008), (16, 11008, 4096),
+            (16, 4096, 102400)]
+
+    @pytest.mark.parametrize("m,k,n", CHAT,
+                             ids=["qkvo", "gate_up", "down", "head"])
+    def test_chat_products_fill_the_card(self, m, k, n):
+        p = plan(m, k, n, torch.bfloat16, H100_SMS)
+        assert p.design == "stream_k" and p.block_m == 16
+        check_plan(p, m, k, n, H100_SMS)
+        # no more than 4 of the 132 SMs idle, every block within one
+        # stage of every other
+        assert p.blocks >= H100_SMS - 4
+        assert plan(m, k, n, torch.bfloat16, H100_SMS) == p
+
+    @pytest.mark.parametrize("m,k,n", [
+        (8, 2048, 2048), (16, 4096, 4096), (16, 11008, 4096),
+        (63, 4096, 4096), (4, 1024, 2048), (3, 1960, 256)])
+    def test_aligned_grids_give_every_block_one_tile(self, m, k, n):
+        # where the tiles are few, each block's run lies in one tile, so
+        # no block takes two tickets
+        p = plan(m, k, n, torch.bfloat16, H100_SMS)
+        stages = -(-k // kmod.stream_k_stage_k(p.block_n))
+        for r in kmod.stream_ranges(p, m, k, n):
+            assert r[0] // stages == r[-1] // stages
+
+    @pytest.mark.parametrize("sms", [1, 5, 66, 132, 200])
+    @pytest.mark.parametrize("m,k,n", [
+        (1, 8, 16), (16, 4096, 11008), (16, 4096, 102400), (9, 1000, 1040),
+        (40, 2048, 2048), (63, 2048, 8192)])
+    def test_runs_cover_every_unit_once(self, m, k, n, sms):
+        p = plan(m, k, n, torch.bfloat16, sms)
+        assert p.design == "stream_k"
+        check_plan(p, m, k, n, sms)
+        assert p == plan(m, k, n, torch.bfloat16, sms)
+
+    def test_a_wide_product_streams_its_tiles_over_every_sm(self):
+        # 400 tiles of 256 columns for 132 SMs: runs of 193-194 stages,
+        # each cut tile's blocks in one contiguous run of blocks
+        p = plan(16, 4096, 102400, torch.bfloat16, H100_SMS)
+        ranges = kmod.stream_ranges(p, 16, 4096, 102400)
+        assert sorted({len(r) for r in ranges}) == [193, 194]
+        stages = 4096 // kmod.stream_k_stage_k(256)
+        cut = {r[0] // stages for r in ranges if r[0] % stages}
+        assert len(cut) == sum(1 for r in ranges if r[0] % stages)
+
+    @pytest.mark.parametrize("m,k,n,sms", [
+        (8, 256, 128, H100_SMS),    # 2 blocks of one stage
+        (16, 512, 256, H100_SMS),   # aligned: 4 blocks a tile
+        (3, 200, 96, H100_SMS),     # ragged K and N
+        (40, 256, 256, H100_SMS),   # two row tiles
+        (16, 512, 1024, 5),         # 256 columns, cut tiles
+        (9, 512, 384, 3)],          # cut tiles, a partial 256 tile
+        ids=["two_blocks", "aligned", "ragged", "two_row_tiles",
+             "cut_tiles", "cut_partial_tile"])
+    def test_bf16_matches_jax_within_one_ulp(self, m, k, n, sms):
+        x, q, s = operands(m, k, n, seed=6)
+        xb = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+        p = plan(m, k, n, torch.bfloat16, sms)
+        assert p.design == "stream_k"
+        got = epilogue(stream_k_sums(xb, q, p), s, torch.bfloat16)
+        want = jax_mm(x, q, s, jnp.bfloat16)
+        np.testing.assert_allclose(got, want, rtol=BF16_RTOL, atol=0)
+
+    def test_cut_tiles_add_in_block_order(self):
+        # a cut tile's sums are its blocks' own sums added in block
+        # order, whichever warp draws the last ticket: the emulation
+        # matches that bit for bit, and an order that followed the
+        # blocks' arrival (here the reverse) rounds differently
+        m, k, n = 8, 2048, 128
+        x, q, _ = operands(m, k, n, seed=7)
+        p = plan(m, k, n, torch.bfloat16, H100_SMS)
+        assert (p.block_n, p.blocks) == (128, 16)
+        xb = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+        one = Plan("stream_k", p.block_m, 1, 128, 1, 128)
+        parts = [stream_k_sums(xb[:, k0:k0 + 128], q[k0:k0 + 128], one)
+                 for k0 in range(0, k, 128)]
+        in_order = parts[0]
+        for part in parts[1:]:
+            in_order = in_order + part
+        assert np.array_equal(stream_k_sums(xb, q, p), in_order)
         reverse = parts[-1]
         for part in parts[-2::-1]:
             reverse = reverse + part

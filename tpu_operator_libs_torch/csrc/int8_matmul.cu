@@ -14,19 +14,20 @@
 // bf16 x bf16 product is exact in f32, so every product is exact and only
 // the sums round.
 //
-// Bound: at decode (M = batch, 2 to 8) bytes. The weight's K*N int8 bytes
+// Bound: at decode (M = batch, 2 to 16) bytes. The weight's K*N int8 bytes
 // dominate `K*N + 2*M*K + 2*M*N + 4*N`; at 3.35 TB/s a (2048, 8192)
 // weight takes 5.0 us. At prefill (M = 512) operations: 2*M*K*N FLOPs at
 // 989 TFLOP/s on the tensor cores (4.3 us for (2048, 2048)).
 //
-// Three kernels; the wrapper's plan (tpu_operator_libs_torch/kernels/
+// Four kernels; the wrapper's plan (tpu_operator_libs_torch/kernels/
 // int8_matmul.py::plan, a function of the shape, x's dtype and the SM
 // count alone) picks one and the C entry checks what it was given:
 //
 // 1. int8_matmul_wgmma_kernel, prefill: bf16 x with M >= 64, N % 16 == 0
 //    and K % 8 == 0 (TMA's 16-byte row strides), and 64-row output tiles
 //    for at least a quarter of the SMs (it does not split K, so with
-//    fewer the split-K kernel 2 is faster). One block of 288 threads
+//    fewer the split-K kernel 2 measured faster, which kernel 4 now
+//    replaces there). One block of 288 threads
 //    per (kBM = 64 or 128 rows) x 128-column output tile walks K in steps
 //    of 64; no split-K. A producer warp stages the x tile (K-major, 128-byte
 //    swizzle) and the int8 code tile (64 x 128, 8 KB, row-major) by TMA
@@ -41,9 +42,10 @@
 //    serialises the wgmma). At kBM = 128 each warpgroup owns 64 rows and
 //    all 128 columns (m64n128k16); at kBM = 64, all 64 rows and 64 columns
 //    each (m64n64k16). f32 sums stay in registers.
-// 2. int8_matmul_mma_kernel, decode: the rest of bf16 x (decode, short
-//    prefill, unaligned shapes). 256 threads own 128 columns and 8 rows of x (32 above 8
-//    rows, each converted code then serving 4 mma), and run the product
+// 2. int8_matmul_mma_kernel: bf16 x whose shape or bases TMA cannot take
+//    (N % 16 != 0, K % 8 != 0, or a view from an unaligned offset). 256
+//    threads own 128 columns and 8 rows of x (32 above 8 rows, each
+//    converted code then serving 4 mma), and run the product
 //    transposed on the tensor cores, out^T = q^T x^T with mma.sync
 //    m16n8k16: the weight is the A operand, so a decode batch of up to 8
 //    rows fills the instruction's n. The block's slice of K streams
@@ -61,14 +63,31 @@
 //    by up to 8 rows of x (kM) for 2 of every 64 rows of K, over a ring
 //    of 64-row stages; codes become f32 by a byte permute and one add
 //    (exact).
+// 4. int8_matmul_streamk_kernel, decode: the rest of bf16 x (decode and
+//    short prefill with TMA's alignment). A persistent grid of at most one
+//    block an SM cuts the product's (tile, stage) units into equal
+//    contiguous runs, one a block, so every SM streams the same weight
+//    bytes to within one 16 KB stage; where the tiles are few, the grid
+//    is a multiple of them and every run lies in one tile (the plan's
+//    choice). A tile is 8, 16 or 32 rows of x (the fewest that hold M) by
+//    128 columns, or 256 where the 128-column grid does not fill the card
+//    (a stage then reads each row of K 256 contiguous bytes at a time). A
+//    producer warp keeps 4 stages of code boxes and x boxes in flight by
+//    TMA into a full/empty mbarrier ring; 8 consumer warps each own 16
+//    columns of every code box and all of K, so each holds whole sums and
+//    none waits for another. The product runs on mma.sync m16n8k16 with
+//    the weight as A, as in kernel 2, its fragments loaded by ldmatrix
+//    (.trans for the codes) from 128-byte-swizzled boxes.
 //
-// Codes become bf16 (kernels 1 and 2) two at a time and exactly: 128 plus
+// Codes become bf16 (kernels 1, 2 and 4) two at a time and exactly: 128 plus
 // a code's low 7 bits, less 128 plus 128 times its sign bit, both made by
 // masks under the exponent of 128, in one bf16x2 subtract.
 //
 // Kernels 2 and 3 split K over blocks when the output has too few tiles
 // for the card (the plan fills one wave, at most kMaxSplits), in one
-// launch. No float atomics: each block sums its warps in a fixed order
+// launch; kernel 4 adds the blocks' sums of a tile cut between them in
+// block order, after one ticket a (tile, warp) (see its kernel). No float
+// atomics: each block sums its warps in a fixed order
 // (through the ring's memory, reused), each split writes its f32 sums to
 // a workspace and, after the block's barrier, one thread fences and takes
 // a ticket from the tile's counter; the block that draws the last ticket
@@ -83,13 +102,24 @@
 // stages nor wgmma groups left in flight across steps moved it), where
 // larger tiles or TMA multicast across a cluster would read less; it also
 // converts each code tile once per row tile and stores the output from
-// registers. Kernels 2 and 3 pay a fixed cost per launch for the split-K
-// fixup (a fence, an atomic and a read of every split's sums).
+// registers. Kernel 4 (on an H100 at the served DeepSeek-7B's 16 rows:
+// 12.6 us for (4096, 4096) against a 5.09 us bound, 23.9 us for (4096,
+// 11008) and 24.9 us for (11008, 4096) against 13.6, 163 us for the
+// (4096, 102400) head against 126) pays a fixed cost a launch: ~1.6 us
+// of launch and grid, the ramp before the first stage lands, and, for a
+// cut tile, a ticket's round trip and a read of every block's sums at the
+// end (2.1-3.3 us at these shapes; an acq_rel atomic, no fence); its
+// stream alone runs at 62-85% of the memory rate, launch included. Launching it with
+// programmatic dependent launch, so that its ramp overlaps the kernel
+// before, and fewer products a step (q, k, v and gate, up as one) are
+// what is left. Kernels 2 and 3 pay the same fixup (a fence, an atomic
+// and a read of every split's sums).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_attention_sm90.cuh"
+#include "ticket.cuh"
 
 namespace {
 
@@ -294,17 +324,20 @@ __global__ void __launch_bounds__(kThreads, kBM == 64 ? 2 : 1)
   }
 }
 
-// q as a 2-D uint8 map (N columns, K rows), boxes of 128 x 64, no swizzle.
-inline bool encode_codes_map(CUtensorMap* map, const void* q, int K, int N) {
+// q as a 2-D uint8 map (N columns, K rows), boxes of 128 columns x box_k
+// rows (64 and no swizzle for this kernel).
+inline bool encode_codes_map(
+    CUtensorMap* map, const void* q, int K, int N, int box_k = kBlockK,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(K)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N)};
-  const cuuint32_t box[2] = {kBlockN, kBlockK};
+  const cuuint32_t box[2] = {kBlockN, static_cast<cuuint32_t>(box_k)};
   const cuuint32_t elem_strides[2] = {1, 1};
   return cuTensorMapEncodeTiled(
              map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(q),
              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -798,6 +831,436 @@ cudaError_t launch(const void* x, const void* q, const float* s, void* out,
 
 }  // namespace mma
 
+// ---- kernel 4: bf16 decode, a persistent stream-K grid fed by TMA
+
+namespace sk {
+
+using namespace sm90;
+
+constexpr int kBoxN = 128;   // columns of a code box: one swizzled row
+constexpr int kCodeBytes = 16384;            // codes a stage
+constexpr int kWarps = 8;  // consumers, 16 columns of every box each
+constexpr int kThreads = (kWarps + 1) * 32;  // + the producer warp
+constexpr int kStages = 4;                   // the ring: 64 KB of codes
+constexpr int kBoxK = 64;  // columns of x in one 128-byte swizzled box
+
+// A tile is kBoxes code boxes side by side, so that a stage reads every
+// row of K kBoxes * 128 contiguous bytes at a time; a stage holds
+// kCodeBytes of codes, so kStageK rows of K.
+template <int kBoxes>
+struct Tile {
+  static constexpr int kTileN = kBoxes * kBoxN;  // output columns
+  static constexpr int kStageK = kCodeBytes / kTileN;  // rows of K a stage
+  static constexpr int kBoxBytes = kStageK * kBoxN;    // 128-byte swizzle
+  static constexpr int kXBoxes = kStageK / kBoxK;      // x boxes a stage
+  // a stage's x: kXBoxes boxes of 64 columns by kRows rows
+  __host__ __device__ static constexpr int x_bytes(int kRows) {
+    return kXBoxes * kRows * 128;
+  }
+  // the ring from a 1024-byte boundary (the launch asks for 1024 more)
+  __host__ __device__ static constexpr int smem_bytes(int kRows) {
+    return 1024 + kStages * (kCodeBytes + x_bytes(kRows));
+  }
+};
+
+// The product's work as units (tile, stage of kStageK rows of K),
+// tile-major, tile = column tile * m_tiles + row tile. Block b takes the
+// contiguous units [begin(b), begin(b + 1)): every block streams the same
+// weight bytes to within one stage. A function of the shape and the grid
+// alone, which the plan sets from the SM count
+// (tpu_operator_libs_torch/kernels/int8_matmul.py::stream_ranges).
+struct Split {
+  int units, stages, blocks;
+  __device__ __forceinline__ int begin(int b) const {
+    return static_cast<int>(static_cast<long long>(b) * units / blocks);
+  }
+  // the block whose units hold unit u
+  __device__ __forceinline__ int block_of(int u) const {
+    return static_cast<int>(
+        (static_cast<long long>(u + 1) * blocks - 1) / units);
+  }
+};
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)) : "memory");
+}
+
+// Fetches a TMA descriptor (a kernel parameter) ahead of its first load.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// The grid is at most one block an SM; block blockIdx.x walks its units.
+// x_map: x as (1, M, K) bf16, boxes of 64 columns x kRows rows; q_map: q
+// as (K, N) uint8, boxes of 128 columns x kStageK rows; both 128-byte
+// swizzled. A stage is kBoxes code boxes side by side, so that every row
+// of K is read kTileN contiguous bytes at a time. Rows of x past M and of
+// q past K, and columns past N in a loaded box, read as zeros; a box
+// wholly past N is not loaded, and its columns are never written.
+//
+// The producer warp's lane 0 loads each unit's code boxes and the
+// matching x boxes into a ring of kStages stages with full/empty mbarriers.
+// Warp w owns columns [16 w, 16 w + 16) of every box of the tile and sums
+// them over every row of K it is given, so it holds whole sums and no
+// warp waits for another. The product runs transposed, out^T = q^T x^T
+// with mma.sync m16n8k16 (the weight is A): ldmatrix.trans of 8 rows of K
+// x 16 codes hands lane (g, t) the codes of columns 2g and 2g + 1 at rows
+// 2t and 2t + 1, which are A's rows g and g + 8 at k 2t, 2t + 1
+// (code_pair_to_bf16x2 of the word and of it shifted by a byte); x's rows
+// 8 r .. 8 r + 7 come as B by a plain ldmatrix, shared by the boxes. The
+// sums land at (rows 8 r + 2t, + 1) x (columns 2g, 2g + 1).
+//
+// A tile whose units lie in one block is written with the epilogue. A
+// tile cut between blocks: each block's warps write their f32 sums to the
+// block's slot in `partial` (slot 0 for the block's first tile, 1 for its
+// last) and take a ticket, one counter a (cut tile, warp), indexed by the
+// tile's first block; the warp drawing the last ticket adds the blocks'
+// sums in block order, writes the epilogue and puts the counter back to
+// 0. The order is fixed by the shape and the grid.
+template <int kR, int kBoxes>
+__global__ void __launch_bounds__(kThreads, 1)
+    int8_matmul_streamk_kernel(const __grid_constant__ CUtensorMap x_map,
+                               const __grid_constant__ CUtensorMap q_map,
+                               const float* __restrict__ s,
+                               __nv_bfloat16* __restrict__ out,
+                               float* __restrict__ partial,
+                               int* __restrict__ counters, int M, int K,
+                               int N, int m_tiles, Split split) {
+  using T = Tile<kBoxes>;
+  constexpr int kTileN = T::kTileN;
+  constexpr int kStageK = T::kStageK;
+  constexpr int kBoxBytes = T::kBoxBytes;
+  constexpr int kXBoxes = T::kXBoxes;
+  constexpr int kRows = 8 * kR;
+  constexpr int kXBytes = T::x_bytes(kRows);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* codes_s = align_1024(smem_raw);         // [kStages][kCodeBytes]
+  uint8_t* x_s = codes_s + kStages * kCodeBytes;   // [kStages][kXBytes]
+  __shared__ uint64_t full[kStages], empty[kStages];
+
+  const int begin = split.begin(blockIdx.x);
+  const int count = split.begin(blockIdx.x + 1) - begin;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    prefetch_map(&q_map);
+    prefetch_map(&x_map);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kWarps) {  // the producer warp; lane 0 loads
+    if (lane == 0) {
+      int tile = begin / split.stages;
+      int stage = begin % split.stages;
+      for (int i = 0; i < count; ++i) {
+        const int st = i % kStages;
+        if (i >= kStages) mbar_wait(&empty[st], (i / kStages - 1) & 1);
+        const int k0 = stage * kStageK;
+        const int n0 = tile / m_tiles * kTileN;
+        const int m0 = tile % m_tiles * kRows;
+        // boxes only where they hold a column of q and a row of K: a box
+        // past N is never read (its columns are never written)
+        const int boxes = min(kBoxes, (N - n0 + kBoxN - 1) / kBoxN);
+        const int x_boxes = min(kXBoxes, (K - k0 + kBoxK - 1) / kBoxK);
+        mbar_expect_tx(&full[st], boxes * kBoxBytes
+                                      + x_boxes * (kXBytes / kXBoxes));
+        for (int j = 0; j < boxes; ++j) {
+          tma_load_2d(codes_s + st * kCodeBytes + j * kBoxBytes, &q_map,
+                      &full[st], n0 + j * kBoxN, k0);
+        }
+        for (int j = 0; j < x_boxes; ++j) {
+          tma_load(x_s + st * kXBytes + j * (kXBytes / kXBoxes), &x_map,
+                   &full[st], k0 + j * kBoxK, m0, 0);
+        }
+        if (++stage == split.stages) {
+          stage = 0;
+          ++tile;
+        }
+      }
+    }
+    return;
+  }
+
+  const int g = lane / 4;
+  const int t = lane % 4;
+  float acc[kBoxes][kR][4];
+#pragma unroll
+  for (int j = 0; j < kBoxes; ++j) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][r][e] = 0.f;
+    }
+  }
+
+  // the tile's sums, rounded as the plain version rounds them
+  const auto store = [&](const float (&v)[kBoxes][kR][4], int tile) {
+#pragma unroll
+    for (int j = 0; j < kBoxes; ++j) {
+      const int col =
+          tile / m_tiles * kTileN + j * kBoxN + 16 * warp + 2 * g;
+      if (col >= N) continue;  // N % 16 == 0: the warp's 16 are all out
+      const float s0 = s[col];
+      const float s1 = s[col + 1];
+      __nv_bfloat16* tag = nullptr;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int row = tile % m_tiles * kRows + 8 * r + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (row + h < M) {
+            __nv_bfloat162 o;
+            o.x = epilogue(v[j][r][h], s0, tag);
+            o.y = epilogue(v[j][r][2 + h], s1, tag);
+            *reinterpret_cast<__nv_bfloat162*>(
+                out + static_cast<long long>(row + h) * N + col) = o;
+          }
+        }
+      }
+    }
+  };
+  // this lane's sums in slot `slot` of block b's partial sums: a tile's
+  // kRows x kTileN f32
+  const auto slot_ptr = [&](int b, int slot) {
+    return partial + static_cast<long long>(2 * b + slot) * kRows * kTileN
+           + 2 * t * kTileN + 16 * warp + 2 * g;
+  };
+
+  // The last ticket of a cut tile adds the blocks' sums in block order
+  // b0..b1 and writes the tile. Slot 0 holds a block's first tile, 1 its
+  // last: the tile is the first of every block after b0, and of b0 where
+  // it starts there. kBatch blocks' loads are in flight at once, from
+  // addresses clamped to b1 so that no branch sits between them.
+  const auto combine = [&](int tile, int b0, int b1) {
+    const int slot0 = split.begin(b0) == tile * split.stages ? 0 : 1;
+    constexpr int kBatch = 8 / (kR * kBoxes) > 1 ? 8 / (kR * kBoxes) : 2;
+    float total[kBoxes][kR][4];
+    for (int base = b0; base <= b1; base += kBatch) {
+      float2 e[kBatch][kBoxes][kR], o[kBatch][kBoxes][kR];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int bi = min(base + i, b1);
+        const float* p = slot_ptr(bi, bi == b0 ? slot0 : 0);
+#pragma unroll
+        for (int j = 0; j < kBoxes; ++j) {
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            const float* pr = p + 8 * r * kTileN + j * kBoxN;
+            e[i][j][r] = __ldcg(reinterpret_cast<const float2*>(pr));
+            o[i][j][r] =
+                __ldcg(reinterpret_cast<const float2*>(pr + kTileN));
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+#pragma unroll
+        for (int j = 0; j < kBoxes; ++j) {
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            const float v[4] = {e[i][j][r].x, o[i][j][r].x, e[i][j][r].y,
+                                o[i][j][r].y};
+#pragma unroll
+            for (int q4 = 0; q4 < 4; ++q4) {
+              if (base + i == b0) {
+                total[j][r][q4] = v[q4];
+              } else if (base + i <= b1) {
+                total[j][r][q4] += v[q4];
+              }
+            }
+          }
+        }
+      }
+    }
+    store(total, tile);
+  };
+
+  const int first_tile = begin / split.stages;
+  int tile = first_tile;
+  int stage = begin % split.stages;
+  for (int i = 0; i < count; ++i) {
+    const int st = i % kStages;
+    // rows of K that this stage holds; k-steps past them are skipped
+    const int rows = min(kStageK, K - stage * kStageK);
+    mbar_wait(&full[st], (i / kStages) & 1);
+    const uint8_t* codes = codes_s + st * kCodeBytes;
+    const uint8_t* xs = x_s + st * kXBytes;
+    // every load of the stage first, then the products: one wait for
+    // shared memory a stage. Lane l gives code row kk + l of each box
+    // (matrix j holds rows kk + 8j .. + 7) and x's row 8r + l % 8 at
+    // columns kk + 8 (l / 8) .. + 7 (matrix j holds columns kk + 8j .. + 7).
+    constexpr int kSteps = kStageK / 32;  // pairs of k-steps of 16
+    uint32_t c[kSteps][kBoxes][4];
+    uint32_t b[kSteps][kR][4];
+#pragma unroll
+    for (int h = 0; h < kSteps; ++h) {
+      const int kk = 32 * h;
+      if (kk < rows) {
+        const int row = kk + lane;
+#pragma unroll
+        for (int j = 0; j < kBoxes; ++j) {
+          ldmatrix_x4_trans(c[h][j], codes + j * kBoxBytes + row * kBoxN
+                                         + ((warp ^ (row & 7)) << 4));
+        }
+        const int kc = kk + 8 * (lane >> 3);
+        const uint8_t* box = xs + (kc / kBoxK) * (kXBytes / kXBoxes);
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          const int xr = 8 * r + (lane & 7);
+          ldmatrix_x4(b[h][r], box + xr * 128
+                                   + ((((kc % kBoxK) >> 3) ^ (xr & 7)) << 4));
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < kSteps; ++h) {
+      if (32 * h < rows) {
+#pragma unroll
+        for (int j = 0; j < kBoxes; ++j) {
+          const uint32_t* w = c[h][j];
+          const uint32_t a0[4] = {
+              code_pair_to_bf16x2(w[0]), code_pair_to_bf16x2(w[0] >> 8),
+              code_pair_to_bf16x2(w[1]), code_pair_to_bf16x2(w[1] >> 8)};
+          const uint32_t a1[4] = {
+              code_pair_to_bf16x2(w[2]), code_pair_to_bf16x2(w[2] >> 8),
+              code_pair_to_bf16x2(w[3]), code_pair_to_bf16x2(w[3] >> 8)};
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            mma::mma_bf16(acc[j][r], a0, b[h][r][0], b[h][r][1]);
+            mma::mma_bf16(acc[j][r], a1, b[h][r][2], b[h][r][3]);
+          }
+        }
+      }
+    }
+    // the products have read their operands: the stage can be refilled
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+
+    if (stage == split.stages - 1 || i == count - 1) {  // the tile's end
+      const int first = tile * split.stages;
+      const int b0 = split.block_of(first);
+      const int b1 = split.block_of(first + split.stages - 1);
+      if (b0 == b1) {
+        store(acc, tile);
+      } else {
+        float* mine = slot_ptr(blockIdx.x, tile == first_tile ? 0 : 1);
+#pragma unroll
+        for (int j = 0; j < kBoxes; ++j) {
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            float* pr = mine + 8 * r * kTileN + j * kBoxN;
+            *reinterpret_cast<float2*>(pr) =
+                make_float2(acc[j][r][0], acc[j][r][2]);
+            *reinterpret_cast<float2*>(pr + kTileN) =
+                make_float2(acc[j][r][1], acc[j][r][3]);
+          }
+        }
+        // the warp's sums, then a ticket: the warp's barrier orders its
+        // lanes' stores before lane 0's release, and the last ticket's
+        // acquire before every lane's loads (a fence beside the atomic's
+        // release measured ~1 us slower a launch on the H100)
+        __syncwarp();
+        int ticket = 0;
+        if (lane == 0) ticket = tickets::take(counters + b0 * kWarps + warp);
+        ticket = __shfl_sync(0xffffffffu, ticket, 0);
+        __syncwarp();
+        if (ticket == b1 - b0) {
+          combine(tile, b0, b1);
+          if (lane == 0) counters[b0 * kWarps + warp] = 0;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBoxes; ++j) {
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][r][e] = 0.f;
+        }
+      }
+    }
+    if (++stage == split.stages) {
+      stage = 0;
+      ++tile;
+    }
+  }
+}
+
+template <int kR, int kBoxes>
+cudaError_t launch_rows(const void* x, const void* q, const float* s,
+                        void* out, float* partial, int* counters, int M,
+                        int K, int N, int blocks, cudaStream_t stream) {
+  using T = Tile<kBoxes>;
+  constexpr int kRows = 8 * kR;
+  CUtensorMap x_map, q_map;
+  // a map cuTensorMapEncodeTiled refuses (a base not 16-byte aligned) is
+  // an invalid value
+  if (!encode_tile_map(&x_map, x, K, M, 1, kRows)
+      || !wg::encode_codes_map(&q_map, q, K, N, T::kStageK,
+                               CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int smem = T::smem_bytes(kRows);
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_matmul_streamk_kernel<kR, kBoxes>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int m_tiles = (M + kRows - 1) / kRows;
+  const int stages = (K + T::kStageK - 1) / T::kStageK;
+  const Split split{(N + T::kTileN - 1) / T::kTileN * m_tiles * stages,
+                    stages, blocks};
+  int8_matmul_streamk_kernel<kR, kBoxes><<<blocks, kThreads, smem, stream>>>(
+      x_map, q_map, s, static_cast<__nv_bfloat16*>(out), partial, counters,
+      M, K, N, m_tiles, split);
+  return cudaGetLastError();
+}
+
+template <int kBoxes>
+cudaError_t launch_boxes(const void* x, const void* q, const float* s,
+                         void* out, float* partial, int* counters, int M,
+                         int K, int N, int block_m, int blocks,
+                         cudaStream_t stream) {
+  switch (block_m) {
+    case 8: return launch_rows<1, kBoxes>(x, q, s, out, partial, counters, M,
+                                          K, N, blocks, stream);
+    case 16: return launch_rows<2, kBoxes>(x, q, s, out, partial, counters,
+                                           M, K, N, blocks, stream);
+    default: return launch_rows<4, kBoxes>(x, q, s, out, partial, counters,
+                                           M, K, N, blocks, stream);
+  }
+}
+
+// block_m: 8, 16 or 32 rows of x a tile; block_n: 128 or 256 columns
+cudaError_t launch(const void* x, const void* q, const float* s, void* out,
+                   float* partial, int* counters, int M, int K, int N,
+                   int block_m, int block_n, int blocks, cudaStream_t stream) {
+  return block_n == 128
+             ? launch_boxes<1>(x, q, s, out, partial, counters, M, K, N,
+                               block_m, blocks, stream)
+             : launch_boxes<2>(x, q, s, out, partial, counters, M, K, N,
+                               block_m, blocks, stream);
+}
+
+}  // namespace sk
+
 // ---- kernel 3: f32 x, f32 FMAs on the CUDA cores
 
 namespace f32 {
@@ -1003,9 +1466,16 @@ cudaError_t launch(const void* x, const void* q, const float* s, void* out,
 
 // x (M, K) of dtype 0 = float32 or 1 = bfloat16, q (K, N) int8, s (N,)
 // float32, out (M, N) of x's dtype, all contiguous, and the plan
-// (tpu_operator_libs_torch/kernels/int8_matmul.py::plan):
+// (tpu_operator_libs_torch/kernels/int8_matmul.py::plan; block_n is read
+// by design 4 alone):
 // - design 1, wgmma: bfloat16, M >= 64, N % 16 == 0, K % 8 == 0, block_m
 //   64 or 128, splits 1, x and q 16-byte aligned;
+// - design 4, stream-K: bfloat16, N % 16 == 0, K % 8 == 0, block_m 8, 16
+//   or 32, block_n 128 or 256, splits 1, `blocks` (the grid) between 1
+//   and the units (tiles x stages of 16384 / block_n rows of K), x and q
+//   16-byte aligned; `partial` an f32 workspace of 2 * blocks * block_m *
+//   block_n elements and `counters` at least 8 * blocks ints, all 0 (the
+//   kernel leaves them 0);
 // - design 2, mma.sync: bfloat16, block_m 8 or 32; design 3, CUDA cores:
 //   float32, block_m == m_tile(M). Both: K cut into `splits` (1 to 16)
 //   slices of `k_per_split` rows (a multiple of 64), the last possibly
@@ -1015,8 +1485,9 @@ cudaError_t launch(const void* x, const void* q, const float* s, void* out,
 extern "C" int int8_matmul(const void* x, const void* q, const void* s,
                            void* out, void* partial, void* counters,
                            int n_counters, int M, int K, int N, int design,
-                           int block_m, int splits, int k_per_split,
-                           int dtype, void* stream) {
+                           int block_m, int block_n, int splits,
+                           int k_per_split, int blocks, int dtype,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sf = static_cast<const float*>(s);
   if (M < 1 || K < 1 || N < 1) return cudaErrorInvalidValue;
@@ -1028,6 +1499,23 @@ extern "C" int int8_matmul(const void* x, const void* q, const void* s,
     if (block_m == 128) return wg::launch<128>(x, q, sf, out, M, K, N, st);
     if (block_m == 64) return wg::launch<64>(x, q, sf, out, M, K, N, st);
     return cudaErrorInvalidValue;
+  }
+  if (design == 4) {
+    const long long units =
+        static_cast<long long>((N + block_n - 1) / block_n)
+        * ((M + block_m - 1) / block_m)
+        * ((K + sk::kCodeBytes / block_n - 1) / (sk::kCodeBytes / block_n));
+    if (dtype != 1 || N % 16 != 0 || K % 8 != 0 || splits != 1
+        || (block_m != 8 && block_m != 16 && block_m != 32)
+        || (block_n != 128 && block_n != 256) || blocks < 1
+        || blocks > units || units > 0x7fffffff || partial == nullptr
+        || counters == nullptr
+        || static_cast<long long>(sk::kWarps) * blocks > n_counters) {
+      return cudaErrorInvalidValue;
+    }
+    return sk::launch(x, q, sf, out, static_cast<float*>(partial),
+                      static_cast<int*>(counters), M, K, N, block_m, block_n,
+                      blocks, st);
   }
   const bool ok_design = (design == 2 && dtype == 1
                           && (block_m == 8 || block_m == 32))

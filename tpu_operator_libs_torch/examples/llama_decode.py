@@ -430,6 +430,9 @@ def _replay_steps(step, steps: int, generator, device, mesh=None) -> dict:
         with tracing.span("decode.eager_step"):
             step()
         captured = {name: w.launches for name, w in WRAPPERS.items()}
+        captured_by = {name: dict(w.launches_by_design)
+                       for name, w in WRAPPERS.items()
+                       if hasattr(w, "launches_by_design")}
         with tracing.span("decode.capture") as capture:
             try:
                 # not torch.cuda.graph: it would also synchronise the card
@@ -459,6 +462,10 @@ def _replay_steps(step, steps: int, generator, device, mesh=None) -> dict:
     # replay, and each further replay launches the same kernels again
     for name, wrapper in WRAPPERS.items():
         wrapper.launches += (wrapper.launches - captured[name]) * (steps - 2)
+    for name, before in captured_by.items():
+        by = WRAPPERS[name].launches_by_design
+        for design, count in list(by.items()):
+            by[design] = count + (count - before.get(design, 0)) * (steps - 2)
     return {"eager_steps": 1, "graph_launches": steps - 1,
             "capture_ms": (capture.end - capture.start) / 1e6}
 
