@@ -4402,15 +4402,26 @@ def phase_multichip(card, train_losses=None, bench_tokens=None):
           "dtype": "float32"})
     emit({"phase": "multichip_serving", **common,
           **multichip_serving(n, card)})
-    # the backward kernels' launches by design, alike on every rank
+    check_rank_designs(ranks)
     by_design = {"multichip": first["launches_by_design"],
                  "ring": first["launches_by_design_ring"]}
-    for rank in ranks:
-        if {"multichip": rank["launches_by_design"],
-                "ring": rank["launches_by_design_ring"]} != by_design:
-            raise RuntimeError("ranks disagree on the backward's launches "
-                               "by design")
     return launches, first["launches_ring"], by_design
+
+
+def check_rank_designs(ranks) -> None:
+    """The flash kernels' launches by design of the multi-rank phase: on
+    every rank each launch has one. The counts may differ between ranks:
+    a causal ring's rank r runs the r + 1 blocks at or before its own
+    and skips the rest."""
+    for r, rank in enumerate(ranks):
+        for designs, counts in (
+                (rank["launches_by_design"], rank["launches"]),
+                (rank["launches_by_design_ring"], rank["launches_ring"])):
+            for name, by in designs.items():
+                if sum(by.values()) != counts[name]:
+                    raise RuntimeError(
+                        f"rank {r}'s {name} launches by design {by} do not "
+                        f"add up to its {counts[name]}")
 
 
 #: the decode stage's dtypes: the label the ranks return, the line's name
@@ -4495,7 +4506,9 @@ def multichip_bench_line(ranks, common, bench_tokens):
 def multichip_serving(n, card):
     """The serving pod (``serve_rank``) over NCCL on every visible card:
     phase 6's burst at llama-277M, bf16, greedy; every rank replays its
-    decode from a graph, max_new_tokens - 2 launches a generation."""
+    decode from a graph that the first generation captures
+    (max_new_tokens - 2 launches) and every later one, of the same shape,
+    replays for each step (max_new_tokens - 1)."""
     start = time.perf_counter()
     pod = run_ranks(serve_rank, n,
                     {"config": CONFIG_277M,
@@ -4504,16 +4517,15 @@ def multichip_serving(n, card):
     wall_s = time.perf_counter() - start
     summary = pod[0]
     generations = summary["completed"]
-    per_call = BURST_NEW_TOKENS - 2
+    want = (BURST_NEW_TOKENS - 2) + (BURST_NEW_TOKENS - 1) * (generations - 1)
     launches = [summary["graph_launches"]] + [
         r["graph_launches"] for r in pod[1:]]
     followers = [r["follower_generations"] for r in pod[1:]]
-    if launches != [per_call * generations] * n \
-            or followers != [generations] * (n - 1):
+    if launches != [want] * n or followers != [generations] * (n - 1):
         raise RuntimeError(
             f"the pod's ranks replayed {launches} graph launches over "
             f"{generations} generations (followers took {followers}), "
-            f"expected {per_call} a generation on every rank")
+            f"expected {want} on every rank")
     return burst_line(summary, card, graph_launches_by_rank=launches,
                       follower_generations=followers,
                       wall_s_with_start_up=wall_s)

@@ -1796,6 +1796,58 @@ def test_graph_decode_equals_host_loop(cuda, case):
     assert torch.equal(host, dev)
 
 
+@pytest.mark.parametrize("case", ["greedy_bf16",
+                                  "sampled_int8_eos_logprobs"])
+def test_kept_graphs_decode_equals_host_loop(cuda, case):
+    """generate_on_device with kept graphs (``DecodeGraphs``, a server's):
+    the first call of a prompt shape captures its step, a later one of
+    the same shape, other tokens and seed, replays it for every step over
+    the first call's cache; each call's tokens (and logprobs) and the
+    caller's generator after it equal the host loop's, and a replayed
+    call counts every step's launches."""
+    int8 = "int8" in case
+    params = tllama.init_llama_params(DECODE_CFG, param_dtype=torch.bfloat16,
+                                      seed=1, device=cuda)
+    if int8:
+        params = tdecode.quantize_params_int8(params)
+    new = 12
+    kw = {"param_dtype": torch.bfloat16, "quantize_kv": int8}
+    if case.startswith("sampled"):
+        kw.update(temperature=1.0, top_k=50, top_p=0.9,
+                  return_logprobs=True, eos_id=7)
+    graphs = tdecode.DecodeGraphs()
+
+    def run(fn, length, seed, **more):
+        prompt = torch.randint(0, DECODE_CFG.vocab, (4, length), device=cuda,
+                               generator=torch.Generator(device=cuda)
+                               .manual_seed(seed))
+        gen = (torch.Generator(device=cuda).manual_seed(seed)
+               if "temperature" in kw else None)
+        out = fn(params, prompt, DECODE_CFG, new, generator=gen, **kw,
+                 **more)
+        return out, None if gen is None else gen.get_state()
+
+    for length, seed, eager in ((8, 3, 1), (8, 4, 0), (13, 5, 1),
+                                (8, 3, 0)):
+        host = run(tdecode.generate, length, seed)
+        before = (pmod.pick.launches, rmod.add_rms_norm.launches)
+        dev = run(tdecode.generate_on_device, length, seed, graphs=graphs)
+        torch.cuda.synchronize()
+        assert tdecode.generate_on_device.last_call["eager_steps"] == eager
+        assert tdecode.generate_on_device.last_call["graph_launches"] == (
+            new - 1 - eager)
+        assert (pmod.pick.launches - before[0],
+                rmod.add_rms_norm.launches - before[1]) == (
+                    new, new * (2 * DECODE_CFG.n_layers + 1))
+        (host, host_state), (dev, dev_state) = host, dev
+        if "return_logprobs" in kw:
+            (host, host_lp), (dev, dev_lp) = host, dev
+            assert torch.equal(host_lp, dev_lp)
+            assert torch.equal(host_state, dev_state)
+        assert torch.equal(host, dev)
+    assert len(graphs) == 2
+
+
 def need_cards(n):
     if torch.cuda.device_count() < n:
         pytest.skip(f"needs {n} cards, {torch.cuda.device_count()} visible")
@@ -1843,7 +1895,9 @@ def test_mesh_graph_decode_equals_host_loop(cuda, case, ranks):
 def test_mesh_pod_over_nccl_drains_without_drops(cuda, ranks):
     """The serving pod on NCCL ranks: a mid-burst drain parks requests and
     drops none, and every rank replays each generation's decode from a
-    graph (max_new_tokens - 2 launches a generation)."""
+    graph: the first generation captures it (max_new_tokens - 2 launches),
+    and every later one, of the same shape, replays it for each step
+    (max_new_tokens - 1)."""
     need_cards(ranks)
     new = 8
     pod = run_ranks(serving.serve_rank, ranks, {"max_new_tokens": new},
@@ -1852,10 +1906,11 @@ def test_mesh_pod_over_nccl_drains_without_drops(cuda, ranks):
     summary = pod[0]
     assert summary["dropped"] == 0 and summary["parked"] >= 1
     generations = summary["completed"]
-    assert summary["graph_launches"] == (new - 2) * generations
+    launches = (new - 2) + (new - 1) * (generations - 1)
+    assert summary["graph_launches"] == launches
     for follower in pod[1:]:
         assert follower["follower_generations"] == generations
-        assert follower["graph_launches"] == (new - 2) * generations
+        assert follower["graph_launches"] == launches
 
 
 @pytest.mark.parametrize("case", chip_smoke.PICK_CASES,

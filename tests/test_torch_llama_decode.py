@@ -322,8 +322,10 @@ class TestDecodeStep:
             return fn(params, prompt, TCFG, 7, generator=gen, **kw)
 
         host, dev = run(tdecode.generate), run(tdecode.generate_on_device)
+        # one device: no tp collective
         assert tdecode.generate_on_device.last_call == {
-            "eager_steps": 6, "graph_launches": 0, "capture_ms": 0.0}
+            "eager_steps": 6, "graph_launches": 0, "capture_ms": 0.0,
+            "collectives": 0, "collective_bytes": 0}
         if "return_logprobs" in kw:
             (host, host_lp), (dev, dev_lp) = host, dev
             assert torch.equal(host_lp, dev_lp)
@@ -370,3 +372,24 @@ class TestArgumentChecks:
         with pytest.raises(ValueError, match="xla"):
             tdecode.forward_with_cache(
                 tp, torch.zeros((1, 1), dtype=torch.long), cache, 0, cfg)
+
+
+def test_decode_graphs_keep_the_most_recently_used():
+    """DecodeGraphs keeps at most ``limit`` steps, dropping the least
+    recently used, and gives a step only to the parameters it was
+    captured over."""
+    params = {}
+    kept = {key: tdecode._Kept(graph=key, state=None, generator=None,
+                               per_replay=None, params=params)
+            for key in "abc"}
+    graphs = tdecode.DecodeGraphs(limit=2)
+    graphs._keep("a", kept["a"])
+    graphs._keep("b", kept["b"])
+    assert graphs._get("a", params) is kept["a"]
+    graphs._keep("c", kept["c"])
+    assert len(graphs) == 2 and graphs._get("b", params) is None
+    assert graphs._get("a", params) is kept["a"]
+    assert graphs._get("c", params) is kept["c"]
+    assert graphs._get("a", {}) is None
+    graphs.clear()
+    assert len(graphs) == 0

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import test_torch_rank_workers as workers
 from tpu_operator_libs_torch import kernels, multichip
 from tpu_operator_libs_torch.examples import training_job as job
@@ -111,3 +112,28 @@ def test_restore_launches_sets_counts_and_designs_back():
     kernels.restore_launches(saved)
     assert kernels.save_launches() == saved
     assert (multichip._launches(), multichip._launches_by_design()) == saved
+
+
+def causal_ring_rank(r, designs=None):
+    """A rank's launches of the card's multi-rank phase at sp = 4: rank r
+    of a causal ring runs r + 1 blocks a layer forward and backward."""
+    blocks = 2 * (r + 1)
+    return {"launches": {"flash_attention_fwd": 0},
+            "launches_by_design": {"flash_attention_fwd": {}},
+            "launches_ring": {"flash_attention_fwd": blocks,
+                              "flash_attention_bwd_dq": blocks},
+            "launches_by_design_ring": designs or {
+                "flash_attention_fwd": {"sm90 wgmma": blocks},
+                "flash_attention_bwd_dq": {"sm90 wgmma": blocks - 1,
+                                           "3xTF32 mma.sync": 1}}}
+
+
+def test_a_causal_rings_ranks_may_launch_different_counts():
+    """Phase 9 at four cards: the ranks of a causal ring run different
+    numbers of blocks, so their launches by design differ; each rank's
+    designs must add up to its own launches."""
+    chip_smoke.check_rank_designs([causal_ring_rank(r) for r in range(4)])
+    short = causal_ring_rank(2, {"flash_attention_fwd": {"sm90 wgmma": 5}})
+    with pytest.raises(RuntimeError, match="rank 2's flash_attention_fwd"):
+        chip_smoke.check_rank_designs(
+            [causal_ring_rank(0), causal_ring_rank(1), short])

@@ -360,3 +360,128 @@ def mesh_graph_decode_rank(mesh, case, config_kw, batch, prompt_len,
             host, dev
     out.update(host=host, device=dev)
     return out
+
+
+class _FakeGraph:
+    """A CUDA graph's surface on the CPU: capture runs the step eagerly
+    and a replay runs nothing, so the step's collectives are counted as
+    they are on the card (the eager step and the capture, then the
+    replays' carry)."""
+
+    def register_generator_state(self, generator):
+        pass
+
+    def capture_begin(self, capture_error_mode):
+        pass
+
+    def capture_end(self):
+        pass
+
+    def replay(self):
+        pass
+
+
+class _FakeStream:
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def wait_stream(self, other):
+        pass
+
+    def synchronize(self):
+        pass
+
+
+def _with_fake_graphs(fn):
+    """``fn()`` with ``generate_on_device`` taking the card's path, its
+    CUDA pieces faked; everything restored after."""
+    import contextlib
+
+    saved = [(llama_decode, "_captures"), (torch.cuda, "CUDAGraph"),
+             (torch.cuda, "Stream"), (torch.cuda, "current_stream"),
+             (torch.cuda, "stream")]
+    saved = [(owner, name, getattr(owner, name)) for owner, name in saved]
+    llama_decode._captures = lambda device, mesh: True
+    torch.cuda.CUDAGraph = _FakeGraph
+    torch.cuda.Stream = _FakeStream
+    torch.cuda.current_stream = lambda device=None: _FakeStream()
+    torch.cuda.stream = lambda stream: contextlib.nullcontext()
+    try:
+        return fn()
+    finally:
+        for owner, name, value in saved:
+            setattr(owner, name, value)
+
+
+def yi_tp4_rank(mesh, config_kw, dtype_name, seed, tokens_np, prompt_len,
+                served, new_tokens):
+    """A Yi-shaped model over a dp 1 x tp mesh, each rank's shards made
+    one layer at a time from ``port_bench.weights``' seeded draws
+    (``port_bench.tp_ranks.shard_model``), with an int8 cache:
+
+    - ``logits``: the prefill of ``tokens_np[:, :prompt_len]`` through
+      ``forward_with_cache``, then one step at each later position fed
+      the given token: the whole (B, S - 1, vocab) logits on this rank;
+    - ``forward_counts``: ``parallel.TP_COLLECTIVES``' (calls, bytes) of
+      each of those forward calls;
+    - ``eager`` / ``replayed``: ``generate_on_device.last_call`` of a
+      greedy generation of ``new_tokens`` from the prompt, in the CPU's
+      loop and on the card's path with its CUDA pieces faked;
+    - ``served``: rank 0 serves each ``(prompt, seed)`` of ``served``
+      through a ``DecodeServer`` over the mesh at temperature 1 (the
+      tokens), the others follow (the rounds they took);
+    - ``spans``: the pod's spans on this rank as (name, parent's name,
+      is a root)."""
+    from port_bench import tp_ranks
+    from tpu_operator_libs_torch import tracing
+    from tpu_operator_libs_torch.health.serving_gate import ServingEndpoint
+    from tpu_operator_libs_torch.parallel import TP_COLLECTIVES
+
+    dtype = getattr(torch, dtype_name)
+    config = llama.LlamaConfig(**config_kw)
+    params = tp_ranks.shard_model(config, seed, mesh, dtype)
+    tokens = torch.from_numpy(tokens_np)
+    batch, seq = tokens.shape
+    cache = llama_decode.init_kv_cache(config, batch, seq, dtype,
+                                       quantize_kv=True, mesh=mesh)
+    parts, counts = [], []
+    with torch.no_grad():
+        calls = [(0, prompt_len)] + [(p, p + 1)
+                                     for p in range(prompt_len, seq - 1)]
+        for start, end in calls:
+            before = (TP_COLLECTIVES.calls, TP_COLLECTIVES.bytes)
+            logits, cache = llama_decode.forward_with_cache(
+                params, tokens[:, start:end], cache, start, config, mesh)
+            counts.append((TP_COLLECTIVES.calls - before[0],
+                           TP_COLLECTIVES.bytes - before[1]))
+            parts.append(logits.float())
+    out = {"logits": torch.cat(parts, dim=1), "forward_counts": counts}
+
+    def generate():
+        llama_decode.generate_on_device(
+            params, tokens[:, :prompt_len], config, new_tokens,
+            param_dtype=dtype, quantize_kv=True, mesh=mesh)
+        return dict(llama_decode.generate_on_device.last_call)
+
+    out["eager"] = generate()
+    out["replayed"] = _with_fake_graphs(generate)
+
+    tracing.clear()
+    server = serving.DecodeServer(
+        config, params, ServingEndpoint("yi-tp4"),
+        max_new_tokens=new_tokens, temperature=1.0, quantize_kv=True,
+        mesh=mesh)
+    if dist.get_rank() == 0:
+        try:
+            out["served"] = [server.handle(p, seed=s) for p, s in served]
+        finally:
+            server.shutdown()
+    else:
+        out["served"] = server.serve()
+    found = tracing.records()
+    by_id = {s.span_id: s for s in found}
+    out["spans"] = [(s.name, by_id[s.parent_id].name
+                     if s.parent_id in by_id else None,
+                     s.parent_id is None and s.request_id == s.span_id)
+                    for s in found]
+    return out

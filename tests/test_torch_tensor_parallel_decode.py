@@ -119,8 +119,14 @@ def test_sampled_with_eos_and_logprobs_host_equals_device_at_dp2_tp2(
 
 
 def test_every_rank_runs_the_python_loop_on_the_cpu(dp2_tp2_run):
+    # each of the NEW_TOKENS forward calls (the prefill of this rank's 2
+    # rows x 6 positions, then steps of 2 rows) all-reduces the bf16
+    # residual twice a layer and gathers the vocabulary once
+    per_row = 2 * (2 * JCFG.n_layers * JCFG.d_model + JCFG.vocab)
     loop = {"eager_steps": NEW_TOKENS - 1, "graph_launches": 0,
-            "capture_ms": 0.0}
+            "capture_ms": 0.0,
+            "collectives": NEW_TOKENS * (2 * JCFG.n_layers + 1),
+            "collective_bytes": per_row * (2 * 6 + 2 * (NEW_TOKENS - 1))}
     for rank in dp2_tp2_run:
         assert rank["device_plain_loop"] == loop
         assert rank["device_int8_loop"] == loop
@@ -188,9 +194,10 @@ def test_a_mesh_that_captures_replays_its_step(monkeypatch):
                                      temperature=1.0, generator=gen,
                                      mesh=mesh)
     assert calls == [(NEW_TOKENS - 1, gen, mesh)]
+    # one rank: no tp collective
     assert tdecode.generate_on_device.last_call == {
         "eager_steps": 1, "graph_launches": NEW_TOKENS - 2,
-        "capture_ms": 1.0}
+        "capture_ms": 1.0, "collectives": 0, "collective_bytes": 0}
     host = tdecode.generate(params, toks, config, NEW_TOKENS,
                             temperature=1.0, mesh=mesh,
                             generator=torch.Generator().manual_seed(4))

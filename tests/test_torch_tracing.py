@@ -107,10 +107,12 @@ def test_request_seconds_and_last_call_are_as_before(server):
         server.handle(prompt(seed, server.config.vocab))
     assert len(server.request_seconds) == before + 2
     assert set(tdecode.generate_on_device.last_call) == {
-        "eager_steps", "graph_launches", "capture_ms"}
+        "eager_steps", "graph_launches", "capture_ms", "collectives",
+        "collective_bytes"}
+    # one rank: no tp collective
     assert tdecode.generate_on_device.last_call == {
         "eager_steps": server.max_new_tokens - 1, "graph_launches": 0,
-        "capture_ms": 0.0}
+        "capture_ms": 0.0, "collectives": 0, "collective_bytes": 0}
     # each request's seconds: its queue span's start to its readback's end
     spans = sorted(trees(tracing.records()).values(),
                    key=lambda t: t["serve.request"].start)
@@ -161,11 +163,9 @@ class _Stream:
         pass
 
 
-def test_the_graph_decode_spans_and_capture_ms(monkeypatch):
-    """The card's path with the CUDA pieces faked: the eager step, the
-    capture, the replays, the wait and the release in order under
-    decode.generate, last_call's capture_ms from the capture span, and
-    the graph freed inside the release span."""
+@pytest.fixture
+def fake_card(monkeypatch):
+    """generate_on_device takes the card's path, its CUDA pieces faked."""
     monkeypatch.setattr(tdecode, "_captures", lambda device, mesh: True)
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
     monkeypatch.setattr(torch.cuda, "Stream", _Stream)
@@ -174,11 +174,23 @@ def test_the_graph_decode_spans_and_capture_ms(monkeypatch):
     monkeypatch.setattr(torch.cuda, "stream",
                         lambda stream: contextlib.nullcontext())
     _Graph.freed_at.clear()
+
+
+def test_the_graph_decode_spans_and_capture_ms(fake_card):
+    """The card's path without kept graphs: the eager step, the capture,
+    the replays, the wait and the release in order under decode.generate,
+    last_call's capture_ms from the capture span, and the graph freed
+    inside the release span."""
     server = build_server(device="cpu", max_new_tokens=4)
     tracing.clear()
-    server.handle(prompt(6, server.config.vocab))
+    with tracing.span("serve.request", request=True):
+        tdecode.generate_on_device(server.params,
+                                   prompt(6, server.config.vocab),
+                                   server.config, server.max_new_tokens)
     (tree,) = trees(tracing.records()).values()
-    parents = {k: v for k, v in REQUEST_TREE.items() if k != "decode.steps"}
+    parents = {k: v for k, v in REQUEST_TREE.items()
+               if v in ("decode.generate", None) and k != "decode.steps"}
+    parents["decode.generate"] = "serve.request"
     parents.update({name: "decode.generate" for name in GRAPH_SPANS})
     assert_tree(tree, parents)
     ordered = [tree[name] for name in GRAPH_SPANS]
@@ -186,10 +198,163 @@ def test_the_graph_decode_spans_and_capture_ms(monkeypatch):
     capture = tree["decode.capture"]
     assert tdecode.generate_on_device.last_call == {
         "eager_steps": 1, "graph_launches": 2,
-        "capture_ms": (capture.end - capture.start) / 1e6}
+        "capture_ms": (capture.end - capture.start) / 1e6,
+        "collectives": 0, "collective_bytes": 0}
     release = tree["decode.release"]
     assert len(_Graph.freed_at) == 1
     assert release.start <= _Graph.freed_at[0] <= release.end
+
+
+def test_a_server_replays_the_graph_its_prompt_shape_kept(fake_card,
+                                                         monkeypatch):
+    """A server keeps each prompt shape's graph: the first request of a
+    shape takes the eager step and the capture, a later one only the
+    prefill, the first pick and a replay a step; each counts the
+    launches of a generation with a graph of its own (the norm's, which
+    count on the CPU here); the graphs live until the server clears
+    them."""
+    from tpu_operator_libs_torch.kernels import (
+        WRAPPERS,
+        restore_launches,
+        save_launches,
+    )
+
+    norm = tdecode.add_rms_norm
+
+    def counted_norm(*args):
+        WRAPPERS["rms_norm"].launches += 1
+        return norm(*args)
+
+    monkeypatch.setattr(tdecode, "add_rms_norm", counted_norm)
+    saved = save_launches()
+    try:
+        _served_from_kept_graphs(WRAPPERS)
+    finally:
+        restore_launches(saved)
+
+
+def _served_from_kept_graphs(WRAPPERS):
+
+    def launches():
+        return {name: w.launches for name, w in WRAPPERS.items()}
+
+    def served(server, seed, rows=2):
+        before = launches()
+        tracing.clear()
+        server.handle(np.random.default_rng(seed).integers(
+            0, server.config.vocab, (rows, 4)))
+        (tree,) = trees(tracing.records()).values()
+        return tree, {name: count - before[name]
+                      for name, count in launches().items()}
+
+    server = build_server(device="cpu", max_new_tokens=4)
+    # a graph of its own, freed after: the loop's counts
+    before = launches()
+    tdecode.generate_on_device(server.params, prompt(7, server.config.vocab),
+                               server.config, server.max_new_tokens)
+    want = {name: count - before[name] for name, count in launches().items()}
+    assert want["rms_norm"] > 0
+    _Graph.freed_at.clear()
+    first, counts = served(server, 7)
+    assert counts == want
+    spans = [n for n in GRAPH_SPANS if n != "decode.release"]
+    assert set(spans) <= set(first) and "decode.release" not in first
+    assert tdecode.generate_on_device.last_call["eager_steps"] == 1
+    assert len(server.graphs) == 1 and not _Graph.freed_at
+    again, counts = served(server, 8)
+    assert counts == want
+    assert set(again) == set(REQUEST_TREE) - {
+        "decode.cache_alloc", "decode.steps"} | {"decode.replay",
+                                                  "decode.wait"}
+    assert again["decode.replay"].end <= again["decode.wait"].start
+    assert tdecode.generate_on_device.last_call == {
+        "eager_steps": 0, "graph_launches": 3, "capture_ms": 0.0,
+        "collectives": 0, "collective_bytes": 0}
+    served(server, 9, rows=3)  # another shape: a graph of its own
+    assert tdecode.generate_on_device.last_call["eager_steps"] == 1
+    assert len(server.graphs) == 2 and not _Graph.freed_at
+    server.graphs.clear()
+    assert len(_Graph.freed_at) == 2
+
+
+def test_a_kept_graph_draws_at_the_callers_offsets(fake_card):
+    """A sampled call through kept graphs gives the caller's generator
+    state to the graph's generator before the first pick and takes its
+    state back after the replays."""
+    server = build_server(device="cpu", max_new_tokens=4)
+    vocab = server.config.vocab
+    for seed in (1, 2):
+        generator = torch.Generator().manual_seed(seed)
+        start = generator.get_state()
+        tdecode.generate_on_device(
+            server.params, prompt(seed, vocab), server.config, 4,
+            temperature=1.0, generator=generator, graphs=server.graphs)
+        (kept,) = server.graphs._kept.values()
+        assert torch.equal(generator.get_state(),
+                           kept.generator.get_state())
+        assert not torch.equal(generator.get_state(), start)
+    # the second call replayed the first one's graph and generator
+    assert tdecode.generate_on_device.last_call["eager_steps"] == 0
+
+
+class _ReplayingGraph(_Graph):
+    """A graph whose capture runs nothing and whose replay runs the
+    captured step on the CPU."""
+    capturing = False
+
+    def capture_begin(self, capture_error_mode):
+        _ReplayingGraph.capturing = True
+
+    def capture_end(self):
+        _ReplayingGraph.capturing = False
+
+    def replay(self):
+        self.step()
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_kept_graphs_replay_the_host_loops_tokens(fake_card, monkeypatch,
+                                                  sampled):
+    """Kept graphs whose replays run their step: a later call of a kept
+    shape, over the cache and buffers an earlier call left, other tokens
+    and seed, gives the host loop's tokens and logprobs, and the caller's
+    generator ends where the host loop's does."""
+    capture = tdecode._capture
+
+    def recording(step, generator, device, mesh):
+        def step_unless_capturing():
+            if not _ReplayingGraph.capturing:
+                step()
+        graph, per_replay, ms = capture(step_unless_capturing, generator,
+                                        device, mesh)
+        graph.step = step
+        return graph, per_replay, ms
+
+    monkeypatch.setattr(tdecode, "_capture", recording)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _ReplayingGraph)
+    server = build_server(device="cpu", max_new_tokens=6, quantize_kv=True)
+    kw = ({"temperature": 1.0, "top_k": 20, "top_p": 0.9,
+           "return_logprobs": True, "eos_id": 5} if sampled else {})
+    graphs = tdecode.DecodeGraphs()
+    for length, seed, eager in ((4, 1, 1), (4, 2, 0), (7, 3, 1), (4, 1, 0)):
+        tokens = np.random.default_rng(seed).integers(
+            0, server.config.vocab, (2, length))
+        runs = []
+        for fn, more in ((tdecode.generate, {}),
+                         (tdecode.generate_on_device, {"graphs": graphs})):
+            generator = torch.Generator().manual_seed(seed)
+            out = fn(server.params, tokens, server.config, 6,
+                     generator=generator if sampled else None,
+                     quantize_kv=True, **kw, **more)
+            runs.append((out, generator.get_state()))
+        assert tdecode.generate_on_device.last_call["eager_steps"] == eager
+        (host, host_state), (kept, kept_state) = runs
+        if sampled:
+            (host, host_lp), (kept, kept_lp) = host, kept
+            assert torch.equal(host_lp, kept_lp)
+            assert torch.equal(host_state, kept_state)
+        assert torch.equal(host, kept)
+    assert len(graphs) == 2
 
 
 def test_a_train_step_is_one_tree_of_spans():

@@ -34,11 +34,14 @@ def _leaf_to_tensor(value) -> torch.Tensor:
 
 
 def _shard(x, dim: int, mesh):
-    """This rank's tp block of ``x`` along ``dim``."""
+    """This rank's tp block of ``x`` along ``dim``, in storage of its own:
+    a block of rows is already contiguous, and as a view it would keep
+    the whole weight (and any buffer it is cut from) alive."""
     if x.shape[dim] % mesh.tp:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"over tp={mesh.tp}")
-    return x.chunk(mesh.tp, dim=dim)[mesh.tp_rank].contiguous()
+    return x.chunk(mesh.tp, dim=dim)[mesh.tp_rank].clone(
+        memory_format=torch.contiguous_format)
 
 
 def shard_params(params, mesh):

@@ -33,6 +33,8 @@ On the card, :func:`generate_on_device` replays one decode step from a
 captured CUDA graph where JAX runs a ``lax.scan``: the step reads and
 writes only preallocated device tensors, its position among them. With a
 mesh the graph holds the step's tp collectives too, on every NCCL rank.
+A server keeps its graphs (:class:`DecodeGraphs`): a request replays the
+one its prompt shape captured first.
 
 With a ``mesh`` (dp x tp, as the JAX package shards its cache on the
 batch and KV-head axes) every entry point takes the global prompt and
@@ -52,7 +54,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_operator_libs_torch import resolve_device, tracing
-from tpu_operator_libs_torch.kernels import WRAPPERS
+from tpu_operator_libs_torch.kernels import WRAPPERS, save_launches
 from tpu_operator_libs_torch.kernels.decode_attention import (
     _promoted,
     decode_attention,
@@ -67,6 +69,7 @@ from tpu_operator_libs_torch.kernels.rms_norm import add_rms_norm
 from tpu_operator_libs_torch.kernels.swiglu import swiglu
 from tpu_operator_libs_torch.kernels.token_pick import pick
 from tpu_operator_libs_torch.parallel import (
+    TP_COLLECTIVES,
     TP_SPLIT_DIM,
     any_rank,
     gather_from_tp,
@@ -263,22 +266,25 @@ def _check_sampling_args(temperature, generator, top_p):
         raise ValueError(f"top_p must be in (0, 1], got {top_p}")
 
 
-def _start(params, prompt, config, max_new_tokens, param_dtype,
-           temperature, generator, quantize_kv, top_p, mesh):
-    """Shared set-up of both generate paths: checks, the prompt's rows
-    of this rank on the parameters' device, and a fresh cache for
-    prompt + new tokens."""
+def _start(params, prompt, max_new_tokens, temperature, generator,
+           top_p, mesh):
+    """Shared set-up of both generate paths: checks, and the prompt's
+    rows of this rank on the parameters' device."""
     _check_sampling_args(temperature, generator, top_p)
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
-    device = params["embed"].device
-    prompt = torch.as_tensor(prompt, device=device).long()
-    batch, prompt_len = prompt.shape
+    prompt = torch.as_tensor(prompt, device=params["embed"].device).long()
+    return local_rows(prompt, mesh)
+
+
+def _new_cache(config, batch, max_seq, param_dtype, quantize_kv, device,
+               mesh):
+    """A fresh cache for this rank's ``batch`` rows (:func:`init_kv_cache`
+    of the global batch)."""
     with tracing.span("decode.cache_alloc"):
-        cache = init_kv_cache(config, batch, prompt_len + max_new_tokens,
-                              param_dtype, quantize_kv=quantize_kv,
-                              device=device, mesh=mesh)
-    return local_rows(prompt, mesh), cache
+        return init_kv_cache(config, batch * (mesh.dp if mesh else 1),
+                             max_seq, param_dtype, quantize_kv=quantize_kv,
+                             device=device, mesh=mesh)
 
 
 def generate(params, prompt, config, max_new_tokens: int,
@@ -297,10 +303,11 @@ def generate(params, prompt, config, max_new_tokens: int,
     float32) pair, eos-padded positions carrying 0.0. ``mesh``: see the
     module's docstring; the loop stops early only once every dp replica's
     rows are done."""
-    prompt, cache = _start(params, prompt, config, max_new_tokens,
-                           param_dtype, temperature, generator,
-                           quantize_kv, top_p, mesh)
+    prompt = _start(params, prompt, max_new_tokens, temperature,
+                    generator, top_p, mesh)
     batch, prompt_len = prompt.shape
+    cache = _new_cache(config, batch, prompt_len + max_new_tokens,
+                       param_dtype, quantize_kv, prompt.device, mesh)
 
     def step(p, t, c, pos):
         return forward_with_cache(p, t, c, pos, config, mesh)
@@ -397,17 +404,49 @@ def _captures(device, mesh) -> bool:
     return True
 
 
-def _replay_steps(step, steps: int, generator, device, mesh=None) -> dict:
-    """``steps`` calls of ``step`` on the card: the first runs eagerly on
-    the capture's stream, as the warm-up that torch's capture recipe asks
-    for (a real step: it writes the cache and draws from the generator
-    like any other); then ``step`` is captured once into a CUDA graph,
-    which only records and runs nothing, and the graph is replayed once
-    for each step left. ``generator`` (sampling) is registered with the
-    graph, so every replay draws at the next offsets of the caller's
-    generator, as the eager steps would. Capture is thread-local: other
-    threads' work on the card does not break it. Returns once the
-    replays have run and the graph and its memory pool are freed.
+def _counts():
+    """The kernel wrappers' launches (in all and by design) and the tp
+    collectives' calls and bytes so far."""
+    return (*save_launches(), (TP_COLLECTIVES.calls, TP_COLLECTIVES.bytes))
+
+
+def _since(before):
+    """What the wrappers and the tp reduce and gather points launched
+    since ``before`` (:func:`_counts`), in its form."""
+    launches, by_design, (calls, nbytes) = before
+    now, now_by, (now_calls, now_bytes) = _counts()
+    return ({name: now[name] - launches[name] for name in launches},
+            {name: {design: count - by_design[name].get(design, 0)
+                    for design, count in now_by[name].items()}
+             for name in by_design},
+            (now_calls - calls, now_bytes - nbytes))
+
+
+def _carry(per_replay, replays: int) -> None:
+    """Counts ``replays`` more replays of a graph one replay of which
+    launches ``per_replay`` (:func:`_since` of its capture): its kernels
+    and collectives pass no wrapper and no reduce point."""
+    launches, by_design, (calls, nbytes) = per_replay
+    for name, count in launches.items():
+        WRAPPERS[name].launches += count * replays
+    for name, by in by_design.items():
+        counts = WRAPPERS[name].launches_by_design
+        for design, count in by.items():
+            counts[design] = counts.get(design, 0) + count * replays
+    TP_COLLECTIVES.calls += calls * replays
+    TP_COLLECTIVES.bytes += nbytes * replays
+
+
+def _capture(step, generator, device, mesh):
+    """The first steps of a replayed decode on the card: ``step`` runs
+    eagerly on the capture's stream, as the warm-up that torch's capture
+    recipe asks for (a real step: it writes the cache and draws from the
+    generator like any other); then it is captured into a CUDA graph,
+    which only records and runs nothing. ``generator`` (sampling) is
+    registered with the graph, so every replay draws at its next offsets,
+    as the eager steps would. Capture is thread-local: other threads'
+    work on the card does not break it. Returns (graph, what one replay
+    launches (:func:`_since`), the capture's milliseconds).
 
     With a ``mesh`` every rank makes the same calls. Its tp collectives
     are NCCL kernels on the process group's stream, joined to the
@@ -429,10 +468,7 @@ def _replay_steps(step, steps: int, generator, device, mesh=None) -> dict:
     with torch.cuda.stream(side):
         with tracing.span("decode.eager_step"):
             step()
-        captured = {name: w.launches for name, w in WRAPPERS.items()}
-        captured_by = {name: dict(w.launches_by_design)
-                       for name, w in WRAPPERS.items()
-                       if hasattr(w, "launches_by_design")}
+        before = _counts()
         with tracing.span("decode.capture") as capture:
             try:
                 # not torch.cuda.graph: it would also synchronise the card
@@ -447,27 +483,92 @@ def _replay_steps(step, steps: int, generator, device, mesh=None) -> dict:
             except Exception:
                 any_rank(True, mesh)  # the peers must not replay alone
                 raise
+        per_replay = _since(before)
     if any_rank(False, mesh):
         raise RuntimeError("a peer rank failed to capture its decode step")
+    main.wait_stream(side)
+    return graph, per_replay, (capture.end - capture.start) / 1e6
+
+
+def _replay(graph, replays: int, device) -> None:
+    """``replays`` launches of ``graph`` on the current stream, and the
+    wait for them."""
     with tracing.span("decode.replay"):
-        main.wait_stream(side)
-        with torch.cuda.stream(main):
-            for _ in range(steps - 1):
-                graph.replay()
+        for _ in range(replays):
+            graph.replay()
     with tracing.span("decode.wait"):
-        main.synchronize()
+        torch.cuda.current_stream(device).synchronize()
+
+
+def _replay_steps(step, steps: int, generator, device, mesh=None) -> dict:
+    """``steps`` calls of ``step`` on the card: the eager step and the
+    capture of :func:`_capture`, then the graph replayed once for each
+    step left; returns once the replays have run and the graph and its
+    memory pool are freed."""
+    graph, per_replay, capture_ms = _capture(step, generator, device, mesh)
+    _replay(graph, steps - 1, device)
     with tracing.span("decode.release"):
         del graph
     # the wrappers ran once, at capture: their counts stand for the first
     # replay, and each further replay launches the same kernels again
-    for name, wrapper in WRAPPERS.items():
-        wrapper.launches += (wrapper.launches - captured[name]) * (steps - 2)
-    for name, before in captured_by.items():
-        by = WRAPPERS[name].launches_by_design
-        for design, count in list(by.items()):
-            by[design] = count + (count - before.get(design, 0)) * (steps - 2)
+    _carry(per_replay, steps - 2)
     return {"eager_steps": 1, "graph_launches": steps - 1,
-            "capture_ms": (capture.end - capture.start) / 1e6}
+            "capture_ms": capture_ms}
+
+
+@dataclasses.dataclass
+class _Kept:
+    """A decode step that :class:`DecodeGraphs` keeps: its graph, the
+    state the graph reads and writes, the generator it draws from (None
+    for greedy picks), what one replay launches (:func:`_since`) and the
+    parameters it reads."""
+
+    graph: "torch.cuda.CUDAGraph"
+    state: _DecodeState
+    generator: "torch.Generator | None"
+    per_replay: tuple
+    params: dict
+
+
+class DecodeGraphs:
+    """The decode steps that :func:`generate_on_device` captured, kept for
+    the later calls of the same shape: what a server that keeps its
+    parameters passes as ``graphs``, so that a request after the first of
+    its prompt length runs no eager step and no capture, only the prefill,
+    the first pick and one replay a token.
+
+    A kept step is one for each set of the call's shapes and sampling
+    settings, with the buffers its graph reads and writes: the cache (a
+    later prompt's prefill writes its own positions over it, and every
+    query masks the positions past its own), the position, the tokens and
+    the last token. Its generator takes the caller's state before the
+    first pick and gives it back after the last replay, so a call draws
+    what it would draw with a graph of its own. At most ``limit`` steps
+    are kept, the least recently used dropped first; :meth:`clear` frees
+    every graph and its memory pool. Every rank of a mesh keeps its own,
+    and since the ranks make the same calls, their graphs agree."""
+
+    def __init__(self, limit: int = 8):
+        self.limit = limit
+        self._kept: "dict[tuple, _Kept]" = {}
+
+    def __len__(self) -> int:
+        return len(self._kept)
+
+    def clear(self) -> None:
+        self._kept.clear()
+
+    def _get(self, key, params) -> "_Kept | None":
+        kept = self._kept.pop(key, None)
+        if kept is None or kept.params is not params:
+            return None
+        self._kept[key] = kept  # the most recently used last
+        return kept
+
+    def _keep(self, key, kept: _Kept) -> None:
+        self._kept[key] = kept
+        while len(self._kept) > self.limit:
+            del self._kept[next(iter(self._kept))]
 
 
 def generate_on_device(params, prompt, config, max_new_tokens: int,
@@ -475,7 +576,8 @@ def generate_on_device(params, prompt, config, max_new_tokens: int,
                        top_k=None, generator=None,
                        quantize_kv: bool = False, top_p=None,
                        eos_id=None, return_logprobs: bool = False,
-                       prefill_chunk=None, mesh=None):
+                       prefill_chunk=None, mesh=None,
+                       graphs: "DecodeGraphs | None" = None):
     """:func:`generate` with the whole token loop left on the device.
 
     The counterpart of the JAX package's single dispatch with a donated
@@ -489,34 +591,58 @@ def generate_on_device(params, prompt, config, max_new_tokens: int,
 
     On the card, with or without a ``mesh``, prefill, the first pick and
     one decode step run eagerly and the remaining steps replay one
-    captured CUDA graph, one launch a token (:func:`_replay_steps`); with
-    a ``mesh`` the graph holds the step's NCCL collectives on every rank
-    (a mesh over another backend raises, :func:`_captures`). On the CPU
-    the same step runs in a Python loop. With a ``mesh`` the rows are
-    gathered once, after the loop. ``generate_on_device.last_call``
-    records this rank's eager steps, graph launches and capture
-    milliseconds of the latest call."""
+    captured CUDA graph, one launch a token (:func:`_capture`); with a
+    ``mesh`` the graph holds the step's NCCL collectives on every rank
+    (a mesh over another backend raises, :func:`_captures`). With
+    ``graphs`` (:class:`DecodeGraphs`) the graph is kept, and a later
+    call of the same shape replays it for every step after the first
+    pick. On the CPU the same step runs in a Python loop. With a
+    ``mesh`` the rows are gathered once, after the loop.
+    ``generate_on_device.last_call`` records this rank's eager steps,
+    graph launches and capture milliseconds of the latest call, and the
+    tp collectives its forward calls launched
+    (``parallel.TP_COLLECTIVES``: prefill and every step, replays
+    included) with their bytes."""
     with tracing.span("decode.generate"):
+        collectives = (TP_COLLECTIVES.calls, TP_COLLECTIVES.bytes)
         capture = _captures(params["embed"].device, mesh)
-        prompt, cache = _start(params, prompt, config, max_new_tokens,
-                               param_dtype, temperature, generator,
-                               quantize_kv, top_p, mesh)
+        prompt = _start(params, prompt, max_new_tokens, temperature,
+                        generator, top_p, mesh)
         batch, prompt_len = prompt.shape
         device = prompt.device
         _check_prefill_chunk(prefill_chunk)
         if prefill_chunk is not None and prefill_chunk >= prompt_len:
             prefill_chunk = None
+        steps = max_new_tokens - 1
+        keep = graphs is not None and capture and steps > 1
+        key = (id(params), batch, prompt_len, max_new_tokens, param_dtype,
+               temperature, top_k, top_p, quantize_kv, eos_id,
+               return_logprobs)
+        kept = graphs._get(key, params) if keep else None
+        draws = generator if temperature > 0.0 else None
+        if keep and draws is not None:
+            # the kept graph draws from its own generator, at the
+            # caller's offsets
+            draws = (kept.generator if kept is not None
+                     else torch.Generator(device=device))
+            draws.set_state(generator.get_state())
 
         def pick(logits):
-            return _pick_next(logits[:, -1, :], temperature, top_k,
-                              generator, top_p, return_logprobs)
+            return _pick_next(logits[:, -1, :], temperature, top_k, draws,
+                              top_p, return_logprobs)
 
-        out = torch.empty((batch, prompt_len + max_new_tokens),
-                          dtype=torch.long, device=device)
+        if kept is None:
+            cache = _new_cache(config, batch, prompt_len + max_new_tokens,
+                               param_dtype, quantize_kv, device, mesh)
+            out = torch.empty((batch, prompt_len + max_new_tokens),
+                              dtype=torch.long, device=device)
+            logprobs = (torch.empty((batch, max_new_tokens),
+                                    dtype=torch.float32, device=device)
+                        if return_logprobs else None)
+        else:
+            state = kept.state
+            cache, out, logprobs = state.cache, state.out, state.logprobs
         out[:, :prompt_len] = prompt
-        logprobs = (torch.empty((batch, max_new_tokens),
-                                dtype=torch.float32, device=device)
-                    if return_logprobs else None)
 
         with tracing.span("decode.prefill"):
             logits, cache = _prefill(
@@ -529,27 +655,54 @@ def generate_on_device(params, prompt, config, max_new_tokens: int,
             if return_logprobs:
                 logprobs[:, 0] = lp
             done = last[:, 0] == eos_id if eos_id is not None else None
-            state = _DecodeState(
-                last=last, done=done, out=out, logprobs=logprobs,
-                pos=torch.tensor(prompt_len, dtype=torch.long, device=device),
-                cache=cache)
+            if kept is None:
+                state = _DecodeState(
+                    last=last, done=done, out=out, logprobs=logprobs,
+                    pos=torch.tensor(prompt_len, dtype=torch.long,
+                                     device=device),
+                    cache=cache)
+            else:
+                state.last.copy_(last)
+                state.pos.fill_(prompt_len)
+                if done is not None:
+                    state.done.copy_(done)
 
         def step():
             _decode_step(state, params, config, mesh, pick, eos_id,
                          prompt_len)
 
-        steps = max_new_tokens - 1
-        if capture and steps > 1:
-            run = _replay_steps(step, steps,
-                                generator if temperature > 0.0 else None,
-                                device, mesh)
+        if kept is not None:
+            _replay(kept.graph, steps, device)
+            _carry(kept.per_replay, steps)
+            run = {"eager_steps": 0, "graph_launches": steps,
+                   "capture_ms": 0.0}
+        elif keep:
+            graph, per_replay, capture_ms = _capture(step, draws, device,
+                                                     mesh)
+            _replay(graph, steps - 1, device)
+            # the wrappers ran once, at capture: their counts stand for
+            # the first replay
+            _carry(per_replay, steps - 2)
+            graphs._keep(key, _Kept(graph, state, draws, per_replay, params))
+            run = {"eager_steps": 1, "graph_launches": steps - 1,
+                   "capture_ms": capture_ms}
+        elif capture and steps > 1:
+            run = _replay_steps(step, steps, draws, device, mesh)
         else:
             with tracing.span("decode.steps"):
                 for _ in range(steps):
                     step()
             run = {"eager_steps": steps, "graph_launches": 0,
                    "capture_ms": 0.0}
+        if keep and draws is not None:
+            generator.set_state(draws.get_state())
+        run["collectives"] = TP_COLLECTIVES.calls - collectives[0]
+        run["collective_bytes"] = TP_COLLECTIVES.bytes - collectives[1]
         generate_on_device.last_call = run
+        if keep:
+            # the kept buffers are the next call's
+            out = out.clone()
+            logprobs = logprobs.clone() if return_logprobs else None
         out = gather_rows(out, mesh)
         if return_logprobs:
             return out, gather_rows(logprobs, mesh)
@@ -557,5 +710,5 @@ def generate_on_device(params, prompt, config, max_new_tokens: int,
 
 
 #: what this rank's latest call ran: eager steps, graph launches, capture
-#: ms
+#: ms, tp collectives and their bytes
 generate_on_device.last_call = {}

@@ -19,7 +19,9 @@ prompt; the ranks agree whether any of them was told to stop
 (``parallel.any_rank``), every rank runs the sharded
 ``generate_on_device(..., mesh=mesh)``, and rank 0 returns the gathered
 tokens. On the cards each rank replays that decode's step from one
-captured CUDA graph, its NCCL collectives inside, as one card does. The
+captured CUDA graph, its NCCL collectives inside, as one card does; the
+server keeps each prompt shape's graph (``DecodeGraphs``), so only the
+first request of a shape captures one. The
 followers wait for the next header; rank 0 always sends one more, stop,
 before it leaves, so no follower is left in a collective.
 
@@ -50,6 +52,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_operator_libs_torch import resolve_device, tracing
+from tpu_operator_libs_torch.examples.llama_decode import DecodeGraphs
 from tpu_operator_libs_torch.parallel import any_rank, run_ranks, \
     spawn_context
 
@@ -95,6 +98,10 @@ class DecodeServer:
         #: dispatch lock to the readback (the ``serve.queue`` span's start
         #: to the ``serve.readback`` span's end)
         self.request_seconds: "list[float]" = []
+        #: the decode steps this server captured, one a prompt shape,
+        #: replayed by every later request of that shape; freed when the
+        #: pod stops (``shutdown`` on rank 0, the end of ``serve``)
+        self.graphs = DecodeGraphs()
         self._lock = threading.Lock()
         # One generation on the device(s) at a time: the card (or the
         # ranks' cards) is one device set, so serializing dispatch models
@@ -112,42 +119,45 @@ class DecodeServer:
         out = generate_on_device(
             self.params, prompt, self.config, self.max_new_tokens,
             temperature=self.temperature, generator=generator,
-            quantize_kv=self.quantize_kv, mesh=self.mesh)
+            quantize_kv=self.quantize_kv, mesh=self.mesh,
+            graphs=self.graphs)
         self.graph_launches += generate_on_device.last_call["graph_launches"]
         return out
 
     def _round(self, op, prompt=None, seed=None):
-        """One round on every rank: rank 0's header (and prompt) reach
-        every rank, the ranks agree on a stop, and on a go they all
-        generate. Returns (go, tokens on the device or None)."""
-        header = torch.zeros(4, dtype=torch.long, device=self.device)
-        if prompt is not None:
-            header.copy_(torch.tensor(
-                [op, *prompt.shape, -1 if seed is None else seed]))
-        dist.broadcast(header, src=0)
-        stop = self.stop_event is not None and self.stop_event.is_set()
-        if any_rank(stop, self.mesh) or int(header[0]) == _STOP:
-            self._stopped = True
-            return False, None
-        batch, prompt_len, seed = (int(x) for x in header[1:])
-        if prompt is None:
-            prompt = torch.empty((batch, prompt_len), dtype=torch.long,
-                                 device=self.device)
-        else:
-            prompt = torch.as_tensor(prompt, dtype=torch.long,
+        """One round on every rank, a ``serve.round`` span: rank 0's
+        header (and prompt) reach every rank, the ranks agree on a stop,
+        and on a go they all generate. Returns (go, tokens on the device
+        or None)."""
+        with tracing.span("serve.round"):
+            header = torch.zeros(4, dtype=torch.long, device=self.device)
+            if prompt is not None:
+                header.copy_(torch.tensor(
+                    [op, *prompt.shape, -1 if seed is None else seed]))
+            dist.broadcast(header, src=0)
+            stop = self.stop_event is not None and self.stop_event.is_set()
+            if any_rank(stop, self.mesh) or int(header[0]) == _STOP:
+                self._stopped = True
+                return False, None
+            batch, prompt_len, seed = (int(x) for x in header[1:])
+            if prompt is None:
+                prompt = torch.empty((batch, prompt_len), dtype=torch.long,
                                      device=self.device)
-        dist.broadcast(prompt, src=0)
-        generator = (None if seed < 0 else
-                     torch.Generator(device=self.device).manual_seed(seed))
-        return True, self._generate(prompt, generator)
+            else:
+                prompt = torch.as_tensor(prompt, dtype=torch.long,
+                                         device=self.device)
+            dist.broadcast(prompt, src=0)
+            generator = (None if seed < 0 else torch.Generator(
+                device=self.device).manual_seed(seed))
+            return True, self._generate(prompt, generator)
 
     def handle(self, prompt, generator=None, seed=None):
         """Serve one request of (B, prompt_len) tokens. ``generator`` (one
         rank) or ``seed`` (any number of ranks: each makes an equally
         seeded generator) drives sampling when ``temperature`` > 0. The
         request is a ``serve.request`` span (``tracing``) around
-        ``serve.admit``, ``serve.queue``, the generation and
-        ``serve.readback``."""
+        ``serve.admit``, ``serve.queue``, the generation (with a mesh,
+        inside the round's ``serve.round``) and ``serve.readback``."""
         if self.mesh is not None and generator is not None:
             raise ValueError("a pod of several ranks samples from a seed, "
                              "not a generator")
@@ -193,14 +203,17 @@ class DecodeServer:
                     pass
 
     def serve(self) -> int:
-        """A follower rank's loop: take rounds until rank 0 says stop (or
-        a rank was told to); returns the number of generations run."""
+        """A follower rank's loop, under a root ``serve.follow`` span:
+        take rounds until rank 0 says stop (or a rank was told to);
+        returns the number of generations run."""
         served = 0
-        while True:
-            go, _ = self._round(_STOP)
-            if not go:
-                return served
-            served += 1
+        with tracing.span("serve.follow", request=True):
+            while True:
+                go, _ = self._round(_STOP)
+                if not go:
+                    self.graphs.clear()
+                    return served
+                served += 1
 
     def shutdown(self) -> None:
         """Rank 0: the last round, stop, so every follower leaves its
@@ -208,6 +221,7 @@ class DecodeServer:
         with self._dispatch_lock:
             if self.mesh is not None and not self._stopped:
                 self._round(_STOP, np.zeros((0, 0), dtype=np.int64))
+                self.graphs.clear()
 
     def summary(self) -> dict:
         return {

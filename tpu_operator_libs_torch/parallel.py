@@ -24,8 +24,10 @@ here they are autograd functions:
 
 :func:`gather_from_tp` all-gathers the column-parallel ``lm_head``'s
 vocabulary shards, and :func:`mean_over_dp` averages gradients over the
-data-parallel replicas. On the card the ranks talk over NCCL, on the CPU
-over gloo; :func:`run_ranks` starts them.
+data-parallel replicas. :data:`TP_COLLECTIVES` counts the collectives
+that the tp reduce and gather points launch, and their bytes. On the
+card the ranks talk over NCCL, on the CPU over gloo; :func:`run_ranks`
+starts them.
 
 The other meshes of the JAX package are a ``shape`` for
 :func:`make_mesh`: ``{"dp": a, "sp": b}``, the dp x sp mesh of
@@ -166,6 +168,27 @@ def tp_of(mesh) -> int:
     return 1 if mesh is None else mesh.tp
 
 
+@dataclasses.dataclass
+class CollectiveCount:
+    """Collectives launched and their bytes: each one's result on this
+    rank, the whole tensor of an all-reduce and the gathered tensor of an
+    all-gather (the sizes NCCL's own tests report)."""
+
+    calls: int = 0
+    bytes: int = 0
+
+    def add(self, x) -> None:
+        self.calls += 1
+        self.bytes += x.numel() * x.element_size()
+
+
+#: the forward collectives of :func:`reduce_from_tp` and
+#: :func:`gather_from_tp` in this process, counted at each call (a CUDA
+#: graph's capture counts its step once, as the kernel wrappers'
+#: ``launches`` do; ``llama_decode._carry`` adds the replays)
+TP_COLLECTIVES = CollectiveCount()
+
+
 # --------------------------------------------------------------------------
 # the conjugate collectives
 
@@ -222,7 +245,9 @@ def reduce_from_tp(x, mesh):
     """All-reduce (sum) over tp forward; identity backward."""
     if tp_of(mesh) == 1:
         return x
-    return _SumForward.apply(x, mesh.tp_group)
+    out = _SumForward.apply(x, mesh.tp_group)
+    TP_COLLECTIVES.add(out)
+    return out
 
 
 def gather_from_tp(x, mesh):
@@ -230,7 +255,9 @@ def gather_from_tp(x, mesh):
     backward hands each rank its own slice of the gradient."""
     if tp_of(mesh) == 1:
         return x
-    return _GatherFromTP.apply(x, mesh.tp_group, mesh.tp, mesh.tp_rank)
+    out = _GatherFromTP.apply(x, mesh.tp_group, mesh.tp, mesh.tp_rank)
+    TP_COLLECTIVES.add(out)
+    return out
 
 
 def mean_over_dp(x, mesh):

@@ -29,16 +29,28 @@ The spans: name (parent; device span or not): what reads it.
 - ``serve.admit`` (serve.request): none, its operator's use.
 - ``serve.queue`` (serve.request): ``DecodeServer.request_seconds``
   starts at its start.
-- ``decode.generate`` (serve.request, or none): a generation's device
-  work lies inside it.
+- ``serve.round`` (serve.request on rank 0 of a pod over a mesh,
+  serve.follow on a follower; none for rank 0's closing stop round): one
+  round of the pod, the header and prompt broadcasts, the ranks' stop
+  agreement and the generation; none, its operator's use (the
+  broadcasts and the agreement are its time before ``decode.generate``).
+- ``serve.follow`` (none: a follower rank's root, a fresh request id):
+  ``DecodeServer.serve``'s loop of rounds.
+- ``decode.generate`` (serve.request, serve.round, or none): a
+  generation's device work lies inside it: ``collective_share.pod`` and
+  ``collective_us.pod`` read the NCCL kernels that start inside it.
 - ``decode.cache_alloc``, ``decode.prefill``, ``decode.first_pick``
   (the first token's pick and the decode state's set-up, whose position
   is copied to the card behind the prefill), ``decode.eager_step``
   (decode.generate): ``dispatch_idle_ms.decode``.
 - ``decode.capture`` (decode.generate): ``capture_idle_ms.decode``, and
   ``generate_on_device.last_call["capture_ms"]`` from its clock reads.
-- ``decode.replay``, ``decode.wait``, ``decode.release``
-  (decode.generate): none, its operator's use.
+  With kept graphs (``llama_decode.DecodeGraphs``, a ``DecodeServer``'s)
+  only the first call of a prompt shape has it and ``decode.eager_step``;
+  a later one has no ``decode.cache_alloc`` either.
+- ``decode.replay``, ``decode.wait``, ``decode.release`` (the last only
+  where the graph is not kept) (decode.generate): none, its operator's
+  use.
 - ``decode.steps`` (decode.generate): none, its operator's use; the
   Python loop of steps where no graph is captured (the CPU, or a single
   step).
@@ -49,10 +61,18 @@ The spans: name (parent; device span or not): what reads it.
 - ``train.backward`` (train.step; device): ``backward_ms.train``.
 - ``train.update`` (train.step; device): none, its operator's use.
 
+Counters beside the spans: ``parallel.TP_COLLECTIVES`` counts the tp
+reduce and gather points' collectives and their bytes, the replays of a
+captured step included, and ``generate_on_device.last_call`` gives a
+generation's (``collectives``, ``collective_bytes``):
+``collective_us.pod`` divides the traced generations' NCCL device time
+by their count.
+
 ``decode.*`` spans are opened by ``examples/llama_decode.py``
 (``generate_on_device``, and ``decode.cache_alloc`` in the host loop
 ``generate`` too); ``serve.*`` by ``examples/llama_serving_job.py``
-(``DecodeServer.handle``); ``train.step`` and ``train.update`` by
+(``DecodeServer.handle``, ``serve.round`` in ``_round``, ``serve.follow``
+in ``serve``); ``train.step`` and ``train.update`` by
 ``examples/llama.py``'s train step, ``train.forward`` and
 ``train.backward`` by ``optim.value_and_grad`` (the loss, then
 ``torch.autograd.grad``). No span is opened inside a decode step: it
