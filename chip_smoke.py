@@ -459,9 +459,12 @@ def ptxas_entry(block, kernel, dtype, head_dim, design, serialized=()):
             "spill_store_bytes": int(spill.group(1)) if spill else 0,
             # local memory, e.g. an array indexed at run time
             "stack_bytes": int(stack.group(1)) if stack else 0,
-            # ptxas serialises wgmma it cannot keep asynchronous
-            "wgmma_serialized": "serialized" in block or (
-                name is not None and name.group(1) in serialized)}
+            # ptxas serialises wgmma it cannot keep asynchronous; a note
+            # that names a function is that function's, wherever it falls
+            "wgmma_serialized": (
+                name is not None and name.group(1) in serialized) or (
+                "serialized" in block
+                and not re.search(r"serialized[^\n]*function '", block))}
 
 
 #: the build phase's ptxas entries by source (empty for a reused build)
@@ -479,6 +482,18 @@ def instance_ptxas(source, kernel, keys=("registers", "spill_store_bytes",
                 entry.get(k) == v for k, v in template.items()):
             return {k: entry[k] for k in keys}
     return "not reported (a reused build: ptxas did not run)"
+
+
+def wgmma_ring(block_m):
+    """The int8 wgmma kernel's ring stages and dynamic shared memory at a
+    tile of block_m rows by 128 columns (``wg::Tile`` in the source): a
+    stage is the x box (block_m rows of 128 bytes) and an 8 KB code box;
+    the epilogue's buffer holds the tile's bf16 output; as many stages as
+    fit beside it, at most 8, and 1024 bytes of alignment."""
+    stage = block_m * 128 + 8192
+    epilogue = block_m * 128 * 2
+    stages = min(8, (232448 - 256 - 1024 - epilogue) // stage)
+    return stages, 1024 + stages * stage + epilogue
 
 
 def phase_build():
@@ -544,14 +559,12 @@ def phase_build():
             mw = re.search(r"\d(int8_matmul_wgmma_kernel)ILi(\d+)E", block)
             if mw is not None:
                 block_m = int(mw.group(2))
-                # 4 stages of x and code tiles, two converted tiles, and
-                # 1024 bytes of alignment
-                smem = 1024 + 4 * (block_m * 64 * 2 + 64 * 128) \
-                    + 2 * 64 * 128 * 2
+                stages, smem = wgmma_ring(block_m)
                 entries.append(ptxas_entry(
                     block, mw.group(1), torch.bfloat16, None,
-                    {"design": f"wgmma: {block_m} x 128 tiles, TMA ring, "
-                               "codes converted in shared memory",
+                    {"design": f"wgmma: {block_m} x 128 tiles, "
+                               f"persistent, a {stages}-stage TMA ring, "
+                               "codes converted in registers",
                      "dynamic_smem_bytes": smem}, serialized))
                 continue
             da = re.search(r"\d(decode_attention_kernel)I(f|13__nv_bfloat16|a)"
@@ -1515,8 +1528,9 @@ def int8_limit(ref, pre_scale, dtype):
 #: of an H100), ragged prefill M (64, 100, 500), an N that TMA cannot
 #: take at M 512, and K and N that leave the wgmma design a ragged last
 #: tile (TMA's zero fill past K, a partial code box and masked columns
-#: past N); and the served DeepSeek-7B's decode products at 16 rows (the
-#: benchmark's chat cell: q, k, v and o, gate and up, down, the head)
+#: past N); and the served DeepSeek-7B's products (the benchmark's chat
+#: cell: q, k, v and o, gate and up, down, the head) at decode's 16 rows
+#: and at its prefill's 1,024 to 4,096 (16 rows of 64 to 256 tokens)
 INT8_SHAPES = [
     ("decode_qkvo_lm_head", 8, 2048, 2048, torch.bfloat16, 200),
     ("decode_gate_up", 8, 2048, 8192, torch.bfloat16, 200),
@@ -1547,7 +1561,13 @@ INT8_SHAPES = [
     ("chat_gate_up", 16, 4096, 11008, torch.bfloat16, 100),
     ("chat_down", 16, 11008, 4096, torch.bfloat16, 100),
     ("chat_head", 16, 4096, 102400, torch.bfloat16, 20),
-]
+] + [
+    (f"chat_prefill_m{m}_{name}", m, k, n, torch.bfloat16, iters)
+    for m in (1024, 2048, 3072, 4096)
+    for name, k, n, iters in (("qkvo", 4096, 4096, 20),
+                              ("gate_up", 4096, 11008, 10),
+                              ("down", 11008, 4096, 10),
+                              ("head", 4096, 102400, 2))]
 
 
 #: the most profiler sessions ``cuda_launches`` takes of one call
@@ -1658,7 +1678,12 @@ def check_int8_shape(label, m, k, n, dtype, iters, card):
     row["kernel_eager_ms"] = cuda_ms(lambda: int8_matmul(x, q, s), iters)
     row["plain_ms"] = rotated_ms(lambda qi: int8_matmul_reference(x, qi, s),
                                  [(qi,) for qi in qs], iters)
-    if dtype == torch.bfloat16:
+    if label.startswith("chat_prefill"):
+        # its time grows with the rows (0.61 ms at 16 rows of (4096,
+        # 4096)): at thousands of rows a call takes seconds
+        row["library"] = "torch._weight_int8pack_mm, not timed at prefill"
+        row["library_ms"] = None
+    elif dtype == torch.bfloat16:
         # the library's int8-weight product takes the codes as (N, K) and
         # the scales in x's dtype: both made outside the timing
         s_x = s.to(dtype)
@@ -4580,7 +4605,8 @@ def int8_entry(rows, serving, multi, card):
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "library": main_row["library"],
-        "design": "wgmma over converted code tiles (bf16 prefill); a "
+        "design": "a persistent warp-specialised wgmma GEMM, the codes "
+                  "converted in registers (bf16 prefill); a "
                   "persistent stream-K grid fed by TMA, mma.sync with the "
                   "weight as A (the rest of bf16 with TMA's alignment); "
                   "mma.sync over a cp.async ring (unaligned bf16); f32 "

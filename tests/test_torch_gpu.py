@@ -698,6 +698,56 @@ def test_int8_matmul_stream_k_at_the_chat_products(cuda, m, k, n):
     assert all(int(c.abs().sum()) == 0 for c in imod._counters.values())
 
 
+@pytest.mark.parametrize("m,k,n", [
+    (m, k, n) for m in (1024, 4096) for k, n in CHAT_PRODUCTS] + [
+    (100, 4096, 4096),     # ragged M: a partial row tile
+    (1000, 4096, 4096),
+    (1000, 4040, 4112),    # ragged K (a partial stage) and N (a partial
+    (4096, 4040, 11024)],  # code box and output box)
+    ids=[f"m{m}_{name}" for m in (1024, 4096)
+         for name in ("qkvo", "gate_up", "down", "head")]
+    + ["m100", "m1000", "m1000_ragged_k_n", "m4096_ragged_k_n"])
+def test_int8_matmul_wgmma_at_the_chat_prefill(cuda, m, k, n):
+    """The wgmma design at the chat cell's prefill products (16 rows of
+    64 and of 256 tokens) and at ragged rows, K and N: within the plain
+    version's limit (one bf16 ulp for each of its two roundings), two
+    launches bit-equal, a graph's replays bit-equal to the eager launch,
+    and every launch counted under its design."""
+    x, q, s = int8_operands(cuda, m, k, n, torch.bfloat16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    p = imod.plan(m, k, n, torch.bfloat16, sms)
+    assert p.design == "wgmma"
+    before = int8_matmul.launches_by_design.get("wgmma", 0)
+    got = int8_matmul(x, q, s)
+    again = int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches_by_design["wgmma"] == before + 2
+    assert torch.equal(got, again)
+    want = int8_matmul_reference(x, q, s)
+    pre_scale = (x @ q.to(torch.bfloat16)).float().abs() \
+        * s.to(torch.bfloat16).float()
+    rtol, atol = TOL[torch.bfloat16]
+    limit = atol + rtol * (want.float().abs() + pre_scale)
+    assert ((got.float() - want.float()).abs() <= limit).all()
+    del want, pre_scale, limit
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        int8_matmul(x, q, s)  # the stream's first call is eager
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            out = int8_matmul(x, q, s)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
+
+
 def test_int8_matmul_unaligned_views_take_the_cp_async_design(cuda):
     """TMA takes 16-byte aligned bases: codes viewed from an odd offset
     run the cp.async design of the same shape, within the limit."""

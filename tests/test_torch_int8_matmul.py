@@ -4,6 +4,8 @@ tiling a shape takes) and emulations of the split-K designs' sums in
 their order. The CUDA kernel itself is held to the plain version on the
 card (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 3d)."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -134,7 +136,10 @@ def check_plan(p, m, k, n, sms):
     equal to within one stage, within one wave."""
     if p.design == "wgmma":
         assert (p.splits, p.k_per_split) == (1, k)
-        assert p.block_m in (64, 128)
+        assert p.block_n == kmod.BLOCK_N
+        assert p.block_m == kmod.wgmma_tile(m, n, sms)
+        tiles = -(-m // p.block_m) * -(-n // p.block_n)
+        assert p.blocks == min(tiles, sms)
         return
     if p.design == "stream_k":
         assert (p.splits, p.k_per_split) == (1, k)
@@ -193,7 +198,8 @@ class TestSplitPlan:
         # codes TMA cannot take still split K over the cp.async ring
         (8, 2048, 1000, torch.bfloat16, Plan("mma_sync", 8, 16, 128)),
         # prefill takes wgmma, f32 the CUDA cores
-        (512, 2048, 2048, torch.bfloat16, Plan("wgmma", 64, 1, 2048)),
+        (512, 2048, 2048, torch.bfloat16,
+         Plan("wgmma", 64, 1, 2048, 128, 128)),
         (8, 2048, 2048, torch.float32, Plan("cuda_cores", 8, 8, 256))],
         ids=["bench_qkvo", "bench_gate_up", "bench_down", "chat_qkvo",
              "chat_gate_up", "chat_down", "chat_head", "unaligned_n",
@@ -272,12 +278,17 @@ class TestPlan:
         assert (p.design, p.splits, p.k_per_split) == ("wgmma", 1, k)
 
     @pytest.mark.parametrize("m,n,want", [
-        (512, 2048, 64),     # 64 tiles of 128 rows: 64-row tiles fill more
-        (512, 8192, 128),    # 256 tiles of 128 rows fill the card
-        (100, 32768, 64),    # fewer than 128 rows: 64-row tiles
-        (4096, 2048, 128)])
+        (512, 2048, 64),     # 32 tiles of 256 rows, 128 of 64: one wave
+        (512, 8192, 256),    # 128 tiles of 256 rows: one wave
+        # one row tile: 256 tiles of 256 or 128 rows take two waves, so
+        # the smaller wins
+        (100, 32768, 128),
+        # 64 tiles of 256 rows fill half the card, 96 of 128 rows more
+        (384, 4096, 128),
+        (4096, 2048, 256), (1024, 4096, 256)])
     def test_tensor_core_tile_rows(self, m, n, want):
-        assert plan(m, 2048, n, torch.bfloat16, H100_SMS).block_m == want
+        p = plan(m, 2048, n, torch.bfloat16, H100_SMS)
+        assert (p.block_m, p.block_n) == (want, kmod.BLOCK_N)
 
     @pytest.mark.parametrize("shape", INT8_SHAPES,
                              ids=[shape[0] for shape in INT8_SHAPES])
@@ -583,3 +594,107 @@ class TestStreamK:
         for part in parts[-2::-1]:
             reverse = reverse + part
         assert not np.array_equal(in_order, reverse)
+
+
+class TestWgmma:
+    """The wgmma design's plan: its tile, chosen from the shape and the
+    card alone, and the order in which its persistent grid takes the
+    tiles (the kernel itself runs on the card: ``tests/test_torch_gpu.py``,
+    ``chip_smoke.py`` phase 3d). The chat prefill's products take it:
+    ``TestPlan.test_every_chip_smoke_shape_on_an_h100``'s chat_prefill
+    rows."""
+
+    @pytest.mark.parametrize("m,k,n,sms", [
+        (1024, 4096, 4096, 132), (4096, 11008, 4096, 132),
+        (512, 2048, 2048, 132), (100, 32768, 4096, 132),
+        (1024, 4096, 11008, 66), (3072, 4096, 102400, 114)])
+    def test_the_tile_is_a_function_of_the_shape_and_card_alone(
+            self, m, k, n, sms):
+        p = plan(m, k, n, torch.bfloat16, sms)
+        assert p == plan(m, k, n, torch.bfloat16, sms)
+        # K does not enter: every tile walks all of it
+        for k2 in (64, 4040, 16384):
+            q = plan(m, k2, n, torch.bfloat16, sms)
+            assert (q.block_m, q.block_n, q.blocks) \
+                == (p.block_m, p.block_n, p.blocks)
+        assert p.block_m == kmod.wgmma_tile(m, n, sms)
+
+    @pytest.mark.parametrize("m,n", [
+        (1024, 4096), (2048, 11008), (3072, 4096), (4096, 102400),
+        (1000, 4112), (100, 4096), (8 * 128 + 5, 3 * 256 + 16),
+        (17 * 128, 1040), (64, 8192)])
+    def test_the_raster_covers_every_tile_once(self, m, n):
+        for block_m in kmod.WGMMA_TILES:
+            order = kmod.wgmma_raster(m, n, block_m)
+            m_tiles, n_tiles = -(-m // block_m), -(-n // kmod.BLOCK_N)
+            assert sorted(order) == [(i, j) for i in range(m_tiles)
+                                     for j in range(n_tiles)]
+            # block b of a grid of g takes tiles b, b + g, ...: every
+            # tile once over the grid
+            for sms in (1, 7, H100_SMS):
+                grid = min(len(order), sms)
+                taken = [u for b in range(grid)
+                         for u in range(b, len(order), grid)]
+                assert sorted(taken) == list(range(len(order)))
+            # a group's tiles lie in its kGroupM row tiles, walked column
+            # by column
+            group = min(m_tiles, kmod.WGMMA_GROUP_M)
+            first = order[:group * n_tiles]
+            assert {i for i, _ in first} == set(range(group))
+            assert [j for _, j in first] == sorted(j for _, j in first)
+
+
+#: the wgmma kernel's instances as nvcc 12.9 names them,
+#: int8_matmul_wgmma_kernel<kN> for a tile of kN rows by 128 columns
+WGMMA_NAME = ("_ZN47_GLOBAL__N__3f9cc6dc_14_int8_matmul_cu_03ece3dc2wg24"
+              "int8_matmul_wgmma_kernelILi{rows}EEEv14CUtensorMap_stS2_S2_"
+              "PKfiiiNS0_6RasterE")
+PTXAS_ENTRY = """ '{name}' for 'sm_90a'
+ptxas info    : Function properties for {name}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers, 128 bytes smem
+"""
+
+
+@pytest.mark.parametrize("rows", list(kmod.WGMMA_TILES))
+def test_build_phase_reads_the_wgmma_instances(monkeypatch, capsys, rows):
+    """``chip_smoke.py``'s build phase names each wgmma instance by its
+    tile, gives it the ring's shared memory, and reads ptxas' notes of
+    serialised wgmma by the function's name, which ptxas prints apart
+    from the function's own lines."""
+    import chip_smoke
+
+    names = {r: WGMMA_NAME.format(rows=r) for r in kmod.WGMMA_TILES}
+    report = "".join("ptxas info    : Compiling entry function"
+                     + PTXAS_ENTRY.format(name=name)
+                     for name in names.values())
+    report += ("ptxas info    : (C7512) Potential Performance Loss: "
+               "wgmma.mma_async instructions are serialized due to "
+               "insufficient register resources for the function "
+               f"'{names[rows]}'\n")
+
+    class Built:
+        ptxas_report, build_seconds = report, 1.0
+
+    monkeypatch.setattr(chip_smoke, "SOURCES", ["int8_matmul.cu"])
+    monkeypatch.setattr(chip_smoke._build, "build_all",
+                        lambda sources: [Built()])
+    monkeypatch.setattr(chip_smoke, "BUILT_INSTANCES", {})
+    chip_smoke.phase_build()
+    capsys.readouterr()
+    entries = chip_smoke.BUILT_INSTANCES["int8_matmul.cu"]
+    assert len(entries) == len(kmod.WGMMA_TILES)
+    by_rows = {}
+    for e in entries:
+        assert e["kernel"] == "int8_matmul_wgmma_kernel"
+        by_rows[int(re.search(r"(\d+) x 128 tiles", e["design"]).group(1))] \
+            = e
+    assert set(by_rows) == set(kmod.WGMMA_TILES)
+    stages, smem = chip_smoke.wgmma_ring(rows)
+    # a ring of two stages at least, within an H100 block's 227 KB with
+    # the static 128 bytes
+    assert stages >= 2 and smem + 128 <= 232448
+    assert by_rows[rows]["dynamic_smem_bytes"] == smem
+    assert f"a {stages}-stage TMA ring" in by_rows[rows]["design"]
+    assert [r for r, e in by_rows.items() if e["wgmma_serialized"]] \
+        == [rows]

@@ -23,25 +23,24 @@
 // int8_matmul.py::plan, a function of the shape, x's dtype and the SM
 // count alone) picks one and the C entry checks what it was given:
 //
-// 1. int8_matmul_wgmma_kernel, prefill: bf16 x with M >= 64, N % 16 == 0
-//    and K % 8 == 0 (TMA's 16-byte row strides), and 64-row output tiles
-//    for at least a quarter of the SMs (it does not split K, so with
-//    fewer the split-K kernel 2 measured faster, which kernel 4 now
-//    replaces there). One block of 288 threads
-//    per (kBM = 64 or 128 rows) x 128-column output tile walks K in steps
-//    of 64; no split-K. A producer warp stages the x tile (K-major, 128-byte
-//    swizzle) and the int8 code tile (64 x 128, 8 KB, row-major) by TMA
-//    into a ring of kStages stages with full/empty mbarriers
-//    (flash_attention_sm90.cuh). The two consumer warpgroups convert each
-//    code tile once, int8 -> bf16 in registers (exact), into a swizzled
-//    bf16 tile laid out like the flash kernels' V tile (MN-major), one of
-//    two that alternate: the loop is software-pipelined, so step t's
-//    wgmma (A = x from shared memory, K-major; B = the converted codes with
-//    the transpose bit) runs while tile t + 1 is converted, and the wait
-//    for it stays inside the iteration (a wait across the loop's back edge
-//    serialises the wgmma). At kBM = 128 each warpgroup owns 64 rows and
-//    all 128 columns (m64n128k16); at kBM = 64, all 64 rows and 64 columns
-//    each (m64n64k16). f32 sums stay in registers.
+// 1. int8_matmul_wgmma_kernel<kN>, prefill: bf16 x with M >= 64,
+//    N % 16 == 0 and K % 8 == 0 (TMA's 16-byte row strides), and 64-row
+//    output tiles for at least a quarter of the SMs (it does not split K,
+//    so with fewer the stream-K kernel 4 is faster). A persistent grid of
+//    at most one block an SM walks tiles of kN rows of x by 128 columns
+//    (the plan's choice from the shape: 256 rows for the chat prefill,
+//    128 or 64 where the tiles are few) in a grouped raster. A
+//    producer warpgroup, its registers lowered by setmaxnreg, keeps a TMA
+//    ring of x and code boxes (both 128-byte swizzled) full, running into
+//    the next tile while the consumers finish this one. The product runs
+//    transposed, out^T = q^T x^T: two consumer warpgroups take 64
+//    columns each; the codes, loaded by ldmatrix.trans, are converted to
+//    bf16 in registers and are wgmma's A operand, x its B from the ring
+//    (register-A wgmma, no converted tile in shared memory). Each stage's
+//    four k-steps are one commit group, waited for before the stage is
+//    released; the two warpgroups' groups interleave on the tensor cores.
+//    The epilogue rounds as the plain version does, writes bf16 pairs to
+//    a swizzled buffer and stores it by TMA.
 // 2. int8_matmul_mma_kernel: bf16 x whose shape or bases TMA cannot take
 //    (N % 16 != 0, K % 8 != 0, or a view from an unaligned offset). 256
 //    threads own 128 columns and 8 rows of x (32 above 8 rows, each
@@ -96,13 +95,18 @@
 // order of every sum is fixed by the shape, so two launches, and the
 // host-driven and graph-replayed decode loops, are bit-equal.
 //
-// What is left on the table: kernel 1's 64- and 128-row tiles read x once
-// for every 128 columns and the codes once for every row tile (at (512,
-// 2048, 2048) 64 MB of L2 reads, which bound it on an H100: neither more
-// stages nor wgmma groups left in flight across steps moved it), where
-// larger tiles or TMA multicast across a cluster would read less; it also
-// converts each code tile once per row tile and stores the output from
-// registers. Kernel 4 (on an H100 at the served DeepSeek-7B's 16 rows:
+// What is left on the table: kernel 1 (on an H100 with 256-row tiles,
+// 0.049 ms for (1024, 4096, 4096) against a 0.035 ms bound, 0.214 ms for
+// (4096, 4096, 4096) against 0.139, 5.04 ms for the (4096, 4096, 102400)
+// head against 3.47: 65-73% of the tensor cores' peak, about cuBLAS's on
+// a bf16 copy of the weight) waits for each stage's group before it
+// loads and converts the next stage's codes, so only the other
+// warpgroup's group keeps the tensor cores busy meanwhile: 128 sums a
+// thread leave no registers for a second group in flight (ptxas then
+// serialises the wgmma). Both warpgroups drain at each tile's epilogue,
+// and the tiles fill their last wave only in part (at (1024, 4096, 11008)
+// 344 tiles on 132 SMs: 87% of three waves). A cluster of two blocks sharing x by TMA multicast was no
+// faster at the chat prefill's shapes and slower at small ones. Kernel 4 (on an H100 at the served DeepSeek-7B's 16 rows:
 // 12.6 us for (4096, 4096) against a 5.09 us bound, 23.9 us for (4096,
 // 11008) and 24.9 us for (11008, 4096) against 13.6, 163 us for the
 // (4096, 102400) head against 126) pays a fixed cost a launch: ~1.6 us
@@ -163,203 +167,304 @@ __device__ __forceinline__ uint32_t code_pair_to_bf16x2(uint32_t w) {
   return *reinterpret_cast<const uint32_t*>(&d);
 }
 
-// ---- kernel 1: bf16 prefill, wgmma on the tensor cores
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(sm90::smem_addr(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(sm90::smem_addr(p)) : "memory");
+}
+
+// The A fragments of two k-steps of 16 from one ldmatrix.x4.trans of 32
+// rows of K by 16 codes (c): lane (g, t) holds the codes of columns 2g and
+// 2g + 1 at rows 2t, 2t + 1 (c[0], c[2] the first 8 rows of each k-step,
+// c[1], c[3] the next 8), which are A's rows g (bytes 0 and 2) and g + 8
+// (bytes 1 and 3): A's row g is column 2g of the 16, row g + 8 column
+// 2g + 1.
+__device__ __forceinline__ void codes_to_a(const uint32_t (&c)[4], int step,
+                                           uint32_t (&a)[4]) {
+  const uint32_t lo = c[2 * step];
+  const uint32_t hi = c[2 * step + 1];
+  a[0] = code_pair_to_bf16x2(lo);
+  a[1] = code_pair_to_bf16x2(lo >> 8);
+  a[2] = code_pair_to_bf16x2(hi);
+  a[3] = code_pair_to_bf16x2(hi >> 8);
+}
+
+// ---- kernel 1: bf16 prefill, a persistent warp-specialised wgmma GEMM
 
 namespace wg {
 
 using namespace sm90;
 
-constexpr int kConsumers = sm90::kConsumers;  // two warpgroups
-constexpr int kThreads = sm90::kThreads;      // + the producer warp
-constexpr int kBlockN = 128;  // output columns a block
-constexpr int kBlockK = 64;   // rows of K a step
-constexpr int kStages = 4;    // x and code tiles in flight
-constexpr int kCodeBytes = kBlockK * kBlockN;       // int8 tile, 8 KB
-constexpr int kConvBytes = kBlockK * kBlockN * 2;   // its bf16 copy, 16 KB
-constexpr int kBoxBytes = kBlockK * 128;            // 64 columns of it
+// Two consumer warpgroups and a producer warpgroup, whose first thread
+// issues every TMA load. At launch a thread of a 384-thread block has at
+// most 168 registers; the producer gives registers up and the consumers
+// take them (setmaxnreg), within the block's 3 * 168 a lane: 40 for the
+// producer's walk over the raster, 232 for a consumer's sums and operands.
+constexpr int kConsumerThreads = 256;
+constexpr int kThreads = kConsumerThreads + 128;
+constexpr int kConsumerRegs = 232;
+constexpr int kProducerRegs = 40;
+static_assert(2 * kConsumerRegs + kProducerRegs <= 3 * 168,
+              "setmaxnreg would wait for registers the block does not have");
+constexpr int kBlockK = 64;     // rows of K a stage: one swizzled x box
+constexpr int kCodeBox = 128;   // columns of a code box, one 128-byte row
+constexpr int kCodeBoxBytes = kBlockK * kCodeBox;  // 8 KB
+constexpr int kGroupM = 8;      // row tiles a raster group
+constexpr int kMaxStages = 8;
+// shared memory a block may take on an H100, less the barriers' room
+constexpr int kSmemLimit = 232448 - 256;
 
-__host__ __device__ constexpr int x_bytes(int block_m) {
-  return block_m * kBlockK * 2;
-}
-// x tiles, the two converted tiles, the code tiles, from a 1024-byte
-// boundary (the launch asks for 1024 bytes more)
-__host__ __device__ constexpr int smem_bytes(int block_m) {
-  return 1024 + kStages * (x_bytes(block_m) + kCodeBytes) + 2 * kConvBytes;
-}
+// A tile is kN rows of x (wgmma's n) by 128 output columns: each
+// warpgroup owns 64 columns (wgmma's m), kN / 2 f32 sums a thread. A
+// stage holds 64 rows of K: the x box (64 columns of K by kN rows) and the
+// code box (128 columns by 64 rows of K), both 128-byte swizzled; the
+// epilogue's buffer holds each warpgroup's 64 columns by kN rows of bf16
+// output, as the output's boxes.
+template <int kN>
+struct Tile {
+  static constexpr int kXBytes = kN * 128;
+  static constexpr int kStageBytes = kXBytes + kCodeBoxBytes;
+  static constexpr int kOutBoxBytes = kN * 128;
+  static constexpr int kEpiBytes = 2 * kOutBoxBytes;
+  static constexpr int kFit = (kSmemLimit - 1024 - kEpiBytes) / kStageBytes;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  // from a 1024-byte boundary: the launch asks for 1024 bytes more
+  static constexpr int kSmemBytes = 1024 + kStages * kStageBytes + kEpiBytes;
+  static_assert(kStages >= 2, "a ring of at least two stages");
+};
 
-// The 16 codes of row `row`, columns [16 seg, 16 seg + 16), of a code tile
-// as bf16 into the converted tile: box seg / 4, 16-byte chunks j0 and
-// j0 + 1 of the 128-byte row, at TMA's 128-byte swizzle (chunk ^ row % 8)
-// as wgmma reads an MN-major tile. Threads of the second box write their
-// second chunk first, so a quarter warp's eight stores take eight banks.
-__device__ __forceinline__ void convert_codes(const uint8_t* codes,
-                                              uint8_t* conv, int row,
-                                              int seg) {
-  const uint4 c = *reinterpret_cast<const uint4*>(codes + row * kBlockN
-                                                  + seg * 16);
-  // columns 0-7 and 8-15 of the 16, as bf16x2 words: bytes 0-1, 2-3 of
-  // each word
-  const auto pair = [](uint32_t w, uint32_t sel) {
-    return code_pair_to_bf16x2(__byte_perm(w, 0u, sel));
-  };
-  const uint4 lo = make_uint4(pair(c.x, 0x1100u), pair(c.x, 0x3322u),
-                              pair(c.y, 0x1100u), pair(c.y, 0x3322u));
-  const uint4 hi = make_uint4(pair(c.z, 0x1100u), pair(c.z, 0x3322u),
-                              pair(c.w, 0x1100u), pair(c.w, 0x3322u));
-  const int box = seg / 4;
-  const int j0 = (seg % 4) * 2;
-  uint8_t* dst = conv + box * kBoxBytes + row * 128;
-  const int sw = row & 7;
-  *reinterpret_cast<uint4*>(dst + (((j0 + box) ^ sw) * 16)) = box ? hi : lo;
-  *reinterpret_cast<uint4*>(dst + (((j0 + 1 - box) ^ sw) * 16)) =
-      box ? lo : hi;
-}
+// The order in which a block's tiles are taken: tile u of the grouped
+// raster lies in row tile first + r % rows and column tile r / rows, where
+// groups of kGroupM row tiles (fewer in the last group) are walked column
+// tile by column tile, so that the tiles the card runs at once share x's
+// rows and the codes' columns in L2. Block b takes tiles b, b + grid, ...
+// tpu_operator_libs_torch/kernels/int8_matmul.py::wgmma_raster mirrors it.
+struct Raster {
+  int m_tiles, n_tiles;
+  __device__ __forceinline__ void tile(int u, int& mt, int& nt) const {
+    const int per_group = kGroupM * n_tiles;
+    const int group = u / per_group;
+    const int first = group * kGroupM;
+    const int rows = min(m_tiles - first, kGroupM);
+    const int r = u - group * per_group;
+    mt = first + r % rows;
+    nt = r / rows;
+  }
+};
 
-// One block: rows [blockIdx.y * kBM, +kBM) of x, columns [blockIdx.x * 128,
-// +128). x_map: x as (1, M, K) bf16, boxes of 64 columns x kBM rows;
-// q_map: q as (K, N) uint8, boxes of 128 columns x 64 rows. Rows of x past
-// M and of q past K, and columns past N, read as zeros.
-template <int kBM>
-__global__ void __launch_bounds__(kThreads, kBM == 64 ? 2 : 1)
+// The persistent grid: at most one block an SM, each walking its tiles in
+// the raster's order. x_map: x as (1, M, K) bf16, boxes of 64 columns x kN
+// rows; q_map: q as (K, N) uint8, boxes of 128 columns x 64 rows; out_map:
+// out as (1, M, N) bf16, boxes of 64 columns x kN rows; all 128-byte
+// swizzled. Rows of x past M and of q past K, and columns of q past N, read
+// as zeros; outputs past M or N are not written.
+//
+// The producer's first thread loads each stage's x box and code box into
+// a ring of kStages stages with full/empty mbarriers, running ahead into
+// the block's next tile while the consumers finish this one.
+//
+// The product runs transposed, out^T = q^T x^T: the codes are wgmma's A
+// operand from registers and x its B, K-major from the ring. Warp w of
+// warpgroup g takes columns [64 g + 16 w, + 16) of the tile, loads their
+// 64 rows of K by two ldmatrix.x4.trans from the stage and converts them
+// to bf16 in registers (codes_to_a); its A rows g and g + 8 are columns 2g
+// and 2g + 1 of the 16. A stage's four k-steps are one commit group,
+// waited for inside the iteration before the stage is released: a wait
+// across the loop's back edge, or registers of an in-flight product
+// written, makes ptxas serialise the wgmma. While one warpgroup waits and
+// converts, the other's group runs. The sums stay f32 in registers, added
+// k-step by k-step in order: their order is fixed by the shape.
+//
+// Epilogue: the sums, rounded as the plain version rounds them (epilogue),
+// go as bf16 pairs (columns 2g, 2g + 1 of a row of x) into the warpgroup's
+// swizzled output box, and its first thread stores it by TMA while the
+// warpgroup starts the next tile; it waits for that store to have read the
+// buffer before the buffer is written again.
+template <int kN>
+__global__ void __launch_bounds__(kThreads, 1)
     int8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                              const __grid_constant__ CUtensorMap q_map,
-                             const float* __restrict__ s,
-                             __nv_bfloat16* __restrict__ out, int M, int K,
-                             int N) {
-  constexpr int kXBytes = x_bytes(kBM);
-  constexpr int kAcc = kBM == 128 ? 64 : 32;  // n128 or n64 a warpgroup
+                             const __grid_constant__ CUtensorMap out_map,
+                             const float* __restrict__ s, int M, int K,
+                             int N, Raster raster) {
+  using T = Tile<kN>;
+  constexpr int kStages = T::kStages;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* x_s = align_1024(smem_raw);           // [kStages][kXBytes]
-  uint8_t* conv_s = x_s + kStages * kXBytes;     // [2][kConvBytes]
-  uint8_t* codes_s = conv_s + 2 * kConvBytes;    // [kStages][kCodeBytes]
+  uint8_t* ring = align_1024(smem_raw);  // [kStages][x box, code box]
+  uint8_t* epi = ring + kStages * T::kStageBytes;  // [warpgroup]
   __shared__ uint64_t full[kStages], empty[kStages];
 
-  const int n0 = blockIdx.x * kBlockN;
-  const int m0 = blockIdx.y * kBM;
+  const int tiles = raster.m_tiles * raster.n_tiles;
   const int steps = (K + kBlockK - 1) / kBlockK;
 
   if (threadIdx.x == 0) {
+    prefetch_map(&x_map);
+    prefetch_map(&q_map);
+    prefetch_map(&out_map);
     for (int st = 0; st < kStages; ++st) {
       mbar_init(&full[st], 1);
-      mbar_init(&empty[st], kConsumers);
+      mbar_init(&empty[st], kConsumerThreads / 32);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (threadIdx.x >= kConsumers) {  // the producer warp; lane 0 loads
-    if (threadIdx.x == kConsumers) {
-      for (int t = 0; t < steps; ++t) {
-        const int st = t % kStages;
-        if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
-        mbar_expect_tx(&full[st], kXBytes + kCodeBytes);
-        tma_load(x_s + st * kXBytes, &x_map, &full[st], t * kBlockK, m0, 0);
-        tma_load_2d(codes_s + st * kCodeBytes, &q_map, &full[st], n0,
-                    t * kBlockK);
+  if (threadIdx.x >= kConsumerThreads) {  // the producer warpgroup
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumerThreads) {
+      int it = 0;
+      for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
+        int mt, nt;
+        raster.tile(u, mt, nt);
+        for (int t = 0; t < steps; ++t, ++it) {
+          const int st = it % kStages;
+          if (it >= kStages) mbar_wait(&empty[st], (it / kStages - 1) & 1);
+          uint8_t* stage = ring + st * T::kStageBytes;
+          mbar_expect_tx(&full[st], T::kStageBytes);
+          tma_load(stage, &x_map, &full[st], t * kBlockK, mt * kN, 0);
+          tma_load_2d(stage + T::kXBytes, &q_map, &full[st], nt * kCodeBox,
+                      t * kBlockK);
+        }
       }
     }
     return;
   }
 
-  const int tid = threadIdx.x;
-  const int warpgroup = tid / 128;
-  const int lane = tid % 32;
-  // A: this warpgroup's 64 rows of the x tile; B: its columns of the
-  // converted tile
-  const int a_offset = kBM == 128 ? warpgroup * 64 * 128 : 0;
-  const int b_offset = kBM == 128 ? 0 : warpgroup * kBoxBytes;
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wgi = threadIdx.x / 128;
+  const int warp = threadIdx.x % 128 / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int chunk = 4 * wgi + warp;  // this warp's 16 columns of the box
+  uint8_t* my_epi = epi + wgi * T::kOutBoxBytes;
 
-  float acc[kAcc];
+  float acc[kN / 2];
+  int it = 0;
+  for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
+    int mt, nt;
+    raster.tile(u, mt, nt);
+    for (int t = 0; t < steps; ++t, ++it) {
+      const int st = it % kStages;
+      const uint8_t* stage = ring + st * T::kStageBytes;
+      mbar_wait(&full[st], (it / kStages) & 1);
+      // this warp's columns, rows 0-31 and 32-63 of K, as four k-steps' A
+      uint32_t a[4][4];
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+      for (int h = 0; h < 2; ++h) {
+        const int row = 32 * h + lane;
+        uint32_t c[4];
+        ldmatrix_x4_trans(c, stage + T::kXBytes + row * 128
+                                 + ((chunk ^ (row & 7)) << 4));
+        codes_to_a(c, 0, a[2 * h]);
+        codes_to_a(c, 1, a[2 * h + 1]);
+      }
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockK / 16; ++kk) {
+        wgmma_rs_k(acc, a[kk], desc_k_major(stage, kN, kk), t > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
 
-  // 64 rows x 8 segments of 16 codes, two a thread
-  auto convert = [&](int t) {
-    const uint8_t* codes = codes_s + (t % kStages) * kCodeBytes;
-    uint8_t* conv = conv_s + (t & 1) * kConvBytes;
-    mbar_wait(&full[t % kStages], (t / kStages) & 1);
-    convert_codes(codes, conv, tid / 8, tid % 8);
-    convert_codes(codes, conv, tid / 8 + 32, tid % 8);
+    // the last tile's store has read the buffer
+    if (threadIdx.x % 128 == 0) bulk_wait_read();
+    named_barrier_sync(1 + wgi, 128);
+    __nv_bfloat16* tag = nullptr;
+    const int col = nt * kCodeBox + 64 * wgi + 16 * warp + 2 * g;
+    // N % 16 == 0: col + 1 < N too; columns past N are not stored
+    const float s0 = col < N ? s[col] : 0.f;
+    const float s1 = col < N ? s[col + 1] : 0.f;
+    const int out_chunk = 2 * warp + (g >> 2);
+#pragma unroll
+    for (int i = 0; i < kN / 2; i += 4) {
+      // acc[i], acc[i + 2]: row 2t of the 8 at i / 4, columns 2g and
+      // 2g + 1; acc[i + 1], acc[i + 3]: the next row
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = 2 * i + 2 * t4 + e;
+        __nv_bfloat162 v;
+        v.x = epilogue(acc[i + e], s0, tag);
+        v.y = epilogue(acc[i + 2 + e], s1, tag);
+        *reinterpret_cast<__nv_bfloat162*>(
+            my_epi + row * 128 + ((out_chunk ^ (row & 7)) << 4)
+            + 4 * (g & 3)) = v;
+      }
+    }
     fence_proxy_async();
-  };
-  convert(0);
-  named_barrier_sync(1, kConsumers);
-  for (int t = 0; t < steps; ++t) {
-    const int st = t % kStages;
-    const uint8_t* conv = conv_s + (t & 1) * kConvBytes;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      wgmma_ss_mn(acc,
-                  desc_k_major(x_s + st * kXBytes + a_offset, kBM, kk),
-                  desc_mn_major(conv + b_offset, kBlockK, kk));
-    }
-    wgmma_commit();
-    // the next tile's conversion overlaps this step's products; it
-    // writes the other converted tile, which no product reads any more
-    if (t + 1 < steps) convert(t + 1);
-    wgmma_wait_all();
-    fence_regs(acc);
-    // this stage's x tile and codes are used up; after the barrier every
-    // warpgroup is done with this converted tile and the next one is whole
-    mbar_arrive(&empty[st]);
-    named_barrier_sync(1, kConsumers);
-  }
-
-  const int row0 = m0 + (kBM == 128 ? 64 * warpgroup : 0)
-                   + 16 * (tid % 128 / 32) + lane / 4;
-  const int col0 = n0 + (kBM == 128 ? 0 : 64 * warpgroup);
-#pragma unroll
-  for (int i = 0; i < kAcc; i += 2) {
-    const int row = row0 + 8 * frag_row(i);
-    const int col = col0 + frag_col(i, lane);
-    if (row < M && col < N) {  // N % 16 == 0: col + 1 < N too
-      __nv_bfloat16* tag = nullptr;
-      __nv_bfloat162 v;
-      v.x = epilogue(acc[i], s[col], tag);
-      v.y = epilogue(acc[i + 1], s[col + 1], tag);
-      *reinterpret_cast<__nv_bfloat162*>(
-          out + static_cast<long long>(row) * N + col) = v;
+    named_barrier_sync(1 + wgi, 128);
+    if (threadIdx.x % 128 == 0) {
+      const int c0 = nt * kCodeBox + 64 * wgi;
+      if (c0 < N) tma_store(&out_map, my_epi, c0, mt * kN, 0);
+      bulk_commit();
     }
   }
+  if (threadIdx.x % 128 == 0) bulk_wait_all();
 }
 
 // q as a 2-D uint8 map (N columns, K rows), boxes of 128 columns x box_k
-// rows (64 and no swizzle for this kernel).
-inline bool encode_codes_map(
-    CUtensorMap* map, const void* q, int K, int N, int box_k = kBlockK,
-    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+// rows, 128-byte swizzled.
+inline bool encode_codes_map(CUtensorMap* map, const void* q, int K, int N,
+                             int box_k) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(K)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N)};
-  const cuuint32_t box[2] = {kBlockN, static_cast<cuuint32_t>(box_k)};
+  const cuuint32_t box[2] = {kCodeBox, static_cast<cuuint32_t>(box_k)};
   const cuuint32_t elem_strides[2] = {1, 1};
   return cuTensorMapEncodeTiled(
              map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(q),
              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kBM>
-cudaError_t launch(const void* x, const void* q, const float* s, void* out,
-                   int M, int K, int N, cudaStream_t stream) {
-  CUtensorMap x_map, q_map;
+template <int kN>
+cudaError_t launch_tile(const void* x, const void* q, const float* s,
+                        void* out, int M, int K, int N, int blocks,
+                        cudaStream_t stream) {
+  using T = Tile<kN>;
+  CUtensorMap x_map, q_map, out_map;
   // a map cuTensorMapEncodeTiled refuses (a base not 16-byte aligned) is
   // an invalid value
-  if (!encode_tile_map(&x_map, x, K, M, 1, kBM)
-      || !encode_codes_map(&q_map, q, K, N)) {
+  if (!encode_tile_map(&x_map, x, K, M, 1, kN)
+      || !encode_codes_map(&q_map, q, K, N, kBlockK)
+      || !encode_tile_map(&out_map, out, N, M, 1, kN)) {
     return cudaErrorInvalidValue;
   }
-  constexpr int smem = smem_bytes(kBM);
   cudaError_t err = cudaFuncSetAttribute(
-      int8_matmul_wgmma_kernel<kBM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      int8_matmul_wgmma_kernel<kN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBlockN - 1) / kBlockN, (M + kBM - 1) / kBM);
-  int8_matmul_wgmma_kernel<kBM><<<grid, kThreads, smem, stream>>>(
-      x_map, q_map, s, static_cast<__nv_bfloat16*>(out), M, K, N);
+  const Raster raster{(M + kN - 1) / kN, (N + kCodeBox - 1) / kCodeBox};
+  int8_matmul_wgmma_kernel<kN><<<blocks, kThreads, T::kSmemBytes, stream>>>(
+      x_map, q_map, out_map, s, M, K, N, raster);
   return cudaGetLastError();
+}
+
+// block_m rows of x a tile: 64, 128 or 256 (by 128 columns)
+cudaError_t launch(const void* x, const void* q, const float* s, void* out,
+                   int M, int K, int N, int block_m, int blocks,
+                   cudaStream_t stream) {
+  switch (block_m) {
+    case 64: return launch_tile<64>(x, q, s, out, M, K, N, blocks, stream);
+    case 128: return launch_tile<128>(x, q, s, out, M, K, N, blocks, stream);
+    case 256: return launch_tile<256>(x, q, s, out, M, K, N, blocks, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace wg
@@ -881,28 +986,6 @@ struct Split {
   }
 };
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)) : "memory");
-}
-
-// Fetches a TMA descriptor (a kernel parameter) ahead of its first load.
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n"
-               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
 // The grid is at most one block an SM; block blockIdx.x walks its units.
 // x_map: x as (1, M, K) bf16, boxes of 64 columns x kRows rows; q_map: q
 // as (K, N) uint8, boxes of 128 columns x kStageK rows; both 128-byte
@@ -1136,13 +1219,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (32 * h < rows) {
 #pragma unroll
         for (int j = 0; j < kBoxes; ++j) {
-          const uint32_t* w = c[h][j];
-          const uint32_t a0[4] = {
-              code_pair_to_bf16x2(w[0]), code_pair_to_bf16x2(w[0] >> 8),
-              code_pair_to_bf16x2(w[1]), code_pair_to_bf16x2(w[1] >> 8)};
-          const uint32_t a1[4] = {
-              code_pair_to_bf16x2(w[2]), code_pair_to_bf16x2(w[2] >> 8),
-              code_pair_to_bf16x2(w[3]), code_pair_to_bf16x2(w[3] >> 8)};
+          uint32_t a0[4], a1[4];
+          codes_to_a(c[h][j], 0, a0);
+          codes_to_a(c[h][j], 1, a1);
 #pragma unroll
           for (int r = 0; r < kR; ++r) {
             mma::mma_bf16(acc[j][r], a0, b[h][r][0], b[h][r][1]);
@@ -1214,8 +1293,7 @@ cudaError_t launch_rows(const void* x, const void* q, const float* s,
   // a map cuTensorMapEncodeTiled refuses (a base not 16-byte aligned) is
   // an invalid value
   if (!encode_tile_map(&x_map, x, K, M, 1, kRows)
-      || !wg::encode_codes_map(&q_map, q, K, N, T::kStageK,
-                               CU_TENSOR_MAP_SWIZZLE_128B)) {
+      || !wg::encode_codes_map(&q_map, q, K, N, T::kStageK)) {
     return cudaErrorInvalidValue;
   }
   constexpr int smem = T::smem_bytes(kRows);
@@ -1466,10 +1544,12 @@ cudaError_t launch(const void* x, const void* q, const float* s, void* out,
 
 // x (M, K) of dtype 0 = float32 or 1 = bfloat16, q (K, N) int8, s (N,)
 // float32, out (M, N) of x's dtype, all contiguous, and the plan
-// (tpu_operator_libs_torch/kernels/int8_matmul.py::plan; block_n is read
-// by design 4 alone):
-// - design 1, wgmma: bfloat16, M >= 64, N % 16 == 0, K % 8 == 0, block_m
-//   64 or 128, splits 1, x and q 16-byte aligned;
+// (tpu_operator_libs_torch/kernels/int8_matmul.py::plan; block_n and
+// blocks are read by designs 1 and 4):
+// - design 1, wgmma: bfloat16, M >= 64, N % 16 == 0, K % 8 == 0, tiles of
+//   block_m (64, 128 or 256) x block_n (128) rows and columns, splits 1,
+//   `blocks` (the persistent grid) between 1 and the tiles, x, q and out
+//   16-byte aligned;
 // - design 4, stream-K: bfloat16, N % 16 == 0, K % 8 == 0, block_m 8, 16
 //   or 32, block_n 128 or 256, splits 1, `blocks` (the grid) between 1
 //   and the units (tiles x stages of 16384 / block_n rows of K), x and q
@@ -1492,13 +1572,15 @@ extern "C" int int8_matmul(const void* x, const void* q, const void* s,
   const float* sf = static_cast<const float*>(s);
   if (M < 1 || K < 1 || N < 1) return cudaErrorInvalidValue;
   if (design == 1) {
+    const long long tiles =
+        static_cast<long long>((M + block_m - 1) / block_m)
+        * ((N + block_n - 1) / block_n);
     if (dtype != 1 || M < 64 || N % 16 != 0 || K % 8 != 0 || splits != 1
-        || (M + block_m - 1) / block_m > 65535) {
+        || block_n != wg::kCodeBox || blocks < 1 || blocks > tiles
+        || tiles > 0x7fffffff) {
       return cudaErrorInvalidValue;
     }
-    if (block_m == 128) return wg::launch<128>(x, q, sf, out, M, K, N, st);
-    if (block_m == 64) return wg::launch<64>(x, q, sf, out, M, K, N, st);
-    return cudaErrorInvalidValue;
+    return wg::launch(x, q, sf, out, M, K, N, block_m, blocks, st);
   }
   if (design == 4) {
     const long long units =

@@ -12,8 +12,10 @@ tensors (float32 or bfloat16 x) and runs the plain version,
 :func:`plan` picks one of the source's four kernels from the shape, x's
 dtype and the card's SM count alone: bf16 prefill (M at or above
 :data:`WGMMA_MIN_M`, N and K aligned for TMA, output tiles enough for a
-quarter of the card) runs ``wgmma`` over code tiles converted in shared
-memory; the rest of bf16 with N and K aligned for TMA (decode, short
+quarter of the card) runs ``wgmma``, a persistent warp-specialised GEMM
+that converts the codes in registers (:func:`wgmma_tile` sizes its tiles,
+:func:`wgmma_raster` orders them); the rest of bf16 with N and K aligned
+for TMA (decode, short
 prefill) runs ``stream_k``, a persistent grid of one block an SM over
 equal runs of (tile, stage of K) units, the weight as ``mma.sync``'s A
 operand; unaligned bf16 runs ``mma_sync`` over a ``cp.async`` ring, and
@@ -56,6 +58,14 @@ STREAM_K_WARPS = 8
 #: (PERF.md, the int8 kernel's findings)
 WGMMA_MIN_M = 64
 WGMMA_MIN_TILES_PER_SM = 0.25
+#: the wgmma design's tiles by their rows of x (each ``BLOCK_N`` output
+#: columns), each with the share of the tensor cores' peak it ran a
+#: (4096, 4096) x (4096, 4096) product at on an H100 (PERF.md, the int8
+#: kernel's findings), which :func:`wgmma_tile` weighs against the waves
+#: of tiles a shape takes
+WGMMA_TILES = {256: 0.650, 128: 0.514, 64: 0.362}
+#: row tiles a group of the wgmma design's raster (``wg::kGroupM``)
+WGMMA_GROUP_M = 8
 #: the designs, by the code the C entry takes
 DESIGNS = {"wgmma": 1, "mma_sync": 2, "cuda_cores": 3, "stream_k": 4}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -95,16 +105,18 @@ def stream_k_rows(m: int) -> int:
 class Plan:
     """How the kernel runs an (m, k) x (k, n) product."""
 
-    #: "wgmma", "mma_sync" or "cuda_cores"
+    #: "wgmma", "stream_k", "mma_sync" or "cuda_cores"
     design: str
-    #: rows of x a block takes: 64 or 128 (wgmma), :func:`mma_rows`
-    #: (mma_sync), :func:`m_tile` (cuda_cores)
+    #: rows of x a tile takes: of :data:`WGMMA_TILES` (wgmma),
+    #: :func:`stream_k_rows` (stream_k), :func:`mma_rows` (mma_sync),
+    #: :func:`m_tile` (cuda_cores)
     block_m: int
     #: blocks that K is split over (1 for wgmma and stream_k) and rows of
     #: K each
     splits: int
     k_per_split: int
-    #: the stream_k design's persistent grid (0 for the others)
+    #: the persistent grid of the wgmma and stream_k designs (0 for the
+    #: others)
     blocks: int = 0
     #: columns a tile: 128, or 256 for a stream_k plan whose stages read
     #: two code boxes side by side
@@ -118,13 +130,13 @@ def plan(m: int, k: int, n: int, dtype: torch.dtype, sms: int) -> Plan:
 
     bf16 x with m >= :data:`WGMMA_MIN_M`, n % 16 == 0 and k % 8 == 0 (the
     16-byte row strides TMA needs) and 64-row output tiles for at least
-    :data:`WGMMA_MIN_TILES_PER_SM` of the SMs takes the wgmma design:
-    128-row tiles once they fill the card, else 64-row ones; no split-K.
-    The rest of bf16 takes the mma.sync design (:func:`mma_rows` rows a
-    block), f32 the CUDA cores (:func:`m_tile` rows a block); both with as
-    many K splits as keep the blocks within one wave (at least one, at
-    most ``MAX_SPLITS`` and one a ring stage of K), each a whole number
-    of stages.
+    :data:`WGMMA_MIN_TILES_PER_SM` of the SMs takes the wgmma design: the
+    tile of :func:`wgmma_tile`, a persistent grid of one block an SM (or
+    a tile, where the tiles are fewer); no split-K. Unaligned bf16 takes
+    the mma.sync design (:func:`mma_rows` rows a block), f32 the CUDA
+    cores (:func:`m_tile` rows a block); both with as many K splits as
+    keep the blocks within one wave (at least one, at most ``MAX_SPLITS``
+    and one a ring stage of K), each a whole number of stages.
 
     The rest of bf16 with n % 16 == 0 and k % 8 == 0 takes the stream-K
     design: :func:`stream_k_rows` rows a tile, 128 columns where the grid
@@ -137,9 +149,9 @@ def plan(m: int, k: int, n: int, dtype: torch.dtype, sms: int) -> Plan:
     if dtype == torch.bfloat16 and aligned and m >= WGMMA_MIN_M \
             and -(-m // 64) * -(-n // BLOCK_N) \
             >= WGMMA_MIN_TILES_PER_SM * sms:
-        tiles_128 = -(-m // 128) * -(-n // BLOCK_N)
-        block_m = 128 if m >= 128 and tiles_128 >= sms else 64
-        return Plan("wgmma", block_m, 1, k)
+        block_m = wgmma_tile(m, n, sms)
+        tiles = -(-m // block_m) * -(-n // BLOCK_N)
+        return Plan("wgmma", block_m, 1, k, min(tiles, sms))
     if dtype == torch.bfloat16 and aligned:
         block_m = stream_k_rows(m)
         blocks, tile_aligned = stream_k_grid(m, k, n, block_m, BLOCK_N, sms)
@@ -148,6 +160,36 @@ def plan(m: int, k: int, n: int, dtype: torch.dtype, sms: int) -> Plan:
         blocks, _ = stream_k_grid(m, k, n, block_m, 2 * BLOCK_N, sms)
         return Plan("stream_k", block_m, 1, k, blocks, 2 * BLOCK_N)
     return split_plan(m, k, n, dtype, sms)
+
+
+def wgmma_tile(m: int, n: int, sms: int) -> int:
+    """The rows of x of the wgmma design's tile (by ``BLOCK_N`` columns)
+    for an (m, k) x (k, n) product on a card of ``sms`` SMs: of
+    :data:`WGMMA_TILES`, the one whose waves of tiles (one a block, one
+    block an SM) cost the least time, a wave's time its tile's rows over
+    its share of the peak; the first in the table where two tie. K does
+    not enter: every tile walks all of it."""
+    def cost(rows):
+        tiles = -(-m // rows) * -(-n // BLOCK_N)
+        return -(-tiles // sms) * rows / WGMMA_TILES[rows]
+    return min(WGMMA_TILES, key=cost)
+
+
+def wgmma_raster(m: int, n: int, block_m: int) -> "list[tuple[int, int]]":
+    """The wgmma design's tiles in the order the grid takes them, as (row
+    tile, column tile) (``wg::Raster`` in the source): groups of
+    :data:`WGMMA_GROUP_M` row tiles (fewer in the last), each walked
+    column tile by column tile, so that the tiles the card runs at once
+    share rows of x and columns of codes in L2. Block b of a grid of G
+    takes tiles b, b + G, b + 2G, ..."""
+    m_tiles, n_tiles = -(-m // block_m), -(-n // BLOCK_N)
+    order = []
+    for u in range(m_tiles * n_tiles):
+        group, r = divmod(u, WGMMA_GROUP_M * n_tiles)
+        first = group * WGMMA_GROUP_M
+        rows = min(m_tiles - first, WGMMA_GROUP_M)
+        order.append((first + r % rows, r // rows))
+    return order
 
 
 def split_plan(m: int, k: int, n: int, dtype: torch.dtype,
